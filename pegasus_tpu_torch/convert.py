@@ -1,0 +1,43 @@
+"""Carry state from the JAX package's representation into the port's.
+
+A JAX `RecordBlock` given as numpy arrays (uint32 columns, `hash_lo`
+possibly None) becomes the port's `RecordBlock` on a device (uint32
+columns as int32 bit patterns, `hash_lo` always present), and a
+`(filter_type, raw pattern)` pair becomes a `FilterSpec` there. On-disk state needs no
+conversion: under `block_codec = none` with no bloom or phash sidecars
+both packages read and write the same SST, WAL and manifest files.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pegasus_tpu_torch.ops.predicates import FilterSpec
+from pegasus_tpu_torch.ops.record_block import (
+    RecordBlock,
+    _to_block,
+    hash_lo_column,
+)
+from pegasus_tpu_torch.utils.device import resolve_device
+
+
+def record_block(block, device=None) -> RecordBlock:
+    """Port RecordBlock on `device` (the card by default) from any object
+    with the JAX block's fields (`keys`, `key_len`, `hashkey_len`,
+    `expire_ts`, `valid`, `hash_lo`) holding numpy arrays. A missing
+    `hash_lo` is computed on the host, the lane the JAX kernels hash on
+    the device."""
+    keys = np.asarray(block.keys, dtype=np.uint8)
+    key_len = np.asarray(block.key_len)
+    hash_lo = getattr(block, "hash_lo", None)
+    if hash_lo is None:
+        hash_lo = hash_lo_column(keys, key_len)
+    return _to_block(keys, key_len, np.asarray(block.hashkey_len),
+                     np.asarray(block.expire_ts), np.asarray(block.valid),
+                     np.asarray(hash_lo),
+                     resolve_device(device))
+
+
+def filter_spec(filter_type: int, raw: bytes, device=None) -> FilterSpec:
+    """Port FilterSpec for a JAX `FilterSpec`'s (filter_type, raw)."""
+    return FilterSpec.make(filter_type, raw, resolve_device(device))

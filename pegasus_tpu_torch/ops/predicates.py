@@ -1,0 +1,226 @@
+"""Record predicates of the scan / multi_get path.
+
+Parity with the reference's per-record scalar loop:
+- validate_filter (src/server/pegasus_server_impl.cpp:2350): empty pattern
+  matches everything; a region shorter than the pattern never matches;
+  FT_MATCH_ANYWHERE/PREFIX/POSTFIX substring semantics.
+- validate_key_value_for_scan (:2382): precedence is
+  expired -> hash_invalid -> filtered -> normal.
+- check_if_ts_expired (src/base/pegasus_value_schema.h:113):
+  expired iff 0 < expire_ts <= now.
+
+The two block predicates (`static_block_predicate`, without `now`, and
+`scan_block_predicate`, with it) evaluate through one per-record status
+function in ops/fused_scan.py: on a CUDA block it launches the
+hand-written kernel, on a CPU block it runs the plain torch version built
+from `match_filter` and `ttl_expired` below.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from pegasus_tpu_torch.ops.record_block import RecordBlock, next_bucket, u32
+
+# rrdb filter_type values (idl/rrdb.thrift:27-33)
+FT_NO_FILTER = 0
+FT_MATCH_ANYWHERE = 1
+FT_MATCH_PREFIX = 2
+FT_MATCH_POSTFIX = 3
+
+
+def host_match_filter(data: bytes, filter_type: int,
+                      pattern: bytes) -> bool:
+    """Scalar twin of match_filter for host-side paths (overlay rows,
+    oracles). Empty pattern matches everything."""
+    if filter_type == FT_NO_FILTER or not pattern:
+        return True
+    if filter_type == FT_MATCH_ANYWHERE:
+        return pattern in data
+    if filter_type == FT_MATCH_PREFIX:
+        return data.startswith(pattern)
+    if filter_type == FT_MATCH_POSTFIX:
+        return data.endswith(pattern)
+    raise ValueError(f"unknown filter type {filter_type}")
+
+
+class FilterSpec(NamedTuple):
+    """A filter pattern on a device: `pattern` is uint8[P], zero-padded
+    to a power-of-two width; `pattern_len` its real length. `raw` keeps
+    the pattern bytes on the host for cache keys."""
+
+    filter_type: int
+    pattern: torch.Tensor
+    pattern_len: int
+    raw: bytes = b""
+
+    @staticmethod
+    def make(filter_type: int, pattern: bytes = b"",
+             device="cpu") -> "FilterSpec":
+        return _make_cached(int(filter_type), bytes(pattern),
+                            torch.device(device))
+
+    @staticmethod
+    def none(device="cpu") -> "FilterSpec":
+        return _make_cached(FT_NO_FILTER, b"", torch.device(device))
+
+    @property
+    def key(self) -> tuple:
+        """Hashable host-side identity (for mask cache keys)."""
+        return (self.filter_type, self.raw)
+
+
+@functools.lru_cache(maxsize=256)
+def _make_cached(filter_type: int, pattern: bytes,
+                 device: torch.device) -> FilterSpec:
+    """Specs are immutable, so identical filters share one device copy."""
+    buf = np.zeros(next_bucket(len(pattern)), dtype=np.uint8)
+    buf[:len(pattern)] = np.frombuffer(pattern, dtype=np.uint8)
+    return FilterSpec(filter_type, torch.from_numpy(buf).to(device),
+                      len(pattern), pattern)
+
+
+def match_filter(keys: torch.Tensor, region_start: torch.Tensor,
+                 region_len: torch.Tensor, pattern: torch.Tensor,
+                 pattern_len: int, filter_type: int) -> torch.Tensor:
+    """bool[B]: does each record's byte region match the pattern?
+
+    keys uint8[B, K]; region_start/region_len int[B] (region within the
+    padded key row, possibly negative or running past the row on
+    malformed keys); pattern uint8[P]. PREFIX/POSTFIX read
+    clip(offset + j, 0, K - 1); ANYWHERE tries starts t in [0, K) and
+    reads zero bytes past K (predicates.py:96-137 of the JAX package).
+    """
+    b, k = keys.shape
+    dev = keys.device
+    if filter_type == FT_NO_FILTER or pattern_len == 0:
+        return torch.ones(b, dtype=torch.bool, device=dev)
+    p = pattern_len
+    pat = pattern[:p]
+    start = region_start.to(torch.int64)
+    length = region_len.to(torch.int64)
+    fits = length >= p
+    jp = torch.arange(p, device=dev)
+    if filter_type in (FT_MATCH_PREFIX, FT_MATCH_POSTFIX):
+        offs = start if filter_type == FT_MATCH_PREFIX else start + length - p
+        idx = (offs[:, None] + jp[None, :]).clamp(0, k - 1)
+        window = torch.gather(keys, 1, idx)
+        return (window == pat[None, :]).all(dim=1) & fits
+    if filter_type != FT_MATCH_ANYWHERE:
+        raise ValueError(f"unknown filter type {filter_type}")
+    padded = torch.cat([keys, torch.zeros((b, p), dtype=keys.dtype,
+                                          device=dev)], dim=1)
+    window_ok = torch.ones((b, k), dtype=torch.bool, device=dev)
+    for j in range(p):
+        window_ok &= padded[:, j:j + k] == pat[j]
+    t = torch.arange(k, device=dev)
+    t_ok = ((t[None, :] >= start[:, None])
+            & (t[None, :] <= (start + length - p)[:, None]))
+    return (window_ok & t_ok).any(dim=1) & fits
+
+
+def ttl_expired(expire_ts: torch.Tensor, now: int) -> torch.Tensor:
+    """bool[B]: expired iff 0 < expire_ts <= now (value_schema.h:113),
+    compared as unsigned 32-bit values."""
+    ets = u32(expire_ts)
+    return (ets > 0) & (ets <= (int(now) & 0xFFFFFFFF))
+
+
+class ScanMasks(NamedTuple):
+    """Per-record outcome masks, mutually exclusive, reference precedence
+    (pegasus_server_impl.cpp:2382): expired -> hash_invalid -> filtered."""
+
+    keep: torch.Tensor
+    expired: torch.Tensor
+    hash_invalid: torch.Tensor
+    filtered: torch.Tensor
+
+
+def pack_mask(mask: torch.Tensor) -> torch.Tensor:
+    """uint8[ceil(B/8)]: `jnp.packbits` of a bool mask — big-endian within
+    each byte, the tail zero-padded."""
+    b = mask.shape[0]
+    bits = torch.zeros(-(-b // 8) * 8, dtype=torch.int32, device=mask.device)
+    bits[:b] = mask.to(torch.int32)
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                           device=mask.device)
+    return (bits.view(-1, 8) * weights).sum(dim=1).to(torch.uint8)
+
+
+def _split_gate(validate_hash: bool, pidx, partition_version: int) -> bool:
+    """The reject-all split-safety gate of a scalar `pidx`
+    (pegasus_server_impl.cpp:2392-2401): pv < 0 or pidx > pv."""
+    return (validate_hash and isinstance(pidx, int)
+            and (partition_version < 0 or pidx > partition_version))
+
+
+def static_block_predicate(block: RecordBlock,
+                           hash_filter: Optional[FilterSpec] = None,
+                           sort_filter: Optional[FilterSpec] = None,
+                           validate_hash: bool = False,
+                           pidx=0,
+                           partition_version: int = -1,
+                           pack: bool = False) -> torch.Tensor:
+    """bool[B] (or packed uint8[B/8]): records passing every
+    `now`-independent predicate — filters and partition-hash validation.
+    keep(now) == static_keep & ~expired(now), applied on the host from
+    the block's expire_ts column. `pidx` is an int or a per-record int32
+    column (stacked blocks of several partitions)."""
+    from pegasus_tpu_torch.ops.fused_scan import STATUS_KEEP, scan_status
+
+    dev = block.device
+    if _split_gate(validate_hash, pidx, partition_version):
+        keep = torch.zeros(block.capacity, dtype=torch.bool, device=dev)
+    else:
+        keep = scan_status(
+            block, hash_filter or FilterSpec.none(dev),
+            sort_filter or FilterSpec.none(dev), validate_hash, pidx,
+            partition_version) == STATUS_KEEP
+    return pack_mask(keep) if pack else keep
+
+
+def scan_block_predicate(block: RecordBlock, now: int,
+                         hash_filter: Optional[FilterSpec] = None,
+                         sort_filter: Optional[FilterSpec] = None,
+                         validate_hash: bool = False,
+                         pidx=0,
+                         partition_version: int = -1) -> ScanMasks:
+    """The full scan validation of a block at second `now`. When the
+    scalar-`pidx` gate rejects, every non-expired record is hash-invalid
+    (the reference checks expiry first, pegasus_server_impl.cpp:2392)."""
+    from pegasus_tpu_torch.ops.fused_scan import (
+        STATUS_EXPIRED,
+        STATUS_FILTERED,
+        STATUS_HASH_INVALID,
+        STATUS_KEEP,
+        scan_status,
+    )
+
+    dev = block.device
+    if _split_gate(validate_hash, pidx, partition_version):
+        expired = ttl_expired(block.expire_ts, now) & block.valid
+        zeros = torch.zeros(block.capacity, dtype=torch.bool, device=dev)
+        return ScanMasks(zeros, expired, block.valid & ~expired, zeros)
+    status = scan_status(block, hash_filter or FilterSpec.none(dev),
+                         sort_filter or FilterSpec.none(dev), validate_hash,
+                         pidx, partition_version, now=now)
+    return ScanMasks(status == STATUS_KEEP, status == STATUS_EXPIRED,
+                     status == STATUS_HASH_INVALID, status == STATUS_FILTERED)
+
+
+def host_alive_mask(expire_ts: np.ndarray, now: int) -> np.ndarray:
+    """bool[B] numpy twin of ~ttl_expired: rows NOT expired at `now`."""
+    ets = np.asarray(expire_ts)
+    return ~((ets > 0) & (ets <= np.uint32(now)))
+
+
+def unpack_masks(packed, count: int) -> np.ndarray:
+    """uint8[..., B//8] packed masks (tensor or array) -> bool[..., count]."""
+    if isinstance(packed, torch.Tensor):
+        packed = packed.cpu().numpy()
+    return np.unpackbits(np.asarray(packed), axis=-1,
+                         count=count).astype(bool)

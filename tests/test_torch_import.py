@@ -1,0 +1,71 @@
+"""The port stands alone: it imports torch, never jax or pegasus_tpu, and
+its entry points refuse to run on the card where there is none."""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    import pegasus_tpu_torch
+
+    names = ["pegasus_tpu_torch"]
+    for info in pkgutil.walk_packages(pegasus_tpu_torch.__path__,
+                                      "pegasus_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_modules_are_found():
+    names = _port_modules()
+    for want in ("pegasus_tpu_torch.ops.fused_scan",
+                 "pegasus_tpu_torch.server.partition_server",
+                 "pegasus_tpu_torch.storage.lsm",
+                 "pegasus_tpu_torch.convert"):
+        assert want in names
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def test_imports_without_jax_or_the_jax_package(target):
+    names = _port_modules() if target == "package" else ["chip_smoke"]
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
+        "             or m.startswith('pegasus_tpu.')\n"
+        "             or m.startswith('jax.') or m == 'jaxlib')\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120,
+                          env=env)
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run_smoke(REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_outside_a_checkout(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _run_smoke(str(tmp_path))
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
