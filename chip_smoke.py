@@ -7,12 +7,16 @@ Phases, each fatal on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles csrc/scan_predicate.cu with nvcc for sm_90a;
-3. kernel vs plain: the scan-predicate kernel against its plain torch
-   version on seeded random blocks at the serving shapes (B = 1024 and a
-   16 x 1024 stack, K in {32, 64, 256}), every hash x sort filter type,
-   empty and over-long patterns, malformed rows, validation off / scalar
-   pidx / per-record pidx, with and without `now`; bit-identical status
-   bytes required; times both on the card;
+3. kernel vs plain: the scan-predicate kernel's table launch against
+   its plain torch version on seeded random blocks: tables of 1, 3, 8
+   and 16 blocks (counts not a multiple of the tile or of 8, an empty
+   block, scalar and per-record pidx), K in {32, 64, 256}, every hash x
+   sort filter type with short, empty and over-long patterns, malformed
+   rows, validation off and on, the packed static mask and the status
+   bytes with `now` (below and above 2^31); bit-identical output
+   required. Then times at the serving shapes and two large ones, and
+   one columnar cold window through stacked_block_eval, which must issue
+   exactly one kernel and one copy on the device;
 4. the slice: one PartitionServer on the card as partition 0 of a
    64-partition YCSB-E table, loaded in bench.py's layout, compacted,
    then serving YCSB-E traffic (95% scans / 5% inserts, zipfian start
@@ -63,6 +67,9 @@ def fail(msg: str) -> None:
 # ---- seeded blocks for the kernel-vs-plain comparison ------------------
 
 ALPHABET = np.frombuffer(b"abcd", dtype=np.uint8)
+EXPIRE_TS = np.array([0, 0, 100, 299_999_999, 300_000_000, 300_000_001,
+                      0x7FFFFFFF, 0x80000000, 0x80000010, 0xFFFFFFF0],
+                     dtype=np.uint32)
 
 
 def random_block_columns(rng, b: int, k: int):
@@ -91,10 +98,36 @@ def random_block_columns(rng, b: int, k: int):
         keys[i, 0], keys[i, 1] = hkl >> 8, hkl & 0xFF
         keys[i, 2:n] = body
         key_len[i] = n
-    ets = rng.choice(np.array([0, 0, 100, 299_999_999, 300_000_000,
-                               300_000_001, 0x7FFFFFFF, 0x80000000,
-                               0x80000010, 0xFFFFFFF0], dtype=np.uint32), b)
+    ets = rng.choice(EXPIRE_TS, b)
     return keys, key_len, ets, hash_lo_column(keys, key_len)
+
+
+def serving_block_columns(rng, b: int, k: int, pidx: int, pv: int):
+    """The same columns in bulk, shaped like a compacted partition's
+    blocks: keys of k/2..k bytes over the alphabet with a hashkey of
+    0..len-2 bytes, and 97% of the records owned by `pidx` under the
+    mask `pv` (compaction drops the others)."""
+    key_len = rng.integers(k // 2, k + 1, b).astype(np.int32)
+    hkl = (rng.random(b) * (key_len - 1)).astype(np.int32)
+    keys = rng.choice(ALPHABET, (b, k))
+    keys[np.arange(k)[None, :] >= key_len[:, None]] = 0
+    keys[:, 0], keys[:, 1] = hkl >> 8, hkl & 0xFF
+    hash_lo = rng.integers(0, 1 << 32, b, dtype=np.uint64)
+    owned = rng.random(b) < 0.97
+    hash_lo = np.where(owned, (hash_lo & ~np.uint64(pv)) | np.uint64(pidx),
+                       hash_lo).astype(np.uint32)
+    return keys, key_len, rng.choice(EXPIRE_TS, b), hash_lo
+
+
+def device_block(cols, device):
+    """A RecordBlock on `device` from (keys, key_len, expire_ts, hash_lo)
+    columns, hashkey_len decoded from the header as SST blocks do."""
+    from pegasus_tpu_torch.ops.record_block import _to_block
+
+    keys, key_len, ets, hash_lo = cols
+    hkl = (keys[:, 0].astype(np.int32) << 8) | keys[:, 1]
+    return _to_block(keys, key_len, np.where(key_len >= 2, hkl, 0), ets,
+                     key_len >= 2, hash_lo, device)
 
 
 def random_pattern(rng, n: int) -> bytes:
@@ -121,28 +154,52 @@ def predicate_cases(rng, k: int):
 
 # ---- phase 3 -----------------------------------------------------------
 
+# records of the 16 blocks of a checked table: serving blocks of 1024
+# and counts that are not a multiple of the 256-record tile or of 8,
+# one empty block among them
+CHECK_COUNTS = (1024, 1000, 257, 0, 33, 1023, 8, 700, 513, 1, 129, 1024,
+                77, 600, 255, 1024)
+# the tables checked: slices of those 16 blocks
+CHECK_TABLES = ((0, 1), (1, 4), (4, 12), (0, 16))
+NOWS = (None, 300_000_000, 0x80000010)
 
-def _cuda_ms(fn, iters: int) -> float:
-    """Milliseconds per call between CUDA events around `iters` calls: the
-    time a caller pays, host-side launch overhead included."""
+
+def _cuda_ms(fn, iters: int, before=None) -> float:
+    """Milliseconds per call between CUDA events: the time a caller pays,
+    host-side launch overhead included. Without `before`, events bracket
+    `iters` back-to-back calls; with it (an L2 flush), each call is
+    bracketed alone after its `before()`."""
     import torch
 
-    for _ in range(5):
+    for _ in range(3):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
+    if before is None:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / iters
+    pairs = []
     for _ in range(iters):
+        before()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    stop.record()
+        stop.record()
+        pairs.append((start, stop))
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
-def _device_ms(fn, iters: int, kernel: str = ""):
+def _device_ms(fn, iters: int, kernel: str = "", before=None):
     """Device milliseconds per call from torch.profiler's CUDA trace: the
     kernels' own time, without the host gaps between launches. `kernel`
-    keeps only kernels whose name holds it (all kernels when empty).
+    keeps only kernels whose name holds it (all kernels when empty); the
+    device-to-device copies of `before` (the L2 flush) never count.
     None when the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -151,105 +208,287 @@ def _device_ms(fn, iters: int, kernel: str = ""):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if before is not None:
+                before()
             fn()
         torch.cuda.synchronize()
     total_us = 0.0
     for ev in prof.key_averages():
-        if kernel in ev.key:
+        if kernel in ev.key and not ev.key.startswith("Memcpy DtoD"):
             total_us += getattr(ev, "self_device_time_total", 0.0)
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
-def kernel_bound(b: int, k: int, per_record_pidx: bool, ops_per_row: int):
-    """(bound_ms, bound_by): each input byte read once, each status byte
-    written once, over HBM; the integer work over the non-tensor peak.
-    Per record: the key row, key_len, hashkey_len, expire_ts and hash_lo
-    at 4 B each, valid at 1 B, a per-record pidx at 4 B when given."""
-    col_bytes = 4 + 4 + 4 + 4 + 1 + (4 if per_record_pidx else 0)
-    nbytes = b * (k + col_bytes + 1)
+def _device_ops(fn, calls: int = 20) -> dict:
+    """What the device ran per call of `fn`, from torch.profiler over
+    `calls` calls (a profile can miss the first kernel after it starts,
+    so one call alone is not counted): {"kernels": per call, "copies":
+    per call, "names": {name: count over the calls}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "copies": 0, "names": {}}
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        out["names"][ev.key] = ev.count
+        out["copies" if ev.key.startswith(("Memcpy", "Memset"))
+            else "kernels"] += ev.count
+    out["kernels"] /= calls
+    out["copies"] /= calls
+    return out
+
+
+def kernel_bound(n: int, k: int, *, hash_filter: bool, sort_filter: bool,
+                 now: bool, validate: bool, pidx_column: bool,
+                 ops: float):
+    """(bound_ms, bound_by) of one table launch over `n` records of key
+    width `k`: each input byte the call needs read once, each output byte
+    written once, over HBM; `ops` integer operations over the non-tensor
+    peak. Per record: valid 1 B; hash_lo 4 B (and the pidx column 4 B)
+    with validation; expire_ts 4 B with `now`; the key row k B and
+    hashkey_len 4 B with any filter, key_len 4 B with a sortkey filter.
+    Output: a status byte with `now`, a packed keep bit without."""
+    per = 1
+    if validate:
+        per += 4 + (4 if pidx_column else 0)
+    if now:
+        per += 4
+    if hash_filter or sort_filter:
+        per += k + 4
+    if sort_filter:
+        per += 4
+    nbytes = n * per + (n if now else -(-n // 8))
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = b * ops_per_row / SCALAR_OPS_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
 
 
-def kernel_vs_plain(device, shapes, time_it: bool = True) -> dict:
-    """Phase 3: hold the kernel against the plain version on the card.
-    Returns the comparison counts, the largest status difference and
-    the timings at the serving shapes."""
+def match_ops(cols, filters, validate: bool, pidx: int, pv: int,
+              now) -> float:
+    """Integer operations these inputs need: about 8 a record for the
+    status, and for each record that reaches the filters, one compare per
+    pattern byte (PREFIX, POSTFIX) or per candidate start (ANYWHERE) of
+    each active filter."""
+    keys, key_len, ets, hash_lo = cols
+    hkl = np.where(key_len >= 2, (keys[:, 0].astype(np.int64) << 8)
+                   | keys[:, 1], 0)
+    reach = key_len >= 2
+    if now is not None:
+        reach &= ~((ets > 0) & (ets <= now))
+    if validate:
+        reach &= (hash_lo & (pv & 0xFFFFFFFF)) == pidx
+    ops = 8.0 * keys.shape[0]
+    k = keys.shape[1]
+    regions = ((2, hkl), (2 + hkl, key_len - 2 - hkl))
+    for (ftype, pat), (start, length) in zip(filters, regions):
+        plen = len(pat)
+        if ftype == 0 or plen == 0:
+            continue
+        start = np.broadcast_to(start, key_len.shape)
+        fits = reach & (length >= plen)
+        if ftype == 1:
+            starts = (np.minimum(start + length - plen, k - 1)
+                      - np.maximum(start, 0) + 1)
+            ops += float(np.clip(starts, 0, None)[fits].sum())
+        else:
+            ops += float(plen * fits.sum())
+    return ops
+
+
+def check_tables(device, widths=(32, 64, 256),
+                 counts=CHECK_COUNTS) -> dict:
+    """Phase 3, correctness: the table launch against the plain version,
+    bit for bit. Per key width, 16 seeded blocks (`counts`) go in
+    tables of 1, 3, 8 and 16 blocks, each block with a scalar pidx or a
+    per-record pidx column, through every filter case, validation off
+    and on, without `now` (the packed static mask) and with it (status
+    bytes, `now` below and above 2^31). Returns the count of tables
+    compared and the largest byte difference (0: identical)."""
     import torch
 
     from pegasus_tpu_torch.ops import fused_scan
-    from pegasus_tpu_torch.ops.predicates import FilterSpec
-    from pegasus_tpu_torch.ops.record_block import _to_block
+    from pegasus_tpu_torch.ops.predicates import FilterSpec, pack_mask
 
     rng = np.random.default_rng(20261016)
     pv = 7
     compared = 0
     max_err = 0
-    for b, k, stack in shapes:
-        keys, key_len, ets, hash_lo = random_block_columns(rng, b * stack, k)
-        hkl = (keys[:, 0].astype(np.int32) << 8) | keys[:, 1]
-        hkl = np.where(key_len >= 2, hkl, 0)
-        block = _to_block(keys, key_len, hkl, ets, key_len >= 2, hash_lo,
-                          device)
-        owned = rng.random(b * stack) < 0.5
-        pidx_col = torch.from_numpy(np.where(
-            owned, hash_lo & pv, rng.integers(0, pv + 1, b * stack)
-        ).astype(np.int32)).to(device)
-        pidx_modes = [(False, 0), (True, int(rng.integers(0, pv + 1))),
-                      (True, pidx_col)]
+    for k in widths:
+        blocks, pidxs = [], []
+        for i, count in enumerate(counts):
+            cols = random_block_columns(rng, count, k)
+            blocks.append(device_block(cols, device))
+            if i % 2:
+                owned = rng.random(count) < 0.5
+                col = np.where(owned, cols[3] & pv,
+                               rng.integers(0, pv + 1, count))
+                pidxs.append(torch.from_numpy(col.astype(np.int32)).to(
+                    device))
+            else:
+                pidxs.append(int(rng.integers(0, pv + 1)))
         for hft, hp, sft, sp in predicate_cases(rng, k):
             hf = FilterSpec.make(hft, hp, device)
             sf = FilterSpec.make(sft, sp, device)
-            for validate, pidx in pidx_modes:
-                for now in (None, 300_000_000, 0x80000010):
-                    got = fused_scan.scan_status(block, hf, sf, validate,
-                                                 pidx, pv, now)
-                    want = fused_scan.scan_status_plain(
-                        block, hf, sf, validate, pidx, pv, now)
-                    err = int((got.int() - want.int()).abs().max())
-                    max_err = max(max_err, err)
-                    if err:
-                        fail(f"kernel != plain: B={b}x{stack} K={k} "
-                             f"hft={hft} hp={hp!r} sft={sft} sp={sp!r} "
-                             f"validate={validate} now={now}")
-                    compared += 1
+            for validate in (False, True):
+                for now in NOWS:
+                    plain = []
+                    for block, pidx in zip(blocks, pidxs):
+                        status = fused_scan.scan_status_plain(
+                            block, hf, sf, validate, pidx, pv, now)
+                        plain.append(status if now is not None else
+                                     pack_mask(status
+                                               == fused_scan.STATUS_KEEP))
+                    for lo, hi in CHECK_TABLES:
+                        got = fused_scan.scan_table(
+                            blocks[lo:hi], pidxs[lo:hi], hf, sf, validate,
+                            pv, now)
+                        want = torch.cat(plain[lo:hi])
+                        if got.shape != want.shape:
+                            fail(f"table {lo}:{hi} K={k}: {got.shape} "
+                                 f"bytes, plain {want.shape}")
+                        err = int((got.int() - want.int()).abs().max())
+                        max_err = max(max_err, err)
+                        if err:
+                            fail(f"kernel != plain: table {lo}:{hi} K={k} "
+                                 f"hft={hft} hp={hp!r} sft={sft} sp={sp!r} "
+                                 f"validate={validate} now={now}")
+                        compared += 1
     if device.type == "cuda":
         torch.cuda.synchronize()
-    out = {"compared": compared, "max_abs_err": max_err, "timings": []}
-    if not time_it:
-        return out
-    none = FilterSpec.none(device)
-    for b, stack, per_record in ((1024, 1, False), (1024, 16, True)):
-        n = b * stack
-        keys, key_len, ets, hash_lo = random_block_columns(rng, n, 32)
-        hkl = (keys[:, 0].astype(np.int32) << 8) | keys[:, 1]
-        block = _to_block(keys, key_len, np.where(key_len >= 2, hkl, 0),
-                          ets, key_len >= 2, hash_lo, device)
-        pidx = (torch.from_numpy((hash_lo & pv).astype(np.int32)).to(device)
-                if per_record else 0)
-        now = None if per_record else 300_000_000
+    return {"compared": compared, "max_abs_err": max_err}
+
+
+# the timed shapes: (name, blocks, records per block, K, now, hashkey
+# filter, sortkey filter, L2 flushed before each launch by writing
+# FLUSH_BYTES)
+TIMED_SHAPES = (
+    ("merge batch", 1, 1024, 32, True, (0, b""), (0, b""), False),
+    ("merge batch, sortkey PREFIX 3 B", 1, 1024, 32, True, (0, b""),
+     (2, b"abc"), False),
+    ("cold window", 8, 1024, 32, False, (0, b""), (0, b""), False),
+    ("cold window, hashkey PREFIX + sortkey ANYWHERE", 8, 1024, 32, False,
+     (2, b"ab"), (1, b"cd"), False),
+    ("large K=32, sortkey PREFIX 3 B", 1, 1 << 20, 32, False, (0, b""),
+     (2, b"abc"), True),
+    ("large K=256, sortkey ANYWHERE 4 B", 1, 1 << 18, 256, False, (0, b""),
+     (1, b"abcd"), True),
+)
+LARGE_SHAPE = 4  # the shape reported in the kernels line
+FLUSH_BYTES = 256 << 20
+
+
+def time_tables(device) -> list:
+    """Phase 3, times: each TIMED_SHAPES entry with validation on and a
+    scalar pidx, as the server launches it. Per shape: the kernel's
+    device time (torch.profiler), its per-call time with the host
+    included (CUDA events), the plain version's two times, the bound.
+    A flushed shape's kernel is also timed after a flush that only reads
+    FLUSH_BYTES, which leaves no dirty lines in L2 to write back."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops.predicates import FilterSpec
+
+    rng = np.random.default_rng(20261017)
+    pv, pidx, now_s = 63, 0, 300_000_000
+    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+
+    def flush():
+        dst.copy_(src)
+
+    def read_flush():
+        src.view(torch.int32).sum()
+
+    out = []
+    for (name, n_blocks, n, k, with_now, hfk, sfk, flushed) in TIMED_SHAPES:
+        now = now_s if with_now else None
+        cols = [serving_block_columns(rng, n, k, pidx, pv)
+                for _ in range(n_blocks)]
+        blocks = [device_block(c, device) for c in cols]
+        hf = FilterSpec.make(*hfk, device)
+        sf = FilterSpec.make(*sfk, device)
+        pidxs = [pidx] * n_blocks
 
         def kernel():
-            fused_scan._launch(block, none, none, True, pidx, pv, now)
+            fused_scan.scan_table(blocks, pidxs, hf, sf, True, pv, now)
 
         def plain():
-            fused_scan.scan_status_plain(block, none, none, True, pidx, pv,
-                                         now)
+            fused_scan.scan_table_plain(blocks, pidxs, hf, sf, True, pv,
+                                        now)
 
-        bound_ms, bound_by = kernel_bound(n, 32, per_record, 12)
-        out["timings"].append({
-            "shape": f"B={n} K=32 " + ("stacked static, per-record pidx"
-                                       if per_record else
-                                       "merge batch with now"),
-            "ms": _device_ms(kernel, 200, "scan_predicate_kernel"),
-            "plain_ms": _device_ms(plain, 50),
-            "call_ms": _cuda_ms(kernel, 200),
-            "plain_call_ms": _cuda_ms(plain, 50),
-            "bound_ms": bound_ms, "bound_by": bound_by})
-        if None in (out["timings"][-1]["ms"], out["timings"][-1]["plain_ms"]):
-            fail("torch.profiler recorded no device time")
+        before = flush if flushed else None
+        iters, plain_iters = (50, 10) if flushed else (200, 50)
+        ops = sum(match_ops(c, (hfk, sfk), True, pidx, pv, now)
+                  for c in cols)
+        bound_ms, bound_by = kernel_bound(
+            n_blocks * n, k, hash_filter=bool(hfk[0] and hfk[1]),
+            sort_filter=bool(sfk[0] and sfk[1]), now=with_now,
+            validate=True, pidx_column=False, ops=ops)
+        row = {"shape": f"{name}: {n_blocks} x {n} records, K={k}, "
+                        + ("now" if with_now else "static")
+                        + ", validation"
+                        + (", L2 flushed" if flushed else ""),
+               "ms": _device_ms(kernel, iters, "scan_table_kernel", before),
+               "call_ms": _cuda_ms(kernel, iters, before),
+               "plain_ms": _device_ms(plain, plain_iters, "", before),
+               "plain_call_ms": _cuda_ms(plain, plain_iters, before),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if flushed:
+            row["ms_read_flushed"] = _device_ms(kernel, iters,
+                                                "scan_table_kernel",
+                                                read_flush)
+        if None in (row["ms"], row["plain_ms"],
+                    row.get("ms_read_flushed", 0)):
+            fail(f"torch.profiler recorded no device time for {name}")
+        row["share"] = bound_ms / row["ms"]
+        out.append(row)
+        del blocks, cols
     return out
+
+
+def time_window(device, n_blocks: int = 8, reps: int = 200) -> dict:
+    """Phase 3, the columnar path's cold window: one stacked_block_eval
+    over `n_blocks` resident blocks of 1024 records (K = 32, validation,
+    no filter), from the call to the host masks, on the host clock; and
+    what one such call issues on the device."""
+    import torch
+
+    from pegasus_tpu_torch.ops.record_block import block_from_columns
+    from pegasus_tpu_torch.server.scan_coordinator import stacked_block_eval
+
+    rng = np.random.default_rng(20261018)
+    pv, pidx = 63, 0
+    blocks = []
+    for i in range(n_blocks):
+        keys, key_len, ets, hash_lo = serving_block_columns(
+            rng, 1024, 32, pidx, pv)
+        blocks.append((i, block_from_columns(keys, key_len, ets,
+                                             hash_lo=hash_lo,
+                                             capacity=1024, device=device),
+                       pidx))
+
+    def window():
+        return list(stacked_block_eval(blocks, True, pv))
+
+    for _ in range(5):
+        window()
+    seconds = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        masks = window()
+        seconds.append(time.perf_counter() - t)
+    if len(masks) != n_blocks or any(m.shape != (1024,) for _t, m in masks):
+        fail("stacked_block_eval returned the wrong masks")
+    ops = _device_ops(window)
+    return {"blocks": n_blocks, "median_us": float(np.median(seconds)) * 1e6,
+            "mean_us": float(np.mean(seconds)) * 1e6, **ops}
 
 
 # ---- phase 4: the slice ------------------------------------------------
@@ -693,6 +932,7 @@ def main(argv=None) -> int:
                         help="records of partition 0 to load (a cut below "
                         f"{FULL_RECORDS:,} is printed)")
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -721,21 +961,30 @@ def main(argv=None) -> int:
     log(f"build: csrc/scan_predicate.cu -> sm_90a in {build_s:.2f} s")
     print(build_log.strip(), file=sys.stderr, flush=True)
 
-    # 3. kernel vs plain
-    shapes = [(1024, k, 1) for k in (32, 64, 256)] + \
-             [(1024, k, 16) for k in (32, 64, 256)]
+    # 3. kernel vs plain, then times
     t0 = time.perf_counter()
-    cmp = kernel_vs_plain(device, shapes)
-    log(f"kernel vs plain: {cmp['compared']} cases bit-identical "
+    cmp = check_tables(device)
+    log(f"kernel vs plain: {cmp['compared']} tables bit-identical "
         f"(max |diff| {cmp['max_abs_err']}) in "
         f"{time.perf_counter() - t0:.1f} s")
-    for t in cmp["timings"]:
+    timings = time_tables(device)
+    for t in timings:
         log(f"scan_predicate {t['shape']} on {card}: device time kernel "
             f"{t['ms'] * 1e3} us, plain {t['plain_ms'] * 1e3} us "
-            f"(profiler); per call with launch overhead kernel "
+            f"(profiler); per call with the host kernel "
             f"{t['call_ms'] * 1e3} us, plain {t['plain_call_ms'] * 1e3} us "
             f"(CUDA events); bound {t['bound_ms'] * 1e3} us "
-            f"({t['bound_by']})")
+            f"({t['bound_by']}), {100 * t['share']}% of it"
+            + (f"; kernel after a read-only flush {t['ms_read_flushed'] * 1e3}"
+               " us" if "ms_read_flushed" in t else ""))
+    win = time_window(device)
+    log(f"stacked_block_eval over {win['blocks']} resident blocks of 1024 "
+        f"on {card}: median {win['median_us']} us, mean {win['mean_us']} "
+        f"us (host clock, call to host masks); device ops per call: "
+        f"{win['kernels']} kernels, {win['copies']} copies (over 20 calls: "
+        f"{win['names']})")
+    if round(win["kernels"]) != 1 or round(win["copies"]) != 1:
+        fail("a cold window must issue one kernel and one copy")
 
     # 4. the slice
     if args.records != FULL_RECORDS:
@@ -748,7 +997,8 @@ def main(argv=None) -> int:
         f"static {launches['static']}, now {launches['now']}")
 
     # 5. summary
-    t = cmp["timings"][0]
+    log(f"chip_smoke: phases 1-4 in {time.perf_counter() - t_start:.1f} s")
+    t = timings[LARGE_SHAPE]
     log(json.dumps({"kernels": [{
         "name": "scan_predicate", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",

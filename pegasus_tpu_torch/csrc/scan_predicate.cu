@@ -1,4 +1,5 @@
-// Scan predicate kernel for Hopper (sm_90a): one status byte per record.
+// Scan predicate kernel for Hopper (sm_90a): one launch over a table of
+// record blocks.
 //
 // Replaces the Pallas TPU kernel pegasus_tpu/ops/pallas_scan.py:_kernel
 // (:43, launched through pl.pallas_call at :100) and carries the two XLA
@@ -17,29 +18,78 @@
 //   status       = PAD (invalid row) | EXPIRED | HASH_INVALID | FILTERED
 //                  | KEEP, in the reference's precedence
 //                  (validate_key_value_for_scan, pegasus_server_impl.cpp:2382)
-// The wrapper (ops/fused_scan.py) derives the static keep mask, the four
-// ScanMasks and the Pallas (keep, expired) pair from it.
+// With `now` the kernel writes that status byte per record (the merge
+// path and the four ScanMasks read it). Without `now` (the static mask of
+// the columnar path) it writes only the keep bit, packed as jnp.packbits
+// packs it: big-endian within each byte, record 8j at bit 7 of byte j,
+// each block's mask starting on a byte of its own.
 //
-// Bound on an H100 SXM (3.35 TB/s): memory. For B = 1024, K = 32 a block
-// reads about 49 KB (keys 32 KB; key_len, hashkey_len, expire_ts, hash_lo
-// 4 KB each; valid 1 KB; a per-record pidx column 4 KB more when given)
-// and writes 1 KB: about 15 ns of memory time, far below the few
-// microseconds of a launch. One launch per block is therefore
-// launch-latency bound, and the server stacks the blocks of a scan window
-// into one launch.
+// Bound on an H100 SXM (3.35 TB/s HBM): memory. Each input byte the call
+// needs is read once: valid 1 B a record; hash_lo 4 B (and a per-record
+// pidx 4 B when given) only with validation; expire_ts 4 B only with
+// `now`; the key row K B and hashkey_len 4 B only when a hashkey or
+// sortkey filter is set, key_len 4 B only with a sortkey filter. Output:
+// 1 B a record with `now`, 1/8 B without. A serving call without a filter
+// needs 6-14 B a record, so a merge batch (1 block of 1024) or a cold
+// window (8 blocks of 1024) is a few nanoseconds of memory time against
+// microseconds of launch latency: at main-path sizes launch latency, not
+// bandwidth, bounds it. Large tables (the whole-table masks of later
+// slices) are bandwidth-bound: about 45 B a record at K = 32 with a
+// sortkey filter.
 //
-// Design: one thread per record, both patterns staged once per thread
-// block in dynamic shared memory (any length the XLA path accepts), a
-// plain loop over candidate start positions for FT_MATCH_ANYWHERE. Rows
-// are read byte by byte; making the reads coalesced is later work.
+// Design, against each of those:
+// - Launch latency: one launch covers a whole table of up to 16 blocks.
+//   The table (every block's column pointers, scalar pidx or pidx column,
+//   record count and output offset) travels by value as a
+//   __grid_constant__ kernel parameter (about 1.3 KB, under the 4 KB
+//   limit), so nothing is stacked, copied or allocated for it; the
+//   flattened tile index picks the block. Packed output makes the copy
+//   back to the host 1/8 B a record.
+// - Bandwidth: a thread block takes a tile of 256 consecutive records of
+//   one block, one thread each; the columns are read coalesced and all
+//   issued before the key tile is waited on. The tile's key rows are one
+//   contiguous range of 256 x K bytes, staged into shared memory with
+//   16-byte loads, neighbouring threads on neighbouring addresses, at a
+//   row stride of K + 4 bytes so that the threads of a warp reading the
+//   same offset of their rows hit 32 different banks. Rows wider than
+//   256 B are matched in place: such a row spans whole 32-byte sectors,
+//   so reading it from global memory wastes none, and 256 of them would
+//   not fit a block's shared memory. No key byte, key_len or hashkey_len
+//   is read when no filter needs them.
+// - Matching: PREFIX and POSTFIX compare 32-bit words (funnel-shifted
+//   for unaligned regions) where the region lies inside the row; the
+//   reference's clip(offs + j, 0, K-1) rule for malformed rows keeps its
+//   exact byte loop on its own branch. ANYWHERE scans the region a word
+//   at a time for the pattern's first byte (__vcmpeq4) and verifies only
+//   those candidates, reading zeros past K. Patterns of any length stay
+//   in global memory, read by every thread at the same address.
+// - Packing: __ballot_sync gathers a warp's 32 keep bits, and four lanes
+//   write the four bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// Mirrored by _BlockDesc in ops/fused_scan.py; outside the anonymous
+// namespace so that the exported entry point can name it.
+struct BlockDesc {
+  const uint8_t* keys;          // uint8[count, k]
+  const int32_t* key_len;       // int32[count]
+  const int32_t* hashkey_len;   // int32[count]
+  const uint32_t* expire_ts;    // uint32 bits[count]
+  const uint8_t* valid;         // bool[count]
+  const uint32_t* hash_lo;      // uint32 bits[count]
+  const uint32_t* pidx_col;     // uint32 bits[count], or null: `pidx`
+  uint32_t pidx;
+  int32_t count;
+  int64_t out_offset;           // bytes into the output
+  int32_t first_tile;           // set by the entry point
+  int32_t reserved;
+};
+static_assert(sizeof(BlockDesc) == 80, "BlockDesc layout");
+
 namespace {
 
 // filter types (idl/rrdb.thrift); FT_MATCH_ANYWHERE = 1 is the fall-through
-constexpr int kNoFilter = 0;
 constexpr int kPrefix = 2;
 constexpr int kPostfix = 3;
 
@@ -49,7 +99,84 @@ constexpr uint8_t kExpired = 2;
 constexpr uint8_t kHashInvalid = 3;
 constexpr uint8_t kFiltered = 4;
 
-constexpr int kThreads = 256;
+constexpr int kTile = 256;            // records per thread block
+constexpr int kMaxBlocks = 16;        // blocks per table (STACK_CHUNK)
+constexpr int kMaxStagedWidth = 256;  // widest key row staged in smem
+constexpr int kMaxSmem = kTile * (kMaxStagedWidth + 4);
+
+struct Filter {
+  const uint8_t* pat;  // zero-padded to a multiple of 4 bytes
+  int32_t len;         // 0: matches everything
+  int32_t type;
+};
+
+struct Table {
+  BlockDesc blocks[kMaxBlocks];
+  Filter hash;
+  Filter sort;
+  uint32_t pv;
+  uint32_t now;
+  int32_t n_blocks;
+  int32_t k;
+  int32_t k_shift;  // log2(k)
+  int32_t validate;
+  int32_t has_now;
+};
+static_assert(sizeof(Table) <= 4096, "kernel parameter limit");
+
+// Bytes [o, o + 4) of a 4-byte aligned row; the caller keeps them
+// inside the row.
+__device__ __forceinline__ uint32_t load_word(const uint8_t* row, int o) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row) + (o >> 2);
+  const int sh = (o & 3) * 8;
+  return sh == 0 ? w[0] : __funnelshift_r(w[0], w[1], sh);
+}
+
+// row[o, o + plen) == pat[0, plen), the range inside the row.
+__device__ bool equal_at(const uint8_t* row, int o, const uint8_t* pat,
+                         int plen) {
+  const uint32_t* pw = reinterpret_cast<const uint32_t*>(pat);
+  int j = 0;
+  for (; j + 4 <= plen; j += 4) {
+    if (load_word(row, o + j) != __ldg(pw + (j >> 2))) return false;
+  }
+  for (; j < plen; ++j) {
+    if (row[o + j] != __ldg(pat + j)) return false;
+  }
+  return true;
+}
+
+// FT_MATCH_ANYWHERE: some start t in [max(start, 0), min(start + len -
+// plen, k - 1)] where the pattern matches, bytes past k reading zero.
+__device__ bool find_anywhere(const uint8_t* row, int k, int start, int len,
+                              const uint8_t* pat, int plen) {
+  const int t_lo = max(start, 0);
+  const int t_hi = min(start + len - plen, k - 1);
+  const uint8_t c0 = __ldg(pat);
+  const uint32_t c4 = 0x01010101u * c0;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(row);
+  for (int a = t_lo & ~3; a <= t_hi; a += 4) {
+    uint32_t hits = __vcmpeq4(words[a >> 2], c4);
+    if (a < t_lo) hits &= 0xFFFFFFFFu << ((t_lo - a) * 8);
+    if (a + 3 > t_hi) hits &= 0xFFFFFFFFu >> ((a + 3 - t_hi) * 8);
+    while (hits) {
+      const int byte = (__ffs(hits) - 1) >> 3;
+      hits &= ~(0xFFu << (byte * 8));
+      const int t = a + byte;
+      if (t + plen <= k) {
+        if (equal_at(row, t, pat, plen)) return true;
+        continue;
+      }
+      bool ok = true;
+      for (int j = 1; j < plen && ok; ++j) {
+        const int pos = t + j;
+        ok = (pos < k ? row[pos] : 0) == __ldg(pat + j);
+      }
+      if (ok) return true;
+    }
+  }
+  return false;
+}
 
 // Semantics of match_filter (ops/predicates.py): an empty pattern matches
 // everything; the region must be at least as long as the pattern; PREFIX
@@ -57,97 +184,159 @@ constexpr int kThreads = 256;
 // [0, K) inside the region and reads zero bytes past K. Regions of
 // malformed rows may be negative or run past the row.
 __device__ bool match_region(const uint8_t* row, int k, int start, int len,
-                             const uint8_t* pat, int plen, int ftype) {
-  if (ftype == kNoFilter || plen == 0) return true;
+                             const Filter& f) {
+  const int plen = f.len;
+  if (plen == 0) return true;
   if (len < plen) return false;
-  if (ftype == kPrefix || ftype == kPostfix) {
-    const int offs = ftype == kPrefix ? start : start + len - plen;
+  if (f.type == kPrefix || f.type == kPostfix) {
+    const int offs = f.type == kPrefix ? start : start + len - plen;
+    if (offs >= 0 && offs + plen <= k) return equal_at(row, offs, f.pat, plen);
     for (int j = 0; j < plen; ++j) {
       const int idx = min(max(offs + j, 0), k - 1);
-      if (row[idx] != pat[j]) return false;
+      if (row[idx] != __ldg(f.pat + j)) return false;
     }
     return true;
   }
-  const int t_end = min(start + len - plen, k - 1);
-  for (int t = max(start, 0); t <= t_end; ++t) {
-    bool ok = true;
-    for (int j = 0; j < plen && ok; ++j) {
-      const int pos = t + j;
-      ok = (pos < k ? row[pos] : 0) == pat[j];
-    }
-    if (ok) return true;
-  }
-  return false;
+  return find_anywhere(row, k, start, len, f.pat, plen);
 }
 
-__global__ void scan_predicate_kernel(
-    const uint8_t* __restrict__ keys, const int32_t* __restrict__ key_len,
-    const int32_t* __restrict__ hashkey_len,
-    const uint32_t* __restrict__ expire_ts, const uint8_t* __restrict__ valid,
-    const uint32_t* __restrict__ hash_lo,
-    const uint32_t* __restrict__ pidx_col,
-    uint32_t pidx, uint32_t pv, int validate, int hft,
-    const uint8_t* __restrict__ hpat, int hplen, int sft,
-    const uint8_t* __restrict__ spat, int splen, int has_now, uint32_t now,
-    uint8_t* __restrict__ out, int n, int k) {
-  extern __shared__ uint8_t pats[];
-  for (int i = threadIdx.x; i < hplen + splen; i += blockDim.x) {
-    pats[i] = i < hplen ? hpat[i] : spat[i - hplen];
+__global__ void __launch_bounds__(kTile)
+    scan_table_kernel(const __grid_constant__ Table t,
+                      uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t tile_keys[];
+  int bi = 0;
+  while (bi + 1 < t.n_blocks &&
+         static_cast<int>(blockIdx.x) >= t.blocks[bi + 1].first_tile) {
+    ++bi;
   }
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n) return;
-  if (!valid[b]) {
-    out[b] = kPad;
-    return;
+  const BlockDesc& d = t.blocks[bi];
+  const int base = (static_cast<int>(blockIdx.x) - d.first_tile) * kTile;
+  const int n = min(kTile, d.count - base);
+  const int r = threadIdx.x;
+  const bool live = r < n;
+  const int b = base + r;
+  const int k = t.k;
+  const bool hash_f = t.hash.len > 0;
+  const bool sort_f = t.sort.len > 0;
+  const bool need_keys = hash_f || sort_f;
+
+  // every column load of the tile is in flight before the key tile is
+  // waited on
+  const uint8_t valid = live ? d.valid[b] : 0;
+  const uint32_t ets = live && t.has_now ? d.expire_ts[b] : 0;
+  const uint32_t hlo = live && t.validate ? d.hash_lo[b] : 0;
+  const uint32_t owner = d.pidx_col == nullptr
+                             ? d.pidx
+                             : (live && t.validate ? d.pidx_col[b] : 0);
+  const int hkl = live && need_keys ? d.hashkey_len[b] : 0;
+  const int klen = live && sort_f ? d.key_len[b] : 0;
+
+  const bool staged = need_keys && k <= kMaxStagedWidth;
+  const int stride = k + 4;
+  if (staged) {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        d.keys + (static_cast<size_t>(base) << t.k_shift));
+    const int chunks = (n << t.k_shift) >> 4;
+    for (int c = r; c < chunks; c += kTile) {
+      const uint4 v = __ldcs(src + c);
+      const int byte = c << 4;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(
+          tile_keys + (byte >> t.k_shift) * stride + (byte & (k - 1)));
+      dst[0] = v.x;
+      dst[1] = v.y;
+      dst[2] = v.z;
+      dst[3] = v.w;
+    }
+    __syncthreads();
   }
-  const uint32_t ets = expire_ts[b];
-  if (has_now && ets > 0 && ets <= now) {
-    out[b] = kExpired;
-    return;
-  }
-  if (validate) {
-    const uint32_t owner = pidx_col != nullptr ? pidx_col[b] : pidx;
-    if ((hash_lo[b] & pv) != owner) {
-      out[b] = kHashInvalid;
-      return;
+
+  uint8_t status = kPad;
+  if (live && valid) {
+    if (t.has_now && ets > 0 && ets <= t.now) {
+      status = kExpired;
+    } else if (t.validate && (hlo & t.pv) != owner) {
+      status = kHashInvalid;
+    } else {
+      bool ok = true;
+      if (need_keys) {
+        const uint8_t* row =
+            staged ? tile_keys + r * stride
+                   : d.keys + (static_cast<size_t>(b) << t.k_shift);
+        ok = match_region(row, k, 2, hkl, t.hash) &&
+             match_region(row, k, 2 + hkl, klen - 2 - hkl, t.sort);
+      }
+      status = ok ? kKeep : kFiltered;
     }
   }
-  const uint8_t* row = keys + static_cast<size_t>(b) * k;
-  const int hkl = hashkey_len[b];
-  const bool ok =
-      match_region(row, k, 2, hkl, pats, hplen, hft) &&
-      match_region(row, k, 2 + hkl, key_len[b] - 2 - hkl, pats + hplen,
-                   splen, sft);
-  out[b] = ok ? kKeep : kFiltered;
+
+  if (t.has_now) {
+    if (live) out[d.out_offset + b] = status;
+    return;
+  }
+  const unsigned bits = __ballot_sync(0xFFFFFFFFu, status == kKeep);
+  const int first = base + (r & ~31);  // the warp's first record
+  if (first < d.count) {
+    const int lane = r & 31;
+    const int nbytes = min(4, (d.count - first + 7) >> 3);
+    // lane i's bit is bit i of `bits`; packbits wants record 8j + m at
+    // bit 7 - m of byte j: bit-reverse, then byte-swap
+    const uint32_t packed = __byte_perm(__brev(bits), 0, 0x0123);
+    if (lane < nbytes) {
+      out[d.out_offset + (first >> 3) + lane] =
+          static_cast<uint8_t>(packed >> (8 * lane));
+    }
+  }
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() of the launch (0 on
-// success). Every pointer is device memory; pidx_col may be null (then the
-// scalar pidx applies to every record). hplen/splen count pattern bytes
-// (0 for FT_NO_FILTER).
-extern "C" int pegasus_scan_predicate(
-    const uint8_t* keys, const int32_t* key_len, const int32_t* hashkey_len,
-    const uint32_t* expire_ts, const uint8_t* valid, const uint32_t* hash_lo,
-    const uint32_t* pidx_col, uint32_t pidx, uint32_t pv, int validate,
-    int hft, const uint8_t* hpat, int hplen, int sft, const uint8_t* spat,
-    int splen, int has_now, uint32_t now, uint8_t* out, int n, int k,
-    void* stream) {
-  if (n == 0) return 0;
-  const size_t smem = static_cast<size_t>(hplen) + splen;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scan_predicate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// Launches one kernel over `n_blocks` (1..16) block descriptors on
+// `stream` and returns cudaGetLastError() of the launch (0 on success),
+// or cudaErrorInvalidValue for a table the kernel does not take. Every
+// pointer is device memory. k is the table's key width, a power of two
+// >= 32; hplen/splen count pattern bytes (0 for FT_NO_FILTER). `out`
+// holds each block's bytes at its out_offset: `count` status bytes with
+// `now`, ceil(count / 8) packed keep bytes without.
+extern "C" int pegasus_scan_table(const BlockDesc* blocks, int n_blocks,
+                                  int k, uint32_t pv, int validate, int hft,
+                                  const uint8_t* hpat, int hplen, int sft,
+                                  const uint8_t* spat, int splen,
+                                  int has_now, uint32_t now, uint8_t* out,
+                                  void* stream) {
+  if (n_blocks < 1 || n_blocks > kMaxBlocks || k < 32 || (k & (k - 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (n + kThreads - 1) / kThreads;
-  scan_predicate_kernel<<<blocks, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      keys, key_len, hashkey_len, expire_ts, valid, hash_lo, pidx_col, pidx,
-      pv, validate, hft, hpat, hplen, sft, spat, splen, has_now, now, out, n,
-      k);
+  Table t{};
+  int tiles = 0;
+  for (int i = 0; i < n_blocks; ++i) {
+    if (blocks[i].count < 0) return static_cast<int>(cudaErrorInvalidValue);
+    t.blocks[i] = blocks[i];
+    t.blocks[i].first_tile = tiles;
+    tiles += (blocks[i].count + kTile - 1) / kTile;
+  }
+  if (tiles == 0) return 0;
+  t.hash = {hpat, hplen, hft};
+  t.sort = {spat, splen, sft};
+  t.pv = pv;
+  t.now = now;
+  t.n_blocks = n_blocks;
+  t.k = k;
+  t.k_shift = __builtin_ctz(static_cast<unsigned>(k));
+  t.validate = validate;
+  t.has_now = has_now;
+  const bool staged = (hplen > 0 || splen > 0) && k <= kMaxStagedWidth;
+  const size_t smem = staged ? static_cast<size_t>(kTile) * (k + 4) : 0;
+  if (smem > 48 * 1024) {
+    static bool raised = false;
+    if (!raised) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          scan_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kMaxSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      raised = true;
+    }
+  }
+  scan_table_kernel<<<tiles, kTile, smem,
+                      static_cast<cudaStream_t>(stream)>>>(t, out);
   return static_cast<int>(cudaGetLastError());
 }

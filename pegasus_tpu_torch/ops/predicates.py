@@ -10,10 +10,10 @@ Parity with the reference's per-record scalar loop:
   expired iff 0 < expire_ts <= now.
 
 The two block predicates (`static_block_predicate`, without `now`, and
-`scan_block_predicate`, with it) evaluate through one per-record status
-function in ops/fused_scan.py: on a CUDA block it launches the
-hand-written kernel, on a CPU block it runs the plain torch version built
-from `match_filter` and `ttl_expired` below.
+`scan_block_predicate`, with it) evaluate through the table function of
+ops/fused_scan.py (`scan_table`, here a table of one block): on a CUDA
+block it launches the hand-written kernel, on a CPU block it runs the
+plain torch version built from `match_filter` and `ttl_expired` below.
 """
 
 from __future__ import annotations
@@ -151,7 +151,13 @@ def pack_mask(mask: torch.Tensor) -> torch.Tensor:
     return (bits.view(-1, 8) * weights).sum(dim=1).to(torch.uint8)
 
 
-def _split_gate(validate_hash: bool, pidx, partition_version: int) -> bool:
+def unpack_mask(packed: torch.Tensor, count: int) -> torch.Tensor:
+    """bool[count] of `pack_mask`'s bytes, on their device."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    return ((packed[:, None] >> shifts) & 1).reshape(-1)[:count].bool()
+
+
+def split_gate(validate_hash: bool, pidx, partition_version: int) -> bool:
     """The reject-all split-safety gate of a scalar `pidx`
     (pegasus_server_impl.cpp:2392-2401): pv < 0 or pidx > pv."""
     return (validate_hash and isinstance(pidx, int)
@@ -165,22 +171,22 @@ def static_block_predicate(block: RecordBlock,
                            pidx=0,
                            partition_version: int = -1,
                            pack: bool = False) -> torch.Tensor:
-    """bool[B] (or packed uint8[B/8]): records passing every
+    """bool[B] (or packed uint8[ceil(B/8)]): records passing every
     `now`-independent predicate — filters and partition-hash validation.
     keep(now) == static_keep & ~expired(now), applied on the host from
     the block's expire_ts column. `pidx` is an int or a per-record int32
-    column (stacked blocks of several partitions)."""
-    from pegasus_tpu_torch.ops.fused_scan import STATUS_KEEP, scan_status
+    column. The kernel writes the mask packed; `pack=False` unpacks it
+    on the block's device."""
+    from pegasus_tpu_torch.ops.fused_scan import scan_table
 
     dev = block.device
-    if _split_gate(validate_hash, pidx, partition_version):
+    if split_gate(validate_hash, pidx, partition_version):
         keep = torch.zeros(block.capacity, dtype=torch.bool, device=dev)
-    else:
-        keep = scan_status(
-            block, hash_filter or FilterSpec.none(dev),
-            sort_filter or FilterSpec.none(dev), validate_hash, pidx,
-            partition_version) == STATUS_KEEP
-    return pack_mask(keep) if pack else keep
+        return pack_mask(keep) if pack else keep
+    packed = scan_table([block], [pidx], hash_filter or FilterSpec.none(dev),
+                        sort_filter or FilterSpec.none(dev), validate_hash,
+                        partition_version)
+    return packed if pack else unpack_mask(packed, block.capacity)
 
 
 def scan_block_predicate(block: RecordBlock, now: int,
@@ -197,17 +203,17 @@ def scan_block_predicate(block: RecordBlock, now: int,
         STATUS_FILTERED,
         STATUS_HASH_INVALID,
         STATUS_KEEP,
-        scan_status,
+        scan_table,
     )
 
     dev = block.device
-    if _split_gate(validate_hash, pidx, partition_version):
+    if split_gate(validate_hash, pidx, partition_version):
         expired = ttl_expired(block.expire_ts, now) & block.valid
         zeros = torch.zeros(block.capacity, dtype=torch.bool, device=dev)
         return ScanMasks(zeros, expired, block.valid & ~expired, zeros)
-    status = scan_status(block, hash_filter or FilterSpec.none(dev),
-                         sort_filter or FilterSpec.none(dev), validate_hash,
-                         pidx, partition_version, now=now)
+    status = scan_table([block], [pidx], hash_filter or FilterSpec.none(dev),
+                        sort_filter or FilterSpec.none(dev), validate_hash,
+                        partition_version, now=now)
     return ScanMasks(status == STATUS_KEEP, status == STATUS_EXPIRED,
                      status == STATUS_HASH_INVALID, status == STATUS_FILTERED)
 

@@ -12,11 +12,11 @@ kernel (ops/fused_scan.py) on the server's device:
 
 - columnar: a fully compacted store (pure L1, no overlay) streams SST
   blocks through the cached static mask (filters + ownership, no `now`),
-  evaluated once per block lifetime in stacked launches
-  (scan_coordinator.stacked_block_eval); TTL applies on the host from the
-  block's expire_ts column;
+  evaluated once per block lifetime, one launch per window over the
+  resident blocks (scan_coordinator.stacked_block_eval); TTL applies on
+  the host from the block's expire_ts column;
 - merge: with a memtable or L0 overlay, merged candidates are packed into
-  a block and validated with `now` (ops.predicates.scan_block_predicate).
+  a block and validated with `now` (ops.fused_scan.scan_table).
 
 Standalone mode assigns decrees locally.
 """
@@ -40,10 +40,11 @@ from pegasus_tpu_torch.base.value_schema import (
     expire_ts_from_ttl,
     extract_user_data,
 )
+from pegasus_tpu_torch.ops.fused_scan import STATUS_KEEP, scan_table
 from pegasus_tpu_torch.ops.predicates import (
     FilterSpec,
     host_alive_mask,
-    scan_block_predicate,
+    split_gate,
 )
 from pegasus_tpu_torch.ops.record_block import (
     block_from_columns,
@@ -408,15 +409,15 @@ class PartitionServer:
                         validate_hash: bool) -> np.ndarray:
         """Merge path: pack the candidates into a block on the server's
         device and run the full predicate at second `now`; one copy of
-        the keep mask back to the host."""
+        the status bytes back to the host."""
+        if split_gate(validate_hash, self.pidx, self.partition_version):
+            return np.zeros(len(batch), dtype=bool)
         block = build_record_block([b[0] for b in batch],
                                    [b[2] for b in batch],
                                    device=self.device)
-        masks = scan_block_predicate(
-            block, now, hash_filter=hash_filter, sort_filter=sort_filter,
-            validate_hash=validate_hash, pidx=self.pidx,
-            partition_version=self.partition_version)
-        return masks.keep.cpu().numpy()
+        status = scan_table([block], [self.pidx], hash_filter, sort_filter,
+                            validate_hash, self.partition_version, now=now)
+        return status.cpu().numpy() == STATUS_KEEP
 
     # ---- scanners -----------------------------------------------------
 
@@ -488,7 +489,7 @@ class PartitionServer:
     def _static_keep_window(self, window, validate: bool,
                             filter_key) -> list:
         """Cached static keep masks for a window [(ckey, blk, lo, hi)] of
-        blocks; the misses are evaluated in one stacked wave and cached
+        blocks; the misses are evaluated in one table launch and cached
         for every later scan. Returns masks aligned to the window."""
         pv = self.partition_version
         keeps: list = [None] * len(window)
@@ -507,8 +508,6 @@ class PartitionServer:
                        self.pidx) for j, ckey, blk in misses]
             for (j, ckey), keep in stacked_block_eval(
                     blocks, validate, pv, filter_key=filter_key):
-                # a copy: a slice would pin the whole stacked result
-                keep = keep.copy()
                 keeps[j] = keep
                 self._store_mask(ckey, validate, filter_key, keep, pv)
         return keeps

@@ -1,6 +1,7 @@
 """The scan-predicate kernel against its plain torch version, on the card.
 
-A small-size repeat of chip_smoke.py's phase 3, for builders with a card:
+A small-size repeat of chip_smoke.py's phase-3 checks, on a machine
+with a card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -12,17 +13,29 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import kernel_vs_plain, random_block_columns
+from chip_smoke import (
+    NOWS,
+    check_tables,
+    device_block,
+    predicate_cases,
+    random_block_columns,
+    serving_block_columns,
+)
 from pegasus_tpu_torch.ops import fused_scan
 from pegasus_tpu_torch.ops.predicates import (
     FT_MATCH_ANYWHERE,
+    FT_MATCH_PREFIX,
     FilterSpec,
     scan_block_predicate,
     static_block_predicate,
 )
-from pegasus_tpu_torch.ops.record_block import RecordBlock, _to_block
+from pegasus_tpu_torch.ops.record_block import RecordBlock, block_from_columns
+from pegasus_tpu_torch.server.scan_coordinator import stacked_block_eval
 
 pytestmark = pytest.mark.cuda
+
+SMALL_COUNTS = (100, 0, 33, 257, 8, 1, 64, 77, 255, 256, 13, 300, 7, 40,
+                129, 500)
 
 
 @pytest.fixture
@@ -33,22 +46,19 @@ def card():
 
 
 def _block(rng, n, k, device):
-    keys, key_len, ets, hash_lo = random_block_columns(rng, n, k)
-    hkl = (keys[:, 0].astype(np.int32) << 8) | keys[:, 1]
-    return _to_block(keys, key_len, np.where(key_len >= 2, hkl, 0), ets,
-                     key_len >= 2, hash_lo, device)
+    return device_block(random_block_columns(rng, n, k), device)
 
 
 def test_kernel_matches_plain_on_every_case(card):
-    out = kernel_vs_plain(card, [(256, 32, 1), (256, 64, 4)],
-                          time_it=False)
-    assert out["compared"] == 2 * 48 * 3 * 3
+    out = check_tables(card, widths=(32, 256), counts=SMALL_COUNTS)
+    cases = len(list(predicate_cases(np.random.default_rng(0), 32)))
+    assert out["compared"] == 2 * cases * 2 * len(NOWS) * 4
     assert out["max_abs_err"] == 0
 
 
 def test_block_predicates_launch_the_kernel(card):
     rng = np.random.default_rng(5)
-    cpu_block = _block(rng, 512, 32, "cpu")
+    cpu_block = _block(rng, 509, 32, "cpu")
     dev_block = RecordBlock(*(t.to(card) for t in cpu_block))
     sf_cpu = FilterSpec.make(FT_MATCH_ANYWHERE, b"ab", "cpu")
     sf_dev = FilterSpec.make(FT_MATCH_ANYWHERE, b"ab", card)
@@ -74,27 +84,55 @@ def test_block_predicates_launch_the_kernel(card):
     assert fused_scan.LAUNCHES["now"] == before["now"] + 1
 
 
+def test_stacked_eval_of_a_window_is_one_launch(card):
+    rng = np.random.default_rng(9)
+    blocks = []
+    for i in range(8):
+        keys, key_len, ets, hash_lo = serving_block_columns(rng, 1000, 32,
+                                                            5, 63)
+        cpu = block_from_columns(keys, key_len, ets, hash_lo=hash_lo,
+                                 capacity=1024)
+        blocks.append((i, cpu, RecordBlock(*(t.to(card) for t in cpu))))
+    fk = (FT_MATCH_PREFIX, b"a", FT_MATCH_ANYWHERE, b"bc")
+    want = dict(stacked_block_eval([(i, c, 5) for i, c, _d in blocks], True,
+                                   63, filter_key=fk))
+    before = dict(fused_scan.LAUNCHES)
+    got = dict(stacked_block_eval([(i, d, 5) for i, _c, d in blocks], True,
+                                  63, filter_key=fk))
+    assert fused_scan.LAUNCHES["static"] == before["static"] + 1
+    assert fused_scan.LAUNCHES["now"] == before["now"]
+    for i, mask in want.items():
+        np.testing.assert_array_equal(got[i], mask)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     rng = np.random.default_rng(6)
     block = _block(rng, 64, 32, card)
     none = FilterSpec.none(card)
     bad = block._replace(expire_ts=block.expire_ts.to(torch.int64))
     with pytest.raises(ValueError, match="contiguous"):
-        fused_scan.scan_status(bad, none, none, False, 0, 7)
-    with pytest.raises(ValueError, match="pidx"):
-        fused_scan.scan_status(block, none, none, True,
-                               torch.zeros(64, dtype=torch.int64,
-                                           device=card), 7)
-    with pytest.raises(ValueError, match="pidx"):
-        fused_scan.scan_status(block, none, none, True,
-                               torch.zeros(3, dtype=torch.int32,
-                                           device=card), 7)
+        fused_scan.scan_table([bad], [0], none, none, False, 7)
+    for pidx in (torch.zeros(64, dtype=torch.int64, device=card),
+                 torch.zeros(3, dtype=torch.int32, device=card)):
+        with pytest.raises(ValueError, match="pidx"):
+            fused_scan.scan_table([block], [pidx], none, none, True, 7)
+    with pytest.raises(ValueError, match="key width"):
+        fused_scan.scan_table([block, _block(rng, 64, 64, card)], [0, 0],
+                              none, none, False, 7)
+    narrow = block._replace(keys=torch.zeros((64, 48), dtype=torch.uint8,
+                                             device=card))
+    with pytest.raises(ValueError, match="power of two"):
+        fused_scan.scan_table([narrow], [0], none, none, False, 7)
+    with pytest.raises(ValueError, match="blocks"):
+        fused_scan.scan_table([block] * 17, [0] * 17, none, none, False, 7)
 
 
 def test_empty_block_launches_nothing(card):
     block = _block(np.random.default_rng(8), 0, 32, card)
     none = FilterSpec.none(card)
     before = dict(fused_scan.LAUNCHES)
-    out = fused_scan.scan_status(block, none, none, True, 0, 7, now=5)
-    assert out.shape == (0,) and out.is_cuda
+    for now in (None, 5):
+        out = fused_scan.scan_table([block, block], [0, 0], none, none,
+                                    True, 7, now=now)
+        assert out.shape == (0,) and out.is_cuda
     assert fused_scan.LAUNCHES == before

@@ -19,6 +19,7 @@ from pegasus_tpu.server import types as jtypes
 from pegasus_tpu.server.partition_server import (
     PartitionServer as JaxPartitionServer,
 )
+from pegasus_tpu.server.workload import DRIFT as JDRIFT
 from pegasus_tpu.utils.flags import FLAGS as JFLAGS
 from pegasus_tpu_torch.server import types as ttypes
 from pegasus_tpu_torch.server.partition_server import PartitionServer
@@ -29,6 +30,9 @@ SLICE_FLAGS = (("pegasus.storage", "block_codec", "none"),
 
 PARTITION_COUNT = 4
 PIDX = 1
+# an app id no sim-cluster test uses: the JAX server registers its
+# workload metric entity (`app.pidx`) in a process-wide registry
+APP_ID = 9001
 FAR_TTL = 10 ** 7           # seconds: never expires during a test
 HASHKEYS = [b"user%04d" % i for i in range(160)]
 SORTKEYS = [b"s%02d" % i for i in range(12)]
@@ -43,14 +47,18 @@ def _set_jax_flags(values):
 def servers(tmp_path):
     saved = [(s, n, JFLAGS.get(s, n)) for s, n, _v in SLICE_FLAGS]
     _set_jax_flags(SLICE_FLAGS)
-    pair = (JaxPartitionServer(str(tmp_path / "jax"), pidx=PIDX,
-                               partition_count=PARTITION_COUNT),
-            PartitionServer(str(tmp_path / "torch"), pidx=PIDX,
-                            partition_count=PARTITION_COUNT, device="cpu"))
+    pair = (JaxPartitionServer(str(tmp_path / "jax"), app_id=APP_ID,
+                               pidx=PIDX, partition_count=PARTITION_COUNT),
+            PartitionServer(str(tmp_path / "torch"), app_id=APP_ID,
+                            pidx=PIDX, partition_count=PARTITION_COUNT,
+                            device="cpu"))
     yield pair
     for s in pair:
         s.close()
     _set_jax_flags(saved)
+    # the JAX server's mask waves feed the process-wide cost-model drift
+    # gauge, which would fire the JAX health rule in later tests
+    JDRIFT.reset()
 
 
 def _owned(hk: bytes) -> bool:
