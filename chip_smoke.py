@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles csrc/scan_predicate.cu with nvcc for sm_90a;
+2. build: compiles csrc/scan_predicate.cu with nvcc for sm_90a and
+   native/packer.cpp with g++, both started together;
 3. kernel vs plain: the scan-predicate kernel's table launch against
    its plain torch version on seeded random blocks: tables of 1, 3, 8
    and 16 blocks (counts not a multiple of the tile or of 8, an empty
@@ -16,23 +17,40 @@ Phases, each fatal on failure:
    bytes with `now` (below and above 2^31); bit-identical output
    required. Then times at the serving shapes and two large ones, and
    one columnar cold window through stacked_block_eval, which must issue
-   exactly one kernel and one copy on the device;
+   exactly one kernel and one copy on the device. Then the kernel's
+   flavour axis (scan_table_multi) against its plain version on the
+   same tables for 2, 5, 16 and 64 flavours of every filter type pair,
+   and its times at a cold window and a large shape;
 4. the slice: one PartitionServer on the card as partition 0 of a
    64-partition YCSB-E table, loaded in bench.py's layout, compacted,
    then serving YCSB-E traffic (95% scans / 5% inserts, zipfian start
    keys, scan length uniform in 1..100) plus gets and multi_gets; every
    response is checked against a host oracle, and both predicate modes
-   (columnar static masks, merge path with `now`) must launch the kernel.
+   (columnar static masks, merge path with `now`) must launch the kernel;
+5. the batched path: one node's share of the same table (partitions
+   0..7, 125,000 records each) serving YCSB-E through
+   scan_coordinator.scan_multi in flushes of 32 scans, 3 in 20 of them
+   with a sortkey POSTFIX filter, every page checked against an oracle
+   of the batched plan; the static and the flavour-axis kernel must
+   launch, and a CUDA trace of the traffic gives the device's busy
+   share; then 1 in 50 records is rewritten with a TTL, and after a
+   compaction and MaskPrefresher passes a flush of unfiltered scans must
+   launch nothing, both while those records live and once they expired,
+   with the expired records it planned counted as the oracle counts
+   them.
 
 The line before the last lists the kernels as JSON; the last line is
-{"ok": true, "device": {...}}. `--records N` cuts the load (default
-1,000,000 records of partition 0) and says so in its output.
+{"ok": true, "device": {...}}. `--records N` sets phase 4's load
+(default 500,000) and prints any cut below 1,000,000: the default is
+one, which keeps the whole run near 300 s. Phase 5 always loads its
+1,000,000 records.
 """
 
 from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import gc
 import json
 import os
@@ -50,6 +68,9 @@ SCALAR_OPS_PER_S = 67e12    # H100 SXM non-tensor peak (float32 rate)
 PARTITION_COUNT = 64
 PIDX = 0
 FULL_RECORDS = 1_000_000
+# phase 4's load by default: cut from FULL_RECORDS since phase 5 came,
+# to keep the whole run near 300 s on a slow host
+SLICE_RECORDS = 500_000
 SCAN_OPS = 2000    # scans of the first columnar phase
 MIXED_OPS = 2000   # operations of the YCSB-E mix (95% scans, 5% inserts)
 SORT_KEYS = [b"s%02d" % i for i in range(10)]
@@ -244,16 +265,39 @@ def _device_ops(fn, calls: int = 20) -> dict:
     return out
 
 
+def device_trace():
+    """A torch.profiler context that traces the device alone (kernels,
+    copies, memsets), for device_busy_s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def device_busy_s(prof):
+    """(seconds the device was busy, spans): the union of the device
+    spans of a device_trace()."""
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us / 1e6, len(spans)
+
+
 def kernel_bound(n: int, k: int, *, hash_filter: bool, sort_filter: bool,
                  now: bool, validate: bool, pidx_column: bool,
-                 ops: float):
+                 ops: float, mask_rows: int = 1):
     """(bound_ms, bound_by) of one table launch over `n` records of key
     width `k`: each input byte the call needs read once, each output byte
     written once, over HBM; `ops` integer operations over the non-tensor
     peak. Per record: valid 1 B; hash_lo 4 B (and the pidx column 4 B)
     with validation; expire_ts 4 B with `now`; the key row k B and
     hashkey_len 4 B with any filter, key_len 4 B with a sortkey filter.
-    Output: a status byte with `now`, a packed keep bit without."""
+    Output: a status byte with `now`, a packed keep bit without, in each
+    of `mask_rows` rows (the flavour axis writes one row a flavour)."""
     per = 1
     if validate:
         per += 4 + (4 if pidx_column else 0)
@@ -263,7 +307,7 @@ def kernel_bound(n: int, k: int, *, hash_filter: bool, sort_filter: bool,
         per += k + 4
     if sort_filter:
         per += 4
-    nbytes = n * per + (n if now else -(-n // 8))
+    nbytes = n * per + (n if now else mask_rows * -(-n // 8))
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
@@ -359,6 +403,105 @@ def check_tables(device, widths=(32, 64, 256),
                                  f"hft={hft} hp={hp!r} sft={sft} sp={sp!r} "
                                  f"validate={validate} now={now}")
                         compared += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"compared": compared, "max_abs_err": max_err}
+
+
+# flavours of one launch of the kernel's flavour axis
+MULTI_KS = (2, 5, 16, 64)
+
+
+def multi_patterns(rng, n: int, k: int, wide: bool) -> list:
+    """n patterns of lengths mixed within one pad width (what one launch
+    takes, since callers group flavours by it): 0..4 bytes, empty ones
+    included, or k/2..k bytes, about as long as a row of width k."""
+    lo, hi = (k // 2, k) if wide else (0, 4)
+    return [random_pattern(rng, int(rng.integers(lo, hi + 1)))
+            for _ in range(n)]
+
+
+def check_tables_multi(device, widths=(32, 64, 256), ks=MULTI_KS,
+                       counts=CHECK_COUNTS) -> dict:
+    """Phase 3, correctness of the flavour axis: scan_table_multi against
+    scan_table_multi_plain, bit for bit, on the tables of check_tables
+    (scalar and column pidx), for K flavours of every filter type pair
+    with mixed pattern lengths, validation off and on; plus a lone block
+    under pv = -1 through multi_static_block_predicate_submit, which must
+    give all-zero rows without a launch."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops.predicates import (
+        FilterSpec,
+        multi_static_block_predicate_submit,
+    )
+
+    rng = np.random.default_rng(20261019)
+    pv = 7
+    compared = 0
+    max_err = 0
+    for k in widths:
+        blocks, pidxs = [], []
+        for i, count in enumerate(counts):
+            cols = random_block_columns(rng, count, k)
+            blocks.append(device_block(cols, device))
+            if i % 2:
+                owned = rng.random(count) < 0.5
+                col = np.where(owned, cols[3] & pv,
+                               rng.integers(0, pv + 1, count))
+                pidxs.append(torch.from_numpy(col.astype(np.int32)).to(
+                    device))
+            else:
+                pidxs.append(int(rng.integers(0, pv + 1)))
+        for hft in range(4):
+            for sft in range(4):
+                # one flavour count a type pair, rotating with the width,
+                # so that every count meets every width (the plain
+                # version's time grows with the flavours)
+                case = hft * 4 + sft + widths.index(k)
+                n_flavors = ks[case % len(ks)]
+                wide = bool(case // len(ks) % 2)
+                flavors = [
+                    (FilterSpec.make(hft, hp, device),
+                     FilterSpec.make(sft, sp, device))
+                    for hp, sp in zip(
+                        multi_patterns(rng, n_flavors, k, wide),
+                        multi_patterns(rng, n_flavors, k, wide))]
+                for validate in (False, True):
+                    plain = [fused_scan.scan_table_multi_plain(
+                        [block], [pidx], flavors, validate, pv)
+                        for block, pidx in zip(blocks, pidxs)]
+                    for lo, hi in CHECK_TABLES:
+                        got = fused_scan.scan_table_multi(
+                            blocks[lo:hi], pidxs[lo:hi], flavors,
+                            validate, pv)
+                        want = torch.cat(plain[lo:hi], dim=1)
+                        if got.shape != want.shape:
+                            fail(f"multi table {lo}:{hi} K={k}: "
+                                 f"{tuple(got.shape)}, plain "
+                                 f"{tuple(want.shape)}")
+                        err = int((got.int() - want.int()).abs().max()) \
+                            if want.numel() else 0
+                        max_err = max(max_err, err)
+                        if err:
+                            fail(f"multi kernel != plain: table "
+                                 f"{lo}:{hi} K={k} hft={hft} sft={sft} "
+                                 f"{n_flavors} flavours "
+                                 f"{[(h.raw, s.raw) for h, s in flavors]}"
+                                 f" validate={validate}")
+                        compared += 1
+        # a block alone under pv = -1: the split gate rejects every record
+        before = dict(fused_scan.LAUNCHES)
+        flavors = [(FilterSpec.none(device),
+                    FilterSpec.make(3, p, device)) for p in (b"a", b"b")]
+        gated = multi_static_block_predicate_submit(blocks[0], flavors, True,
+                                                    0, -1)
+        if (fused_scan.LAUNCHES != before or tuple(gated.shape)
+                != (2, -(-blocks[0].capacity // 8)) or int(gated.sum())):
+            fail(f"a lone block under pv = -1 (K={k}) must give zero rows "
+                 f"without a launch")
+        compared += 1
     if device.type == "cuda":
         torch.cuda.synchronize()
     return {"compared": compared, "max_abs_err": max_err}
@@ -489,6 +632,78 @@ def time_window(device, n_blocks: int = 8, reps: int = 200) -> dict:
     ops = _device_ops(window)
     return {"blocks": n_blocks, "median_us": float(np.median(seconds)) * 1e6,
             "mean_us": float(np.mean(seconds)) * 1e6, **ops}
+
+
+# the timed shapes of the flavour axis: (name, blocks, records per block,
+# K, sortkey POSTFIX patterns (one flavour each), L2 flushed)
+MULTI_TIMED_SHAPES = (
+    ("cold window, 4 sortkey POSTFIX flavours", 16, 1024, 32,
+     (b"a", b"b", b"c", b"d"), False),
+    ("large K=32, 8 sortkey POSTFIX flavours", 1, 1 << 20, 32,
+     (b"a", b"b", b"c", b"d", b"ab", b"bc", b"cd", b"da"), True),
+)
+MULTI_LARGE_SHAPE = 1  # the shape reported in the kernels line
+
+
+def time_tables_multi(device) -> list:
+    """Phase 3, times of the flavour axis: each MULTI_TIMED_SHAPES entry
+    with validation on and a scalar pidx per block, as
+    scan_coordinator._eval_cross_partition_multi launches it; the same
+    columns as time_tables."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops.predicates import FilterSpec
+
+    rng = np.random.default_rng(20261020)
+    pv, pidx = 63, 0
+    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+
+    def flush():
+        dst.copy_(src)
+
+    out = []
+    for name, n_blocks, n, k, patterns, flushed in MULTI_TIMED_SHAPES:
+        cols = [serving_block_columns(rng, n, k, pidx, pv)
+                for _ in range(n_blocks)]
+        blocks = [device_block(c, device) for c in cols]
+        flavors = [(FilterSpec.none(device), FilterSpec.make(3, p, device))
+                   for p in patterns]
+        pidxs = [pidx] * n_blocks
+
+        def kernel():
+            fused_scan.scan_table_multi(blocks, pidxs, flavors, True, pv)
+
+        def plain():
+            fused_scan.scan_table_multi_plain(blocks, pidxs, flavors, True,
+                                              pv)
+
+        before = flush if flushed else None
+        iters, plain_iters = (50, 5) if flushed else (200, 20)
+        # the status work once a record, the matches once a flavour
+        ops = sum(match_ops(c, ((0, b""), (3, p)), True, pidx, pv, None)
+                  for c in cols for p in patterns)
+        ops -= 8.0 * n_blocks * n * (len(patterns) - 1)
+        bound_ms, bound_by = kernel_bound(
+            n_blocks * n, k, hash_filter=False, sort_filter=True, now=False,
+            validate=True, pidx_column=False, ops=ops,
+            mask_rows=len(patterns))
+        row = {"shape": f"{name}: {n_blocks} x {n} records, K={k}, "
+                        f"static, validation"
+                        + (", L2 flushed" if flushed else ""),
+               "ms": _device_ms(kernel, iters, "scan_table_multi_kernel",
+                                before),
+               "call_ms": _cuda_ms(kernel, iters, before),
+               "plain_ms": _device_ms(plain, plain_iters, "", before),
+               "plain_call_ms": _cuda_ms(plain, plain_iters, before),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if None in (row["ms"], row["plain_ms"]):
+            fail(f"torch.profiler recorded no device time for {name}")
+        row["share"] = bound_ms / row["ms"]
+        out.append(row)
+        del blocks, cols
+    return out
 
 
 # ---- phase 4: the slice ------------------------------------------------
@@ -725,7 +940,7 @@ def run_slice(device, n_records: int, seed: int = 7,
                               "rocksdb_max_iteration_count"), LOOKAHEAD)
     gc_pauses = GcPauses()
     data_dir = tempfile.mkdtemp(prefix="pegasus_torch_smoke_")
-    fused_scan.LAUNCHES.update(static=0, now=0)
+    fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
     try:
         server = PartitionServer(data_dir, pidx=PIDX,
                                  partition_count=PARTITION_COUNT,
@@ -923,13 +1138,480 @@ def run_slice(device, n_records: int, seed: int = 7,
     return dict(fused_scan.LAUNCHES)
 
 
+# ---- phase 5: the batched cross-partition scan path ----------------------
+
+NODE_PARTITIONS = 8            # one node's share: pidx 0..7 of 64
+BATCHED_RECORDS = 1_000_000    # over the node's partitions
+BATCHED_OPS = 20_000           # YCSB-E operations (95% scans, 5% inserts)
+SCAN_FLUSH = 32                # scans a flush coalesces (bench.py:251)
+LEFTOVERS = 100                # split leftovers written to each partition
+POSTFIX_PATTERNS = [b"%d" % i for i in range(10)]
+STEADY_TTL_S = 600             # TTL of the steady state's rewritten records
+
+
+def node_hashkeys(counts: dict) -> dict:
+    """{pidx: the first counts[pidx] hashkeys user%08d routing to pidx}
+    (crc64(hashkey) % PARTITION_COUNT), from one pass over the keys."""
+    from pegasus_tpu_torch.base.crc import crc64_batch
+
+    out = {p: [] for p in counts}
+    lo, chunk = 0, 1 << 20
+    while any(len(out[p]) < n for p, n in counts.items()):
+        rows = _user_keys(lo, lo + chunk)
+        lens = np.full(rows.shape[0], 12, dtype=np.int64)
+        route = crc64_batch(rows, lens) % np.uint64(PARTITION_COUNT)
+        for p, n in counts.items():
+            for i in np.flatnonzero(route == np.uint64(p))[
+                    :n - len(out[p])]:
+                out[p].append(rows[i].tobytes())
+        lo += chunk
+    return out
+
+
+class BatchedOracle:
+    """What one partition's batched one-page scans serve
+    (PartitionServer.plan_scan_batch / finish_scan_batch): a scan plans
+    the compacted L1 blocks from its start key until 2 * wb + 64 rows
+    (wb: the scan's length rounded up to a power of two), keeps the
+    planned rows that pass its filter, merges the memtable's rows from
+    the start key up to the plan's frontier (past the last planned row
+    when the plan reached 2 * want + 64 rows, else unbounded), and
+    returns the first `want`. Split leftovers in the memtable are
+    foreign, so they are never served. A record with an expire_ts at or
+    before the scan's `now` is planned but not served, and counts as
+    expired."""
+
+    def __init__(self) -> None:
+        self.values: dict = {}     # every served record
+        self.expire: dict = {}     # expire_ts of the records with a TTL
+        self.keys: list = []       # the L1 keys, in order
+        self.starts: list = [0]    # cumulative L1 block starts
+        self.overlay: list = []    # served memtable keys, in order
+
+    def compacted(self, runs) -> None:
+        metas = [bm for run in runs for bm in run.blocks]
+        self.keys = sorted(self.values)
+        self.starts = np.cumsum([0] + [bm.count for bm in metas]).tolist()
+        if self.starts[-1] != len(self.keys) or any(
+                self.keys[i] != bm.first_key
+                for i, bm in zip(self.starts, metas)):
+            fail(f"compacted store holds {self.starts[-1]} records in "
+                 f"{len(metas)} blocks; the oracle has {len(self.keys)}")
+        self.overlay = []
+
+    def insert(self, key: bytes, value: bytes) -> None:
+        if key not in self.values:
+            bisect.insort(self.overlay, key)
+        self.values[key] = value
+
+    def expired(self, key: bytes, now: int) -> bool:
+        ets = self.expire.get(key, 0)
+        return 0 < ets <= now
+
+    def planned(self, start: bytes, want: int):
+        """(i, end, capped): the scan plans L1 rows [i, end); `capped`
+        when the plan reached 2 * want + 64 rows."""
+        keys, starts = self.keys, self.starts
+        i = bisect.bisect_left(keys, start)
+        wb = 1 << (want - 1).bit_length() if want > 1 else 1
+        j = bisect.bisect_right(starts, i) - 1
+        rows, end = 0, i
+        while j < len(starts) - 1:
+            rows += starts[j + 1] - max(i, starts[j])
+            end = starts[j + 1]
+            j += 1
+            if rows >= 2 * wb + 64:
+                break
+        return i, end, i < len(keys) and rows >= 2 * want + 64
+
+    def expired_in_plan(self, start: bytes, want: int, now: int) -> int:
+        """The planned rows expired at `now`: what the server adds to
+        abnormal_read_count for the scan."""
+        i, end, _capped = self.planned(start, want)
+        return sum(self.expired(k, now) for k in self.keys[i:end])
+
+    def page(self, start: bytes, want: int, filters, now: int = 0) -> list:
+        from pegasus_tpu_torch.base.key_schema import restore_key
+        from pegasus_tpu_torch.ops.predicates import host_match_filter
+
+        hft, hp, sft, sp = filters
+
+        def passes(key: bytes) -> bool:
+            if self.expired(key, now):
+                return False
+            if hft == 0 and sft == 0:
+                return True
+            hk, sk = restore_key(key)
+            return (host_match_filter(hk, hft, hp)
+                    and host_match_filter(sk, sft, sp))
+
+        keys = self.keys
+        i, end, capped = self.planned(start, want)
+        base = []
+        for idx in range(i, end):
+            if len(base) == want:
+                break
+            if passes(keys[idx]):
+                base.append(keys[idx])
+        over = []
+        frontier = keys[end - 1] + b"\x00" if capped else None
+        for idx in range(bisect.bisect_left(self.overlay, start),
+                         len(self.overlay)):
+            key = self.overlay[idx]
+            if len(over) == want or (frontier and key >= frontier):
+                break
+            if passes(key):
+                over.append(key)
+        return [(k, self.values[k]) for k in sorted(base + over)[:want]]
+
+
+def run_batched(device, n_records: int = BATCHED_RECORDS,
+                n_ops: int = BATCHED_OPS, seed: int = 11,
+                card: str = "") -> dict:
+    """Phase 5: one node's share of the YCSB-E table (NODE_PARTITIONS
+    partitions, each a PartitionServer on `device`) served through
+    scan_coordinator.scan_multi in flushes of SCAN_FLUSH scans, every
+    page checked against a BatchedOracle; then the steady state: after a
+    compaction and MaskPrefresher passes until nothing is left to warm,
+    a flush of unfiltered scans must find every mask cached and launch
+    nothing. Returns the kernel launches of the traffic by mode."""
+    import torch
+
+    from pegasus_tpu_torch.base.key_schema import (
+        generate_key,
+        key_hash_parts,
+        restore_key,
+    )
+    from pegasus_tpu_torch.base.value_schema import (
+        epoch_now,
+        expire_ts_from_ttl,
+    )
+    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops.predicates import FT_MATCH_POSTFIX
+    from pegasus_tpu_torch.server import page
+    from pegasus_tpu_torch.server.partition_server import PartitionServer
+    from pegasus_tpu_torch.server.scan_coordinator import (
+        MaskPrefresher,
+        scan_multi,
+    )
+    from pegasus_tpu_torch.server.types import (
+        SCAN_CONTEXT_ID_COMPLETED,
+        GetScannerRequest,
+        KeyValue,
+        MultiPutRequest,
+    )
+
+    rng = np.random.default_rng(seed)
+    parts = range(NODE_PARTITIONS)
+    per_part = n_records // NODE_PARTITIONS
+    n_hashkeys = max(1, per_part // 10)
+    reserve = n_ops // NODE_PARTITIONS + 64   # fresh hashkeys for inserts
+    counts = {p: n_hashkeys + reserve for p in parts}
+    # split leftovers: records of the partition p + 32 a split left in p
+    counts.update({p + PARTITION_COUNT // 2: LEFTOVERS for p in parts})
+    t0 = time.perf_counter()
+    hks = node_hashkeys(counts)
+    pools = {p: hks[p][n_hashkeys:] for p in parts}
+    hashkeys = {p: hks[p][:n_hashkeys] for p in parts}
+    log(f"batched: hashkeys of {NODE_PARTITIONS} partitions routed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    oracles = {p: BatchedOracle() for p in parts}
+    gc_pauses = GcPauses()
+    data_dir = tempfile.mkdtemp(prefix="pegasus_torch_batched_")
+    servers = []
+    try:
+        servers = [PartitionServer(os.path.join(data_dir, str(p)), pidx=p,
+                                   partition_count=PARTITION_COUNT,
+                                   device=device) for p in parts]
+        t0 = time.perf_counter()
+        written = expiring = 0
+        for p in parts:
+            for hk in hashkeys[p]:
+                hnum = int(hk[4:])
+                live, short = [], []
+                for s, sk in enumerate(SORT_KEYS):
+                    kv = KeyValue(sk, b"field0=%064d" % (hnum * 10 + s))
+                    (short if rng.random() < 0.10 else live).append(kv)
+                for kvs, ttl in ((live, 0), (short, 1)):
+                    if kvs and servers[p].on_multi_put(
+                            MultiPutRequest(hk, kvs, ttl),
+                            partition_hash=key_hash_parts(hk)) != 0:
+                        fail("multi_put refused")
+                for kv in live:
+                    oracles[p].values[generate_key(hk, kv.key)] = kv.value
+                written += len(live) + len(short)
+                expiring += len(short)
+        log(f"batched: loaded {written} records ({expiring} with a 1 s "
+            f"TTL) into {NODE_PARTITIONS} partitions in "
+            f"{time.perf_counter() - t0:.1f} s")
+        deadline = epoch_now() + 2   # every short TTL expired first
+        while epoch_now() < deadline:
+            time.sleep(0.1)
+        t0 = time.perf_counter()
+        for p in parts:
+            servers[p].manual_compact()
+            oracles[p].compacted(servers[p].engine.lsm.l1_runs)
+        n_blocks = sum(len(r.blocks) for s in servers
+                       for r in s.engine.lsm.l1_runs)
+        log(f"batched: flush + manual_compact of {NODE_PARTITIONS} "
+            f"partitions in {time.perf_counter() - t0:.1f} s -> "
+            f"{sum(len(o.keys) for o in oracles.values())} records in "
+            f"{n_blocks} SST blocks")
+        for p in parts:
+            for hk in hks[p + PARTITION_COUNT // 2]:
+                if servers[p].on_put(generate_key(hk, b"s00"),
+                                     b"stale") != 0:
+                    fail("split leftover refused")
+
+        # the stream, drawn up front (bench.py run_scans' shape)
+        weights = 1.0 / (1.0 + rng.permutation(NODE_PARTITIONS))
+        pidx_of = rng.choice(NODE_PARTITIONS, n_ops, p=weights / weights.sum())
+        ranks = zipf_ranks(rng, n_hashkeys, n_ops)
+        orders = {p: rng.permutation(n_hashkeys) for p in parts}
+        lens = rng.integers(1, 101, n_ops)
+        inserts = rng.random(n_ops) < 0.05
+        insert_pidx = rng.integers(0, NODE_PARTITIONS, n_ops)
+        filtered = rng.random(n_ops) < 0.15
+        patterns = rng.integers(0, len(POSTFIX_PATTERNS), n_ops)
+
+        timings: dict = {}
+        pending: dict = {}
+        flush_s, scan_s, flush_cpu = [], [], 0.0
+        stats = {"scans": 0, "flushes": 0, "inserts": 0, "records": 0,
+                 "full": 0, "insert_s": 0.0}
+        gc_lat = []
+
+        def check(resp, p, start, limit, f, now):
+            if resp.error != 0 or resp.context_id != SCAN_CONTEXT_ID_COMPLETED:
+                fail(f"batched scan: error {resp.error}, context "
+                     f"{resp.context_id}")
+            got = [(kv.key, kv.value) for kv in resp.kvs]
+            want = oracles[p].page(start, limit, f, now)
+            if got != want:
+                fail(f"batched scan of partition {p} from {start!r} limit "
+                     f"{limit} filters {f}: got {len(got)} records "
+                     f"{got[:3]}..., want {len(want)} {want[:3]}...")
+            stats["records"] += len(got)
+            stats["full"] += len(got) == limit
+
+        def flush_pending():
+            if not pending:
+                return
+            items = list(pending.items())
+            g = gc_pauses.count
+            now = epoch_now()
+            c, t = time.process_time(), time.perf_counter()
+            out = scan_multi([(servers[p], [r for r, *_ in lst])
+                              for p, lst in items], now, timings=timings)
+            seconds = time.perf_counter() - t
+            nonlocal flush_cpu
+            flush_cpu += time.process_time() - c
+            n = sum(len(lst) for _p, lst in items)
+            flush_s.append(seconds)
+            scan_s.extend([seconds] * n)
+            if gc_pauses.count != g:
+                gc_lat.append(seconds)
+            for (p, lst), resps in zip(items, out):
+                for (_r, start, limit, f), resp in zip(lst, resps):
+                    check(resp, p, start, limit, f, now)
+            stats["flushes"] += 1
+            stats["scans"] += n
+            pending.clear()
+
+        def request(start, limit, f):
+            return GetScannerRequest(
+                start_key=start, batch_size=limit,
+                validate_partition_hash=True, one_page=True,
+                hash_key_filter_type=f[0], hash_key_filter_pattern=f[1],
+                sort_key_filter_type=f[2], sort_key_filter_pattern=f[3])
+
+        fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+        page.SERVE_STATS.update(dict.fromkeys(page.SERVE_STATS, 0))
+        # what exists now (the oracles' million keys above all) is never
+        # garbage: out of the collector's sight, the pauses below are
+        # the ones the serving's own allocations cause
+        gc.collect()
+        gc.freeze()
+        gc_pauses.reset()
+        # the device's busy time over the traffic, from a CUDA trace
+        on_card = device.type == "cuda"
+        trace = device_trace() if on_card else contextlib.nullcontext()
+        t_traffic = time.perf_counter()
+        with trace as prof:
+            for op in range(n_ops):
+                if inserts[op]:
+                    flush_pending()  # writes serialize against pending scans
+                    p = int(insert_pidx[op])
+                    hk = pools[p].pop()
+                    t = time.perf_counter()
+                    if servers[p].on_put(generate_key(hk, b"s00"), b"inserted",
+                                         partition_hash=key_hash_parts(hk)):
+                        fail("insert refused")
+                    stats["insert_s"] += time.perf_counter() - t
+                    oracles[p].insert(generate_key(hk, b"s00"), b"inserted")
+                    stats["inserts"] += 1
+                    continue
+                p = int(pidx_of[op])
+                start = generate_key(hashkeys[p][orders[p][ranks[op]]], b"")
+                f = ((0, b"", FT_MATCH_POSTFIX, POSTFIX_PATTERNS[patterns[op]])
+                     if filtered[op] else (0, b"", 0, b""))
+                limit = int(lens[op])
+                pending.setdefault(p, []).append(
+                    (request(start, limit, f), start, limit, f))
+                if sum(len(v) for v in pending.values()) >= SCAN_FLUSH:
+                    flush_pending()
+            flush_pending()
+            if on_card:
+                torch.cuda.synchronize()
+        traffic_s = time.perf_counter() - t_traffic
+        launches = dict(fused_scan.LAUNCHES)
+        serve = dict(page.SERVE_STATS)
+        server_s = sum(flush_s) + stats["insert_s"]
+        log(f"batched on {card}: {stats['scans']} scans in "
+            f"{stats['flushes']} flushes, {stats['inserts']} inserts, "
+            f"{stats['records']} records, {stats['full']} full pages, every "
+            f"page equal to the oracle's; {stats['scans'] / server_s} scans/s "
+            f"over {server_s} s of server time; per flush "
+            f"{percentiles(flush_s)}; per scan {percentiles(scan_s)}; CPU "
+            f"{flush_cpu} s of {sum(flush_s)} s flush wall; gc "
+            f"{gc_pauses.count} pauses, {gc_pauses.total_s} s, longest "
+            f"{gc_pauses.longest_s} s, inside {len(gc_lat)} flushes taking "
+            f"{sum(gc_lat)} s")
+        log(f"batched: flush time by phase (s): {timings}")
+        if on_card:
+            busy_s, n_spans = device_busy_s(prof)
+            if not n_spans:
+                fail("the CUDA trace of the batched traffic holds no device "
+                     "work")
+            log(f"batched: device busy {busy_s} s in {n_spans} kernels, "
+                f"copies and memsets (torch.profiler CUDA trace, on while "
+                f"the traffic ran): {100 * busy_s / traffic_s}% of the "
+                f"traffic's {traffic_s} s wall (oracle checks included), "
+                f"{100 * busy_s / sum(flush_s)}% of the flush wall; the "
+                f"device is idle {100 * (1 - busy_s / traffic_s)}% of the "
+                f"traffic")
+        log(f"batched: launches {launches}; native serve_batch calls "
+            f"{serve['calls']}, requests served natively {serve['served']}, "
+            f"arena overflows {serve['overflow']}, re-served by numpy "
+            f"{serve['numpy']}")
+        if on_card and (launches["static"] == 0 or launches["multi"] == 0):
+            fail(f"the batched path must launch the static and the multi "
+                 f"kernel: {launches}")
+
+        # TTL records for the steady state: 1 in 50 L1 records of each
+        # partition rewritten with a TTL of STEADY_TTL_S, so that the
+        # compacted blocks carry expire_ts and prepare_serve's host TTL
+        # mask has rows to drop once a flush's `now` passes them
+        t0 = time.perf_counter()
+        ttl_from = epoch_now()
+        n_ttl = 0
+        for p in parts:
+            oracle = oracles[p]
+            for idx in np.flatnonzero(rng.random(len(oracle.keys)) < 0.02):
+                key = oracle.keys[idx]
+                if servers[p].on_put(
+                        key, oracle.values[key], ttl_seconds=STEADY_TTL_S,
+                        partition_hash=key_hash_parts(restore_key(key)[0])):
+                    fail("TTL rewrite refused")
+                # the server's expire_ts lies in [this, ttl_to]: the two
+                # flushes below read far from that span
+                oracle.expire[key] = expire_ts_from_ttl(STEADY_TTL_S,
+                                                        ttl_from)
+                n_ttl += 1
+        ttl_to = expire_ts_from_ttl(STEADY_TTL_S)
+        log(f"batched: {n_ttl} records rewritten with a {STEADY_TTL_S} s "
+            f"TTL in {time.perf_counter() - t0:.1f} s")
+
+        # steady state: compact, warm every mask, then nothing to launch
+        t0 = time.perf_counter()
+        for p in parts:
+            servers[p].manual_compact()
+            oracles[p].compacted(servers[p].engine.lsm.l1_runs)
+        compact_s = time.perf_counter() - t0
+        prefresher = MaskPrefresher(servers, horizon_s=3600.0)
+        passes, warmed = 0, []
+        t0 = time.perf_counter()
+        while True:
+            n = prefresher.refresh_once()
+            if not n:
+                break
+            warmed.append(n)
+            passes += 1
+            if passes > 100:
+                fail("MaskPrefresher did not run out of masks to warm")
+        log(f"batched: manual_compact in {compact_s:.1f} s; MaskPrefresher "
+            f"warmed {warmed} masks in {passes} passes, "
+            f"{time.perf_counter() - t0:.2f} s")
+        steady: dict = {}
+        for _ in range(SCAN_FLUSH):
+            p = int(rng.choice(NODE_PARTITIONS, p=weights / weights.sum()))
+            start = generate_key(
+                hashkeys[p][int(rng.integers(0, n_hashkeys))], b"")
+            limit = int(rng.integers(1, 101))
+            steady.setdefault(p, []).append(
+                (request(start, limit, (0, b"", 0, b"")), start, limit,
+                 (0, b"", 0, b"")))
+        items = list(steady.items())
+        now = epoch_now()
+        if now >= ttl_from + STEADY_TTL_S:
+            fail(f"the steady state began {now - ttl_from} s after the TTL "
+                 f"rewrite, past its {STEADY_TTL_S} s TTL")
+        # the same flush now and once every TTL record has expired: the
+        # host TTL mask changes with the second, the static masks do not,
+        # so neither flush may launch (a TTL needs no re-warm)
+        expired_by_flush = []
+        for when in (now, ttl_to + 1):
+            for p, lst in items:
+                state = servers[p].plan_scan_batch([r for r, *_ in lst],
+                                                   now=when)
+                if state is None or servers[p].planned_misses(state):
+                    fail(f"steady state at now {when}: partition {p} has "
+                         f"masks left to evaluate")
+            abnormal = sum(s.abnormal_read_count for s in servers)
+            fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+            out = scan_multi([(servers[p], [r for r, *_ in lst])
+                              for p, lst in items], when)
+            if on_card:
+                torch.cuda.synchronize()
+            for (p, lst), resps in zip(items, out):
+                for (_r, start, limit, f), resp in zip(lst, resps):
+                    check(resp, p, start, limit, f, when)
+            if any(fused_scan.LAUNCHES.values()):
+                fail(f"steady-state flush at now {when} launched kernels: "
+                     f"{fused_scan.LAUNCHES}")
+            expired = sum(s.abnormal_read_count for s in servers) - abnormal
+            want = sum(oracles[p].expired_in_plan(start, limit, when)
+                       for p, lst in items for _r, start, limit, _f in lst)
+            if expired != want:
+                fail(f"steady-state flush at now {when} counted {expired} "
+                     f"expired records, the oracle {want}")
+            expired_by_flush.append(expired)
+        if expired_by_flush[0] or not expired_by_flush[1]:
+            fail(f"the steady-state flushes met {expired_by_flush} expired "
+                 f"records: the TTL records must be alive in the first and "
+                 f"expired in the second")
+        log(f"batched: steady-state flush of {SCAN_FLUSH} unfiltered scans "
+            f"over {len(items)} partitions, at now and again once the TTL "
+            f"records expired, launched nothing ({fused_scan.LAUNCHES}); "
+            f"pages equal to the oracle's, expired records planned "
+            f"{expired_by_flush}")
+    finally:
+        gc.unfreeze()
+        for s in servers:
+            s.close()
+        gc_pauses.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return launches
+
+
 # ---- main --------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--records", type=int, default=FULL_RECORDS,
-                        help="records of partition 0 to load (a cut below "
+    parser.add_argument("--records", type=int, default=SLICE_RECORDS,
+                        help="records of partition 0 to load in phase 4 "
+                        f"(default {SLICE_RECORDS:,}; a cut below "
                         f"{FULL_RECORDS:,} is printed)")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
@@ -956,10 +1638,19 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # 2. build
-    build_s, build_log = fused_scan.build(force=True)
-    log(f"build: csrc/scan_predicate.cu -> sm_90a in {build_s:.2f} s")
-    print(build_log.strip(), file=sys.stderr, flush=True)
+    # 2. build: nvcc and g++ started together
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pegasus_tpu_torch import native
+
+    with ThreadPoolExecutor(2) as pool:
+        cuda_build = pool.submit(fused_scan.build, force=True)
+        native_build = pool.submit(native.build, force=True)
+        build_s, build_log = cuda_build.result()
+        native_s, native_log = native_build.result()
+    log(f"build: csrc/scan_predicate.cu -> sm_90a in {build_s:.2f} s; "
+        f"native/packer.cpp -> g++ -O3 in {native_s:.2f} s")
+    print((build_log + native_log).strip(), file=sys.stderr, flush=True)
 
     # 3. kernel vs plain, then times
     t0 = time.perf_counter()
@@ -985,6 +1676,20 @@ def main(argv=None) -> int:
         f"{win['names']})")
     if round(win["kernels"]) != 1 or round(win["copies"]) != 1:
         fail("a cold window must issue one kernel and one copy")
+    t0 = time.perf_counter()
+    cmp_multi = check_tables_multi(device)
+    log(f"flavour axis vs plain: {cmp_multi['compared']} tables "
+        f"bit-identical (max |diff| {cmp_multi['max_abs_err']}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    timings_multi = time_tables_multi(device)
+    for t in timings_multi:
+        log(f"scan_predicate_multi {t['shape']} on {card}: device time "
+            f"kernel {t['ms'] * 1e3} us, plain {t['plain_ms'] * 1e3} us "
+            f"(profiler); per call with the host kernel "
+            f"{t['call_ms'] * 1e3} us, plain {t['plain_call_ms'] * 1e3} us "
+            f"(CUDA events); bound {t['bound_ms'] * 1e3} us "
+            f"({t['bound_by']}), {100 * t['share']}% of it")
+    log(f"phase 3 in {time.perf_counter() - t_start:.1f} s since the start")
 
     # 4. the slice
     if args.records != FULL_RECORDS:
@@ -996,18 +1701,37 @@ def main(argv=None) -> int:
     log(f"slice: done in {time.perf_counter() - t0:.1f} s; kernel launches "
         f"static {launches['static']}, now {launches['now']}")
 
-    # 5. summary
-    log(f"chip_smoke: phases 1-4 in {time.perf_counter() - t_start:.1f} s")
+    # 5. the batched cross-partition scan path
+    t0 = time.perf_counter()
+    batched = run_batched(device, card=card)
+    torch.cuda.synchronize()
+    log(f"batched: done in {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches {batched}")
+
+    # summary
+    log(f"chip_smoke: phases 1-5 in {time.perf_counter() - t_start:.1f} s")
     t = timings[LARGE_SHAPE]
+    tm = timings_multi[MULTI_LARGE_SHAPE]
     log(json.dumps({"kernels": [{
         "name": "scan_predicate", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/pallas_scan.py:43",
-        "launches": launches["static"] + launches["now"],
+        "launches": (launches["static"] + launches["now"]
+                     + batched["static"]),
         "max_abs_err": cmp["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
-        "call_ms": t["call_ms"], "shape": t["shape"]}]}))
+        "call_ms": t["call_ms"], "shape": t["shape"],
+        "launches_by_path": {"slice": launches["static"] + launches["now"],
+                             "batched": batched["static"]}}, {
+        "name": "scan_predicate_multi", "route": "cuda",
+        "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
+        "replaces": "pegasus_tpu/ops/predicates.py:539",
+        "launches": batched["multi"],
+        "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
+        "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+        "bound_by": tm["bound_by"], "library_ms": None,
+        "call_ms": tm["call_ms"], "shape": tm["shape"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -65,6 +65,21 @@
 //   in global memory, read by every thread at the same address.
 // - Packing: __ballot_sync gathers a warp's 32 keep bits, and four lanes
 //   write the four bytes.
+//
+// The flavour axis (pegasus_scan_table_multi) carries the XLA program
+// _multi_static_block_predicate (ops/predicates.py:539): the static keep
+// masks of K filter flavours of one (hashkey, sortkey) filter-type pair
+// over one table, written as K rows of packed masks. The point of the
+// reference's one program for K flavours is kept: each key tile is read
+// from HBM and staged once, `valid & hash_ok` is computed once per record
+// (it does not depend on the flavour), and the K flavours are matched
+// against the staged tile in a loop, each writing its ballot-packed bytes
+// into its own row. Patterns and their lengths arrive in one device
+// buffer and are read by every thread at the same address (broadcast
+// through L1), so they take no shared memory beside the key tile. Bound:
+// memory as above plus K/8 B of output a record; with many flavours over
+// wide keys the match loop, K times the single-flavour work on the same
+// staged bytes, bounds it instead.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -200,16 +215,61 @@ __device__ bool match_region(const uint8_t* row, int k, int start, int len,
   return find_anywhere(row, k, start, len, f.pat, plen);
 }
 
+// The block of the table this thread block's tile lies in.
+__device__ __forceinline__ int tile_block(const BlockDesc* blocks,
+                                          int n_blocks) {
+  int bi = 0;
+  while (bi + 1 < n_blocks &&
+         static_cast<int>(blockIdx.x) >= blocks[bi + 1].first_tile) {
+    ++bi;
+  }
+  return bi;
+}
+
+// Stage the tile's n key rows (one contiguous range of n x k bytes) into
+// shared memory at a row stride of k + 4, with 16-byte loads, neighbouring
+// threads on neighbouring addresses; then wait for the whole block.
+__device__ __forceinline__ void stage_keys(const uint8_t* keys, int base,
+                                           int n, int k, int k_shift,
+                                           uint8_t* tile_keys) {
+  const int stride = k + 4;
+  const uint4* src = reinterpret_cast<const uint4*>(
+      keys + (static_cast<size_t>(base) << k_shift));
+  const int chunks = (n << k_shift) >> 4;
+  for (int c = threadIdx.x; c < chunks; c += kTile) {
+    const uint4 v = __ldcs(src + c);
+    const int byte = c << 4;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(
+        tile_keys + (byte >> k_shift) * stride + (byte & (k - 1)));
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+  __syncthreads();
+}
+
+// Write a warp's ballot of keep bits as packbits bytes of the block's
+// mask at `out` (the mask's first byte): lane i's bit is bit i of
+// `bits`, and packbits wants record 8j + m at bit 7 - m of byte j, so
+// the bits are reversed, then byte-swapped; four lanes write four bytes.
+__device__ __forceinline__ void write_packed(unsigned bits, int first,
+                                             int count, uint8_t* out) {
+  if (first < count) {
+    const int lane = threadIdx.x & 31;
+    const int nbytes = min(4, (count - first + 7) >> 3);
+    const uint32_t packed = __byte_perm(__brev(bits), 0, 0x0123);
+    if (lane < nbytes) {
+      out[(first >> 3) + lane] = static_cast<uint8_t>(packed >> (8 * lane));
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kTile)
     scan_table_kernel(const __grid_constant__ Table t,
                       uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t tile_keys[];
-  int bi = 0;
-  while (bi + 1 < t.n_blocks &&
-         static_cast<int>(blockIdx.x) >= t.blocks[bi + 1].first_tile) {
-    ++bi;
-  }
-  const BlockDesc& d = t.blocks[bi];
+  const BlockDesc& d = t.blocks[tile_block(t.blocks, t.n_blocks)];
   const int base = (static_cast<int>(blockIdx.x) - d.first_tile) * kTile;
   const int n = min(kTile, d.count - base);
   const int r = threadIdx.x;
@@ -233,22 +293,7 @@ __global__ void __launch_bounds__(kTile)
 
   const bool staged = need_keys && k <= kMaxStagedWidth;
   const int stride = k + 4;
-  if (staged) {
-    const uint4* src = reinterpret_cast<const uint4*>(
-        d.keys + (static_cast<size_t>(base) << t.k_shift));
-    const int chunks = (n << t.k_shift) >> 4;
-    for (int c = r; c < chunks; c += kTile) {
-      const uint4 v = __ldcs(src + c);
-      const int byte = c << 4;
-      uint32_t* dst = reinterpret_cast<uint32_t*>(
-          tile_keys + (byte >> t.k_shift) * stride + (byte & (k - 1)));
-      dst[0] = v.x;
-      dst[1] = v.y;
-      dst[2] = v.z;
-      dst[3] = v.w;
-    }
-    __syncthreads();
-  }
+  if (staged) stage_keys(d.keys, base, n, k, t.k_shift, tile_keys);
 
   uint8_t status = kPad;
   if (live && valid) {
@@ -274,17 +319,79 @@ __global__ void __launch_bounds__(kTile)
     return;
   }
   const unsigned bits = __ballot_sync(0xFFFFFFFFu, status == kKeep);
-  const int first = base + (r & ~31);  // the warp's first record
-  if (first < d.count) {
-    const int lane = r & 31;
-    const int nbytes = min(4, (d.count - first + 7) >> 3);
-    // lane i's bit is bit i of `bits`; packbits wants record 8j + m at
-    // bit 7 - m of byte j: bit-reverse, then byte-swap
-    const uint32_t packed = __byte_perm(__brev(bits), 0, 0x0123);
-    if (lane < nbytes) {
-      out[d.out_offset + (first >> 3) + lane] =
-          static_cast<uint8_t>(packed >> (8 * lane));
+  // base + (r & ~31): the warp's first record
+  write_packed(bits, base + (r & ~31), d.count, out + d.out_offset);
+}
+
+// The flavour axis: K filter flavours sharing one (hash, sort) filter
+// type pair, patterns at hpats + f * hpitch and spats + f * spitch, their
+// lengths at plens[f] (hashkey) and plens[n_flavors + f] (sortkey).
+struct MultiTable {
+  BlockDesc blocks[kMaxBlocks];
+  const uint8_t* hpats;
+  const uint8_t* spats;
+  const int32_t* plens;
+  int64_t row_bytes;  // one flavour's packed masks, block after block
+  int32_t hpitch;
+  int32_t spitch;
+  int32_t hft;
+  int32_t sft;
+  int32_t n_flavors;
+  uint32_t pv;
+  int32_t n_blocks;
+  int32_t k;
+  int32_t k_shift;
+  int32_t validate;
+  int32_t need_hash;  // some flavour has a hashkey pattern
+  int32_t need_sort;  // some flavour has a sortkey pattern
+};
+static_assert(sizeof(MultiTable) <= 4096, "kernel parameter limit");
+
+__global__ void __launch_bounds__(kTile)
+    scan_table_multi_kernel(const __grid_constant__ MultiTable t,
+                            uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t tile_keys[];
+  const BlockDesc& d = t.blocks[tile_block(t.blocks, t.n_blocks)];
+  const int base = (static_cast<int>(blockIdx.x) - d.first_tile) * kTile;
+  const int n = min(kTile, d.count - base);
+  const int r = threadIdx.x;
+  const bool live = r < n;
+  const int b = base + r;
+  const int k = t.k;
+  const bool need_keys = t.need_hash || t.need_sort;
+
+  const uint8_t valid = live ? d.valid[b] : 0;
+  const uint32_t hlo = live && t.validate ? d.hash_lo[b] : 0;
+  const uint32_t owner = d.pidx_col == nullptr
+                             ? d.pidx
+                             : (live && t.validate ? d.pidx_col[b] : 0);
+  const int hkl = live && need_keys ? d.hashkey_len[b] : 0;
+  const int klen = live && t.need_sort ? d.key_len[b] : 0;
+
+  const bool staged = need_keys && k <= kMaxStagedWidth;
+  if (staged) stage_keys(d.keys, base, n, k, t.k_shift, tile_keys);
+  const uint8_t* row =
+      staged ? tile_keys + r * (k + 4)
+             : d.keys + (static_cast<size_t>(live ? b : 0) << t.k_shift);
+
+  // flavour-independent: padding, invalid rows and foreign records fail
+  // every flavour
+  const bool base_ok =
+      live && valid && (!t.validate || (hlo & t.pv) == owner);
+  const int first = base + (r & ~31);
+  for (int f = 0; f < t.n_flavors; ++f) {
+    bool ok = base_ok;
+    if (ok && need_keys) {
+      const Filter hf{t.hpats + static_cast<size_t>(f) * t.hpitch,
+                      __ldg(t.plens + f), t.hft};
+      const Filter sf{t.spats + static_cast<size_t>(f) * t.spitch,
+                      __ldg(t.plens + t.n_flavors + f), t.sft};
+      ok = match_region(row, k, 2, hkl, hf) &&
+           match_region(row, k, 2 + hkl, klen - 2 - hkl, sf);
     }
+    const unsigned bits = __ballot_sync(0xFFFFFFFFu, ok);
+    write_packed(bits, first, d.count,
+                 out + f * t.row_bytes + d.out_offset);
   }
 }
 
@@ -338,5 +445,66 @@ extern "C" int pegasus_scan_table(const BlockDesc* blocks, int n_blocks,
   }
   scan_table_kernel<<<tiles, kTile, smem,
                       static_cast<cudaStream_t>(stream)>>>(t, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the flavour axis over `n_blocks` (1..16) block descriptors on
+// `stream`: one kernel, `n_flavors` rows of `row_bytes` packed static keep
+// bytes in `out`, each block's mask at its out_offset within every row.
+// hpats/spats hold n_flavors patterns at a pitch of hpitch/spitch bytes
+// (multiples of 4, zero-padded), plens their 2 * n_flavors lengths
+// (hashkey, then sortkey; 0 for FT_NO_FILTER). All flavours share the
+// filter types hft/sft. Returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a table the kernel does not take.
+extern "C" int pegasus_scan_table_multi(
+    const BlockDesc* blocks, int n_blocks, int k, uint32_t pv, int validate,
+    int hft, const uint8_t* hpats, int hpitch, int sft,
+    const uint8_t* spats, int spitch, const int32_t* plens, int n_flavors,
+    int need_hash, int need_sort, int64_t row_bytes, uint8_t* out,
+    void* stream) {
+  if (n_blocks < 1 || n_blocks > kMaxBlocks || k < 32 || (k & (k - 1)) ||
+      n_flavors < 1 || hpitch < 4 || (hpitch & 3) || spitch < 4 ||
+      (spitch & 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  MultiTable t{};
+  int tiles = 0;
+  for (int i = 0; i < n_blocks; ++i) {
+    if (blocks[i].count < 0) return static_cast<int>(cudaErrorInvalidValue);
+    t.blocks[i] = blocks[i];
+    t.blocks[i].first_tile = tiles;
+    tiles += (blocks[i].count + kTile - 1) / kTile;
+  }
+  if (tiles == 0) return 0;
+  t.hpats = hpats;
+  t.spats = spats;
+  t.plens = plens;
+  t.row_bytes = row_bytes;
+  t.hpitch = hpitch;
+  t.spitch = spitch;
+  t.hft = hft;
+  t.sft = sft;
+  t.n_flavors = n_flavors;
+  t.pv = pv;
+  t.n_blocks = n_blocks;
+  t.k = k;
+  t.k_shift = __builtin_ctz(static_cast<unsigned>(k));
+  t.validate = validate;
+  t.need_hash = need_hash;
+  t.need_sort = need_sort;
+  const bool staged = (need_hash || need_sort) && k <= kMaxStagedWidth;
+  const size_t smem = staged ? static_cast<size_t>(kTile) * (k + 4) : 0;
+  if (smem > 48 * 1024) {
+    static bool raised = false;
+    if (!raised) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          scan_table_multi_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      raised = true;
+    }
+  }
+  scan_table_multi_kernel<<<tiles, kTile, smem,
+                            static_cast<cudaStream_t>(stream)>>>(t, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,10 @@ without `now` it gives the static keep mask, bit-packed as `pack_mask`
 packs it. Both serving predicates (ops/predicates.static_block_predicate
 and scan_block_predicate), the stacked evaluation of the columnar path
 (server/scan_coordinator.py) and the Pallas contract `fused_scan_block`
-read their masks from it.
+read their masks from it. `scan_table_multi` is the kernel's flavour
+axis: the static keep masks of K filter flavours over one table in one
+launch, one row of packed masks per flavour
+(ops/predicates.multi_static_block_predicate_submit).
 
 On CUDA blocks it launches the hand-written kernel in
 csrc/scan_predicate.cu, built with nvcc for sm_90a at first use into
@@ -21,6 +24,7 @@ kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import struct
@@ -29,6 +33,7 @@ import threading
 import time
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from pegasus_tpu_torch.ops.predicates import (
@@ -53,9 +58,10 @@ STATUS_FILTERED = 4
 # blocks one launch takes (kMaxBlocks in csrc/scan_predicate.cu)
 MAX_TABLE_BLOCKS = 16
 
-# kernel launches by mode: "static" (no `now`) and "now"; a launch made by
-# the wrapper adds one here, nothing else does
-LAUNCHES = {"static": 0, "now": 0}
+# kernel launches by mode: "static" (no `now`), "now", and "multi" (the
+# flavour axis); a launch made by the wrapper adds one here, nothing else
+# does
+LAUNCHES = {"static": 0, "now": 0, "multi": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "scan_predicate.cu")
@@ -120,6 +126,11 @@ def _library():
             fn.argtypes = [ctypes.c_char_p, i32, i32, u32_, i32, i32, p,
                            i32, i32, p, i32, i32, u32_, p, p]
             fn.restype = ctypes.c_int
+            fn = lib.pegasus_scan_table_multi
+            fn.argtypes = [ctypes.c_char_p, i32, i32, u32_, i32, i32, p,
+                           i32, i32, p, i32, p, i32, i32, i32,
+                           ctypes.c_int64, p, p]
+            fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -158,10 +169,11 @@ def _check_block(block: RecordBlock, dev: torch.device, k: int) -> int:
     return b
 
 
-def _launch_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
-                  hash_filter: FilterSpec, sort_filter: FilterSpec,
-                  validate_hash: bool, partition_version: int,
-                  now: Optional[int]) -> torch.Tensor:
+def _descriptors(blocks: Sequence[RecordBlock], pidxs: Sequence,
+                 packed: bool) -> Tuple[bytes, int, int]:
+    """(the table's packed BlockDesc array, key width, output bytes): each
+    block's output takes `count` bytes, or ceil(count / 8) when
+    `packed`."""
     if not 1 <= len(blocks) <= MAX_TABLE_BLOCKS:
         raise ValueError(f"a table holds 1..{MAX_TABLE_BLOCKS} blocks, "
                          f"got {len(blocks)}")
@@ -171,8 +183,6 @@ def _launch_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
     k = blocks[0].key_width
     if k < 32 or k & (k - 1):
         raise ValueError(f"key width {k} is not a power of two >= 32")
-    _check_filter(hash_filter, dev)
-    _check_filter(sort_filter, dev)
     descs = []
     offset = 0
     for block, pidx in zip(blocks, pidxs):
@@ -187,13 +197,24 @@ def _launch_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
             col, scalar = 0, int(pidx) & 0xFFFFFFFF
         descs.append(_DESC.pack(*(t.data_ptr() for t in block), col, scalar,
                                 b, offset, 0, 0))
-        offset += b if now is not None else -(-b // 8)
+        offset += -(-b // 8) if packed else b
+    return b"".join(descs), k, offset
+
+
+def _launch_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
+                  hash_filter: FilterSpec, sort_filter: FilterSpec,
+                  validate_hash: bool, partition_version: int,
+                  now: Optional[int]) -> torch.Tensor:
+    dev = blocks[0].device
+    descs, k, offset = _descriptors(blocks, pidxs, packed=now is None)
+    _check_filter(hash_filter, dev)
+    _check_filter(sort_filter, dev)
     out = torch.empty(offset, dtype=torch.uint8, device=dev)
     if offset == 0:
         # nothing to launch, so nothing to count
         return out
     err = _library().pegasus_scan_table(
-        b"".join(descs), len(blocks), k, partition_version & 0xFFFFFFFF,
+        descs, len(blocks), k, partition_version & 0xFFFFFFFF,
         int(validate_hash), hash_filter.filter_type,
         hash_filter.pattern.data_ptr(), _pattern_len(hash_filter),
         sort_filter.filter_type, sort_filter.pattern.data_ptr(),
@@ -281,6 +302,136 @@ def scan_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
         raise ValueError(f"no scan predicate for device {dev}")
     return scan_table_plain(blocks, pidxs, hash_filter, sort_filter,
                             validate_hash, partition_version, now)
+
+
+def _flavor_types(flavors: Sequence[Tuple[FilterSpec, FilterSpec]]
+                  ) -> Tuple[int, int]:
+    """The (hashkey, sortkey) filter types the flavours share."""
+    if not flavors:
+        raise ValueError("no filter flavours")
+    types = {(hf.filter_type, sf.filter_type) for hf, sf in flavors}
+    if len(types) != 1:
+        raise ValueError(f"one launch takes one filter type pair, got "
+                         f"{sorted(types)}")
+    hft, sft = types.pop()
+    for ft in (hft, sft):
+        if ft not in (FT_NO_FILTER, FT_MATCH_ANYWHERE, FT_MATCH_PREFIX,
+                      FT_MATCH_POSTFIX):
+            raise ValueError(f"unknown filter type {ft}")
+    return hft, sft
+
+
+@functools.lru_cache(maxsize=256)
+def _pattern_buffer(device: torch.device, raws: Tuple[Tuple[bytes, bytes]],
+                    hash_on: bool, sort_on: bool):
+    """(device buffer, hpitch, spitch, need_hash, need_sort) of K flavours'
+    patterns, as pegasus_scan_table_multi reads them: the hashkey patterns
+    at a pitch of hpitch bytes, then the sortkey patterns at spitch (each
+    a multiple of 4, zero-padded), then int32 lengths, K hashkey and K
+    sortkey (0 under FT_NO_FILTER). One host-to-device copy; cached,
+    since a flush re-sends the flavours of the last one."""
+    k = len(raws)
+    hlens = np.array([len(h) if hash_on else 0 for h, _s in raws],
+                     dtype=np.int32)
+    slens = np.array([len(s) if sort_on else 0 for _h, s in raws],
+                     dtype=np.int32)
+    hpitch = max(4, -(-int(hlens.max()) // 4) * 4)
+    spitch = max(4, -(-int(slens.max()) // 4) * 4)
+    buf = np.zeros(k * (hpitch + spitch) + 8 * k, dtype=np.uint8)
+    for f, (h, s) in enumerate(raws):
+        buf[f * hpitch:f * hpitch + hlens[f]] = np.frombuffer(
+            h[:hlens[f]], dtype=np.uint8)
+        so = k * hpitch + f * spitch
+        buf[so:so + slens[f]] = np.frombuffer(s[:slens[f]], dtype=np.uint8)
+    buf[k * (hpitch + spitch):] = np.concatenate([hlens, slens]).view(
+        np.uint8)
+    return (torch.from_numpy(buf).to(device), hpitch, spitch,
+            int(hlens.any()), int(slens.any()))
+
+
+def _launch_table_multi(blocks: Sequence[RecordBlock], pidxs: Sequence,
+                        flavors, validate_hash: bool,
+                        partition_version: int) -> torch.Tensor:
+    dev = blocks[0].device
+    hft, sft = _flavor_types(flavors)
+    descs, k, row_bytes = _descriptors(blocks, pidxs, packed=True)
+    n_flavors = len(flavors)
+    out = torch.empty((n_flavors, row_bytes), dtype=torch.uint8, device=dev)
+    if row_bytes == 0:
+        return out
+    buf, hpitch, spitch, need_hash, need_sort = _pattern_buffer(
+        dev, tuple((hf.raw, sf.raw) for hf, sf in flavors),
+        hft != FT_NO_FILTER, sft != FT_NO_FILTER)
+    base = buf.data_ptr()
+    err = _library().pegasus_scan_table_multi(
+        descs, len(blocks), k, partition_version & 0xFFFFFFFF,
+        int(validate_hash), hft, base, hpitch, sft,
+        base + n_flavors * hpitch, spitch,
+        base + n_flavors * (hpitch + spitch), n_flavors, need_hash,
+        need_sort, row_bytes, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"scan_predicate multi launch failed: cuda error "
+                           f"{err}")
+    LAUNCHES["multi"] += 1
+    return out
+
+
+def scan_table_multi_plain(blocks: Sequence[RecordBlock], pidxs: Sequence,
+                           flavors, validate_hash: bool,
+                           partition_version: int) -> torch.Tensor:
+    """Plain torch version of the flavour axis, on any device: uint8[K,
+    Σ ceil(count / 8)], row k holding flavour k's packed static keep
+    masks block after block. `valid & hash_ok` is computed once a block,
+    as the kernel does."""
+    _flavor_types(flavors)
+    dev = blocks[0].device
+    rows = [[] for _ in flavors]
+    for block, pidx in zip(blocks, pidxs):
+        base = block.valid
+        if validate_hash:
+            owner = (u32(pidx) if isinstance(pidx, torch.Tensor)
+                     else int(pidx) & 0xFFFFFFFF)
+            base = base & ((u32(block.hash_lo)
+                            & (partition_version & 0xFFFFFFFF)) == owner)
+        two = torch.full_like(block.key_len, 2)
+        sort_start = 2 + block.hashkey_len
+        for row, (hf, sf) in zip(rows, flavors):
+            keep = (base
+                    & match_filter(block.keys, two, block.hashkey_len,
+                                   hf.pattern, _pattern_len(hf),
+                                   hf.filter_type)
+                    & match_filter(block.keys, sort_start,
+                                   block.key_len - sort_start, sf.pattern,
+                                   _pattern_len(sf), sf.filter_type))
+            row.append(pack_mask(keep))
+    if not blocks:
+        return torch.empty((len(flavors), 0), dtype=torch.uint8, device=dev)
+    return torch.stack([torch.cat(row) for row in rows])
+
+
+def scan_table_multi(blocks: Sequence[RecordBlock], pidxs: Sequence,
+                     flavors, validate_hash: bool,
+                     partition_version: int) -> torch.Tensor:
+    """The flavour axis: uint8[K, Σ ceil(count / 8)] on the blocks'
+    device for K `flavors` [(hash FilterSpec, sort FilterSpec)] sharing
+    one filter type pair; row k holds flavour k's packed static keep
+    masks, block after block, each block's mask starting on its own byte.
+    `pidxs` holds one int or int32[B] column per block. One kernel launch
+    on CUDA, the plain version on the CPU; no split gate (the callers
+    apply it)."""
+    if not blocks:
+        raise ValueError("empty table")
+    dev = blocks[0].device
+    if any(b.device != dev for b in blocks):
+        raise ValueError("a table's blocks share one device")
+    if dev.type == "cuda":
+        return _launch_table_multi(blocks, pidxs, flavors, validate_hash,
+                                   partition_version)
+    if dev.type != "cpu":
+        raise ValueError(f"no scan predicate for device {dev}")
+    return scan_table_multi_plain(blocks, pidxs, flavors, validate_hash,
+                                  partition_version)
 
 
 def fused_scan_block(block: RecordBlock, now: int,

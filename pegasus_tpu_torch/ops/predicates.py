@@ -11,9 +11,11 @@ Parity with the reference's per-record scalar loop:
 
 The two block predicates (`static_block_predicate`, without `now`, and
 `scan_block_predicate`, with it) evaluate through the table function of
-ops/fused_scan.py (`scan_table`, here a table of one block): on a CUDA
-block it launches the hand-written kernel, on a CPU block it runs the
-plain torch version built from `match_filter` and `ttl_expired` below.
+ops/fused_scan.py (`scan_table`, here a table of one block), and the
+multi-flavour one (`multi_static_block_predicate_submit`) through its
+flavour axis (`scan_table_multi`): on a CUDA block they launch the
+hand-written kernel, on a CPU block they run the plain torch version
+built from `match_filter` and `ttl_expired` below.
 """
 
 from __future__ import annotations
@@ -216,6 +218,42 @@ def scan_block_predicate(block: RecordBlock, now: int,
                         partition_version, now=now)
     return ScanMasks(status == STATUS_KEEP, status == STATUS_EXPIRED,
                      status == STATUS_HASH_INVALID, status == STATUS_FILTERED)
+
+
+def multi_static_block_predicate_submit(block, filters, validate_hash: bool,
+                                        pidx, partition_version: int
+                                        ) -> torch.Tensor:
+    """K filter flavours' static keep masks in one launch, without
+    waiting: uint8[K, bytes] packed masks on the blocks' device, one
+    flavour a row (predicates.py:586 of the JAX package).
+
+    `block` is one RecordBlock with `pidx` an int or an int32 column, or
+    a table: a list of up to MAX_TABLE_BLOCKS blocks with `pidx` a list
+    of one int or column per block, each block's mask starting on its own
+    byte of every row. `filters`: [(hash FilterSpec, sort FilterSpec)],
+    all of one filter type pair (callers group by exactly that). A lone
+    block with a scalar pidx keeps the reject-all split gate of
+    static_block_predicate, and then launches nothing; a table carries
+    per-block pidx and no gate, as the JAX stack carries a pidx column."""
+    from pegasus_tpu_torch.ops.fused_scan import scan_table_multi
+
+    if isinstance(block, RecordBlock):
+        if split_gate(validate_hash, pidx, partition_version):
+            return torch.zeros((len(filters), -(-block.capacity // 8)),
+                               dtype=torch.uint8, device=block.device)
+        block, pidx = [block], [pidx]
+    return scan_table_multi(block, pidx, filters, validate_hash,
+                            partition_version)
+
+
+def multi_static_block_predicate(block: RecordBlock, filters,
+                                 validate_hash: bool, pidx,
+                                 partition_version: int) -> np.ndarray:
+    """Synchronous form of multi_static_block_predicate_submit for one
+    block: bool[K, capacity] host masks."""
+    packed = multi_static_block_predicate_submit(
+        block, filters, validate_hash, pidx, partition_version)
+    return unpack_masks(packed, block.capacity)
 
 
 def host_alive_mask(expire_ts: np.ndarray, now: int) -> np.ndarray:

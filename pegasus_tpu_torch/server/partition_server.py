@@ -7,9 +7,17 @@ flush and manual_compact.
 Ranged reads gather candidates into columnar blocks and evaluate filter,
 TTL and partition-hash predicates for a whole block at once, where the
 reference validates records one by one (on_multi_get:496, hot loop :643;
-validate_key_value_for_scan:2382). Two modes reach the scan-predicate
+validate_key_value_for_scan:2382). Three modes reach the scan-predicate
 kernel (ops/fused_scan.py) on the server's device:
 
+- batched: a batch of scans (on_get_scanner_batch, or many partitions'
+  batches through scan_coordinator.scan_multi) is planned once per
+  cached range (plan_scan_batch), each unique planned block's static
+  mask is evaluated once in its lifetime (planned_misses), the host TTL
+  mask is applied per block and second (prepare_serve), the pages are
+  packed by one native call per flush (server/page.serve_batch) and a
+  light write overlay merges host-side (finish_scan_batch); a batch the
+  fast path does not take is served request by request, in one of:
 - columnar: a fully compacted store (pure L1, no overlay) streams SST
   blocks through the cached static mask (filters + ownership, no `now`),
   evaluated once per block lifetime, one launch per window over the
@@ -23,13 +31,16 @@ Standalone mode assigns decrees locally.
 
 from __future__ import annotations
 
+import bisect
 import threading
+import time
 from collections import OrderedDict
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from pegasus_tpu_torch.base.key_schema import (
+    check_key_hash,
     generate_key,
     generate_next_bytes,
     restore_key,
@@ -39,11 +50,17 @@ from pegasus_tpu_torch.base.value_schema import (
     epoch_now,
     expire_ts_from_ttl,
     extract_user_data,
+    header_length,
 )
 from pegasus_tpu_torch.ops.fused_scan import STATUS_KEEP, scan_table
 from pegasus_tpu_torch.ops.predicates import (
+    FT_MATCH_ANYWHERE,
+    FT_MATCH_POSTFIX,
+    FT_MATCH_PREFIX,
+    FT_NO_FILTER,
     FilterSpec,
     host_alive_mask,
+    host_match_filter,
     split_gate,
 )
 from pegasus_tpu_torch.ops.record_block import (
@@ -55,6 +72,7 @@ from pegasus_tpu_torch.server.scan_context import (
     ScanContext,
     ScanContextCache,
 )
+from pegasus_tpu_torch.server import page
 from pegasus_tpu_torch.server.scan_coordinator import stacked_block_eval
 from pegasus_tpu_torch.server.types import (
     KeyValue,
@@ -68,6 +86,7 @@ from pegasus_tpu_torch.server.types import (
 )
 from pegasus_tpu_torch.server.write_service import WriteService
 from pegasus_tpu_torch.storage.engine import StorageEngine
+from pegasus_tpu_torch.storage.memtable import TOMBSTONE
 from pegasus_tpu_torch.storage.sstable import BLOCK_CAPACITY
 from pegasus_tpu_torch.utils.device import resolve_device
 from pegasus_tpu_torch.utils.errors import ErrorCode, StorageStatus
@@ -82,6 +101,28 @@ SCAN_BYTES_CAP = 64 << 20
 # SST blocks a columnar scan gathers before evaluating the window's
 # missing masks in one stacked launch
 LOOKAHEAD = 8
+
+
+# the no-filter flavour's mask key component (and the normal form of any
+# empty-pattern filter, which matches everything)
+_NO_FILTER_KEY = (FT_NO_FILTER, b"", FT_NO_FILTER, b"")
+
+_KNOWN_FILTERS = (FT_NO_FILTER, FT_MATCH_ANYWHERE, FT_MATCH_PREFIX,
+                  FT_MATCH_POSTFIX)
+
+
+def _normalize_filter_key(r) -> tuple:
+    """(hash type, hash pattern, sort type, sort pattern), with
+    empty-pattern components collapsed to FT_NO_FILTER and patterns
+    under FT_NO_FILTER dropped: the matchers treat both as match-all, so
+    distinct keys would only split batches and duplicate masks."""
+    hft, hfp = r.hash_key_filter_type, r.hash_key_filter_pattern
+    sft, sfp = r.sort_key_filter_type, r.sort_key_filter_pattern
+    if hft == FT_NO_FILTER or not hfp:
+        hft, hfp = FT_NO_FILTER, b""
+    if sft == FT_NO_FILTER or not sfp:
+        sft, sfp = FT_NO_FILTER, b""
+    return (hft, hfp, sft, sfp)
 
 
 def _after(key: bytes) -> bytes:
@@ -122,11 +163,42 @@ class PartitionServer:
         # `now`-free, so a block is evaluated once in its lifetime
         self._mask_cache: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
         self._mask_cache_cap = 4096
+        # mask and device-block caches are shared with the MaskPrefresher
         self._mask_lock = threading.Lock()
+        # (store, generation, {(start, stop, want bucket) -> (plan,
+        # unique entries, geometry, native table, frontier)}): batched
+        # scan plans, one dict per run set, replaced wholesale when the
+        # generation moves (see plan_scan_batch)
+        self._plan_cache = None
+        # (ckey, static-mask id) -> (second, static, alive, expired count,
+        # live, live pointer): per-second TTL-applied serving masks (see
+        # prepare_serve)
+        self._live_cache: dict = {}
+        # ((generation, second), {plan id -> (plan, expired count)}):
+        # per-request expired accounting, reset each second and run set
+        # (see finish_scan_batch)
+        self._plan_expired_cache: tuple = (None, {})
+        # expired records the batched path met and did not serve (the
+        # reference's abnormal_read_count); the per-request path does not
+        # count yet
+        self.abnormal_read_count = 0
+        # scan flavours (validate, filter_key) seen recently: after a
+        # flush or compaction replaces the SSTs, the MaskPrefresher
+        # evaluates the new blocks for these flavours in the background
+        self._warm_flavors: "OrderedDict[tuple, float]" = OrderedDict()
+        self._warm_flavors_cap = 64
+        # filter flavours seen recently: filter_key -> last wall time. A
+        # filtered flavour joins the warm set on its second occurrence
+        # within the window: one-shot patterns must not multiply
+        # background device work
+        self._filter_seen: "OrderedDict[tuple, float]" = OrderedDict()
+        self._filter_seen_cap = 256
+        self._filter_seen_window = 30.0
         self.engine.lsm.on_publish = self._on_store_publish
 
     def _on_store_publish(self, live_paths: set) -> None:
-        """Compaction publish: drop cache entries of runs that left."""
+        """Compaction publish: drop cache entries of runs that left. Warm
+        flavours survive: the prefresher evaluates the new blocks."""
         with self._mask_lock:
             for mkey in [k for k in self._mask_cache
                          if k[0][0] not in live_paths]:
@@ -134,6 +206,11 @@ class PartitionServer:
             for ckey in [k for k in self._device_block_cache
                          if k[0] not in live_paths]:
                 del self._device_block_cache[ckey]
+        # per-second and per-generation caches: rebound wholesale (cheap
+        # to rebuild, and safe against a concurrent reader)
+        self._live_cache = {}
+        self._plan_cache = None
+        self._plan_expired_cache = (None, {})
 
     def close(self) -> None:
         self.engine.close()
@@ -484,6 +561,542 @@ class PartitionServer:
                 stop_key=stop_key))
         return resp
 
+    # ---- batched multi-scan: many scans share one predicate pass -----
+
+    # overlay rows tolerated on the batched path before a batch falls
+    # back to per-request (merged) serving
+    OVERLAY_MERGE_LIMIT = 4096
+    # blocks one warm pass loads per partition (bounds the IO)
+    WARM_BATCH_LIMIT = 256
+
+    def on_get_scanner_batch(self, reqs: List[GetScannerRequest]
+                             ) -> List[ScanResponse]:
+        """Serve a batch of scans with per-block dedup.
+
+        The fast path takes a columnar store (a light write overlay
+        merges host-side) and one flavour across the batch: one effective
+        validate flag, one key filter, no count-only request and no
+        pushdown. Each unique block the batch touches gets one static
+        mask evaluation in its lifetime; per-request boundary trimming
+        happens on the host against the cached mask. Anything else is
+        served request by request (partition_server.py:2480 of the JAX
+        package)."""
+        state = self.plan_scan_batch(reqs)
+        if state is None:
+            return [self.on_get_scanner(r) for r in reqs]
+        keep_masks = self.eval_planned_masks(state)
+        return self.finish_scan_batch(state, keep_masks)
+
+    def plan_scan_batch(self, reqs: List[GetScannerRequest],
+                        now: Optional[int] = None, flavor=None):
+        """Phase 1: qualify the batch and plan each request's blocks.
+        None: the caller serves per request. `flavor` is the (validate,
+        filter_key) the caller already grouped by (scan_coordinator), which
+        skips the per-request re-derivation."""
+        lsm = self.engine.lsm
+        # the generation is read before the run set and checked again
+        # after planning: a batch planned across a compaction publish
+        # could pair the old runs with the new (empty) overlay, so such a
+        # batch is served per request (memtable before runs)
+        gen = lsm.generation
+        runs = lsm.l1_runs
+        # a light write overlay (memtable + small L0s) does not evict the
+        # partition from the batched path: its rows merge host-side on
+        # top of the device-filtered base (the YCSB-E 5%-insert shape)
+        overlay_count = len(lsm.memtable) + sum(t.total_count
+                                                for t in lsm.l0)
+        if flavor is not None:
+            validates = {flavor[0]}
+            filters = {flavor[1]}
+        else:
+            validates = {bool(r.validate_partition_hash
+                              and self.validate_partition_hash)
+                         for r in reqs}
+            filters = {_normalize_filter_key(r) for r in reqs}
+        # pushdown specs are not evaluated by this server: such requests
+        # take the per-request path, which leaves pushdown_applied False
+        simple = (runs and overlay_count <= self.OVERLAY_MERGE_LIMIT
+                  and len(validates) == 1 and len(filters) == 1
+                  and all(f[0] in _KNOWN_FILTERS and f[2] in _KNOWN_FILTERS
+                          for f in filters)
+                  and not any(r.only_return_count or r.pushdown is not None
+                              for r in reqs))
+        if not simple:
+            return None
+        now = epoch_now() if now is None else now
+        validate = validates.pop()
+        filter_key = filters.pop()
+        overlay = (self._overlay_snapshot(now, validate, filter_key)
+                   if overlay_count else ([], {}))
+        # per request: the block list and boundary bounds, capped a bit
+        # beyond batch_size so expiry and hash drops do not starve the
+        # page. Plans are cached per (range, want bucket) under the store
+        # generation: zipfian traffic repeats the same scans, and a plan
+        # is pure over the immutable run set. An over-budgeted cached plan
+        # only means a further frontier, never a wrong page.
+        req_plans = []
+        unique: "OrderedDict[tuple, tuple]" = OrderedDict()
+        pc = self._plan_cache
+        if pc is None or pc[0] is not lsm or pc[1] != gen:
+            pc = self._plan_cache = (lsm, gen, {})
+        cache = pc[2]
+        for req in reqs:
+            start_key = req.start_key or b""
+            if start_key and not req.start_inclusive:
+                start_key = _after(start_key)
+            stop_key = req.stop_key or b""
+            if stop_key and req.stop_inclusive:
+                stop_key = _after(stop_key)
+            want = min(req.batch_size if req.batch_size > 0 else 1000,
+                       SCAN_BATCH_CAP)
+            wb = 1 << (want - 1).bit_length() if want > 1 else 1
+            pkey = (start_key, stop_key, wb)
+            hit = cache.get(pkey)
+            if hit is not None:
+                plan, uniq_entries, geom, nat, frontier = hit
+            else:
+                plan = []
+                uniq_entries = []
+                budget = wb * 2 + 64
+                for run in runs:
+                    if stop_key and (run.first_key or b"") >= stop_key:
+                        continue
+                    if start_key and (run.last_key or b"") < start_key:
+                        continue
+                    for bm, blk in run.iter_blocks(start_key,
+                                                   stop_key or None):
+                        lo, hi = 0, blk.count
+                        if start_key and bm.first_key < start_key:
+                            lo = blk.lower_bound(start_key)
+                        if stop_key and bm.last_key >= stop_key:
+                            hi = blk.lower_bound(stop_key)
+                        ckey = (run.path, bm.offset)
+                        uniq_entries.append((ckey, run, bm, blk))
+                        plan.append((ckey, blk, lo, hi))
+                        budget -= hi - lo
+                        if budget <= 0:
+                            break
+                    if budget <= 0:
+                        break
+                # arena geometry and native entry table, once per cached
+                # plan; the resume frontier past a capped plan's last row
+                geom = page.plan_geometry(plan)
+                nat = page.plan_nat(plan)
+                frontier = (_after(plan[-1][1].key_at(
+                    plan[-1][1].count - 1)) if plan else None)
+                if len(cache) >= 8192:
+                    cache.pop(next(iter(cache)))
+                cache[pkey] = (plan, uniq_entries, geom, nat, frontier)
+            for ckey, run, bm, blk in uniq_entries:
+                unique.setdefault(ckey, (run, bm, blk))
+            req_plans.append((req, start_key, stop_key, want, plan,
+                              geom, nat, frontier))
+        if lsm.generation != gen:
+            return None
+        return {"reqs": reqs, "req_plans": req_plans, "unique": unique,
+                "validate": validate, "now": now, "overlay": overlay,
+                "filter_key": filter_key}
+
+    def planned_misses(self, state) -> "OrderedDict[tuple, object]":
+        """Unique planned blocks whose static masks are not cached: the
+        device work left, as ckey -> device block (uploaded here through
+        the block cache). The cached masks go to state["cached_keep"].
+        Masks are `now`-independent, so a block misses only on first
+        touch after a flush or compaction, or for a new filter. The
+        batch's flavour is registered for the MaskPrefresher."""
+        keep_masks = {}
+        misses: "OrderedDict[tuple, object]" = OrderedDict()
+        validate = state["validate"]
+        filter_key = state["filter_key"]
+        with self._mask_lock:
+            self._register_flavor(validate, filter_key, time.monotonic())
+            for ckey, (_run, _bm, blk) in state["unique"].items():
+                mkey = (ckey, self.partition_version, validate,
+                        filter_key)
+                cached = self._mask_cache.get(mkey)
+                if cached is not None:
+                    self._mask_cache.move_to_end(mkey)
+                    keep_masks[ckey] = cached
+                    continue
+                misses[ckey] = blk
+        for ckey, blk in list(misses.items()):
+            misses[ckey] = self._device_cached_block(ckey, blk)
+        state["cached_keep"] = keep_masks
+        return misses
+
+    def _register_flavor(self, validate: bool, filter_key,
+                         wall: float) -> None:
+        """Remember a scan flavour for background warming (the caller
+        holds _mask_lock). The no-filter flavour always registers; a
+        filtered one once it recurs within the window, so one-shot
+        patterns neither multiply background device work nor evict the
+        warm set."""
+        register = filter_key == _NO_FILTER_KEY
+        if not register:
+            last = self._filter_seen.get(filter_key)
+            register = (last is not None
+                        and wall - last <= self._filter_seen_window)
+            self._filter_seen[filter_key] = wall
+            self._filter_seen.move_to_end(filter_key)
+            while len(self._filter_seen) > self._filter_seen_cap:
+                self._filter_seen.popitem(last=False)
+        if register:
+            fl = (validate, filter_key)
+            self._warm_flavors[fl] = wall
+            self._warm_flavors.move_to_end(fl)
+            while len(self._warm_flavors) > self._warm_flavors_cap:
+                self._warm_flavors.popitem(last=False)
+
+    def hot_block_entries(self, wall: float, horizon_s: float):
+        """(ckey, block, validate, filter_key) for current L1 blocks
+        missing a static mask of a recently used flavour: the
+        MaskPrefresher's work list, at most WARM_BATCH_LIMIT a pass.
+        Prunes flavours idle past the horizon."""
+        with self._mask_lock:
+            flavors = []
+            for fl in list(self._warm_flavors):
+                if wall - self._warm_flavors[fl] > horizon_s:
+                    del self._warm_flavors[fl]
+                    continue
+                flavors.append(fl)
+        if not flavors:
+            return []
+        # probed without the lock (a racing store only makes this pass
+        # warm one mask twice), so serving never stalls behind it
+        pv = self.partition_version
+        cache_get = self._mask_cache.get
+        missing = []
+        for run in list(self.engine.lsm.l1_runs):
+            for i, bm in enumerate(run.blocks):
+                ckey = (run.path, bm.offset)
+                for validate, filter_key in flavors:
+                    if cache_get((ckey, pv, validate,
+                                  filter_key)) is None:
+                        missing.append((run, i, ckey, validate,
+                                        filter_key))
+                        if len(missing) >= self.WARM_BATCH_LIMIT:
+                            break
+                if len(missing) >= self.WARM_BATCH_LIMIT:
+                    break
+            if len(missing) >= self.WARM_BATCH_LIMIT:
+                break
+        return [(ckey, run.read_block(i), validate, filter_key)
+                for run, i, ckey, validate, filter_key in missing]
+
+    def eval_planned_masks(self, state) -> dict:
+        """Phase 2 (one partition): evaluate this partition's misses in
+        stacked launches; returns ckey -> static keep mask."""
+        misses = self.planned_misses(state)
+        keep_masks = state["cached_keep"]
+        for ckey, keep in self._eval_blocks_stacked(
+                misses, state["filter_key"], state["validate"]):
+            keep_masks[ckey] = keep
+            self.store_mask(state, ckey, keep)
+        return keep_masks
+
+    def _eval_blocks_stacked(self, misses, filter_key, validate):
+        blocks = [(ckey, dev, self.pidx) for ckey, dev in misses.items()]
+        yield from stacked_block_eval(blocks, validate,
+                                      self.partition_version,
+                                      filter_key=filter_key)
+
+    def prepare_serve(self, state, keep_masks) -> list:
+        """Phase 2.5: combine each unique block's static keep with the
+        host TTL mask, compute each request's overlay window and plan
+        frontier, and return the batch's fast-path (overlay-free) request
+        windows (plan, want, no_value, want_ets, live_masks, geom, nat,
+        live_ptrs) for page.serve_batch. The coordinator concatenates
+        them across partitions so that one native call packs a whole
+        flush. Everything is stashed in `state`; idempotent."""
+        if "windows" in state:
+            return state["fast"]
+        unique = state["unique"]
+        now = state["now"]
+        live_masks = {}
+        live_ptrs = {}
+        alive_all = {}
+        exp_full = {}
+        cache = self._live_cache
+        for ckey, (_run, _bm, blk) in unique.items():
+            static = keep_masks[ckey]
+            # (block, flavour mask, second) cache: TTL validity is one
+            # second, so every batch within it reuses static AND alive;
+            # the entry pins the static array it was built from, since
+            # id() alone could be a recycled address after an evict
+            lkey = (ckey, id(static))
+            hit = cache.get(lkey)
+            if hit is not None and hit[0] == now and hit[1] is static:
+                _now, _st, alive, exp, live, lptr = hit
+            else:
+                alive = blk.alive_mask(now)
+                # whole-block expired count once per unique block;
+                # requests spanning the whole block reuse it
+                exp = len(alive) - int(np.count_nonzero(alive))
+                live = static[:blk.count] & alive
+                # .ctypes.data costs ~a µs: once per (block, flavour,
+                # second), not per request window
+                lptr = live.ctypes.data
+                if len(cache) >= 4096:
+                    cache.pop(next(iter(cache)))
+                cache[lkey] = (now, static, alive, exp, live, lptr)
+            alive_all[ckey] = alive
+            exp_full[ckey] = exp
+            live_masks[ckey] = live
+            live_ptrs[ckey] = lptr
+        overlay_keys, _overlay_map = state["overlay"]
+        windows = []
+        fast = []
+        for req, start_key, stop_key, want, plan, geom, nat, pfrontier \
+                in state["req_plans"]:
+            capped = bool(plan) and geom[0] >= want * 2 + 64
+            frontier = pfrontier if capped else None
+            ov_lo = (bisect.bisect_left(overlay_keys, start_key)
+                     if start_key else 0)
+            ov_hi = len(overlay_keys)
+            if stop_key:
+                ov_hi = bisect.bisect_left(overlay_keys, stop_key, ov_lo)
+            if frontier is not None:
+                ov_hi = bisect.bisect_left(overlay_keys, frontier, ov_lo,
+                                           ov_hi)
+            windows.append((capped, frontier, ov_lo, ov_hi))
+            if ov_lo >= ov_hi:
+                fast.append((plan, want, req.no_value,
+                             req.return_expire_ts, live_masks, geom, nat,
+                             live_ptrs))
+        state["live_masks"] = live_masks
+        state["alive_all"] = alive_all
+        state["exp_full"] = exp_full
+        state["windows"] = windows
+        state["fast"] = fast
+        return fast
+
+    def finish_scan_batch(self, state, keep_masks, served=None
+                          ) -> List[ScanResponse]:
+        """Phase 3: assemble the responses from the static masks, TTL
+        applied on the host (one vectorized AND per unique block at the
+        batch's single clock reading). `served`: this batch's slice of
+        the coordinator's cross-partition native assembly, aligned with
+        prepare_serve's fast list; None runs the native assembly here."""
+        req_plans = state["req_plans"]
+        now = state["now"]
+        fast = self.prepare_serve(state, keep_masks)
+        live_masks = state["live_masks"]
+        alive_all = state["alive_all"]
+        exp_full = state["exp_full"]
+        windows = state["windows"]
+        overlay_keys, overlay_map = state["overlay"]
+        hdr = header_length(self.data_version)
+        if served is None and fast:
+            served = page.serve_batch(fast, SCAN_BYTES_CAP, hdr)
+        served_iter = iter(served) if served is not None else None
+
+        # per-(plan, second) expired counts: alive depends only on block
+        # and second, and plans are cached objects, so repeats of a
+        # popular scan within one second skip the per-entry count. The
+        # plan is pinned in the value so its id() cannot be recycled; the
+        # dict resets each second and generation.
+        ptag = (self.engine.lsm.generation, now)
+        if self._plan_expired_cache[0] != ptag:
+            self._plan_expired_cache = (ptag, {})
+        pec = self._plan_expired_cache[1]
+        total_expired = 0
+
+        out = []
+        for (req, start_key, stop_key, want, plan, _geom, _nat, _pf), \
+                (capped, frontier, ov_lo, ov_hi) in zip(req_plans,
+                                                        windows):
+            kvs: list = []
+            size = 0
+            exhausted = True
+            resume_key = None
+            stop_early = False
+            want_ets = req.return_expire_ts
+            no_value = req.no_value
+
+            def base_rows(plan=plan):
+                for ckey, blk, lo, hi in plan:
+                    keep = live_masks[ckey]
+                    for i in np.flatnonzero(keep[lo:hi]):
+                        idx = lo + int(i)
+                        yield blk.key_at(idx), blk, idx
+
+            hit = pec.get(id(plan))
+            if hit is not None:
+                req_expired = hit[1]
+            else:
+                req_expired = 0
+                for ckey, blk_, lo, hi in plan:
+                    if lo == 0 and hi == blk_.count:
+                        req_expired += exp_full[ckey]
+                    else:
+                        req_expired += int(np.count_nonzero(
+                            ~alive_all[ckey][lo:hi]))
+                pec[id(plan)] = (plan, req_expired)
+            ov_i = ov_lo
+            chunks = None
+            if ov_lo >= ov_hi:
+                # no overlay row shadows this window: the kept base rows
+                # are the answer, packed by the flush's native call; an
+                # arena overflow (None) is re-served with numpy below
+                served = (next(served_iter) if served_iter is not None
+                          else None)
+                if served is not None:
+                    kvs, size, last_key, truncated = served
+                    if ((len(kvs) >= want or truncated)
+                            and last_key is not None):
+                        resume_key = _after(last_key)
+                        stop_early = True
+                else:
+                    chunks = []
+                    page.SERVE_STATS["numpy"] += 1
+            if chunks is not None:
+                taken = 0
+                byte_est = 0
+                truncated = False
+                for ckey, blk, lo, hi in plan:
+                    hit = np.flatnonzero(live_masks[ckey][lo:hi])
+                    if hit.size > want - taken:
+                        hit = hit[:want - taken]
+                    if not hit.size:
+                        continue
+                    hit = hit + lo
+                    # byte budget (keys + value-heap span upper bound):
+                    # page blob offsets are uint32 and one response must
+                    # stay bounded whatever the values weigh; a keys-only
+                    # scan counts key bytes only
+                    vo = blk.value_offs
+                    chunk_bytes = int(hit.size) * blk.keys.shape[1]
+                    if not no_value:
+                        chunk_bytes += (int(vo[int(hit[-1]) + 1])
+                                        - int(vo[int(hit[0])]))
+                    if byte_est + chunk_bytes > SCAN_BYTES_CAP:
+                        if byte_est == 0:
+                            # a single oversized chunk: the row prefix
+                            # that fits
+                            row_bytes = np.full(hit.size,
+                                                blk.keys.shape[1],
+                                                dtype=np.int64)
+                            if not no_value:
+                                row_bytes += (vo[hit + 1].astype(np.int64)
+                                              - vo[hit].astype(np.int64))
+                            fit = int(np.searchsorted(
+                                np.cumsum(row_bytes), SCAN_BYTES_CAP,
+                                side="right"))
+                            hit = hit[:max(1, fit)]
+                            chunks.append((blk, hit))
+                            taken += int(hit.size)
+                        truncated = True
+                        break
+                    byte_est += chunk_bytes
+                    chunks.append((blk, hit))
+                    taken += int(hit.size)
+                    if taken >= want:
+                        break
+                kvs, size, last_key = page.build_page(
+                    chunks, hdr, no_value=no_value, want_ets=want_ets)
+                if (taken >= want or truncated) and last_key is not None:
+                    resume_key = _after(last_key)
+                    stop_early = True
+            elif ov_lo < ov_hi:
+                # merge: interleave overlay rows in key order (an overlay
+                # row shadows the base row of its key: newest wins,
+                # tombstones hide)
+                base = base_rows()
+                base_item = next(base, None)
+                while len(kvs) < want:
+                    ov_key = overlay_keys[ov_i] if ov_i < ov_hi else None
+                    if base_item is None and ov_key is None:
+                        break
+                    take_overlay = (ov_key is not None
+                                    and (base_item is None
+                                         or ov_key <= base_item[0]))
+                    if take_overlay:
+                        if base_item is not None and ov_key == base_item[0]:
+                            base_item = next(base, None)  # shadowed
+                        ov_i += 1
+                        entry = overlay_map[ov_key]
+                        if entry is None:
+                            continue  # tombstone / hidden overlay row
+                        data = b"" if no_value else entry[0]
+                        kv = KeyValue(ov_key, data)
+                        if want_ets:
+                            kv.expire_ts_seconds = entry[1]
+                        key = ov_key
+                    else:
+                        key, blk, idx = base_item
+                        base_item = next(base, None)
+                        data = (b"" if no_value
+                                else extract_user_data(self.data_version,
+                                                       blk.value_at(idx)))
+                        kv = KeyValue(key, data)
+                        if want_ets:
+                            kv.expire_ts_seconds = int(blk.expire_ts[idx])
+                    kvs.append(kv)
+                    size += len(key) + len(data)
+                    if len(kvs) >= want or size >= SCAN_BYTES_CAP:
+                        resume_key = _after(key)
+                        stop_early = True
+                        break
+            if stop_early:
+                exhausted = False
+            elif capped:
+                resume_key = frontier
+                exhausted = False
+            total_expired += req_expired
+            resp = ScanResponse()
+            resp.kvs = kvs
+            resp.error = int(StorageStatus.OK)
+            if exhausted or req.one_page:
+                resp.context_id = SCAN_CONTEXT_ID_COMPLETED
+            else:
+                resp.context_id = self._scan_cache.put(ScanContext(
+                    request=req, resume_key=resume_key or start_key,
+                    stop_key=stop_key))
+            out.append(resp)
+        self.abnormal_read_count += total_expired
+        return out
+
+    def _overlay_snapshot(self, now: int, validate: bool, filter_key):
+        """(sorted keys, key -> None | (user data, expire_ts)) of the
+        memtable + L0 overlay, newest wins, with the scan predicates (TTL,
+        stale-split hash, the batch's key filter) evaluated on the host:
+        the overlay is small by the fast path's qualifier, so a launch
+        would cost more than it filters. A key failing the key filter is
+        left out (its base copies fail the same filter in the mask); an
+        expired, tombstoned or foreign row stays as a hidden shadow
+        (None) that hides the base row of its key."""
+        hft, hfp, sft, sfp = filter_key
+        lsm = self.engine.lsm
+        merged: dict = {}
+        for key, value, ets in lsm.memtable.items_sorted():
+            merged[key] = None if value is TOMBSTONE else (value, ets)
+        for table in lsm.l0:  # newest first; the first writer wins
+            for key, value, ets in table.iterate():
+                if key not in merged:
+                    merged[key] = None if value is None else (value, ets)
+        out: dict = {}
+        for key in sorted(merged):
+            if hft != FT_NO_FILTER or sft != FT_NO_FILTER:
+                hk, sk = restore_key(key)
+                if not (host_match_filter(hk, hft, hfp)
+                        and host_match_filter(sk, sft, sfp)):
+                    continue  # fails the batch filter everywhere
+            entry = merged[key]
+            if entry is None:
+                out[key] = None  # tombstone: shadows the base
+                continue
+            value, ets = entry
+            if check_if_ts_expired(now, ets):
+                self.abnormal_read_count += 1
+                out[key] = None  # expired: hidden, and shadows the base
+                continue
+            if validate and not check_key_hash(key, self.pidx,
+                                               self.partition_version):
+                out[key] = None
+                continue
+            out[key] = (extract_user_data(self.data_version, value), ets)
+        return list(out), out  # insertion order is already sorted
+
     # ---- static masks of SST blocks -----------------------------------
 
     def _static_keep_window(self, window, validate: bool,
@@ -509,15 +1122,33 @@ class PartitionServer:
             for (j, ckey), keep in stacked_block_eval(
                     blocks, validate, pv, filter_key=filter_key):
                 keeps[j] = keep
-                self._store_mask(ckey, validate, filter_key, keep, pv)
+                self.store_mask_for(ckey, validate, filter_key, keep,
+                                    computed_pv=pv)
         return keeps
 
-    def _store_mask(self, ckey, validate: bool, filter_key, keep,
-                    computed_pv: int) -> None:
-        # room for every L1 block under a few filter flavors, so a large
-        # partition's masks do not evict each other on every scan
+    def store_mask(self, state, ckey, keep) -> None:
+        self.store_mask_for(ckey, state["validate"], state["filter_key"],
+                            keep, computed_pv=self.partition_version)
+
+    def _effective_mask_cap(self) -> int:
+        """Mask-cache capacity scaled to the data: every current L1 block
+        times every warm flavour must fit, or the prefresher and the LRU
+        evict each other's still-wanted masks and 'each block evaluated
+        once' breaks on large partitions."""
         n_blocks = sum(len(run.blocks) for run in self.engine.lsm.l1_runs)
-        cap = max(self._mask_cache_cap, 4 * n_blocks + 256)
+        flavors = max(1, len(self._warm_flavors))
+        return max(self._mask_cache_cap, n_blocks * flavors + 256)
+
+    def store_mask_for(self, ckey, validate: bool, filter_key, keep,
+                       computed_pv: int) -> None:
+        """Publish a static mask under the partition_version it was
+        computed with; a mask computed under another version is dropped."""
+        keep = np.asarray(keep)
+        if keep.base is not None:
+            # a row of a multi-flavour table's masks would pin the whole
+            # [K, blocks * capacity] array per cache entry
+            keep = keep.copy()
+        cap = self._effective_mask_cap()
         with self._mask_lock:
             if computed_pv != self.partition_version:
                 return

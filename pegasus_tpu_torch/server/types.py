@@ -7,8 +7,11 @@ multi_get / get_scanner / scan / clear_scanner.
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 from pegasus_tpu_torch.ops.predicates import FT_NO_FILTER
 
@@ -18,6 +21,77 @@ class KeyValue:
     key: bytes                    # sort_key in multi_* responses
     value: bytes = b""
     expire_ts_seconds: Optional[int] = None
+
+
+_EMPTY_OFFS = b"\x00\x00\x00\x00"
+
+
+@dataclass
+class ScanPage:
+    """A whole response page as four packed blobs instead of a list of
+    KeyValue, as the batched scan path assembles it (server/page.py over
+    native/packer.cpp). It supports the sequence protocol (len, index,
+    iteration yield KeyValue), so every `kvs` consumer works unchanged.
+
+    key_offs/val_offs are little-endian uint32[n+1]; ets (present only
+    when the scanner asked for expire timestamps) is uint32[n].
+    """
+
+    key_offs: bytes = _EMPTY_OFFS
+    key_blob: bytes = b""
+    val_offs: bytes = _EMPTY_OFFS
+    val_blob: bytes = b""
+    ets: bytes = b""
+
+    def _offs(self):
+        ko = self.__dict__.get("_ko")
+        if ko is None:
+            ko = np.frombuffer(self.key_offs, dtype="<u4")
+            self.__dict__["_ko"] = ko
+            self.__dict__["_vo"] = np.frombuffer(self.val_offs,
+                                                 dtype="<u4")
+        return ko, self.__dict__["_vo"]
+
+    def __len__(self) -> int:
+        return max(0, len(self.key_offs) // 4 - 1)
+
+    def __bool__(self) -> bool:
+        return len(self) > 0
+
+    def key_at(self, i: int) -> bytes:
+        ko, _ = self._offs()
+        return self.key_blob[ko[i]:ko[i + 1]]
+
+    def value_at(self, i: int) -> bytes:
+        _, vo = self._offs()
+        return self.val_blob[vo[i]:vo[i + 1]]
+
+    def ets_at(self, i: int) -> Optional[int]:
+        if not self.ets:
+            return None
+        return struct.unpack_from("<I", self.ets, 4 * i)[0]
+
+    def __getitem__(self, i):
+        n = len(self)
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(n))]
+        if i < 0:
+            i += n
+        if not 0 <= i < n:
+            raise IndexError(i)
+        return KeyValue(self.key_at(i), self.value_at(i), self.ets_at(i))
+
+    def __iter__(self):
+        ko, vo = self._offs()
+        kb, vb = self.key_blob, self.val_blob
+        if self.ets:
+            ets = np.frombuffer(self.ets, dtype="<u4")
+            for i in range(len(self)):
+                yield KeyValue(kb[ko[i]:ko[i + 1]], vb[vo[i]:vo[i + 1]],
+                               int(ets[i]))
+        else:
+            for i in range(len(self)):
+                yield KeyValue(kb[ko[i]:ko[i + 1]], vb[vo[i]:vo[i + 1]])
 
 
 @dataclass

@@ -52,6 +52,10 @@ class LSMStore:
         self.l0: List[SSTable] = []   # newest first
         self.l1_runs: List[SSTable] = []  # key-ordered, non-overlapping
         self._file_seq = 0
+        # bumped whenever the visible run set changes (flush, compaction
+        # publish): the scan plan cache is keyed on it, so plans
+        # invalidate exactly when the block set does
+        self.generation = 0
         # last manual-compaction finish time (pegasus-epoch seconds),
         # persisted in the manifest independently of the run set
         self.compact_finish_time = 0
@@ -150,6 +154,7 @@ class LSMStore:
         table = SSTable(writer.path)
         self.l0.insert(0, table)
         self.memtable = Memtable()
+        self.generation += 1
         return table
 
     # ---- reads --------------------------------------------------------
@@ -310,6 +315,7 @@ class LSMStore:
         self._write_manifest([os.path.basename(t.path) for t in new_runs])
         superseded = self.l0 + self.l1_runs
         self.l1_runs = new_runs
+        self.generation += 1
         self.l0 = []
         self.memtable = Memtable()
         for t in superseded:

@@ -36,6 +36,7 @@ from zlib import crc32 as _block_crc32
 import numpy as np
 
 from pegasus_tpu_torch.base.crc import crc32
+from pegasus_tpu_torch.ops.predicates import host_alive_mask
 from pegasus_tpu_torch.ops.record_block import hash_lo_column, next_bucket
 from pegasus_tpu_torch.storage.block_codec import KNOWN_CODECS
 from pegasus_tpu_torch.storage.vfs import fsync_dir, fsync_file, open_data_file
@@ -76,7 +77,8 @@ class Block:
     """A decoded columnar block: numpy views over the mapped file."""
 
     __slots__ = ("keys", "key_len", "expire_ts", "hash_lo", "flags",
-                 "value_offs", "value_heap", "_key_list", "_gets")
+                 "value_offs", "value_heap", "_key_list", "_gets", "_nat",
+                 "_cmp")
 
     def __init__(self, keys, key_len, expire_ts, hash_lo, flags, value_offs,
                  value_heap):
@@ -89,6 +91,8 @@ class Block:
         self.value_heap = value_heap  # uint8[heap]
         self._key_list = None
         self._gets = 0
+        self._nat = None  # native pointer row (server/page.block_native_ptrs)
+        self._cmp = None  # (now, alive mask) of alive_mask
 
     @property
     def count(self) -> int:
@@ -96,6 +100,17 @@ class Block:
 
     def key_at(self, i: int) -> bytes:
         return self.keys[i, :self.key_len[i]].tobytes()
+
+    def alive_mask(self, now: int) -> np.ndarray:
+        """bool[count] TTL-alive mask, cached per `now` second: every
+        batch in the same second reuses it (TTL granularity is one
+        second)."""
+        cached = self._cmp
+        if cached is not None and cached[0] == now:
+            return cached[1]
+        mask = host_alive_mask(self.expire_ts, now)
+        self._cmp = (now, mask)
+        return mask
 
     def key_list(self) -> list:
         """All keys as a sorted Python list, materialized at most once

@@ -26,9 +26,47 @@ def test_port_modules_are_found():
     names = _port_modules()
     for want in ("pegasus_tpu_torch.ops.fused_scan",
                  "pegasus_tpu_torch.server.partition_server",
+                 "pegasus_tpu_torch.server.page",
+                 "pegasus_tpu_torch.server.scan_coordinator",
+                 "pegasus_tpu_torch.native",
                  "pegasus_tpu_torch.storage.lsm",
                  "pegasus_tpu_torch.convert"):
         assert want in names
+
+
+def test_batched_path_runs_without_jax(tmp_path):
+    """scan_multi over a compacted CPU partition, through the native page
+    assembly (built with g++ at first use), with JAX blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from pegasus_tpu_torch.base.key_schema import generate_key\n"
+        "from pegasus_tpu_torch.base.value_schema import epoch_now\n"
+        "from pegasus_tpu_torch.server import page\n"
+        "from pegasus_tpu_torch.server.partition_server import "
+        "PartitionServer\n"
+        "from pegasus_tpu_torch.server.scan_coordinator import scan_multi\n"
+        "from pegasus_tpu_torch.server.types import GetScannerRequest, "
+        "ScanPage\n"
+        f"s = PartitionServer({str(tmp_path)!r}, device='cpu')\n"
+        "for i in range(20):\n"
+        "    s.on_put(generate_key(b'hk', b's%02d' % i), b'v%d' % i)\n"
+        "s.manual_compact()\n"
+        "(out,), = scan_multi([(s, [GetScannerRequest(batch_size=7)])],\n"
+        "                     epoch_now())\n"
+        "assert isinstance(out.kvs, ScanPage) and len(out.kvs) == 7\n"
+        "assert page.SERVE_STATS['calls'] == 1\n"
+        "s.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
+        "             or m.startswith('pegasus_tpu.')\n"
+        "             or m.startswith('jax.') or m == 'jaxlib')\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])

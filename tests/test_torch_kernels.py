@@ -16,6 +16,7 @@ import torch
 from chip_smoke import (
     NOWS,
     check_tables,
+    check_tables_multi,
     device_block,
     predicate_cases,
     random_block_columns,
@@ -26,6 +27,7 @@ from pegasus_tpu_torch.ops.predicates import (
     FT_MATCH_ANYWHERE,
     FT_MATCH_PREFIX,
     FilterSpec,
+    multi_static_block_predicate_submit,
     scan_block_predicate,
     static_block_predicate,
 )
@@ -125,6 +127,40 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         fused_scan.scan_table([narrow], [0], none, none, False, 7)
     with pytest.raises(ValueError, match="blocks"):
         fused_scan.scan_table([block] * 17, [0] * 17, none, none, False, 7)
+
+
+def test_flavour_axis_matches_plain_on_every_case(card):
+    out = check_tables_multi(card, widths=(32, 256), ks=(2, 5),
+                             counts=SMALL_COUNTS)
+    # per width: 16 type pairs (one flavour count each) x 2 validate x 4
+    # tables, and the gated lone block
+    assert out["compared"] == 2 * (16 * 2 * 4 + 1)
+    assert out["max_abs_err"] == 0
+
+
+def test_flavour_axis_is_one_launch_a_table(card):
+    rng = np.random.default_rng(10)
+    cpu = [_block(rng, n, 32, "cpu") for n in (1024, 700, 1024)]
+    dev = [RecordBlock(*(t.to(card) for t in b)) for b in cpu]
+    pats = (b"a", b"bc", b"", b"d")
+
+    def flavors(device):
+        return [(FilterSpec.none(device), FilterSpec.make(3, p, device))
+                for p in pats]
+
+    before = dict(fused_scan.LAUNCHES)
+    got = multi_static_block_predicate_submit(dev, flavors(card), True,
+                                              [5, 3, 5], 7)
+    assert fused_scan.LAUNCHES["multi"] == before["multi"] + 1
+    want = multi_static_block_predicate_submit(cpu, flavors("cpu"), True,
+                                               [5, 3, 5], 7)
+    assert got.shape == (4, 128 + 88 + 128)
+    assert torch.equal(got.cpu(), want)
+    # a lone block under the split gate launches nothing
+    gated = multi_static_block_predicate_submit(dev[0], flavors(card), True,
+                                                9, 7)
+    assert fused_scan.LAUNCHES["multi"] == before["multi"] + 1
+    assert gated.shape == (4, 128) and not bool(gated.any())
 
 
 def test_empty_block_launches_nothing(card):
