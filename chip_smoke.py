@@ -37,13 +37,26 @@ Phases, each fatal on failure:
    compaction and MaskPrefresher passes a flush of unfiltered scans must
    launch nothing, both while those records live and once they expired,
    with the expired records it planned counted as the oracle counts
-   them.
+   them;
+6. the point-get path: BASELINE config #1 (onebox, one table of 4
+   partitions, YCSB-C, 1,000,000 records) at the JAX package's default
+   store flags (dcz2 blocks, bloom filters, perfect-hash indexes, the
+   row cache), compacted into dcz2 L1 runs under 4 interleaved L0
+   flushes, serving bench.py's get and miss streams through
+   read_coordinator.point_read_multi in flushes of 32 and YCSB-E scans
+   (some filtered, some with a pushdown count) through scan_multi, every
+   answer checked against a host oracle; no planned block of a clean
+   encoded run may have its mask computed on the device.
 
-The line before the last lists the kernels as JSON; the last line is
-{"ok": true, "device": {...}}. `--records N` sets phase 4's load
-(default 500,000) and prints any cut below 1,000,000: the default is
-one, which keeps the whole run near 300 s. Phase 5 always loads its
-1,000,000 records.
+Phases 4 and 5 pin the store flags `block_codec = none`,
+`bloom_bits_per_key = 0`, `phash_index = false` (every block reaches the
+kernel); phase 6 pins the defaults. The line before the last lists the
+kernels as JSON; the last line is {"ok": true, "device": {...}}.
+`--records N` sets phase 4's load (default 500,000) and prints any cut
+below 1,000,000. Phases 5 and 6 always load their 1,000,000 records. A
+printed cut keeps the whole run near the time it took before phase 6
+came: the flavour-axis check runs 64 flavours at key width 32 only (16
+at the wider keys).
 """
 
 from __future__ import annotations
@@ -410,6 +423,9 @@ def check_tables(device, widths=(32, 64, 256),
 
 # flavours of one launch of the kernel's flavour axis
 MULTI_KS = (2, 5, 16, 64)
+# the check's cut: at key widths past 32 a type pair that would meet 64
+# flavours meets 16 (the plain version's time grows with flavours x width)
+MULTI_K_WIDE = 16
 
 
 def multi_patterns(rng, n: int, k: int, wide: bool) -> list:
@@ -461,6 +477,8 @@ def check_tables_multi(device, widths=(32, 64, 256), ks=MULTI_KS,
                 # version's time grows with the flavours)
                 case = hft * 4 + sft + widths.index(k)
                 n_flavors = ks[case % len(ks)]
+                if k > 32:
+                    n_flavors = min(n_flavors, MULTI_K_WIDE)
                 wide = bool(case // len(ks) % 2)
                 flavors = [
                     (FilterSpec.make(hft, hp, device),
@@ -1604,6 +1622,341 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
     return launches
 
 
+# ---- phase 6: BASELINE config #1, the batched point-get path -------------
+
+POINT_PARTITIONS = 4           # onebox: one table of 4 partitions
+POINT_RECORDS = 1_000_000      # BASELINE config #1
+POINT_OPS = 20_000             # YCSB-C gets; misses and scans scale off it
+GET_FLUSH = 32                 # gets a read-coordinator flush coalesces
+#                                (bench.py PEGBENCH_GET_BATCH)
+DEEP_L0 = 4                    # overlay flushes (bench.py deepen_l0)
+DEEP_L0_ROWS = 500             # rows a flush interleaves over the hashkeys
+PUSHDOWN_EVERY = 10            # 1 scan in 10 carries a pushdown aggregate
+
+# the store flags phases 4 and 5 pin (every block reaches the scan
+# kernel), and the JAX package's defaults phase 6 pins
+NONE_STORE = {("pegasus.storage", "block_codec"): "none",
+              ("pegasus.server", "bloom_bits_per_key"): 0,
+              ("pegasus.server", "phash_index"): False}
+DEFAULT_STORE = {("pegasus.storage", "block_codec"): "dcz2",
+                 ("pegasus.server", "bloom_bits_per_key"): 10,
+                 ("pegasus.server", "phash_index"): True,
+                 ("pegasus.server", "row_cache_bytes"): 33_554_432}
+
+
+@contextlib.contextmanager
+def store_flags(values: dict):
+    """Set the port's store flags for a phase and restore them after."""
+    import pegasus_tpu_torch.server.partition_server  # noqa: F401 - flags
+    from pegasus_tpu_torch.utils.flags import FLAGS
+
+    saved = {k: FLAGS.get(*k) for k in values}
+    for (section, name), value in values.items():
+        FLAGS.set(section, name, value, force=True)
+    try:
+        yield
+    finally:
+        for (section, name), value in saved.items():
+            FLAGS.set(section, name, value, force=True)
+
+
+def point_get_stream(n_ops: int, n_hashkeys: int, seed: int,
+                     miss: bool = False) -> list:
+    """bench.py's YCSB-C streams as (hash_key, sort_key) pairs:
+    _point_get_stream (popularity u^2, sortkey uniform over s00..s09) or,
+    with `miss`, _point_miss_stream (uniform hashkeys, sortkeys over
+    s00..s19, half of them never written)."""
+    rng = np.random.default_rng(seed)
+    if miss:
+        hk_draw = rng.integers(0, n_hashkeys, size=n_ops)
+        sk_draw = rng.integers(0, 20, size=n_ops)
+    else:
+        hk_draw = (rng.random(n_ops) ** 2.0 * n_hashkeys).astype(np.int64)
+        sk_draw = rng.integers(0, 10, size=n_ops)
+    return [(b"user%08d" % int(h), b"s%02d" % int(s))
+            for h, s in zip(hk_draw, sk_draw)]
+
+
+def run_point_batch(device, n_records: int = POINT_RECORDS,
+                    n_ops: int = POINT_OPS, seed: int = 13,
+                    card: str = "") -> dict:
+    """Phase 6: BASELINE config #1 (onebox, one table of POINT_PARTITIONS
+    partitions, YCSB-C) at the JAX package's default store flags, each
+    partition a PartitionServer on `device`. bench.py's records are
+    loaded through on_multi_put (10% with a 1 s TTL, dropped by the
+    compaction), compacted into dcz2 L1 runs with bloom and perfect-hash
+    sidecars, then DEEP_L0 overlay flushes interleave over the hashkeys.
+    Traffic, every answer checked against a host oracle: n_ops gets of
+    bench.py's _point_get_stream and n_ops / 5 of _point_miss_stream
+    through read_coordinator.point_read_multi in flushes of GET_FLUSH,
+    then n_ops / 10 one-page scans through scan_coordinator.scan_multi in
+    flushes of SCAN_FLUSH (3 in 20 with a sortkey POSTFIX filter, 1 in 10
+    a value filter and a count aggregate over one hashkey). Fails if a
+    planned block of an encoded run without malformed rows had its mask
+    computed on the device. Returns the counts it printed."""
+    import torch
+
+    from pegasus_tpu_torch.base.key_schema import (
+        generate_key,
+        generate_next_bytes,
+        key_hash_parts,
+        restore_key,
+    )
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops.predicates import (
+        FT_MATCH_POSTFIX,
+        host_match_filter,
+    )
+    from pegasus_tpu_torch.ops.pushdown import PushdownSpec, finalize
+    from pegasus_tpu_torch.server.partition_server import PartitionServer
+    from pegasus_tpu_torch.server.read_coordinator import point_read_multi
+    from pegasus_tpu_torch.server.scan_coordinator import scan_multi
+    from pegasus_tpu_torch.server.types import (
+        SCAN_CONTEXT_ID_COMPLETED,
+        GetScannerRequest,
+        KeyValue,
+        MultiPutRequest,
+    )
+    from pegasus_tpu_torch.storage.block_codec import _Zstd
+    from pegasus_tpu_torch.utils.errors import StorageStatus
+
+    P = POINT_PARTITIONS
+    heap = "zstd" if _Zstd.lib() is not None else "zlib"
+    rng = np.random.default_rng(seed)
+    n_hashkeys = max(1, n_records // 10)
+    oracles = {p: BatchedOracle() for p in range(P)}
+    data_dir = tempfile.mkdtemp(prefix="pegasus_torch_point_")
+    servers = []
+    out: dict = {"heap_mode": heap}
+    on_card = device.type == "cuda"
+    with store_flags(DEFAULT_STORE):
+        try:
+            servers = [PartitionServer(os.path.join(data_dir, str(p)),
+                                       pidx=p, partition_count=P,
+                                       device=device) for p in range(P)]
+            t0 = time.perf_counter()
+            i = 0
+            for h in range(n_hashkeys):
+                hk = b"user%08d" % h
+                p = key_hash_parts(hk) % P
+                live, short = [], []
+                for s, sk in enumerate(SORT_KEYS):
+                    kv = KeyValue(sk, b"field0=%064d" % (i + s))
+                    (short if rng.random() < 0.10 else live).append(kv)
+                i += len(SORT_KEYS)
+                for kvs, ttl in ((live, 0), (short, 1)):
+                    if kvs and servers[p].on_multi_put(
+                            MultiPutRequest(hk, kvs, ttl),
+                            partition_hash=key_hash_parts(hk)) != 0:
+                        fail("multi_put refused")
+                for kv in live:
+                    oracles[p].values[generate_key(hk, kv.key)] = kv.value
+            load_s = time.perf_counter() - t0
+            deadline = epoch_now() + 2   # every 1 s TTL expired first
+            while epoch_now() < deadline:
+                time.sleep(0.1)
+            t0 = time.perf_counter()
+            for p in range(P):
+                servers[p].manual_compact()
+                oracles[p].compacted(servers[p].engine.lsm.l1_runs)
+            compact_s = time.perf_counter() - t0
+            runs = [r for s in servers for r in s.engine.lsm.l1_runs]
+            if not runs or any(r.codec != "dcz2" or r.bloom is None
+                               or r.phash is None for r in runs):
+                fail("phase 6's L1 runs must be dcz2 with bloom and phash "
+                     "sidecars")
+            stored = sum(r.codec_stats["stored_bytes"] for r in runs)
+            raw = sum(r.codec_stats["raw_bytes"] for r in runs)
+            # bench.py deepen_l0: overlay flushes whose rows interleave
+            # across the hashkeys, so every L0 fence spans every get
+            step = max(1, n_hashkeys // DEEP_L0_ROWS)
+            for g in range(DEEP_L0):
+                for h in range(g, n_hashkeys, step):
+                    hk = b"user%08d" % h
+                    p = key_hash_parts(hk) % P
+                    key = generate_key(hk, b"zz%02d" % g)
+                    if servers[p].on_put(key, b"l0-%d" % g,
+                                         partition_hash=key_hash_parts(hk)):
+                        fail("overlay put refused")
+                    oracles[p].insert(key, b"l0-%d" % g)
+                for s in servers:
+                    s.flush()
+            n_keys = sum(len(o.values) for o in oracles.values())
+            l0 = [t for s in servers for t in s.engine.lsm.l0]
+            log(f"point: {len(l0)} L0 tables, {sum(t.phash is not None for t in l0)}"
+                f" with a perfect-hash index, "
+                f"{sum(t.bloom is not None for t in l0)} with a bloom "
+                f"filter")
+            log(f"point: loaded {i} records into {P} partitions in "
+                f"{load_s:.1f} s, flush + manual_compact in {compact_s:.1f} "
+                f"s -> {len(runs)} dcz2 L1 runs of "
+                f"{sum(len(r.blocks) for r in runs)} blocks, {stored} of "
+                f"{raw} raw bytes ({stored / raw:.3f}), value heaps {heap}; "
+                f"{DEEP_L0} L0 flushes; {n_keys} live records")
+
+            not_found = int(StorageStatus.NOT_FOUND)
+            for s in servers:
+                s.point_stats.update(dict.fromkeys(s.point_stats, 0))
+                s.mask_routes.update(dict.fromkeys(s.mask_routes, 0))
+            streams = (("gets", point_get_stream(n_ops, n_hashkeys,
+                                                 seed + 1)),
+                       ("misses", point_get_stream(n_ops // 5, n_hashkeys,
+                                                   seed + 2, miss=True)))
+            fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+            t_traffic = time.perf_counter()
+            for name, stream in streams:
+                flush_s, found = [], 0
+                for off in range(0, len(stream), GET_FLUSH):
+                    groups: dict = {}
+                    for hk, sk in stream[off:off + GET_FLUSH]:
+                        ph = key_hash_parts(hk)
+                        groups.setdefault(ph % P, []).append(
+                            ("get", generate_key(hk, sk), ph))
+                    items = list(groups.items())
+                    t = time.perf_counter()
+                    res = point_read_multi([(servers[p], ops)
+                                            for p, ops in items])
+                    flush_s.append(time.perf_counter() - t)
+                    for (p, ops), results in zip(items, res):
+                        for (_op, key, _ph), got in zip(ops, results):
+                            v = oracles[p].values.get(key)
+                            want = ((0, v) if v is not None
+                                    else (not_found, b""))
+                            if got != want:
+                                fail(f"point {name}: get {key!r} gave "
+                                     f"{got!r}, the oracle {want!r}")
+                            found += v is not None
+                out[name] = len(stream)
+                log(f"point {name} on {card}: {len(stream)} gets in "
+                    f"{len(flush_s)} flushes of {GET_FLUSH}, {found} found, "
+                    f"every answer equal to the oracle's; "
+                    f"{len(stream) / sum(flush_s)} gets/s over "
+                    f"{sum(flush_s)} s of server time; per flush "
+                    f"{percentiles(flush_s)}")
+
+            # scans: YCSB-E one-page scans, some filtered, some with a
+            # pushdown count over one hashkey (served per request)
+            n_scans = max(1, n_ops // 10)
+            filtered = rng.random(n_scans) < 0.15
+            pushed = np.arange(n_scans) % PUSHDOWN_EVERY == 0
+            patterns = rng.integers(0, len(POSTFIX_PATTERNS), n_scans)
+            digits = rng.integers(0, 10, n_scans)
+            ranks = (rng.random(n_scans) ** 2.0
+                     * n_hashkeys).astype(np.int64)
+            lens = rng.integers(1, 101, n_scans)
+            pending: dict = {}
+            scan_flush_s = []
+            aggs = 0
+
+            def flush_scans():
+                nonlocal aggs
+                if not pending:
+                    return
+                items = list(pending.items())
+                now = epoch_now()
+                t = time.perf_counter()
+                res = scan_multi([(servers[p], [r for r, *_ in lst])
+                                  for p, lst in items], now)
+                scan_flush_s.append(time.perf_counter() - t)
+                for (p, lst), resps in zip(items, res):
+                    for (req, start, limit, f, vf), resp in zip(lst, resps):
+                        if resp.error != 0 or \
+                                resp.context_id != SCAN_CONTEXT_ID_COMPLETED:
+                            fail(f"point-phase scan: error {resp.error}, "
+                                 f"context {resp.context_id}")
+                        if vf is None:
+                            got = [(kv.key, kv.value) for kv in resp.kvs]
+                            want = oracles[p].page(start, limit, f, now)
+                            if got != want or resp.pushdown_applied:
+                                fail(f"point-phase scan of partition {p} "
+                                     f"from {start!r}: got {len(got)} "
+                                     f"records, want {len(want)}")
+                            continue
+                        stop = req.stop_key
+                        want = sum(
+                            1 for k, v in oracles[p].values.items()
+                            if start <= k < stop
+                            and host_match_filter(restore_key(k)[1], f[2],
+                                                  f[3])
+                            and host_match_filter(v, vf[0], vf[1]))
+                        if (not resp.pushdown_applied or resp.agg is None
+                                or finalize(req.pushdown, resp.agg)
+                                != want):
+                            fail(f"point-phase pushdown count from "
+                                 f"{start!r}: got {resp.agg}, want {want}")
+                        aggs += 1
+                pending.clear()
+
+            for op in range(n_scans):
+                hk = b"user%08d" % int(ranks[op])
+                p = key_hash_parts(hk) % P
+                start = generate_key(hk, b"")
+                f = ((0, b"", FT_MATCH_POSTFIX,
+                      POSTFIX_PATTERNS[patterns[op]])
+                     if filtered[op] else (0, b"", 0, b""))
+                vf = None
+                stop = b""
+                pd = None
+                if pushed[op]:
+                    vf = (FT_MATCH_POSTFIX, b"%d" % int(digits[op]))
+                    pd = PushdownSpec(value_filter_type=vf[0],
+                                      value_filter_pattern=vf[1],
+                                      aggregate="count")
+                    stop = generate_next_bytes(hk)
+                limit = int(lens[op])
+                req = GetScannerRequest(
+                    start_key=start, stop_key=stop, batch_size=limit,
+                    validate_partition_hash=True, one_page=True,
+                    sort_key_filter_type=f[2],
+                    sort_key_filter_pattern=f[3], pushdown=pd)
+                pending.setdefault(p, []).append((req, start, limit, f, vf))
+                if sum(len(v) for v in pending.values()) >= SCAN_FLUSH:
+                    flush_scans()
+            flush_scans()
+            if on_card:
+                torch.cuda.synchronize()
+            traffic_s = time.perf_counter() - t_traffic
+            launches = dict(fused_scan.LAUNCHES)
+            out["scans"] = n_scans
+            out["aggregates"] = aggs
+            log(f"point scans on {card}: {n_scans} one-page scans in "
+                f"{len(scan_flush_s)} flushes ({int(filtered.sum())} "
+                f"POSTFIX-filtered, {aggs} pushdown counts), every page and "
+                f"count equal to the oracle's; "
+                f"{n_scans / sum(scan_flush_s)} scans/s over "
+                f"{sum(scan_flush_s)} s; per flush "
+                f"{percentiles(scan_flush_s)}")
+            stats = {k: sum(s.point_stats[k] for s in servers)
+                     for k in servers[0].point_stats}
+            routes = {k: sum(s.mask_routes[k] for s in servers)
+                      for k in servers[0].mask_routes}
+            out.update(point_stats=stats, mask_routes=routes,
+                       launches=launches)
+            log(f"point: bloom pruned {stats['bloom_pruned']}, phash "
+                f"located {stats['phash_located']}, phash rejected "
+                f"{stats['phash_pruned']}; row cache hits "
+                f"{stats['row_cache_hit']}, misses "
+                f"{stats['row_cache_miss']}; first-touch static masks: "
+                f"{routes['encoded']} on the host from the encoded blocks, "
+                f"{routes['device_raw'] + routes['device_malformed']} on "
+                f"the device {routes}; kernel launches {launches} "
+                f"(the pushdown counts' merge-path validation); traffic "
+                f"{traffic_s:.1f} s")
+            if routes["device_raw"] or routes["device_malformed"]:
+                # every run is dcz2 and no key is malformed: the JAX
+                # package masks every such block on the host
+                fail(f"a planned block of an encoded run without malformed "
+                     f"rows had its mask computed on the device: {routes}")
+            if not routes["encoded"]:
+                fail("no planned block was masked from its encoded form")
+        finally:
+            for s in servers:
+                s.close()
+            shutil.rmtree(data_dir, ignore_errors=True)
+    return out
+
+
 # ---- main --------------------------------------------------------------
 
 
@@ -1680,7 +2033,8 @@ def main(argv=None) -> int:
     cmp_multi = check_tables_multi(device)
     log(f"flavour axis vs plain: {cmp_multi['compared']} tables "
         f"bit-identical (max |diff| {cmp_multi['max_abs_err']}) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (CUT: {max(MULTI_KS)} flavours "
+        f"at key width 32 only, {MULTI_K_WIDE} at the wider keys)")
     timings_multi = time_tables_multi(device)
     for t in timings_multi:
         log(f"scan_predicate_multi {t['shape']} on {card}: device time "
@@ -1696,20 +2050,29 @@ def main(argv=None) -> int:
         log(f"slice: CUT to {args.records} records of partition {PIDX} "
             f"(the configuration loads {FULL_RECORDS})")
     t0 = time.perf_counter()
-    launches = run_slice(device, args.records, card=card)
+    with store_flags(NONE_STORE):
+        launches = run_slice(device, args.records, card=card)
     torch.cuda.synchronize()
     log(f"slice: done in {time.perf_counter() - t0:.1f} s; kernel launches "
         f"static {launches['static']}, now {launches['now']}")
 
     # 5. the batched cross-partition scan path
     t0 = time.perf_counter()
-    batched = run_batched(device, card=card)
+    with store_flags(NONE_STORE):
+        batched = run_batched(device, card=card)
     torch.cuda.synchronize()
     log(f"batched: done in {time.perf_counter() - t0:.1f} s; kernel "
         f"launches {batched}")
 
+    # 6. the point-get path at the default store flags
+    t0 = time.perf_counter()
+    point = run_point_batch(device, card=card)["launches"]
+    torch.cuda.synchronize()
+    log(f"point: done in {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches {point}")
+
     # summary
-    log(f"chip_smoke: phases 1-5 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-6 in {time.perf_counter() - t_start:.1f} s")
     t = timings[LARGE_SHAPE]
     tm = timings_multi[MULTI_LARGE_SHAPE]
     log(json.dumps({"kernels": [{
@@ -1717,17 +2080,18 @@ def main(argv=None) -> int:
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/pallas_scan.py:43",
         "launches": (launches["static"] + launches["now"]
-                     + batched["static"]),
+                     + batched["static"] + point["static"] + point["now"]),
         "max_abs_err": cmp["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "call_ms": t["call_ms"], "shape": t["shape"],
         "launches_by_path": {"slice": launches["static"] + launches["now"],
-                             "batched": batched["static"]}}, {
+                             "batched": batched["static"],
+                             "point": point["static"] + point["now"]}}, {
         "name": "scan_predicate_multi", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/predicates.py:539",
-        "launches": batched["multi"],
+        "launches": batched["multi"] + point["multi"],
         "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,

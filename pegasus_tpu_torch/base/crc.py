@@ -88,6 +88,27 @@ def crc64_batch(data: np.ndarray, lengths: np.ndarray,
     return ~crc
 
 
+def crc64_rows(data: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """crc64 of each zero-padded byte row, uint64[B]: one native call
+    (packer.cpp pegasus_crc64_rows) hashes every row of a block or every
+    probe key of a point-read flush for the bloom and perfect-hash
+    sidecars. `crc64_batch` is its plain twin (bit-identical)."""
+    global _crc64_rows_native
+    if _crc64_rows_native is None:
+        from pegasus_tpu_torch.native import crc64_rows_fn
+
+        _crc64_rows_native = crc64_rows_fn()
+    rows = np.ascontiguousarray(data, dtype=np.uint8)
+    lens = np.ascontiguousarray(lengths, dtype=np.int64)
+    out = np.empty(rows.shape[0], dtype=np.uint64)
+    if rows.shape[0]:
+        _crc64_rows_native(rows, lens, out)
+    return out
+
+
+_crc64_rows_native = None
+
+
 def _crc32_register(data, reg: int) -> int:
     for b in data:
         reg = _TABLE32[(reg ^ b) & 0xFF] ^ (reg >> 8)
@@ -135,7 +156,24 @@ def _crc32_lanes(data: bytes, reg: int) -> int:
 
 
 def crc32(data: bytes, init_crc: int = 0) -> int:
-    """Scalar crc32 (CRC-32C), parity: dsn::utils::crc32_calc."""
+    """Scalar crc32 (CRC-32C), parity: dsn::utils::crc32_calc: one native
+    call (packer.cpp pegasus_crc32). The WAL frames and SST indexes of
+    every write go through it, where the Python table loop of
+    `crc32_plain` cost more than the rest of a multi_put."""
+    global _crc32_native
+    if _crc32_native is None:
+        from pegasus_tpu_torch.native import crc32_fn
+
+        _crc32_native = crc32_fn()
+    return _crc32_native(data, init_crc)
+
+
+_crc32_native = None
+
+
+def crc32_plain(data: bytes, init_crc: int = 0) -> int:
+    """Plain twin of `crc32` (a table loop, lanes for long buffers), the
+    version the tests hold the native function against."""
     reg = ~init_crc & _M32
     if len(data) >= _CHUNKED_MIN:
         reg = _crc32_lanes(bytes(data), reg)

@@ -3,9 +3,11 @@
 A JAX `RecordBlock` given as numpy arrays (uint32 columns, `hash_lo`
 possibly None) becomes the port's `RecordBlock` on a device (uint32
 columns as int32 bit patterns, `hash_lo` always present), and a
-`(filter_type, raw pattern)` pair becomes a `FilterSpec` there. On-disk state needs no
-conversion: under `block_codec = none` with no bloom or phash sidecars
-both packages read and write the same SST, WAL and manifest files.
+`(filter_type, raw pattern)` pair becomes a `FilterSpec` there, and a JAX
+`PushdownSpec` the port's. On-disk state needs no conversion: at any of
+the three codecs (`none`, `dcz`, `dcz2`), with or without bloom and
+perfect-hash sidecars, both packages read and write the same SST, WAL and
+manifest files, so a store carries over as it is.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from pegasus_tpu_torch.ops.predicates import FilterSpec
+from pegasus_tpu_torch.ops.pushdown import PushdownSpec
 from pegasus_tpu_torch.ops.record_block import (
     RecordBlock,
     _to_block,
@@ -41,3 +44,12 @@ def record_block(block, device=None) -> RecordBlock:
 def filter_spec(filter_type: int, raw: bytes, device=None) -> FilterSpec:
     """Port FilterSpec for a JAX `FilterSpec`'s (filter_type, raw)."""
     return FilterSpec.make(filter_type, raw, resolve_device(device))
+
+
+def pushdown_spec(spec) -> PushdownSpec:
+    """Port PushdownSpec for any object with a JAX `PushdownSpec`'s
+    fields."""
+    return PushdownSpec(
+        value_filter_type=int(spec.value_filter_type),
+        value_filter_pattern=bytes(spec.value_filter_pattern),
+        aggregate=str(spec.aggregate), k=int(spec.k), seed=int(spec.seed))

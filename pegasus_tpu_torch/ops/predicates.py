@@ -268,3 +268,256 @@ def unpack_masks(packed, count: int) -> np.ndarray:
         packed = packed.cpu().numpy()
     return np.unpackbits(np.asarray(packed), axis=-1,
                          count=count).astype(bool)
+
+
+# ---- host half: direct compute on encoded blocks and point probes ----
+# (the port's copy of pegasus_tpu/ops/predicates.py:286-532)
+
+def _region_filter_host(heap: np.ndarray, offs: np.ndarray,
+                        filter_type: int, pattern: bytes) -> np.ndarray:
+    """bool[n] pattern match over ragged byte regions
+    heap[offs[i]:offs[i+1]], one native call (packer.cpp
+    pegasus_region_filter). Device-kernel semantics: empty pattern
+    matches everything; a region shorter than the pattern never
+    matches."""
+    from pegasus_tpu_torch import native
+
+    n = len(offs) - 1
+    if filter_type == FT_NO_FILTER or not pattern:
+        return np.ones(n, dtype=bool)
+    out = np.empty(n, dtype=np.uint8)
+    native.region_filter_fn()(
+        np.ascontiguousarray(heap),
+        np.ascontiguousarray(offs, dtype=np.int64), n, pattern,
+        filter_type, out)
+    return out.astype(bool)
+
+
+def region_filter_plain(heap: np.ndarray, offs: np.ndarray,
+                        filter_type: int, pattern: bytes) -> np.ndarray:
+    """Scalar twin of `_region_filter_host` (a host_match_filter loop),
+    the plain version the tests hold the native filter against."""
+    n = len(offs) - 1
+    hv = np.asarray(heap)
+    return np.fromiter(
+        (host_match_filter(hv[offs[i]:offs[i + 1]].tobytes(),
+                           filter_type, pattern) for i in range(n)),
+        dtype=bool, count=n)
+
+
+def encoded_static_keep(enc, validate_hash: bool, pidx: int,
+                        partition_version: int,
+                        filter_key) -> Optional[np.ndarray]:
+    """bool[n] static keep mask of an EncodedBlock
+    (storage/block_codec.py), bit-identical to
+    `static_block_predicate` over the decoded block — evaluated
+    entirely on the HOST against the encoded representation:
+
+    - partition-hash validation reads the raw `hash_lo` column;
+    - the hashkey filter evaluates once per DICTIONARY entry (D unique
+      hashkeys, not n rows) and gathers per-row through the index
+      column;
+    - the sortkey filter runs over the packed sortkey heap (no padded
+      key matrix, no zero-byte scanning).
+
+    Returns None when the block cannot take this path (malformed rows
+    present — the device kernel's hashkey_len semantics differ there).
+    TTL stays the caller's per-second host mask, exactly as on the
+    device path (static masks are `now`-independent).
+    """
+    if enc.has_malformed:
+        return None
+    n = enc.n
+    hft, hfp, sft, sfp = filter_key
+    if validate_hash and (partition_version < 0
+                          or pidx > partition_version):
+        # split-safety reject-all gate, mirroring static_block_predicate
+        return np.zeros(n, dtype=bool)
+    keep = np.asarray(enc.key_len) >= 2
+    if validate_hash:
+        pv = np.uint32(partition_version & 0xFFFFFFFF)
+        keep = keep & ((np.asarray(enc.hash_lo) & pv)
+                       == np.uint32(pidx))
+    if hft != FT_NO_FILTER and hfp:
+        do = np.asarray(enc.dict_offs, dtype=np.int64)
+        per_dict = _region_filter_host(enc.dict_heap, do, hft, hfp)
+        keep = keep & per_dict[enc.hk_idx]
+    if sft != FT_NO_FILTER and sfp:
+        keep = keep & _region_filter_host(enc.sk_heap, enc.sk_offs,
+                                          sft, sfp)
+    return keep
+
+
+def pad_probe_keys(probe_keys, width: int):
+    """(uint8[P, width] padded rows, int64[P] lengths) for a batch of
+    exact-match probe keys. Keys longer than `width` cannot exist in a
+    block of that key width; their rows are zeroed and flagged by
+    length so point_probe_rows reports them absent."""
+    p = len(probe_keys)
+    lens = np.fromiter((len(k) for k in probe_keys), dtype=np.int64,
+                       count=p)
+    buf = bytearray(p * width)
+    for i, k in enumerate(probe_keys):
+        if len(k) <= width:
+            off = i * width
+            buf[off:off + len(k)] = k
+    return (np.frombuffer(bytes(buf), dtype=np.uint8).reshape(p, width),
+            lens)
+
+
+def point_probe_rows(keys_matrix: np.ndarray, key_len: np.ndarray,
+                     probe_keys, block_void=None) -> np.ndarray:
+    """Vectorized exact-key probe into ONE sorted columnar block.
+
+    keys_matrix: uint8[N, W] zero-padded sorted rows (SST block order);
+    key_len: int[N]; probe_keys: list[bytes]; block_void: optional
+    precomputed memcmp-ordered void view of keys_matrix (cached per
+    block by page.probe_nat). Returns int64[P] row indices (-1 =
+    absent). One np.searchsorted over the void view locates every probe
+    at once — the batched replacement for per-key Python bisects on the
+    point-get hot path; no key materialization, so cold blocks probe as
+    fast as hot ones.
+
+    Zero padding makes two keys differing only in TRAILING zero bytes
+    pad to identical rows; such twins are adjacent and sorted by true
+    length, so the rare collision resolves with a short forward scan.
+    """
+    n, w = keys_matrix.shape
+    p = len(probe_keys)
+    if p == 0 or n == 0:
+        return np.full(p, -1, dtype=np.int64)
+    vt = np.dtype((np.void, w))
+    if block_void is None:
+        block_void = np.ascontiguousarray(keys_matrix).view(vt).ravel()
+    if p <= 4:
+        # scalar fast path: the common flush shape scatters 1-2 keys
+        # per block, where the batch verify's array setup costs more
+        # than the probes
+        rows = np.full(p, -1, dtype=np.int64)
+        for i, k in enumerate(probe_keys):
+            lk = len(k)
+            if lk > w:
+                continue
+            padded = k.ljust(w, b"\x00")
+            pos = int(np.searchsorted(
+                block_void, np.frombuffer(padded, dtype=vt))[0])
+            while pos < n and block_void[pos].tobytes() == padded:
+                if int(key_len[pos]) == lk:
+                    rows[i] = pos
+                    break
+                pos += 1  # trailing-zero twin: true match is ahead
+        return rows
+    pm, lens = pad_probe_keys(probe_keys, w)
+    probe_v = pm.view(vt).ravel()
+    pos = np.searchsorted(block_void, probe_v)
+    rows = np.full(p, -1, dtype=np.int64)
+    in_range = (pos < n) & (lens <= w)
+    cand = np.flatnonzero(in_range)
+    if cand.size:
+        cpos = pos[cand]
+        same = (keys_matrix[cpos] == pm[cand]).all(axis=1)
+        exact = same & (np.asarray(key_len)[cpos] == lens[cand])
+        rows[cand[exact]] = cpos[exact]
+        # padded-equal but length-mismatched: trailing-zero twins ahead
+        for i in cand[same & ~exact]:
+            j = int(pos[i]) + 1
+            want = int(lens[i])
+            while j < n and block_void[j] == probe_v[i]:
+                if int(key_len[j]) == want:
+                    rows[i] = j
+                    break
+                j += 1
+    return rows
+
+
+def phash_verify_rows(keys_matrix: np.ndarray, key_len: np.ndarray,
+                      rows: np.ndarray, probe_keys) -> np.ndarray:
+    """bool[P]: does block row rows[i] hold EXACTLY probe_keys[i]?
+
+    The perfect-hash probe's fingerprint-collision rejector: the index
+    (storage/phash.py) maps a batched flush straight to (block, slot)
+    rows, and this one vectorized compare per touched block confirms
+    each located row before it serves — a collision (~0.08% of absent
+    keys) must read as "absent", never as another row's value. Scalar
+    fast path below the same threshold as point_probe_rows (the 1-4
+    key flush shape)."""
+    p = len(probe_keys)
+    if p == 0:
+        return np.zeros(0, dtype=bool)
+    n, w = keys_matrix.shape
+    kl = np.asarray(key_len)
+    if p <= 4:
+        out = np.zeros(p, dtype=bool)
+        for i, k in enumerate(probe_keys):
+            r = int(rows[i])
+            lk = len(k)
+            out[i] = (lk <= w and int(kl[r]) == lk
+                      and keys_matrix[r, :lk].tobytes() == k)
+        return out
+    pm, lens = pad_probe_keys(probe_keys, w)
+    fits = lens <= w
+    rows = np.asarray(rows, dtype=np.int64)
+    same = (keys_matrix[rows] == pm).all(axis=1)
+    return same & fits & (kl[rows] == lens)
+
+
+def bloom_key_hashes(keys) -> np.ndarray:
+    """uint64[B] full-key crc64 for a batch of probe keys — the hash
+    input EVERY sidecar structure shares (bloom filters and the
+    perfect-hash index probe the same column), evaluated once per read
+    flush and consumed by every table/run the flush's candidates
+    touch.
+
+    Compute-trivial per byte, so it always runs on the host: small
+    batches take the scalar crc64 (one call a key beats the batch call's
+    array setup), larger flushes one `crc64_rows` pass over the padded
+    key matrix.
+    """
+    n = len(keys)
+    if n == 0:
+        return np.zeros(0, dtype=np.uint64)
+    from pegasus_tpu_torch.base.crc import crc64, crc64_rows
+
+    if n < 16:
+        return np.fromiter((crc64(k) for k in keys), dtype=np.uint64,
+                           count=n)
+    width = max(1, max(len(k) for k in keys))
+    mat, lens = pad_probe_keys(keys, width)
+    return crc64_rows(mat, lens)
+
+
+def bloom_probe_rows(bloom, hashes: np.ndarray) -> np.ndarray:
+    """bool[B]: may each hashed probe key be present in `bloom`
+    (storage.bloom.BloomFilter)? False is definitive — the caller skips
+    that run/table without decoding a block. One vectorized pass
+    answers the whole flush; a filterless table answers all-True.
+
+    This is the batch-evaluation form the coalesced read flush feeds
+    (LSM-OPD's direct-on-format idea: membership for N keys is k
+    vectorized gathers over the bit array, not N scalar walks).
+    """
+    if bloom is None:
+        return np.ones(len(hashes), dtype=bool)
+    return bloom.may_contain_hashes(hashes)
+
+
+def host_key_hash_lo(hash_keys, sort_keys=None) -> np.ndarray:
+    """uint32[B] low lane of pegasus_key_hash for a key batch, evaluated
+    with ONE vectorized crc64 pass (base.crc.crc64_batch) instead of a
+    per-key scalar crc loop — the batched probe-eval form of
+    key_hash_parts used by the point-read coordinator's split-staleness
+    gate. Empty hash keys hash by their sort key (pegasus_key_schema
+    .h:150); compute-trivial per byte, so it runs on the host."""
+    from pegasus_tpu_torch.base.crc import crc64_batch
+
+    regions = list(hash_keys)
+    if sort_keys is not None:
+        regions = [hk if hk else sk
+                   for hk, sk in zip(hash_keys, sort_keys)]
+    b = len(regions)
+    if b == 0:
+        return np.zeros(0, dtype=np.uint32)
+    width = max(1, max(len(r) for r in regions))
+    mat, lens = pad_probe_keys(regions, width)
+    return (crc64_batch(mat, lens, start=0)
+            & np.uint64(0xFFFFFFFF)).astype(np.uint32)

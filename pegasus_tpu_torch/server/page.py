@@ -72,6 +72,31 @@ def block_native_ptrs(blk):
     return nat
 
 
+def probe_nat(blk):
+    """Cached point-probe entry table for one Block: the contiguous key
+    matrix, an int64 key-length column, and the memcmp-ordered void view
+    the batched searchsorted probes run over, resolved once per block
+    lifetime."""
+    nat = blk._probe
+    if nat is None:
+        km = np.ascontiguousarray(blk.keys)
+        vt = np.dtype((np.void, km.shape[1]))
+        nat = (km, np.asarray(blk.key_len, dtype=np.int64),
+               km.view(vt).ravel())
+        blk._probe = nat
+    return nat
+
+
+def probe_rows(blk, probe_keys) -> np.ndarray:
+    """int64[P] row indices of exact-match probe keys in `blk` (-1 =
+    absent): one vectorized searchsorted over the cached probe table
+    instead of P Python bisects."""
+    from pegasus_tpu_torch.ops.predicates import point_probe_rows
+
+    km, kl, bv = probe_nat(blk)
+    return point_probe_rows(km, kl, probe_keys, block_void=bv)
+
+
 def plan_geometry(plan):
     """(total_rows, value-heap span upper bound, max key width) of a
     plan: the native assembly's arena sizing. Computed once per cached

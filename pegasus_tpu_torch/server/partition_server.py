@@ -2,7 +2,16 @@
 
 Parity: src/server/pegasus_server_impl.{h,cpp}. The port serves put /
 multi_put / remove, get / multi_get, get_scanner / scan / clear_scanner,
-flush and manual_compact.
+flush and manual_compact, and the batched point-read path (get / ttl /
+multi_get with sort keys / batch_get through plan_get_batch,
+point_chunks and finish_get_batch, which server/read_coordinator drives
+across partitions).
+
+Point reads are host work, as in the JAX package: bloom filters and
+perfect-hash indexes (storage/bloom.py, storage/phash.py) prune and
+locate a flush's keys in one native call each, the node row cache
+(server/row_cache.py) serves repeat rows, and native gathers assemble
+co-located values; no point read reaches the device.
 
 Ranged reads gather candidates into columnar blocks and evaluate filter,
 TTL and partition-hash predicates for a whole block at once, where the
@@ -25,6 +34,13 @@ kernel (ops/fused_scan.py) on the server's device:
   the host from the block's expire_ts column;
 - merge: with a memtable or L0 overlay, merged candidates are packed into
   a block and validated with `now` (ops.fused_scan.scan_table).
+
+A block of a compressed run (`dcz`/`dcz2`) gets its first-touch static
+mask on the host, from the encoded form (ops.predicates
+.encoded_static_keep), exactly as in the JAX package; only blocks of
+uncompressed runs and blocks holding malformed rows reach the kernel.
+A scan's pushdown spec (ops/pushdown.py) is evaluated on the host: a
+value filter joins the live mask, an aggregate folds the survivors.
 
 Standalone mode assigns decrees locally.
 """
@@ -52,6 +68,7 @@ from pegasus_tpu_torch.base.value_schema import (
     extract_user_data,
     header_length,
 )
+from pegasus_tpu_torch.ops import pushdown as pushdown_ops
 from pegasus_tpu_torch.ops.fused_scan import STATUS_KEEP, scan_table
 from pegasus_tpu_torch.ops.predicates import (
     FT_MATCH_ANYWHERE,
@@ -59,7 +76,9 @@ from pegasus_tpu_torch.ops.predicates import (
     FT_MATCH_PREFIX,
     FT_NO_FILTER,
     FilterSpec,
+    encoded_static_keep,
     host_alive_mask,
+    host_key_hash_lo,
     host_match_filter,
     split_gate,
 )
@@ -73,8 +92,11 @@ from pegasus_tpu_torch.server.scan_context import (
     ScanContextCache,
 )
 from pegasus_tpu_torch.server import page
+from pegasus_tpu_torch.server.row_cache import ROW_CACHE
 from pegasus_tpu_torch.server.scan_coordinator import stacked_block_eval
 from pegasus_tpu_torch.server.types import (
+    BatchGetResponse,
+    FullData,
     KeyValue,
     MultiGetRequest,
     MultiGetResponse,
@@ -87,6 +109,11 @@ from pegasus_tpu_torch.server.types import (
 from pegasus_tpu_torch.server.write_service import WriteService
 from pegasus_tpu_torch.storage.engine import StorageEngine
 from pegasus_tpu_torch.storage.memtable import TOMBSTONE
+from pegasus_tpu_torch.storage.bloom import MultiProbe, bloom_probe_enabled
+from pegasus_tpu_torch.storage.phash import (
+    PHashMultiProbe,
+    phash_probe_enabled,
+)
 from pegasus_tpu_torch.storage.sstable import BLOCK_CAPACITY
 from pegasus_tpu_torch.utils.device import resolve_device
 from pegasus_tpu_torch.utils.errors import ErrorCode, StorageStatus
@@ -109,6 +136,9 @@ _NO_FILTER_KEY = (FT_NO_FILTER, b"", FT_NO_FILTER, b"")
 
 _KNOWN_FILTERS = (FT_NO_FILTER, FT_MATCH_ANYWHERE, FT_MATCH_PREFIX,
                   FT_MATCH_POSTFIX)
+
+# absent-from-the-location-cache sentinel (None is a cached "absent")
+_POINT_MISS = object()
 
 
 def _normalize_filter_key(r) -> tuple:
@@ -194,7 +224,37 @@ class PartitionServer:
         self._filter_seen: "OrderedDict[tuple, float]" = OrderedDict()
         self._filter_seen_cap = 256
         self._filter_seen_window = 30.0
+        # pushdown value-filter masks: (ckey, value filter) -> bool[count]
+        self._vmask_cache: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+        self._vmask_cache_cap = 8192
+        # (store, generation, {key -> location}): the batched point-read
+        # path's per-generation location cache
+        self._point_cache = None
+        # (store, generation, phash flag, bloom MultiProbe, columns,
+        # PHashMultiProbe, columns): the run set's sidecars prepared for
+        # the one-call batched probes
+        self._index_probe_cache = None
+        # plain counters of the batched point-read path (the JAX package
+        # keeps them in its metrics registry): keys the bloom filters and
+        # the perfect-hash indexes pruned, keys the indexes located, and
+        # row-cache hits and misses
+        self.point_stats = {"bloom_pruned": 0, "phash_pruned": 0,
+                            "phash_located": 0, "row_cache_hit": 0,
+                            "row_cache_miss": 0}
+        # where first-touch static masks of planned blocks were computed:
+        # on the host from the encoded form, or on the device for a block
+        # of a raw run or an encoded block with malformed rows
+        self.mask_routes = {"encoded": 0, "device_raw": 0,
+                            "device_malformed": 0}
         self.engine.lsm.on_publish = self._on_store_publish
+        # write-through row-cache invalidation, before the write is acked
+        self.engine.on_write_keys = self._invalidate_rows
+        ROW_CACHE.invalidate_gid((self.app_id, self.pidx))
+
+    def _invalidate_rows(self, keys) -> None:
+        lsm = self.engine.lsm
+        ROW_CACHE.invalidate((self.app_id, self.pidx), lsm.store_uid,
+                             lsm.generation, keys)
 
     def _on_store_publish(self, live_paths: set) -> None:
         """Compaction publish: drop cache entries of runs that left. Warm
@@ -203,6 +263,9 @@ class PartitionServer:
             for mkey in [k for k in self._mask_cache
                          if k[0][0] not in live_paths]:
                 del self._mask_cache[mkey]
+            for vkey in [k for k in self._vmask_cache
+                         if k[0][0] not in live_paths]:
+                del self._vmask_cache[vkey]
             for ckey in [k for k in self._device_block_cache
                          if k[0] not in live_paths]:
                 del self._device_block_cache[ckey]
@@ -210,7 +273,9 @@ class PartitionServer:
         # to rebuild, and safe against a concurrent reader)
         self._live_cache = {}
         self._plan_cache = None
+        self._point_cache = None
         self._plan_expired_cache = (None, {})
+        ROW_CACHE.invalidate_gid((self.app_id, self.pidx))
 
     def close(self) -> None:
         self.engine.close()
@@ -332,6 +397,585 @@ class PartitionServer:
             resp.resume_sort_key = restore_key(resume_key)[1]
         return resp
 
+    # ---- batched point reads: a flush of get / ttl / multi_get(sort
+    # keys) / batch_get resolves overlay hits on the host, locates base
+    # keys through the per-generation location cache and the run set's
+    # sidecars, gathers co-located values with one native call per
+    # block; plan / point_chunks / finish split so that the node-level
+    # read coordinator can stack the gathers across partitions ---------
+
+    POINT_CACHE_CAP = 65536
+    # keys in one op before its blocks go through the native page gather
+    # (the co-located multi_get / batch_get shape); below it a direct
+    # heap slice a row beats the per-chunk ctypes call
+    POINT_GATHER_MIN = 16
+
+    def on_point_read_batch(self, ops) -> list:
+        """Solo-node form of the batched point-read path. `ops`:
+        [(op, args, partition_hash)] with op in get / ttl / multi_get
+        (explicit sort keys) / batch_get; one result per op, equal to the
+        corresponding single-request handler's."""
+        return self.serve_get_batch(self.plan_get_batch(ops))
+
+    def serve_get_batch(self, state) -> list:
+        """Phases 2 and 3 for one partition: gather this batch's
+        co-located values (one native call per block) and assemble the
+        responses."""
+        chunks = self.point_chunks(state)
+        pg = None
+        if chunks:
+            pg, _size, _last = page.build_page(
+                chunks, header_length(self.data_version))
+        return self.finish_get_batch(state, pg, 0)
+
+    def plan_get_batch(self, ops, now: Optional[int] = None) -> dict:
+        """Phase 1: gates, key decomposition and location.
+
+        Per-op gates replicate the solo handlers (per-key split staleness
+        for batch_get, batched through host_key_hash_lo). Unique keys
+        resolve once: the row cache, then the overlay (memtable before
+        runs), then the location cache, then one sidecar probe of the
+        flush's disk-bound keys and batched block probes. A publish
+        racing the plan (generation moved) re-resolves every key through
+        the per-key safe order and caches nothing."""
+        now = epoch_now() if now is None else now
+        lsm = self.engine.lsm
+        gen = lsm.generation  # read before the overlay and run snapshots
+        results: list = [None] * len(ops)
+        op_keys: list = [None] * len(ops)
+        probes: List[Tuple[bytes, bool]] = []
+        wide = False  # any op wide enough for the native gather path
+        for i, (op, args, ph) in enumerate(ops):
+            if op in ("get", "ttl"):
+                gate = self._hash_gate(ph)
+                if gate:
+                    results[i] = (gate, b"") if op == "get" else (gate, 0)
+                    continue
+                op_keys[i] = (args,)
+                probes.append((args, op == "get"))
+            elif op == "multi_get":
+                gate = self._hash_gate(ph)
+                if gate:
+                    resp = MultiGetResponse()
+                    resp.error = gate
+                    results[i] = resp
+                    continue
+                if not args.hash_key:
+                    resp = MultiGetResponse()
+                    resp.error = int(StorageStatus.INVALID_ARGUMENT)
+                    results[i] = resp
+                    continue
+                keys = tuple(generate_key(args.hash_key, sk)
+                             for sk in args.sort_keys)
+                op_keys[i] = keys
+                want = not args.no_value
+                if want and len(keys) >= self.POINT_GATHER_MIN:
+                    wide = True
+                probes.extend((k, want) for k in keys)
+            elif op == "batch_get":
+                if self.validate_partition_hash and args.keys:
+                    # per-key staleness gate, one vectorized crc pass
+                    lo = host_key_hash_lo(
+                        [fk.hash_key for fk in args.keys],
+                        [fk.sort_key for fk in args.keys])
+                    pv = np.uint32(self.partition_version & 0xFFFFFFFF)
+                    if np.any((lo & pv) != np.uint32(self.pidx)):
+                        resp = BatchGetResponse()
+                        resp.error = int(
+                            ErrorCode.ERR_PARENT_PARTITION_MISUSED)
+                        results[i] = resp
+                        continue
+                keys = tuple(generate_key(fk.hash_key, fk.sort_key)
+                             for fk in args.keys)
+                op_keys[i] = keys
+                if len(keys) >= self.POINT_GATHER_MIN:
+                    wide = True
+                probes.extend((k, True) for k in keys)
+            else:
+                raise ValueError(f"unknown point-read op {op!r}")
+
+        memget = lsm.memtable.get
+        l0 = lsm.l0
+        runs = lsm.l1_runs
+        pc = self._point_cache
+        if pc is None or pc[0] is not lsm or pc[1] != gen:
+            pc = self._point_cache = (lsm, gen, {})
+        loc_cache = pc[2]
+        gid = (self.app_id, self.pidx)
+        suid = lsm.store_uid
+        rc = ROW_CACHE
+        rc_on = rc.enabled
+        # the invalidation epoch observed before any LSM read: admission
+        # hands it back, and the cache refuses the rows if a write or a
+        # publish invalidated this partition in between
+        rc_epoch = rc.epoch(gid) if rc_on else 0
+        rc_hits = rc_misses = 0
+        rc_cached = None
+        if rc_on and probes:
+            ukeys = list(dict.fromkeys(k for k, _nv in probes))
+            rc_cached = rc.get_many(gid, suid, gen, ukeys)
+            rc_hits = len(rc_cached)
+            rc_misses = len(ukeys) - rc_hits
+        uniq: dict = {}
+        base_pending: list = []  # missed the row cache and the overlay
+        for key, _nv in probes:
+            if key in uniq:
+                continue
+            if rc_cached is not None:
+                ent = rc_cached.get(key)
+                if ent is not None:
+                    uniq[key] = ("ov", ent[0], ent[1])
+                    continue
+            hit = memget(key)
+            if hit is not None:
+                uniq[key] = (None if hit[0] is TOMBSTONE
+                             else ("ov", hit[0], hit[1]))
+                continue
+            uniq[key] = None  # placeholder until base resolution
+            base_pending.append(key)
+
+        # the disk-bound residue: one full-key hash pass feeds both
+        # sidecar probes, one native bloom call for filter-only tables and
+        # one native perfect-hash call for indexed tables, answering the
+        # whole (key x L0 table / L1 run) candidacy and location matrix
+        # before any block is decoded
+        probe = None   # (matrix bytes, {id(table) -> col}, {key -> base})
+        pprobe = None  # (loc memoryview, hit bytes, cols, probe, rows)
+        bloom_useful = 0
+        useful_box = [0, 0]  # [phash-pruned, phash-located]
+        want_phash = phash_probe_enabled()
+        if base_pending and (bloom_probe_enabled() or want_phash):
+            mp, cols, pp, pcols = self._index_probes(lsm, gen, want_phash)
+            if (mp is not None and bloom_probe_enabled()) or pp is not None:
+                from pegasus_tpu_torch.ops.predicates import bloom_key_hashes
+
+                hashes = bloom_key_hashes(base_pending)
+                key_row = {k: i for i, k in enumerate(base_pending)}
+            if mp is not None and bloom_probe_enabled():
+                mat = mp.probe(hashes)
+                nfil = mp.n
+                probe = (mat, cols,
+                         {k: i * nfil for i, k in enumerate(base_pending)})
+            if pp is not None:
+                pmat, pmask = pp.probe(hashes)
+                pprobe = (pmat, pmask, pcols, pp, key_row)
+        pending = base_pending
+        if pending and l0:
+            pending, bloom_useful = self._probe_l0(
+                l0, pending, probe, uniq, pprobe, useful_box)
+        if pending:
+            still = []
+            for key in pending:
+                ent = loc_cache.get(key, _POINT_MISS)
+                if ent is not _POINT_MISS:
+                    uniq[key] = ent
+                else:
+                    still.append(key)
+            pending = still
+        if pending:
+            bloom_useful += self._locate_points(runs, pending, uniq, probe,
+                                                pprobe, useful_box)
+        if lsm.generation != gen:
+            # a flush or compaction published mid-plan: re-resolve every
+            # key through the per-key safe order and cache nothing
+            for key in list(uniq):
+                hit = lsm.get(key)
+                uniq[key] = (None if hit is None
+                             else ("ov", hit[0], hit[1]))
+        else:
+            if pending and self._point_cache is pc:
+                for key in pending:
+                    loc_cache[key] = uniq[key]
+                while len(loc_cache) > self.POINT_CACHE_CAP:
+                    loc_cache.pop(next(iter(loc_cache)))
+            if rc_on and base_pending:
+                self._maybe_admit_rows(rc, gid, suid, gen, rc_epoch,
+                                       base_pending, uniq)
+        st = self.point_stats
+        st["bloom_pruned"] += bloom_useful
+        st["phash_pruned"] += useful_box[0]
+        st["phash_located"] += useful_box[1]
+        st["row_cache_hit"] += rc_hits
+        st["row_cache_miss"] += rc_misses
+        return {"ops": ops, "results": results, "op_keys": op_keys,
+                "uniq": uniq, "now": now, "wide": wide}
+
+    def _index_probes(self, lsm, gen: int, want_phash: bool):
+        """The run set's sidecars prepared for the one-call batched
+        probes: (bloom MultiProbe, {id(table) -> filter column},
+        PHashMultiProbe, {id(table) -> index column}). With phash probing
+        on, indexed tables are left out of the bloom probe: the perfect
+        hash answers candidacy and location in one gather. Rebuilt once
+        per store generation."""
+        c = self._index_probe_cache
+        if c is not None and c[0] is lsm and c[1] == gen \
+                and c[2] == want_phash:
+            return c[3], c[4], c[5], c[6]
+        filters = []
+        cols: dict = {}
+        indexes = []
+        pcols: dict = {}
+        for t in list(lsm.l0) + list(lsm.l1_runs):
+            if want_phash and t.phash is not None:
+                pcols[id(t)] = len(indexes)
+                indexes.append(t.phash)
+            elif t.bloom is not None:
+                cols[id(t)] = len(filters)
+                filters.append(t.bloom)
+        mp = MultiProbe(filters) if filters else None
+        pp = PHashMultiProbe(indexes) if indexes else None
+        self._index_probe_cache = (lsm, gen, want_phash, mp, cols, pp, pcols)
+        return mp, cols, pp, pcols
+
+    def _probe_l0(self, l0, keys: list, probe, uniq: dict,
+                  pprobe=None, useful_box=None) -> Tuple[list, int]:
+        """Resolve `keys` through the L0 tables newest first (the first
+        table hit wins, the solo-get order). A 0 bloom cell or a 0
+        perfect-hash mask cell is a definitive absent with no block
+        touched; a located cell reads its (block, slot) row directly, one
+        row compare rejecting a fingerprint collision. Tables with
+        neither structure gate on their key fences. Returns (unresolved
+        keys, bloom-pruned count); perfect-hash pruned and located counts
+        accumulate into `useful_box`."""
+        useful = 0
+        p_useful = 0
+        p_hits = 0
+        if probe is not None:
+            mat, cols, key_row = probe
+        else:
+            mat = cols = key_row = None
+        if pprobe is not None:
+            pmat, pmask, pcols, pp, pkey_row = pprobe
+            npt = pp.n
+        else:
+            pmat = pmask = pcols = pp = pkey_row = None
+            npt = 0
+        pairs = [(t, cols.get(id(t)) if cols is not None else None,
+                  pcols.get(id(t)) if pcols is not None else None,
+                  t.phash.slot_bits if t.phash is not None else 0)
+                 for t in l0]
+        out_keys = []
+        for k in keys:
+            row = key_row[k] if key_row is not None else 0
+            prow = pkey_row[k] * npt if pkey_row is not None else 0
+            resolved = False
+            for table, col, pcol, sb in pairs:
+                if pcol is not None:
+                    cell = prow + pcol
+                    if not pmask[cell]:
+                        p_useful += 1
+                        continue
+                    loc = pmat[cell]
+                    bi = loc >> sb
+                    slot = loc & ((1 << sb) - 1)
+                    if bi >= len(table.blocks) \
+                            or slot >= table.blocks[bi].count:
+                        h = table.get(k)  # corrupt loc: the bisect path
+                    else:
+                        blk = table.read_block(bi)
+                        if blk.key_at(slot) != k:
+                            p_useful += 1  # collision: absent here
+                            continue
+                        p_hits += 1
+                        h = ((None, 0) if blk.is_tombstone(slot)
+                             else (blk.value_at(slot),
+                                   int(blk.expire_ts[slot])))
+                elif col is not None:
+                    if not mat[row + col]:
+                        useful += 1
+                        continue
+                    h = table.get(k)
+                else:
+                    fk = table.first_key
+                    if fk is None or k < fk or k > table.last_key:
+                        continue
+                    h = table.get(k)
+                if h is not None:
+                    uniq[k] = (None if h[0] is None
+                               else ("ov", h[0], h[1]))
+                    resolved = True
+                    break
+            if not resolved:
+                out_keys.append(k)
+        if useful_box is not None:
+            useful_box[0] += p_useful
+            useful_box[1] += p_hits
+        return out_keys, useful
+
+    def _maybe_admit_rows(self, rc, gid, suid: int, gen: int, epoch: int,
+                          keys: list, uniq: dict) -> None:
+        """Offer this flush's base-resolved rows (L0/L1 hits) to the node
+        row cache; admission is repeat-gated inside the cache, and
+        `epoch` voids it if a write invalidated this partition since
+        planning began."""
+        cands = [k for k in keys if uniq.get(k)]
+        if not cands:
+            return  # absent and tombstoned rows are never cached
+        granted = rc.note_and_check_many(gid, cands)
+        if not granted:
+            return
+        items = []
+        for key in granted:
+            ent = uniq[key]
+            if ent[0] == "ov":
+                value, ets = ent[1], int(ent[2])
+            else:
+                _t, blk, row = ent
+                value = blk.value_at(row)
+                ets = int(blk.expire_ts[row])
+            items.append((key, value, ets))
+        rc.admit_many(gid, suid, gen, items, epoch=epoch)
+
+    def _locate_points(self, runs, keys: list, out: dict,
+                       probe=None, pprobe=None, useful_box=None) -> int:
+        """Batch-locate keys in the non-overlapping L1 runs: bisect each
+        key to its run, then answer its candidacy from the flush's
+        sidecar matrices. An indexed run answers candidacy and location
+        in one cell (a located row is verified by one vectorized compare
+        per touched block, ops.predicates.phash_verify_rows); filter-only
+        runs keep the bloom cell, bisect and probe_rows; runs with
+        neither bisect. out[key] = ("l1", blk, row) | None. Returns the
+        bloom-pruned count."""
+        if not runs:
+            for key in keys:
+                out[key] = None
+            return 0
+        if probe is not None:
+            mat, cols, key_row = probe
+        else:
+            mat = cols = key_row = None
+        if pprobe is not None:
+            pmat, pmask, pcols, pp, pkey_row = pprobe
+            npt = pp.n
+        else:
+            pmat = pmask = pcols = pp = pkey_row = None
+            npt = 0
+        run_last = [r.last_key or b"" for r in runs]
+        by_run: "OrderedDict[int, list]" = OrderedDict()
+        for key in keys:
+            ri = bisect.bisect_left(run_last, key)
+            if ri >= len(runs) or (runs[ri].first_key or b"") > key:
+                out[key] = None
+                continue
+            by_run.setdefault(ri, []).append(key)
+        useful = 0
+        p_useful = 0
+        by_block: "OrderedDict[tuple, list]" = OrderedDict()
+        by_slot: "OrderedDict[tuple, list]" = OrderedDict()
+        for ri, ks in by_run.items():
+            run = runs[ri]
+            pcol = pcols.get(id(run)) if pcols is not None else None
+            if pcol is not None:
+                sb = run.phash.slot_bits
+                sm = (1 << sb) - 1
+                nblocks = len(run.blocks)
+                blocks = run.blocks
+                for k in ks:
+                    cell = pkey_row[k] * npt + pcol
+                    if not pmask[cell]:
+                        p_useful += 1
+                        out[k] = None
+                        continue
+                    loc = pmat[cell]
+                    bi = loc >> sb
+                    slot = loc & sm
+                    if bi >= nblocks or slot >= blocks[bi].count:
+                        # corrupt loc: this key takes the bisect path
+                        bj = run._block_for_key(k)
+                        if bj is None:
+                            out[k] = None
+                        else:
+                            by_block.setdefault((ri, bj), []).append(k)
+                        continue
+                    by_slot.setdefault((ri, bi), []).append((k, slot))
+                continue
+            col = cols.get(id(run)) if cols is not None else None
+            if col is not None:
+                kept = []
+                for k in ks:
+                    if mat[key_row[k] + col]:
+                        kept.append(k)
+                    else:
+                        useful += 1
+                        out[k] = None
+                ks = kept
+            for key in ks:
+                bi = run._block_for_key(key)
+                if bi is None:
+                    out[key] = None
+                    continue
+                by_block.setdefault((ri, bi), []).append(key)
+        if by_slot:
+            from pegasus_tpu_torch.ops.predicates import phash_verify_rows
+        for (ri, bi), pairs in by_slot.items():
+            blk = runs[ri].read_block(bi)
+            rows = np.fromiter((s for _k, s in pairs), dtype=np.int64,
+                               count=len(pairs))
+            ok = phash_verify_rows(blk.keys, blk.key_len, rows,
+                                   [k for k, _s in pairs])
+            verified = 0
+            for (key, slot), good in zip(pairs, ok):
+                if not good:
+                    p_useful += 1  # fingerprint collision: absent
+                    out[key] = None
+                    continue
+                verified += 1
+                if blk.is_tombstone(slot):
+                    out[key] = None
+                else:
+                    out[key] = ("l1", blk, slot)
+            if useful_box is not None:
+                useful_box[1] += verified
+        for (ri, bi), ks in by_block.items():
+            blk = runs[ri].read_block(bi)
+            for key, row in zip(ks, page.probe_rows(blk, ks)):
+                row = int(row)
+                if row < 0 or blk.is_tombstone(row):
+                    out[key] = None
+                else:
+                    out[key] = ("l1", blk, row)
+        if useful_box is not None:
+            useful_box[0] += p_useful
+        return useful
+
+    def point_chunks(self, state) -> list:
+        """Phase 2: this batch's L1 value-gather work as [(blk, ascending
+        rows)] chunks for one page.build_page call. Only alive rows that
+        a wide op wants the value of are gathered; the node-level
+        coordinator concatenates these chunks across partitions."""
+        if not state["wide"]:
+            state["page_pos"] = {}
+            state["chunk_rows"] = 0
+            return []
+        now = state["now"]
+        uniq = state["uniq"]
+        gmin = self.POINT_GATHER_MIN
+        by_block: "OrderedDict[int, list]" = OrderedDict()
+        blocks: dict = {}
+        seen: set = set()
+        for i, (op, args, _ph) in enumerate(state["ops"]):
+            keys = state["op_keys"][i]
+            if (state["results"][i] is not None or keys is None
+                    or len(keys) < gmin or op == "ttl"
+                    or (op == "multi_get" and args.no_value)):
+                continue
+            for key in keys:
+                if key in seen:
+                    continue
+                seen.add(key)
+                ent = uniq.get(key)
+                if not ent or ent[0] != "l1":
+                    continue
+                _tag, blk, row = ent
+                if not blk.alive_mask(now)[row]:
+                    continue  # expired rows are never gathered
+                bid = id(blk)
+                blocks[bid] = blk
+                by_block.setdefault(bid, []).append((row, key))
+        chunks = []
+        pos = 0
+        page_pos: dict = {}
+        for bid, entries in by_block.items():
+            entries.sort()
+            rows = np.fromiter((r for r, _k in entries), dtype=np.int64,
+                               count=len(entries))
+            for j, (_r, key) in enumerate(entries):
+                page_pos[key] = pos + j
+            chunks.append((blocks[bid], rows))
+            pos += len(entries)
+        state["page_pos"] = page_pos
+        state["chunk_rows"] = pos
+        return chunks
+
+    def finish_get_batch(self, state, pg=None, base: int = 0) -> list:
+        """Phase 3: per-op responses equal to the solo handlers'. `pg` /
+        `base`: the (possibly cross-partition) build_page result and this
+        state's first row in it."""
+        ops = state["ops"]
+        results = state["results"]
+        op_keys = state["op_keys"]
+        uniq = state["uniq"]
+        now = state["now"]
+        page_pos = state.get("page_pos") or {}
+        dv = self.data_version
+        hdr = header_length(dv)
+        expired_total = 0
+
+        def lookup(key, want_value):
+            """(found, data, ets) with solo-handler TTL semantics."""
+            nonlocal expired_total
+            ent = uniq.get(key)
+            if ent is None:
+                return False, b"", 0
+            if ent[0] == "ov":
+                _t, value, ets = ent
+                if check_if_ts_expired(now, ets):
+                    expired_total += 1
+                    return False, b"", 0
+                return True, (extract_user_data(dv, value)
+                              if want_value else b""), ets
+            _t, blk, row = ent
+            # a block whose alive mask the scan path built for this
+            # second answers from one cell of it
+            cmp = blk._cmp
+            ets = int(blk.expire_ts[row])
+            if cmp is not None and cmp[0] == now:
+                alive = bool(cmp[1][row])
+            else:
+                alive = not check_if_ts_expired(now, ets)
+            if not alive:
+                expired_total += 1
+                return False, b"", 0
+            if not want_value:
+                return True, b"", ets
+            pos = page_pos.get(key)
+            if pos is not None:
+                return True, pg.value_at(base + pos), ets
+            # sparse block: a direct header-stripped heap slice
+            vo = blk.value_offs
+            heap = blk.value_heap
+            v0 = int(vo[row]) + hdr
+            v1 = int(vo[row + 1])
+            data = (heap[v0:v1].tobytes()
+                    if isinstance(heap, np.ndarray) else heap[v0:v1])
+            return True, data, ets
+
+        out = []
+        for i, (op, args, _ph) in enumerate(ops):
+            if results[i] is not None:
+                out.append(results[i])
+                continue
+            if op == "get":
+                found, data, _ets = lookup(op_keys[i][0], True)
+                out.append((int(StorageStatus.OK), data) if found
+                           else (int(StorageStatus.NOT_FOUND), b""))
+            elif op == "ttl":
+                found, _data, ets = lookup(op_keys[i][0], False)
+                if not found:
+                    out.append((int(StorageStatus.NOT_FOUND), 0))
+                else:
+                    out.append((int(StorageStatus.OK),
+                                (ets - now) if ets > 0 else -1))
+            elif op == "multi_get":
+                resp = MultiGetResponse()
+                want = not args.no_value
+                for sk, key in zip(args.sort_keys, op_keys[i]):
+                    found, data, _ets = lookup(key, want)
+                    if found:
+                        resp.kvs.append(KeyValue(sk, data))
+                resp.error = int(StorageStatus.OK)
+                out.append(resp)
+            else:  # batch_get
+                resp = BatchGetResponse()
+                for fk, key in zip(args.keys, op_keys[i]):
+                    found, data, _ets = lookup(key, True)
+                    if found:
+                        resp.data.append(FullData(fk.hash_key, fk.sort_key,
+                                                  data))
+                out.append(resp)
+        self.abnormal_read_count += expired_total
+        return out
+
     # ---- ranged reads -------------------------------------------------
 
     def _batched_scan(
@@ -347,16 +991,22 @@ class PartitionServer:
         max_bytes: int,
         reverse: bool = False,
         with_values: bool = True,
+        value_filter=None,
+        pd_stats=None,
     ) -> Tuple[List[Tuple[bytes, bytes, int]], bool, Optional[bytes]]:
         """Core ranged read. Returns (records, exhausted, resume_key):
         (key, user_data, expire_ts) triples passing every predicate,
-        whether the range completed, and where a follow-up continues."""
+        whether the range completed, and where a follow-up continues.
+        `value_filter`: a pushdown value predicate (type, pattern) ANDed
+        into the keep mask; `pd_stats["pruned"]` counts the rows it
+        rejected."""
         sorted_runs = None if reverse else self.engine.lsm.sorted_runs()
         if sorted_runs is not None:
             return self._columnar_scan(sorted_runs, start_key, stop_key,
                                        now, hash_filter, sort_filter,
                                        validate_hash, limiter, max_records,
-                                       max_bytes, with_values)
+                                       max_bytes, with_values,
+                                       value_filter, pd_stats)
 
         out: List[Tuple[bytes, bytes, int]] = []
         out_bytes = 0
@@ -377,8 +1027,18 @@ class PartitionServer:
             stop_early = False
             for i in np.flatnonzero(keep):
                 key, value, ets = batch[i]
-                data = (extract_user_data(self.data_version, value)
-                        if with_values else b"")
+                if value_filter is not None:
+                    ud = extract_user_data(self.data_version, value)
+                    if not host_match_filter(ud, value_filter[0],
+                                             value_filter[1]):
+                        if pd_stats is not None:
+                            pd_stats["pruned"] = \
+                                pd_stats.get("pruned", 0) + 1
+                        continue
+                    data = ud if with_values else b""
+                else:
+                    data = (extract_user_data(self.data_version, value)
+                            if with_values else b"")
                 out.append((key, data, ets))
                 out_bytes += len(key) + len(data)
                 if ((max_records > 0 and len(out) >= max_records)
@@ -411,6 +1071,8 @@ class PartitionServer:
         max_records: int,
         max_bytes: int,
         with_values: bool,
+        value_filter=None,
+        pd_stats=None,
     ) -> Tuple[List[Tuple[bytes, bytes, int]], bool, Optional[bytes]]:
         """Pure-L1 store: SST blocks stream through the cached static mask,
         combined with TTL on the host (one vectorized AND over expire_ts);
@@ -454,10 +1116,20 @@ class PartitionServer:
                 break
             keeps = self._static_keep_window(window, validate_hash,
                                              filter_key)
-            for (_ckey, blk, lo, hi), static_keep in zip(window, keeps):
+            for (ckey, blk, lo, hi), static_keep in zip(window, keeps):
                 n = blk.count
                 ets = blk.expire_ts
                 keep = static_keep[:n] & host_alive_mask(ets, now)
+                if value_filter is not None:
+                    # the pushdown value leg joins the mask algebra,
+                    # cached per (block, pattern) like the static keep
+                    vmask = self._value_mask(ckey, blk, value_filter)
+                    before = int(np.count_nonzero(keep[lo:hi]))
+                    keep = keep & vmask[:n]
+                    if pd_stats is not None:
+                        pd_stats["pruned"] = (
+                            pd_stats.get("pruned", 0) + before
+                            - int(np.count_nonzero(keep[lo:hi])))
                 stop_early = False
                 for i in np.flatnonzero(keep[lo:hi]):
                     idx = lo + int(i)
@@ -517,15 +1189,53 @@ class PartitionServer:
             resp.context_id = SCAN_CONTEXT_ID_NOT_EXIST
             return resp
         return self._serve_scan_batch(ctx.request, ctx.resume_key,
-                                      ctx.stop_key)
+                                      ctx.stop_key, agg_state=ctx.agg_state)
 
     def on_clear_scanner(self, context_id: int) -> None:
         self._scan_cache.remove(context_id)
 
+    # ---- scan pushdown (ops/pushdown.py) ------------------------------
+
+    def _pushdown_of(self, req: GetScannerRequest):
+        """The request's PushdownSpec when it asks for work, else None (no
+        spec, or an empty one)."""
+        spec = req.pushdown
+        if spec is None:
+            return None
+        spec.check()  # ValueError on a malformed spec
+        if spec.value_filter is None and not spec.aggregate:
+            return None
+        return spec
+
+    def _value_mask(self, ckey, blk, vf) -> np.ndarray:
+        """bool[count] value-filter keep mask of one SST block, cached per
+        (block, filter). Reading blk.value_heap inflates a lazy
+        compressed heap, which the filter needs anyway."""
+        vkey = (ckey, vf)
+        with self._mask_lock:
+            hit = self._vmask_cache.get(vkey)
+            if hit is not None:
+                self._vmask_cache.move_to_end(vkey)
+                return hit
+        mask = pushdown_ops.value_filter_mask(
+            blk.value_heap, blk.value_offs,
+            header_length(self.data_version), vf[0], vf[1])
+        with self._mask_lock:
+            self._vmask_cache[vkey] = mask
+            while len(self._vmask_cache) > self._vmask_cache_cap:
+                self._vmask_cache.popitem(last=False)
+        return mask
+
     def _serve_scan_batch(self, req: GetScannerRequest, start_key: bytes,
-                          stop_key: bytes) -> ScanResponse:
-        """One scan page. `req.pushdown` is not evaluated by this server:
-        `pushdown_applied` stays False and the client evaluates locally."""
+                          stop_key: bytes, agg_state=None) -> ScanResponse:
+        """One scan page. A pushdown value filter prunes rows inside the
+        page; an aggregate folds them into a partial
+        (_pushdown_aggregate_page)."""
+        pd = self._pushdown_of(req)
+        if pd is not None and pd.aggregate:
+            return self._pushdown_aggregate_page(req, pd, start_key,
+                                                 stop_key, agg_state)
+        vf = pd.value_filter if pd is not None else None
         now = epoch_now()
         resp = ScanResponse()
         batch_size = min(req.batch_size if req.batch_size > 0 else 1000,
@@ -542,7 +1252,10 @@ class PartitionServer:
                            and self.validate_partition_hash),
             limiter=RangeReadLimiter(), max_records=batch_size,
             max_bytes=-1 if req.only_return_count else SCAN_BYTES_CAP,
-            with_values=not req.no_value and not req.only_return_count)
+            with_values=not req.no_value and not req.only_return_count,
+            value_filter=vf)
+        if pd is not None:
+            resp.pushdown_applied = True
         if req.only_return_count:
             resp.kv_count = len(records)
         else:
@@ -561,6 +1274,115 @@ class PartitionServer:
                 stop_key=stop_key))
         return resp
 
+    def _pushdown_aggregate_page(self, req: GetScannerRequest, pd,
+                                 start_key: bytes, stop_key: bytes,
+                                 agg_state=None) -> ScanResponse:
+        """Aggregate-mode pushdown: fold one (limiter-bounded) slice of the
+        range into the partition's partial aggregate instead of returning
+        rows. The partial rides in the scan context across pages and
+        ships only on the final page. On a fully compacted store the
+        survivors of the cached static masks and the host TTL mask fold
+        columnar; otherwise the merged records fold row by row."""
+        now = epoch_now()
+        resp = ScanResponse()
+        limiter = RangeReadLimiter()
+        vf = pd.value_filter
+        pd_stats: dict = {}
+        state = (agg_state if agg_state is not None
+                 else pushdown_ops.AggState(pd))
+        hash_filter = FilterSpec.make(req.hash_key_filter_type,
+                                      req.hash_key_filter_pattern,
+                                      self.device)
+        sort_filter = FilterSpec.make(req.sort_key_filter_type,
+                                      req.sort_key_filter_pattern,
+                                      self.device)
+        validate = bool(req.validate_partition_hash
+                        and self.validate_partition_hash)
+        hdr = header_length(self.data_version)
+        stop = stop_key or None
+        exhausted = True
+        resume_key: Optional[bytes] = None
+        sorted_runs = self.engine.lsm.sorted_runs()
+        if sorted_runs is not None:
+            filter_key = hash_filter.key + sort_filter.key
+            with self._mask_lock:
+                self._register_flavor(validate, filter_key,
+                                      time.monotonic())
+
+            def ranged_blocks():
+                for run in sorted_runs:
+                    if stop is not None and (run.first_key or b"") >= stop:
+                        continue
+                    if start_key and (run.last_key or b"") < start_key:
+                        continue
+                    for bm_blk in run.iter_blocks(start_key, stop):
+                        yield run, bm_blk
+
+            blocks_iter = ranged_blocks()
+            done_iter = False
+            stopped = False
+            while not stopped:
+                window = []
+                while not done_iter and len(window) < LOOKAHEAD:
+                    nxt = next(blocks_iter, None)
+                    if nxt is None:
+                        done_iter = True
+                        break
+                    run, (bm, blk) = nxt
+                    lo, hi = 0, blk.count
+                    if start_key and bm.first_key < start_key:
+                        lo = blk.lower_bound(start_key)
+                    if stop is not None and bm.last_key >= stop:
+                        hi = blk.lower_bound(stop)
+                    limiter.add_count(hi - lo)
+                    window.append(((run.path, bm.offset), blk, lo, hi))
+                if not window:
+                    break
+                keeps = self._static_keep_window(window, validate,
+                                                 filter_key)
+                for (ckey, blk, lo, hi), static_keep in zip(window, keeps):
+                    n = blk.count
+                    keep = static_keep[:n] & host_alive_mask(
+                        blk.expire_ts, now)
+                    if vf is not None:
+                        keep = keep & self._value_mask(ckey, blk, vf)[:n]
+                    sel = np.flatnonzero(keep[lo:hi]) + lo
+                    if sel.size:
+                        if pd.aggregate == "count":
+                            state.fold_columnar(sel)
+                        else:
+                            state.fold_columnar(
+                                sel, heap=blk.value_heap,
+                                value_offs=blk.value_offs, hdr=hdr,
+                                key_at=blk.key_at)
+                    if not limiter.valid():
+                        resume_key = _after(blk.key_at(n - 1))
+                        exhausted = False
+                        stopped = True
+                        break
+        else:
+            # the iterator merge already applies newest-wins shadowing
+            # and tombstones, so row folds over its survivors are exact
+            records, exhausted, resume_key = self._batched_scan(
+                start_key, stop, now, hash_filter, sort_filter, validate,
+                limiter, max_records=-1, max_bytes=-1,
+                with_values=(pd.aggregate != "count"), value_filter=vf,
+                pd_stats=pd_stats)
+            for key, data, _ets in records:
+                state.fold_row(key, data)
+        resp.pushdown_applied = True
+        resp.error = int(StorageStatus.OK)
+        if exhausted or req.one_page:
+            resp.context_id = SCAN_CONTEXT_ID_COMPLETED
+            resp.agg = state.to_wire()
+        else:
+            # not final: no partial on the wire; it continues here under
+            # a fresh context id
+            resp.context_id = self._scan_cache.put(ScanContext(
+                request=req, resume_key=resume_key or start_key,
+                stop_key=stop_key, agg_state=state))
+        return resp
+
     # ---- batched multi-scan: many scans share one predicate pass -----
 
     # overlay rows tolerated on the batched path before a batch falls
@@ -575,8 +1397,8 @@ class PartitionServer:
 
         The fast path takes a columnar store (a light write overlay
         merges host-side) and one flavour across the batch: one effective
-        validate flag, one key filter, no count-only request and no
-        pushdown. Each unique block the batch touches gets one static
+        validate flag, one key filter, one pushdown value filter, no
+        count-only request and no pushdown aggregate. Each unique block the batch touches gets one static
         mask evaluation in its lifetime; per-request boundary trimming
         happens on the host against the cached mask. Anything else is
         served request by request (partition_server.py:2480 of the JAX
@@ -613,20 +1435,28 @@ class PartitionServer:
                               and self.validate_partition_hash)
                          for r in reqs}
             filters = {_normalize_filter_key(r) for r in reqs}
-        # pushdown specs are not evaluated by this server: such requests
-        # take the per-request path, which leaves pushdown_applied False
+        # pushdown on the batched path: one shared value filter rides the
+        # live-mask machinery (it is part of the live-cache key);
+        # aggregates serve per request (their reply is a partial, not a
+        # page), as do batches mixing value filters
+        pdl = [self._pushdown_of(r) for r in reqs]
+        vfs = {pd.value_filter if pd is not None else None for pd in pdl}
         simple = (runs and overlay_count <= self.OVERLAY_MERGE_LIMIT
                   and len(validates) == 1 and len(filters) == 1
                   and all(f[0] in _KNOWN_FILTERS and f[2] in _KNOWN_FILTERS
                           for f in filters)
-                  and not any(r.only_return_count or r.pushdown is not None
-                              for r in reqs))
+                  and not any(r.only_return_count for r in reqs)
+                  and len(vfs) == 1
+                  and not any(pd is not None and pd.aggregate
+                              for pd in pdl))
         if not simple:
             return None
         now = epoch_now() if now is None else now
         validate = validates.pop()
         filter_key = filters.pop()
-        overlay = (self._overlay_snapshot(now, validate, filter_key)
+        vf = vfs.pop()
+        overlay = (self._overlay_snapshot(now, validate, filter_key,
+                                          value_filter=vf)
                    if overlay_count else ([], {}))
         # per request: the block list and boundary bounds, capped a bit
         # beyond batch_size so expiry and hash drops do not starve the
@@ -695,22 +1525,24 @@ class PartitionServer:
             return None
         return {"reqs": reqs, "req_plans": req_plans, "unique": unique,
                 "validate": validate, "now": now, "overlay": overlay,
-                "filter_key": filter_key}
+                "filter_key": filter_key, "vf": vf, "pd_list": pdl}
 
     def planned_misses(self, state) -> "OrderedDict[tuple, object]":
         """Unique planned blocks whose static masks are not cached: the
         device work left, as ckey -> device block (uploaded here through
-        the block cache). The cached masks go to state["cached_keep"].
-        Masks are `now`-independent, so a block misses only on first
-        touch after a flush or compaction, or for a new filter. The
-        batch's flavour is registered for the MaskPrefresher."""
+        the block cache). The cached masks, and the masks of compressed
+        blocks evaluated here on the host from their encoded form, go to
+        state["cached_keep"]. Masks are `now`-independent, so a block
+        misses only on first touch after a flush or compaction, or for a
+        new filter. The batch's flavour is registered for the
+        MaskPrefresher."""
         keep_masks = {}
         misses: "OrderedDict[tuple, object]" = OrderedDict()
         validate = state["validate"]
         filter_key = state["filter_key"]
         with self._mask_lock:
             self._register_flavor(validate, filter_key, time.monotonic())
-            for ckey, (_run, _bm, blk) in state["unique"].items():
+            for ckey, (run, bm, blk) in state["unique"].items():
                 mkey = (ckey, self.partition_version, validate,
                         filter_key)
                 cached = self._mask_cache.get(mkey)
@@ -718,11 +1550,40 @@ class PartitionServer:
                     self._mask_cache.move_to_end(mkey)
                     keep_masks[ckey] = cached
                     continue
-                misses[ckey] = blk
-        for ckey, blk in list(misses.items()):
+                misses[ckey] = (run, bm, blk)
+        pv = self.partition_version
+        routes = self.mask_routes
+        for ckey, (run, bm, blk) in list(misses.items()):
+            # direct compute on compressed blocks: the static keep (hash
+            # validation, hashkey and sortkey filters) evaluates on the
+            # host against the encoded form, with no device round-trip
+            keep, route = self._encoded_static_mask(run, bm, validate,
+                                                    filter_key, pv)
+            routes[route] += 1
+            if keep is not None:
+                keep_masks[ckey] = keep
+                self.store_mask_for(ckey, validate, filter_key, keep,
+                                    computed_pv=pv)
+                del misses[ckey]
+                continue
             misses[ckey] = self._device_cached_block(ckey, blk)
         state["cached_keep"] = keep_masks
         return misses
+
+    def _encoded_static_mask(self, run, bm, validate: bool, filter_key,
+                             pv: int):
+        """(bool[n] static keep | None, route) of one planned block via
+        the encoded probe (ops.predicates.encoded_static_keep); None when
+        the run is uncompressed or the block holds malformed rows. The
+        route names where the mask is computed (see `mask_routes`). A
+        run replaced mid-plan still reads: its map outlives the file."""
+        if run.codec is None:
+            return None, "device_raw"
+        enc = run.read_block_encoded(run.block_index(bm))
+        keep = encoded_static_keep(enc, validate, self.pidx, pv, filter_key)
+        if keep is None:
+            return None, "device_malformed"
+        return keep, "encoded"
 
     def _register_flavor(self, validate: bool, filter_key,
                          wall: float) -> None:
@@ -812,6 +1673,7 @@ class PartitionServer:
             return state["fast"]
         unique = state["unique"]
         now = state["now"]
+        vf = state["vf"]
         live_masks = {}
         live_ptrs = {}
         alive_all = {}
@@ -823,7 +1685,7 @@ class PartitionServer:
             # second, so every batch within it reuses static AND alive;
             # the entry pins the static array it was built from, since
             # id() alone could be a recycled address after an evict
-            lkey = (ckey, id(static))
+            lkey = (ckey, id(static), vf)
             hit = cache.get(lkey)
             if hit is not None and hit[0] == now and hit[1] is static:
                 _now, _st, alive, exp, live, lptr = hit
@@ -833,6 +1695,10 @@ class PartitionServer:
                 # requests spanning the whole block reuse it
                 exp = len(alive) - int(np.count_nonzero(alive))
                 live = static[:blk.count] & alive
+                if vf is not None:
+                    # the shared pushdown value filter joins the live mask
+                    live = live & self._value_mask(ckey, blk,
+                                                   vf)[:blk.count]
                 # .ctypes.data costs ~a µs: once per (block, flavour,
                 # second), not per request window
                 lptr = live.ctypes.data
@@ -1045,6 +1911,9 @@ class PartitionServer:
             total_expired += req_expired
             resp = ScanResponse()
             resp.kvs = kvs
+            # pd_list aligns with req_plans; len(out) is this request's
+            # index
+            resp.pushdown_applied = state["pd_list"][len(out)] is not None
             resp.error = int(StorageStatus.OK)
             if exhausted or req.one_page:
                 resp.context_id = SCAN_CONTEXT_ID_COMPLETED
@@ -1056,7 +1925,8 @@ class PartitionServer:
         self.abnormal_read_count += total_expired
         return out
 
-    def _overlay_snapshot(self, now: int, validate: bool, filter_key):
+    def _overlay_snapshot(self, now: int, validate: bool, filter_key,
+                          value_filter=None):
         """(sorted keys, key -> None | (user data, expire_ts)) of the
         memtable + L0 overlay, newest wins, with the scan predicates (TTL,
         stale-split hash, the batch's key filter) evaluated on the host:
@@ -1064,7 +1934,9 @@ class PartitionServer:
         would cost more than it filters. A key failing the key filter is
         left out (its base copies fail the same filter in the mask); an
         expired, tombstoned or foreign row stays as a hidden shadow
-        (None) that hides the base row of its key."""
+        (None) that hides the base row of its key, and so does a row the
+        pushdown value filter rejects (the base may hold an older value
+        of the key that would pass)."""
         hft, hfp, sft, sfp = filter_key
         lsm = self.engine.lsm
         merged: dict = {}
@@ -1094,7 +1966,12 @@ class PartitionServer:
                                                self.partition_version):
                 out[key] = None
                 continue
-            out[key] = (extract_user_data(self.data_version, value), ets)
+            data = extract_user_data(self.data_version, value)
+            if value_filter is not None and not host_match_filter(
+                    data, value_filter[0], value_filter[1]):
+                out[key] = None  # value-rejected: hidden, still shadows
+                continue
+            out[key] = (data, ets)
         return list(out), out  # insertion order is already sorted
 
     # ---- static masks of SST blocks -----------------------------------

@@ -25,6 +25,9 @@ class ScanContext:
     request: GetScannerRequest
     resume_key: bytes            # next full key to seek (exclusive of served)
     stop_key: bytes              # effective exclusive upper bound
+    # aggregate-mode pushdown: the partial (ops/pushdown.AggState) that
+    # continues across pages and ships only on the final one
+    agg_state: Optional[object] = None
     last_used: float = field(default_factory=time.monotonic)
 
 

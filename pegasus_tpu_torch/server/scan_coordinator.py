@@ -53,8 +53,8 @@ def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
     Requests are grouped per (validate, filter) flavour, so a flush
     mixing filter patterns still takes the batched path (one plan per
     flavour, one multi-flavour evaluation); a group that cannot take it
-    (a large overlay, count-only, pushdown, an unknown filter type) is
-    served per request. `timings`, when given, accumulates the seconds
+    (a large overlay, count-only, a pushdown aggregate, an unknown
+    filter type) is served per request. `timings`, when given, accumulates the seconds
     of each phase under "plan", "eval", "prepare", "native" and
     "finish"."""
     from pegasus_tpu_torch.server import page
@@ -76,11 +76,14 @@ def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
     for server, reqs in servers_and_reqs:
         groups: "OrderedDict[tuple, list]" = OrderedDict()
         for i, r in enumerate(reqs):
-            # a pushdown request joins a group of its own, so it does not
-            # knock its flavour off the batched path
+            # the pushdown identity joins the group key (a request with
+            # another value filter or an aggregate must not knock its
+            # flavour off the batched path) but not the plan flavour:
+            # the device mask inputs are key-side only
             fl = (bool(r.validate_partition_hash
                        and server.validate_partition_hash),
-                  _normalize_filter_key(r), r.pushdown is not None)
+                  _normalize_filter_key(r),
+                  r.pushdown.key if r.pushdown is not None else None)
             groups.setdefault(fl, []).append(i)
         sub = []
         for fl, idxs in groups.items():

@@ -2,7 +2,7 @@
 
 Parity: idl/rrdb.thrift — the same field sets and semantics as
 pegasus_tpu/server/types.py, limited to put / multi_put / remove / get /
-multi_get / get_scanner / scan / clear_scanner.
+ttl / multi_get / batch_get / get_scanner / scan / clear_scanner.
 """
 
 from __future__ import annotations
@@ -127,6 +127,30 @@ class MultiGetResponse:
 
 
 @dataclass
+class FullKey:
+    hash_key: bytes
+    sort_key: bytes
+
+
+@dataclass
+class FullData:
+    hash_key: bytes
+    sort_key: bytes
+    value: bytes
+
+
+@dataclass
+class BatchGetRequest:
+    keys: List[FullKey]
+
+
+@dataclass
+class BatchGetResponse:
+    error: int = 0
+    data: List[FullData] = field(default_factory=list)
+
+
+@dataclass
 class GetScannerRequest:
     start_key: bytes = b""        # full encoded keys
     stop_key: bytes = b""
@@ -145,9 +169,8 @@ class GetScannerRequest:
     # one-shot ranged read: serve a single page and never cache a scan
     # context (the YCSB-E "scan N records" shape)
     one_page: bool = False
-    # server-side pushdown spec: this server does not evaluate pushdown,
-    # so it ignores the field and leaves `pushdown_applied` False — the
-    # soft version gate on which clients fall back to local evaluation
+    # server-side pushdown (ops/pushdown.PushdownSpec): a value-region
+    # filter and/or an aggregate evaluated inside the scan-page path
     pushdown: Optional[Any] = None
 
 

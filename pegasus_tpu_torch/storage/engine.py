@@ -74,6 +74,8 @@ class StorageEngine:
                     self.lsm.put(r.key, r.value, r.expire_ts)
             self.last_committed_decree = max(self.last_committed_decree, decree)
         self.wal = WriteAheadLog(self._wal_path)
+        # called with the keys of every applied write batch
+        self.on_write_keys = None
 
     def close(self) -> None:
         self.wal.close()
@@ -97,6 +99,11 @@ class StorageEngine:
             else:
                 self.lsm.put(i.key, i.value, i.expire_ts)
         self.last_committed_decree = decree
+        # write-through hook (the node row cache drops these keys before
+        # the write is acknowledged)
+        hook = self.on_write_keys
+        if hook is not None and items:
+            hook([i.key for i in items])
 
     def flush(self) -> bool:
         """Memtable -> durable L0 SST stamped with the decree watermark."""

@@ -16,19 +16,28 @@ removes obsolete compaction inputs/outputs from crash windows. The
 directory layout is the JAX package's, so either package opens a store
 the other wrote.
 
+Every writer (flush, merge compaction) stamps the current
+`[pegasus.storage] block_codec` and builds the bloom and perfect-hash
+sidecars its flags ask for (storage/sstable.py); a point get consults
+them, hashing the key once.
+
 Scan merge order: memtable > newest L0 > ... > oldest L0 > L1 runs.
 """
 
 from __future__ import annotations
 
 import heapq
+import itertools
 import json
 import os
 import tempfile
 from typing import Callable, Iterator, List, Optional, Tuple
 
+from pegasus_tpu_torch.base.crc import crc64
 from pegasus_tpu_torch.base.value_schema import update_expire_ts
+from pegasus_tpu_torch.storage.bloom import bloom_probe_enabled
 from pegasus_tpu_torch.storage.memtable import Memtable, TOMBSTONE
+from pegasus_tpu_torch.storage.phash import phash_probe_enabled
 from pegasus_tpu_torch.storage.sstable import (
     BLOCK_CAPACITY,
     SSTable,
@@ -40,6 +49,11 @@ Record = Tuple[bytes, Optional[bytes], int]
 
 # records per L1 output run before the compactor starts a new one
 L1_RUN_CAPACITY = 262_144
+
+# process-wide store identities: the node row cache keys rows by
+# (gid, store uid, generation), so a reopened store never serves rows
+# cached from an earlier instance at the same generation number
+_STORE_UIDS = itertools.count(1)
 
 
 class LSMStore:
@@ -56,6 +70,7 @@ class LSMStore:
         # publish): the scan plan cache is keyed on it, so plans
         # invalidate exactly when the block set does
         self.generation = 0
+        self.store_uid = next(_STORE_UIDS)
         # last manual-compaction finish time (pegasus-epoch seconds),
         # persisted in the manifest independently of the run set
         self.compact_finish_time = 0
@@ -161,22 +176,45 @@ class LSMStore:
 
     def get(self, key: bytes) -> Optional[Tuple[bytes, int]]:
         """Visible (value, expire_ts) or None. TTL filtering is the
-        caller's job (the reference checks expiry in the handlers)."""
+        caller's job (the reference checks expiry in the handlers).
+
+        L0 tables short-circuit on their first/last-key fences, then on
+        their sidecars: the key is hashed once (the crc64 every sidecar
+        shares) when a candidate table carries a bloom or a perfect-hash
+        index. An indexed table answers through its perfect hash alone
+        (a miss touches no block); each kill switch disables only its
+        own structure."""
         hit = self.memtable.get(key)
         if hit is not None:
             value, ets = hit
             return None if value is TOMBSTONE else (value, ets)
+        bloom_on = bloom_probe_enabled()
+        phash_on = phash_probe_enabled()
+        key_hash: Optional[int] = None  # computed at most once
+
+        def lookup(table):
+            nonlocal key_hash
+            use_phash = phash_on and table.phash is not None
+            use_bloom = bloom_on and not use_phash \
+                and table.bloom is not None
+            if (use_phash or use_bloom) and key_hash is None:
+                key_hash = crc64(key)
+            if use_bloom and not table.may_contain(key, key_hash):
+                return None  # definitively absent from this table
+            return table.get(key, key_hash=key_hash
+                             if use_phash else None)
+
         for table in self.l0:
             fk = table.first_key
             if fk is None or key < fk or key > table.last_key:
                 continue
-            hit = table.get(key)
+            hit = lookup(table)
             if hit is not None:
                 value, ets = hit
                 return None if value is None else (value, ets)
         run = self._run_for(key)
         if run is not None:
-            hit = run.get(key)
+            hit = lookup(run)
             if hit is not None:
                 value, ets = hit
                 return None if value is None else (value, ets)

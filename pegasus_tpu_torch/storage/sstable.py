@@ -1,4 +1,4 @@
-"""Columnar SSTable in the raw (`none` codec) layout.
+"""Columnar SSTable: sorted runs on disk, in the JAX package's format.
 
 Each block stores
 
@@ -13,12 +13,16 @@ Each block stores
 
 so a scan hands `keys/key_len/expire_ts/hash_lo` straight to the device
 predicate (ops/record_block.block_from_columns) with no per-record host
-decoding.
+decoding. Under the `dcz`/`dcz2` codecs (`[pegasus.storage]
+block_codec`, default dcz2) a block is stored encoded
+(storage/block_codec.py) and decodes to exactly these columns.
 
-File layout:  magic | block* | index(JSON) | footer — byte-compatible with
-the JAX package's files under `block_codec = none`. A file whose index
-carries bloom or perfect-hash sidecars opens and serves; the sidecars are
-ignored. A file whose index names a compressed codec is refused at open.
+File layout:  magic | block* | [bloom] | [phash] | index(JSON) | footer —
+byte-compatible with the JAX package's files: the index names the codec
+(absent for `none`), the bloom filter (storage/bloom.py) and the
+perfect-hash index (storage/phash.py), both built at finish from one
+full-key crc64 column per block. Encrypted files (the JAX package's
+efile) are refused at open.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import json
 import mmap
 import os
 import struct
+import threading
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple
@@ -35,10 +40,30 @@ from zlib import crc32 as _block_crc32
 
 import numpy as np
 
-from pegasus_tpu_torch.base.crc import crc32
+from pegasus_tpu_torch.base.crc import crc32, crc64, crc64_rows
 from pegasus_tpu_torch.ops.predicates import host_alive_mask
 from pegasus_tpu_torch.ops.record_block import hash_lo_column, next_bucket
-from pegasus_tpu_torch.storage.block_codec import KNOWN_CODECS
+from pegasus_tpu_torch.storage.block_codec import (
+    CODEC_DCZ2,
+    CODEC_NONE,
+    KNOWN_CODECS,
+    EncodedBlock,
+    block_version,
+    codec_accepts,
+    encode_block,
+    raw_block_size,
+)
+from pegasus_tpu_torch.storage.bloom import (
+    BloomFilter,
+    bloom_build_bits,
+    bloom_probe_enabled,
+)
+from pegasus_tpu_torch.storage.phash import (
+    KNOWN_PHASH_VERSIONS,
+    PHashIndex,
+    phash_build_enabled,
+    phash_probe_enabled,
+)
 from pegasus_tpu_torch.storage.vfs import fsync_dir, fsync_file, open_data_file
 from pegasus_tpu_torch.utils.errors import StorageCorruptionError
 from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
@@ -48,14 +73,32 @@ define_flag("pegasus.storage", "block_crc", True,
             "on every block decode (cache misses only); files written "
             "without block CRCs keep serving unverified", mutable=True)
 
+define_flag("pegasus.storage", "block_codec", "dcz2",
+            "per-block codec stamped into new SST files at every writer "
+            "finish site: 'dcz2' = dictionary-coded hashkeys + packed "
+            "sortkeys + compressed value heap + FOR expire_ts + "
+            "dict-indexed hash_lo; 'dcz' = the same with raw uint32 "
+            "predicate columns; 'none' = the raw columnar layout",
+            mutable=True)
+
 define_flag("pegasus.storage", "block_cache_bytes", 33_554_432,
             "per-table decoded-block cache budget in bytes (LRU)",
             mutable=True)
+
+
+def block_codec() -> str:
+    codec = str(FLAGS.get("pegasus.storage", "block_codec"))
+    if codec != CODEC_NONE and codec not in KNOWN_CODECS:
+        raise ValueError(f"unknown block_codec {codec!r}")
+    return codec
+
 
 MAGIC = b"PGT2"
 MAGIC_V1 = b"PGT1"  # pre-hash_lo format, still readable
 FOOTER = struct.Struct("<QII4s")  # index_offset, index_size, index_crc, magic
 _BLOCK_HDR = struct.Struct("<IIQ")  # count, key_width, value_heap_size
+# the JAX package's at-rest encryption header (storage/efile.py)
+_EFILE_MAGIC = b"PEGSENC1"
 
 BLOCK_CAPACITY = 1024
 
@@ -74,11 +117,14 @@ class BlockMeta:
 
 
 class Block:
-    """A decoded columnar block: numpy views over the mapped file."""
+    """A decoded columnar block: numpy views over the mapped file, or,
+    for a block decoded from a compressed file, real arrays whose value
+    heap may be a zero-arg thunk that inflates on first value access (so
+    key-only work never pays the heap decode)."""
 
     __slots__ = ("keys", "key_len", "expire_ts", "hash_lo", "flags",
-                 "value_offs", "value_heap", "_key_list", "_gets", "_nat",
-                 "_cmp")
+                 "value_offs", "_vh", "_key_list", "_gets", "_nat", "_cmp",
+                 "_probe")
 
     def __init__(self, keys, key_len, expire_ts, hash_lo, flags, value_offs,
                  value_heap):
@@ -88,11 +134,19 @@ class Block:
         self.hash_lo = hash_lo        # uint32[N] (None in PGT1 files)
         self.flags = flags            # uint8[N]
         self.value_offs = value_offs  # uint32[N+1]
-        self.value_heap = value_heap  # uint8[heap]
+        self._vh = value_heap         # uint8[heap] view, or lazy thunk
         self._key_list = None
         self._gets = 0
-        self._nat = None  # native pointer row (server/page.block_native_ptrs)
-        self._cmp = None  # (now, alive mask) of alive_mask
+        self._nat = None    # native pointer row (server/page.block_native_ptrs)
+        self._cmp = None    # (now, alive mask) of alive_mask
+        self._probe = None  # point-probe table (server/page.probe_nat)
+
+    @property
+    def value_heap(self):
+        vh = self._vh
+        if callable(vh):
+            vh = self._vh = vh()
+        return vh
 
     @property
     def count(self) -> int:
@@ -150,7 +204,10 @@ class Block:
 
 
 class SSTableWriter:
-    """Writes a sorted record stream into a columnar SST."""
+    """Writes a sorted record stream into a columnar SST.
+
+    The codec, the block-CRC switch and both sidecar switches are latched
+    at construction, so a flag flip mid-write cannot tear one table."""
 
     def __init__(self, path: str, block_capacity: int = BLOCK_CAPACITY,
                  meta: Optional[dict] = None) -> None:
@@ -162,8 +219,36 @@ class SSTableWriter:
         self._pending: List[Tuple[bytes, bytes, int, int]] = []
         self._last_key: Optional[bytes] = None
         self._count = 0
+        self._offset = 0
+        # the bloom filter and the perfect-hash index both consume one
+        # full-key crc64 column per block, accumulated by _sidecar_note
+        self._bloom_bits_per_key = bloom_build_bits()
+        self.bloom_enabled = self._bloom_bits_per_key > 0
+        self.phash_enabled = phash_build_enabled()
+        self.sidecar_hashes = self.bloom_enabled or self.phash_enabled
         self._block_crc = bool(FLAGS.get("pegasus.storage", "block_crc"))
-        self._f.write(MAGIC)
+        self.codec = block_codec()
+        # the block format version this writer emits; the file may still
+        # carry older versions its codec accepts
+        self.codec_version = 2 if self.codec == CODEC_DCZ2 else 1
+        self._codec_raw_bytes = 0     # logical (raw-format) bytes
+        self._codec_stored_bytes = 0  # bytes actually written
+        self._key_hashes: List[np.ndarray] = []
+        self._write(MAGIC)
+
+    def _write(self, buf) -> None:
+        self._offset += len(buf)
+        self._f.write(buf)
+
+    def _sidecar_note(self, keys: np.ndarray, key_len: np.ndarray,
+                      hashes: Optional[np.ndarray] = None) -> None:
+        """Record one block's full-key crc64 column for the sidecars
+        built at finish(). The per-block arrays stay segmented: their
+        boundaries are the (block, slot) numbering the phash maps to."""
+        if not self.sidecar_hashes:
+            return
+        self._key_hashes.append(hashes if hashes is not None
+                                else crc64_rows(keys, key_len))
 
     def add(self, key: bytes, value: bytes, expire_ts: int = 0,
             tombstone: bool = False) -> None:
@@ -175,6 +260,33 @@ class SSTableWriter:
         self._count += 1
         if len(self._pending) >= self._block_capacity:
             self._flush_block()
+
+    def _encode(self, n, width, keys, key_len, ets, hash_lo, flags, offs,
+                heap) -> bytes:
+        """One block's on-disk bytes under this writer's codec."""
+        if self.codec == CODEC_NONE:
+            return b"".join((
+                _BLOCK_HDR.pack(n, width, len(heap)),
+                np.ascontiguousarray(keys, dtype=np.uint8).tobytes(),
+                np.ascontiguousarray(key_len, dtype=np.int32).tobytes(),
+                np.ascontiguousarray(ets, dtype=np.uint32).tobytes(),
+                np.ascontiguousarray(hash_lo, dtype=np.uint32).tobytes(),
+                np.ascontiguousarray(flags, dtype=np.uint8).tobytes(),
+                np.ascontiguousarray(offs, dtype=np.uint32).tobytes(),
+                heap))
+        buf = encode_block(keys, key_len, ets, hash_lo, flags, offs, heap,
+                           version=self.codec_version)
+        self._codec_raw_bytes += raw_block_size(n, width, len(heap))
+        self._codec_stored_bytes += len(buf)
+        return buf
+
+    def _append(self, buf, n, width, first_key, last_key) -> None:
+        offset = self._offset
+        self._write(buf)
+        self._blocks.append(BlockMeta(
+            offset=offset, size=len(buf), count=n, key_width=width,
+            first_key=first_key, last_key=last_key,
+            crc=_block_crc32(buf) if self._block_crc else None))
 
     def _flush_block(self) -> None:
         if not self._pending:
@@ -200,17 +312,89 @@ class SSTableWriter:
             pos += len(v)
         offs[n] = pos
         heap = b"".join(heap_parts)
-        buf = b"".join((
-            _BLOCK_HDR.pack(n, width, len(heap)), keys.tobytes(),
-            key_len.tobytes(), ets.tobytes(),
-            hash_lo_column(keys, key_len).tobytes(), flags.tobytes(),
-            offs.tobytes(), heap))
-        offset = self._f.tell()
-        self._f.write(buf)
-        self._blocks.append(BlockMeta(
-            offset=offset, size=len(buf), count=n, key_width=width,
-            first_key=recs[0][0], last_key=recs[-1][0],
-            crc=_block_crc32(buf) if self._block_crc else None))
+        self._sidecar_note(keys, key_len)
+        buf = self._encode(n, width, keys, key_len, ets,
+                           hash_lo_column(keys, key_len), flags, offs, heap)
+        self._append(buf, n, width, recs[0][0], recs[-1][0])
+
+    def add_block_columnar(self, keys: np.ndarray, key_len: np.ndarray,
+                           ets: np.ndarray, hash_lo: np.ndarray,
+                           flags: np.ndarray, value_offs: np.ndarray,
+                           heap) -> None:
+        """Append a block from already-columnar arrays, carrying hash_lo
+        over from the source block."""
+        n = int(keys.shape[0])
+        if n == 0:
+            return
+        self._flush_block()
+        first_key = bytes(keys[0, :int(key_len[0])])
+        last_key = bytes(keys[-1, :int(key_len[-1])])
+        if self._last_key is not None and first_key <= self._last_key:
+            raise ValueError("blocks must be added in key order")
+        if isinstance(heap, np.ndarray):
+            heap = np.ascontiguousarray(heap, dtype=np.uint8).tobytes()
+        width = int(keys.shape[1])
+        self._sidecar_note(keys, key_len)
+        buf = self._encode(n, width, keys, key_len, ets, hash_lo, flags,
+                           value_offs, heap)
+        self._append(buf, n, width, first_key, last_key)
+        self._count += n
+        self._last_key = last_key
+
+    def add_block_encoded(self, enc: EncodedBlock) -> None:
+        """Append an already-encoded block verbatim (no heap inflate, no
+        re-encode). A block whose version this writer's codec cannot hold
+        (a v2 block into a 'dcz' file) is transcoded down through the
+        columnar path instead."""
+        if self.codec == CODEC_NONE:
+            raise ValueError("writer codec is 'none'; encoded blocks "
+                             "must decode first")
+        n = enc.n
+        if n == 0:
+            return
+        if not codec_accepts(self.codec, enc.version):
+            blk = enc.decode()
+            self.add_block_columnar(blk.keys, blk.key_len, blk.expire_ts,
+                                    blk.hash_lo, blk.flags,
+                                    blk.value_offs, blk.value_heap)
+            return
+        self._flush_block()
+        first_key = enc.key_at(0)
+        last_key = enc.key_at(n - 1)
+        if self._last_key is not None and first_key <= self._last_key:
+            raise ValueError("blocks must be added in key order")
+        buf = enc.raw if isinstance(enc.raw, bytes) else bytes(enc.raw)
+        hashes = (crc64_rows(enc.key_matrix(), enc.key_len)
+                  if self.sidecar_hashes else None)
+        self.add_block_encoded_raw(buf, n, enc.key_width, enc.raw_heap_len,
+                                   first_key, last_key, hashes)
+
+    def add_block_encoded_raw(self, buf: bytes, n: int, key_width: int,
+                              raw_heap_len: int, first_key: bytes,
+                              last_key: bytes, key_hashes) -> None:
+        """Append pre-encoded block bytes with the index metadata already
+        in hand (the encoded subset's exit)."""
+        if self.codec == CODEC_NONE:
+            raise ValueError("writer codec is 'none'; encoded blocks "
+                             "must decode first")
+        if n == 0:
+            return
+        if not codec_accepts(self.codec, block_version(buf)):
+            raise ValueError(
+                f"block format v{block_version(buf)} cannot be stored "
+                f"in a {self.codec!r} file")
+        self._flush_block()
+        if self._last_key is not None and first_key <= self._last_key:
+            raise ValueError("blocks must be added in key order")
+        if self.sidecar_hashes:
+            if key_hashes is None:
+                raise ValueError("sidecar build needs key hashes")
+            self._sidecar_note(None, None, hashes=key_hashes)
+        self._append(buf, n, key_width, first_key, last_key)
+        self._codec_raw_bytes += raw_block_size(n, key_width, raw_heap_len)
+        self._codec_stored_bytes += len(buf)
+        self._count += n
+        self._last_key = last_key
 
     def finish(self) -> None:
         self._flush_block()
@@ -225,6 +409,14 @@ class SSTableWriter:
             "meta": self._meta,
             "total_count": self._count,
         }
+        if self.codec != CODEC_NONE:
+            # the codec is named once per file; 'none' files carry no key
+            index["codec"] = self.codec
+            index["codec_stats"] = {
+                "raw_bytes": self._codec_raw_bytes,
+                "stored_bytes": self._codec_stored_bytes,
+            }
+        self._build_sidecars(index)
         blob = json.dumps(index).encode()
         index_offset = self._f.tell()
         self._f.write(blob)
@@ -235,6 +427,38 @@ class SSTableWriter:
         os.replace(self.path + ".tmp", self.path)
         # the rename must be durable before the caller truncates the WAL
         fsync_dir(os.path.dirname(self.path))
+
+    def _build_sidecars(self, index: dict) -> None:
+        """Build and persist the bloom filter and the perfect-hash index
+        from the accumulated per-block hash columns; the index names
+        their offsets and geometry. A failed phash build leaves the run
+        without one (it serves through bloom and bisect)."""
+        if not self._key_hashes:
+            return
+        if self.bloom_enabled:
+            bf = BloomFilter.build(np.concatenate(self._key_hashes),
+                                   self._bloom_bits_per_key)
+            bloom_off = self._f.tell()
+            blob = bf.to_bytes()
+            self._f.write(blob)
+            index["bloom"] = {"off": bloom_off, "size": len(blob),
+                              "m": bf.m, "k": bf.k}
+        if self.phash_enabled:
+            ph = PHashIndex.build(
+                np.concatenate(self._key_hashes)
+                if len(self._key_hashes) > 1 else self._key_hashes[0],
+                [b.count for b in self._blocks])
+            if ph is not None:
+                # a 4-byte aligned blob start: the native probe reads the
+                # mapped slots as u32
+                pad = (-self._f.tell()) % 4
+                if pad:
+                    self._f.write(b"\x00" * pad)
+                ph_off = self._f.tell()
+                blob = ph.to_bytes()
+                self._f.write(blob)
+                index["phash"] = {"off": ph_off, "size": len(blob),
+                                  **ph.meta()}
 
     def abandon(self) -> None:
         self._f.close()
@@ -259,6 +483,10 @@ class SSTable:
         # mapping alive past close()/unlink until the last view dies
         self._mv = memoryview(mmap.mmap(self._f.fileno(), 0,
                                         access=mmap.ACCESS_READ))
+        if bytes(self._mv[:len(_EFILE_MAGIC)]) == _EFILE_MAGIC:
+            raise StorageCorruptionError(
+                path, "encrypted SST file (at-rest encryption) is not "
+                      "supported by this reader")
         index_offset, index_size, index_crc, magic = FOOTER.unpack(
             self._mv[file_size - FOOTER.size:])
         if magic not in (MAGIC, MAGIC_V1):
@@ -271,13 +499,6 @@ class SSTable:
             index = json.loads(blob)
         except ValueError as e:
             raise StorageCorruptionError(path, f"index unparsable: {e}")
-        codec = index.get("codec")
-        if codec is not None:
-            known = "known to pegasus_tpu" if codec in KNOWN_CODECS \
-                else "unknown"
-            raise StorageCorruptionError(
-                path, f"block codec {codec!r} ({known}) is not supported "
-                      f"by this reader: only the raw 'none' layout is")
         self.blocks: List[BlockMeta] = [
             BlockMeta(offset=e["off"], size=e["size"], count=e["count"],
                       key_width=e["kw"], first_key=bytes.fromhex(e["first"]),
@@ -286,9 +507,39 @@ class SSTable:
         ]
         self.meta: dict = index.get("meta", {})
         self.total_count: int = index.get("total_count", 0)
+        # legacy files carry no codec key; an unknown codec is refused
+        codec = index.get("codec")
+        if codec is not None and codec not in KNOWN_CODECS:
+            raise StorageCorruptionError(
+                path, f"unsupported block codec {codec!r} "
+                      f"(known: {', '.join(KNOWN_CODECS)})")
+        self.codec: Optional[str] = codec
+        self.codec_stats: Optional[dict] = index.get("codec_stats")
+        # a file without a filter degrades to the unfiltered path
+        self.bloom: Optional[BloomFilter] = None
+        bl = index.get("bloom")
+        if bl:
+            self.bloom = BloomFilter.from_bytes(
+                self._mv[bl["off"]:bl["off"] + bl["size"]], bl["m"], bl["k"])
+        # perfect-hash (block, slot) index: an unknown version is refused
+        # at open, a torn blob degrades to bloom + bisect
+        self.phash: Optional[PHashIndex] = None
+        ph = index.get("phash")
+        if ph:
+            if ph.get("version") not in KNOWN_PHASH_VERSIONS:
+                raise StorageCorruptionError(
+                    path, f"unsupported phash index version "
+                          f"{ph.get('version')!r} (known: "
+                          f"{', '.join(map(str, KNOWN_PHASH_VERSIONS))})")
+            self.phash = PHashIndex.from_bytes(
+                self._mv[ph["off"]:ph["off"] + ph["size"]], ph)
+        # idx -> (Block, charged bytes); insert/evict accounting under a
+        # lock (serving and the mask prefresher share run caches)
         self._cache: "OrderedDict[int, Tuple[Block, int]]" = OrderedDict()
         self._cache_bytes = 0
+        self._cache_lock = threading.Lock()
         self._cache_budget = cache_bytes  # None -> flag at use
+        self._off2idx: Optional[dict] = None
         self._last_keys = [b.last_key for b in self.blocks]
         self.first_key: Optional[bytes] = (
             self.blocks[0].first_key if self.blocks else None)
@@ -298,47 +549,119 @@ class SSTable:
     def close(self) -> None:
         self._f.close()
 
-    def read_block(self, idx: int) -> Block:
-        hit = self._cache.get(idx)
-        if hit is not None:
-            self._cache.move_to_end(idx)
-            return hit[0]
+    def may_contain(self, key: bytes, key_hash: Optional[int] = None
+                    ) -> bool:
+        """False means definitively absent (bloom-filtered); tables
+        without a filter, or with probing switched off, answer True."""
+        bf = self.bloom
+        if bf is None or not bloom_probe_enabled():
+            return True
+        return (bf.may_contain_hash(key_hash) if key_hash is not None
+                else bf.may_contain(key))
+
+    def _read_raw_block(self, idx: int):
+        """(raw bytes of block `idx`, its BlockMeta), crc-verified."""
         bm = self.blocks[idx]
         raw = self._mv[bm.offset:bm.offset + bm.size]
         if bm.crc is not None and _block_crc32(raw) != bm.crc:
             raise StorageCorruptionError(
                 self.path, f"block {idx} crc mismatch (offset {bm.offset}, "
                            f"{bm.size} bytes)")
-        n, width, heap_size = _BLOCK_HDR.unpack_from(raw, 0)
-        pos = _BLOCK_HDR.size
+        return raw, bm
 
-        def column(dtype, count):
-            nonlocal pos
-            arr = np.frombuffer(raw, dtype=dtype, count=count, offset=pos)
-            pos += arr.nbytes
-            return arr
+    def read_block_encoded(self, idx: int) -> Optional[EncodedBlock]:
+        """The encoded form of block `idx` (predicate columns parsed, key
+        matrix and value heap untouched), the direct-compute entry point
+        of the encoded scan probe. None for uncompressed files; no
+        cache."""
+        if self.codec is None:
+            return None
+        raw, _bm = self._read_raw_block(idx)
+        return EncodedBlock.parse(raw)
 
-        keys = column(np.uint8, n * width).reshape(n, width)
-        key_len = column(np.int32, n)
-        ets = column(np.uint32, n)
-        hash_lo = column(np.uint32, n) if self._has_hash_lo else None
-        flags = column(np.uint8, n)
-        offs = column(np.uint32, n + 1)
-        heap = column(np.uint8, heap_size)
-        blk = Block(keys, key_len, ets, hash_lo, flags, offs, heap)
-        # charge the resident footprint a hot block grows (its key list)
-        nbytes = 512 + n * (width + 64)
+    def block_index(self, bm: BlockMeta) -> int:
+        """BlockMeta -> its position (block offsets are unique)."""
+        o2i = self._off2idx
+        if o2i is None:
+            o2i = self._off2idx = {
+                b.offset: i for i, b in enumerate(self.blocks)}
+        return o2i[bm.offset]
+
+    def read_block(self, idx: int) -> Block:
+        hit = self._cache.get(idx)
+        if hit is not None:
+            try:
+                self._cache.move_to_end(idx)
+            except KeyError:
+                pass  # raced a concurrent eviction; the block stays valid
+            return hit[0]
+        raw, bm = self._read_raw_block(idx)
+        if self.codec is not None:
+            enc = EncodedBlock.parse(raw)
+            blk = enc.decode()
+            # a decoded compressed block is real allocation
+            nbytes = enc.mem_bytes()
+        else:
+            n, width, heap_size = _BLOCK_HDR.unpack_from(raw, 0)
+            pos = _BLOCK_HDR.size
+
+            def column(dtype, count):
+                nonlocal pos
+                arr = np.frombuffer(raw, dtype=dtype, count=count,
+                                    offset=pos)
+                pos += arr.nbytes
+                return arr
+
+            keys = column(np.uint8, n * width).reshape(n, width)
+            key_len = column(np.int32, n)
+            ets = column(np.uint32, n)
+            hash_lo = column(np.uint32, n) if self._has_hash_lo else None
+            flags = column(np.uint8, n)
+            offs = column(np.uint32, n + 1)
+            heap = column(np.uint8, heap_size)
+            blk = Block(keys, key_len, ets, hash_lo, flags, offs, heap)
+            # charge the resident footprint a hot block grows (its key
+            # list and probe table), not the view bookkeeping
+            nbytes = 512 + n * (width + 64)
         budget = (self._cache_budget if self._cache_budget is not None
                   else int(FLAGS.get("pegasus.storage", "block_cache_bytes")))
-        self._cache[idx] = (blk, nbytes)
-        self._cache_bytes += nbytes
-        while self._cache_bytes > budget and len(self._cache) > 1:
-            _k, (_b, nb) = self._cache.popitem(last=False)
-            self._cache_bytes -= nb
+        with self._cache_lock:
+            prev = self._cache.get(idx)
+            if prev is not None:
+                # two threads raced the same cold block: release the
+                # first insert's charge
+                self._cache_bytes -= prev[1]
+            self._cache[idx] = (blk, nbytes)
+            self._cache_bytes += nbytes
+            while self._cache_bytes > budget and len(self._cache) > 1:
+                _k, (_b, nb) = self._cache.popitem(last=False)
+                self._cache_bytes -= nb
         return blk
 
-    def get(self, key: bytes) -> Optional[Tuple[Optional[bytes], int]]:
-        """Returns (value|None-for-tombstone, expire_ts), or None if absent."""
+    def get(self, key: bytes, key_hash: Optional[int] = None
+            ) -> Optional[Tuple[Optional[bytes], int]]:
+        """Returns (value|None-for-tombstone, expire_ts), or None if absent.
+
+        An indexed file answers through the perfect-hash index: a miss
+        costs one slot gather and no block touch; a hit reads its (block,
+        slot) row directly, and one row compare rejects a fingerprint
+        collision. `key_hash` (crc64 of the full key) lets callers that
+        already hashed skip the crc."""
+        ph = self.phash
+        if ph is not None and phash_probe_enabled():
+            h = key_hash if key_hash is not None else crc64(key)
+            loc = ph.lookup_hash(h)
+            if loc < 0:
+                return None
+            bi, slot = ph.unpack(loc)
+            if bi < len(self.blocks) and slot < self.blocks[bi].count:
+                blk = self.read_block(bi)
+                if blk.key_at(slot) == key:
+                    if blk.is_tombstone(slot):
+                        return (None, 0)
+                    return (blk.value_at(slot), int(blk.expire_ts[slot]))
+                return None  # fingerprint collision: definitively absent
+            # an out-of-range loc (corrupt index) serves via the bisect
         idx = self._block_for_key(key)
         if idx is None:
             return None
@@ -393,4 +716,3 @@ class SSTable:
             if stop is not None and bm.first_key >= stop:
                 break
             yield bm, self.read_block(bi)
-

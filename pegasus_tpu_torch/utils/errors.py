@@ -102,6 +102,14 @@ class StorageStatus(enum.IntEnum):
     TRY_AGAIN = 13
 
 
+class PegasusError(Exception):
+    """Framework exception carrying an ErrorCode."""
+
+    def __init__(self, code: ErrorCode, message: str = ""):
+        self.code = code
+        super().__init__(f"{code.name}: {message}" if message else code.name)
+
+
 class StorageCorruptionError(RuntimeError):
     """On-disk bytes failed an integrity check (block crc32, index crc,
     bad magic, an unsupported codec); carries the file path."""

@@ -16,7 +16,7 @@ from tests.test_crc import GOLDEN
 @pytest.mark.parametrize("data,want64,want32", GOLDEN)
 def test_golden_vectors(data, want64, want32):
     assert tcrc.crc64(data) == want64
-    assert tcrc.crc32(data) == want32
+    assert tcrc.crc32(data) == tcrc.crc32_plain(data) == want32
 
 
 @pytest.mark.parametrize("n", [0, 1, 511, 4095, 4096, 4097, 70_001])
@@ -24,9 +24,11 @@ def test_crc_matches_jax_package(n):
     data = np.random.default_rng(n).integers(0, 256, n,
                                               dtype=np.uint8).tobytes()
     assert tcrc.crc64(data) == jcrc.crc64(data)
-    assert tcrc.crc32(data) == jcrc.crc32(data)
+    assert tcrc.crc32(data) == tcrc.crc32_plain(data) == jcrc.crc32(data)
     # init chaining equals concatenation on both packages
     half = n // 2
+    assert (tcrc.crc32_plain(data[half:], tcrc.crc32_plain(data[:half]))
+            == jcrc.crc32(data))
     assert (tcrc.crc32(data[half:], tcrc.crc32(data[:half]))
             == jcrc.crc32(data))
     assert (tcrc.crc64(data[half:], tcrc.crc64(data[:half]))

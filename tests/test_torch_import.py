@@ -30,13 +30,20 @@ def test_port_modules_are_found():
                  "pegasus_tpu_torch.server.scan_coordinator",
                  "pegasus_tpu_torch.native",
                  "pegasus_tpu_torch.storage.lsm",
+                 "pegasus_tpu_torch.storage.block_codec",
+                 "pegasus_tpu_torch.storage.bloom",
+                 "pegasus_tpu_torch.storage.phash",
+                 "pegasus_tpu_torch.ops.pushdown",
+                 "pegasus_tpu_torch.server.row_cache",
+                 "pegasus_tpu_torch.server.read_coordinator",
                  "pegasus_tpu_torch.convert"):
         assert want in names
 
 
 def test_batched_path_runs_without_jax(tmp_path):
-    """scan_multi over a compacted CPU partition, through the native page
-    assembly (built with g++ at first use), with JAX blocked."""
+    """scan_multi and point_read_multi over a CPU partition compacted at
+    the default store flags (dcz2, bloom, phash), through the native
+    library (built with g++ at first use), with JAX blocked."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -57,6 +64,14 @@ def test_batched_path_runs_without_jax(tmp_path):
         "                     epoch_now())\n"
         "assert isinstance(out.kvs, ScanPage) and len(out.kvs) == 7\n"
         "assert page.SERVE_STATS['calls'] == 1\n"
+        "t = s.engine.lsm.l1_runs[0]\n"
+        "assert t.codec == 'dcz2' and t.bloom and t.phash\n"
+        "from pegasus_tpu_torch.server.read_coordinator import "
+        "point_read_multi\n"
+        "(res,), = point_read_multi([(s, [('get', generate_key(b'hk', "
+        "b's03'), None)])])\n"
+        "assert res == (0, b'v3'), res\n"
+        "assert s.point_stats['phash_located'] == 1\n"
         "s.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
         "             or m.startswith('pegasus_tpu.')\n"

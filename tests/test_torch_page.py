@@ -27,6 +27,7 @@ from pegasus_tpu.server import page as jpage
 from pegasus_tpu.server.types import ScanPage as JScanPage
 from pegasus_tpu.storage import sstable as jsst
 from pegasus_tpu.utils.flags import FLAGS as JFLAGS
+from pegasus_tpu_torch.utils.flags import FLAGS as TFLAGS
 from pegasus_tpu_torch.base.key_schema import generate_key
 from pegasus_tpu_torch.server import page as tpage
 from pegasus_tpu_torch.server.types import ScanPage
@@ -38,9 +39,11 @@ SLICE_FLAGS = (("pegasus.storage", "block_codec", "none"),
 HDR = 4  # value header bytes a page strips
 
 
-def _set_jax_flags(values):
+def _set_flags(values, registries=(JFLAGS, TFLAGS)):
+    """Set flags in both packages' process-wide registries."""
     for section, name, value in values:
-        JFLAGS.set(section, name, value, force=True)
+        for reg in registries:
+            reg.set(section, name, value, force=True)
 
 
 @pytest.fixture
@@ -48,8 +51,9 @@ def tables(tmp_path):
     """(JAX SSTable, port SSTable) of one file: 300 records in blocks of
     64, keys of mixed widths, values of 0..70 user bytes behind a
     HDR-byte header, a few of them shorter than the header."""
-    saved = [(s, n, JFLAGS.get(s, n)) for s, n, _v in SLICE_FLAGS]
-    _set_jax_flags(SLICE_FLAGS)
+    saved = [[(s, n, reg.get(s, n)) for s, n, _v in SLICE_FLAGS]
+             for reg in (JFLAGS, TFLAGS)]
+    _set_flags(SLICE_FLAGS)
     rng = np.random.default_rng(3)
     path = str(tmp_path / "t.sst")
     w = jsst.SSTableWriter(path, block_capacity=64)
@@ -66,7 +70,8 @@ def tables(tmp_path):
     yield pair
     for t in pair:
         t.close()
-    _set_jax_flags(saved)
+    _set_flags(saved[0], (JFLAGS,))
+    _set_flags(saved[1], (TFLAGS,))
 
 
 def _blocks(tables, i):

@@ -21,6 +21,7 @@ from pegasus_tpu.server.partition_server import (
 )
 from pegasus_tpu.server.workload import DRIFT as JDRIFT
 from pegasus_tpu.utils.flags import FLAGS as JFLAGS
+from pegasus_tpu_torch.utils.flags import FLAGS as TFLAGS
 from pegasus_tpu_torch.server import types as ttypes
 from pegasus_tpu_torch.server.partition_server import PartitionServer
 
@@ -38,15 +39,18 @@ HASHKEYS = [b"user%04d" % i for i in range(160)]
 SORTKEYS = [b"s%02d" % i for i in range(12)]
 
 
-def _set_jax_flags(values):
+def _set_flags(values, registries=(JFLAGS, TFLAGS)):
+    """Set flags in both packages' process-wide registries."""
     for section, name, value in values:
-        JFLAGS.set(section, name, value, force=True)
+        for reg in registries:
+            reg.set(section, name, value, force=True)
 
 
 @pytest.fixture
 def servers(tmp_path):
-    saved = [(s, n, JFLAGS.get(s, n)) for s, n, _v in SLICE_FLAGS]
-    _set_jax_flags(SLICE_FLAGS)
+    saved = [[(s, n, reg.get(s, n)) for s, n, _v in SLICE_FLAGS]
+             for reg in (JFLAGS, TFLAGS)]
+    _set_flags(SLICE_FLAGS)
     pair = (JaxPartitionServer(str(tmp_path / "jax"), app_id=APP_ID,
                                pidx=PIDX, partition_count=PARTITION_COUNT),
             PartitionServer(str(tmp_path / "torch"), app_id=APP_ID,
@@ -55,7 +59,8 @@ def servers(tmp_path):
     yield pair
     for s in pair:
         s.close()
-    _set_jax_flags(saved)
+    _set_flags(saved[0], (JFLAGS,))
+    _set_flags(saved[1], (TFLAGS,))
     # the JAX server's mask waves feed the process-wide cost-model drift
     # gauge, which would fire the JAX health rule in later tests
     JDRIFT.reset()

@@ -35,6 +35,7 @@ from pegasus_tpu.server.partition_server import (
 from pegasus_tpu.server.workload import DRIFT as JDRIFT
 from pegasus_tpu.storage.engine import WriteBatchItem as JItem
 from pegasus_tpu.utils.flags import FLAGS as JFLAGS
+from pegasus_tpu_torch.utils.flags import FLAGS as TFLAGS
 from pegasus_tpu_torch.base.key_schema import generate_key
 from pegasus_tpu_torch.base.value_schema import generate_value
 from pegasus_tpu_torch.server import page as tpage
@@ -57,17 +58,21 @@ FILTERS = ([(0, b"", 0, b"")] * 4
               (2, b"user01", 0, b""), (1, b"3", 3, b"4"), (0, b"", 1, b"")])
 
 
-def _set_jax_flags(values):
+def _set_flags(values, registries=(JFLAGS, TFLAGS)):
+    """Set flags in both packages' process-wide registries."""
     for section, name, value in values:
-        JFLAGS.set(section, name, value, force=True)
+        for reg in registries:
+            reg.set(section, name, value, force=True)
 
 
 @pytest.fixture(autouse=True)
 def _jax_state():
-    saved = [(s, n, JFLAGS.get(s, n)) for s, n, _v in SLICE_FLAGS]
-    _set_jax_flags(SLICE_FLAGS)
+    saved = [[(s, n, reg.get(s, n)) for s, n, _v in SLICE_FLAGS]
+             for reg in (JFLAGS, TFLAGS)]
+    _set_flags(SLICE_FLAGS)
     yield
-    _set_jax_flags(saved)
+    _set_flags(saved[0], (JFLAGS,))
+    _set_flags(saved[1], (TFLAGS,))
     # the JAX mask waves feed its process-wide cost-model drift gauge
     JDRIFT.reset()
 
@@ -324,20 +329,30 @@ def test_batches_off_the_fast_path_match_jax(node):
 
 
 def test_pushdown_requests_are_served_per_request(node):
-    """The port does not evaluate pushdown: a request carrying it leaves
-    the batched path and answers as on_get_scanner does, with
-    pushdown_applied False, without knocking its neighbours off it."""
-    ts = node.port[1]
-    plain = ttypes.GetScannerRequest(start_key=b"", batch_size=20,
-                                     validate_partition_hash=True)
-    pushed = ttypes.GetScannerRequest(start_key=b"", batch_size=20,
-                                      validate_partition_hash=True,
-                                      pushdown=object())
-    assert ts.plan_scan_batch([plain, pushed]) is None
-    out = tsc.scan_multi([(ts, [plain, pushed])], node.scan_now)[0]
+    """A request carrying a pushdown aggregate leaves the batched path
+    and is served per request (its reply is a partial, not a page), with
+    pushdown_applied set and the partial the JAX package computes,
+    without knocking its neighbours off the batched path."""
+    from pegasus_tpu.ops.pushdown import PushdownSpec as JSpec
+    from pegasus_tpu_torch.ops.pushdown import PushdownSpec as TSpec
+
+    js, ts = node.jax[1], node.port[1]
+    plain = dict(start_key=b"", batch_size=20, validate_partition_hash=True)
+    spec = dict(value_filter_type=3, value_filter_pattern=b"1",
+                aggregate="count")
+    tplain = ttypes.GetScannerRequest(**plain)
+    pushed = ttypes.GetScannerRequest(**plain, pushdown=TSpec(**spec))
+    assert ts.plan_scan_batch([tplain, pushed]) is None
+    out = tsc.scan_multi([(ts, [tplain, pushed])], node.scan_now)[0]
+    jout = jsc.scan_multi([(js, [jtypes.GetScannerRequest(**plain),
+                                 jtypes.GetScannerRequest(
+                                     **plain, pushdown=JSpec(**spec))])],
+                          node.scan_now)[0]
     assert isinstance(out[0].kvs, ttypes.ScanPage)
-    assert not out[1].pushdown_applied
-    assert _rows(out[1].kvs) == _rows(ts.on_get_scanner(pushed).kvs)
+    assert out[1].pushdown_applied and out[1].agg == jout[1].agg
+    assert out[1].agg is not None and _rows(out[1].kvs) == []
+    for jr, tr in zip(jout, out):
+        _same(jr, tr)
 
 
 @pytest.mark.parametrize("cap", [2, 64])

@@ -5,7 +5,8 @@ perfect-hash index).
 - an SST written by either package reads back identically in the other,
   and both writers produce byte-identical data blocks;
 - a JAX file that carries bloom / phash sidecars opens and serves in the
-  port; a compressed (dcz2) file is refused with a clear error;
+  port, and so does a compressed (dcz2) one; a file whose index names a
+  codec neither package knows is refused with a clear error;
 - WAL replay after an unclean close recovers the same records in both;
 - LSM flush, merge compaction and `iterate` agree across packages, and a
   data directory written by one package serves in the other.
@@ -22,7 +23,12 @@ from pegasus_tpu.storage import lsm as jlsm
 from pegasus_tpu.storage import sstable as jsst
 from pegasus_tpu.storage.wal import OP_DEL as J_OP_DEL
 from pegasus_tpu.storage.wal import OP_PUT as J_OP_PUT
+from pegasus_tpu.utils.errors import (
+    StorageCorruptionError as JStorageCorruptionError,
+)
 from pegasus_tpu.utils.flags import FLAGS as JFLAGS
+from pegasus_tpu_torch.utils.flags import FLAGS as TFLAGS
+from pegasus_tpu_torch.base.crc import crc32
 from pegasus_tpu_torch.storage import engine as teng
 from pegasus_tpu_torch.storage import lsm as tlsm
 from pegasus_tpu_torch.storage import sstable as tsst
@@ -34,17 +40,21 @@ SLICE_FLAGS = (("pegasus.storage", "block_codec", "none"),
                ("pegasus.server", "phash_index", False))
 
 
-def _set_jax_flags(values):
+def _set_flags(values, registries=(JFLAGS, TFLAGS)):
+    """Set flags in both packages' process-wide registries."""
     for section, name, value in values:
-        JFLAGS.set(section, name, value, force=True)
+        for reg in registries:
+            reg.set(section, name, value, force=True)
 
 
 @pytest.fixture
 def slice_flags():
-    saved = [(s, n, JFLAGS.get(s, n)) for s, n, _v in SLICE_FLAGS]
-    _set_jax_flags(SLICE_FLAGS)
+    saved = [[(s, n, reg.get(s, n)) for s, n, _v in SLICE_FLAGS]
+             for reg in (JFLAGS, TFLAGS)]
+    _set_flags(SLICE_FLAGS)
     yield
-    _set_jax_flags(saved)
+    _set_flags(saved[0], (JFLAGS,))
+    _set_flags(saved[1], (TFLAGS,))
 
 
 def _records(seed, n=700):
@@ -135,7 +145,7 @@ def test_sidecar_file_serves_and_compressed_file_is_refused(tmp_path,
     rows = _records(3)
     plain = str(tmp_path / "plain.sst")
     _write(jsst.SSTableWriter, plain, rows)
-    _set_jax_flags((("pegasus.server", "bloom_bits_per_key", 10),
+    _set_flags((("pegasus.server", "bloom_bits_per_key", 10),
                     ("pegasus.server", "phash_index", True)))
     sidecars = str(tmp_path / "sidecars.sst")
     _write(jsst.SSTableWriter, sidecars, rows)
@@ -146,12 +156,27 @@ def test_sidecar_file_serves_and_compressed_file_is_refused(tmp_path,
     assert list(tt.iterate()) == list(jt.iterate())
     for key, _v, _e, _t in rows[::11]:
         assert tt.get(key) == jt.get(key)
-    _set_jax_flags((("pegasus.storage", "block_codec", "dcz2"),))
+    _set_flags((("pegasus.storage", "block_codec", "dcz2"),))
     packed = str(tmp_path / "dcz2.sst")
     _write(jsst.SSTableWriter, packed, rows)
-    with pytest.raises(StorageCorruptionError, match="dcz2"):
-        tsst.SSTable(packed)
-    for t in (jt, tt, tp):
+    tc = tsst.SSTable(packed)
+    assert tc.codec == "dcz2" and _table_contents(tc) == _table_contents(tp)
+    # the same file with its index naming an unknown codec
+    with open(packed, "rb") as f:
+        data = f.read()
+    index_offset, index_size, _crc, magic = tsst.FOOTER.unpack(
+        data[-tsst.FOOTER.size:])
+    blob = data[index_offset:index_offset + index_size].replace(
+        b'"codec": "dcz2"', b'"codec": "dcz9"')
+    unknown = str(tmp_path / "dcz9.sst")
+    with open(unknown, "wb") as f:
+        f.write(data[:index_offset] + blob + tsst.FOOTER.pack(
+            index_offset, len(blob), crc32(blob), magic))
+    for reader, error in ((jsst.SSTable, JStorageCorruptionError),
+                          (tsst.SSTable, StorageCorruptionError)):
+        with pytest.raises(error, match="dcz9"):
+            reader(unknown)
+    for t in (jt, tt, tp, tc):
         t.close()
 
 
