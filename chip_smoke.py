@@ -6,8 +6,9 @@
 Phases, each fatal on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles csrc/scan_predicate.cu with nvcc for sm_90a and
-   native/packer.cpp with g++, both started together;
+2. build: compiles csrc/scan_predicate.cu and csrc/compaction_filter.cu
+   with nvcc for sm_90a and native/packer.cpp with g++, all started
+   together;
 3. kernel vs plain: the scan-predicate kernel's table launch against
    its plain torch version on seeded random blocks: tables of 1, 3, 8
    and 16 blocks (counts not a multiple of the tile or of 8, an empty
@@ -46,14 +47,36 @@ Phases, each fatal on failure:
    read_coordinator.point_read_multi in flushes of 32 and YCSB-E scans
    (some filtered, some with a pushdown count) through scan_multi, every
    answer checked against a host oracle; no planned block of a clean
-   encoded run may have its mask computed on the device.
+   encoded run may have its mask computed on the device;
+7. bulk manual compaction: BASELINE config #3 (TTL expiry, half the
+   records expired) at `block_codec = none` (a), the same at dcz2 with
+   sidecars (b), and config #4 (user rules: hashkey PREFIX, hashkey
+   ANYWHERE with sortkey PREFIX, 5% expired) at dcz2 (c), each over a
+   fresh 1.0 GB store (a printed cut of the configuration's 10 GB) of 8
+   partitions in bench.py's compaction layout plus an untimed warm one,
+   all 8 compacted at once through StorageEngine(device="cuda")
+   .manual_compact on a thread pool, GB/s = store bytes before / wall
+   seconds; every partition's survivors must equal a host oracle of the
+   generator and the ruleset, every partition's first chunk must mask the
+   same through the kernel and its plain version, and the kernel must
+   launch in (a) and (c) and never in (b), whose masks come from the
+   encoded columns on the host, as the JAX package routes them. Pass (c)
+   runs under a CUDA trace that gives the device's busy share.
+
+Phase 3 also holds the compaction-filter kernel bit-exact against its
+plain version
+(check_compaction: key widths 32, 64 and 256, validation off and on,
+default_ttl 0 and not, want_ets and pack on and off, a rotation of
+rulesets) and times it at phase 7's chunk shape.
 
 Phases 4 and 5 pin the store flags `block_codec = none`,
 `bloom_bits_per_key = 0`, `phash_index = false` (every block reaches the
-kernel); phase 6 pins the defaults. The line before the last lists the
+kernel); phases 6 and 7 (b, c) pin the defaults, 7 (a) pins `none`
+without sidecars. The line before the last lists the
 kernels as JSON; the last line is {"ok": true, "device": {...}}.
 `--records N` sets phase 4's load (default 500,000) and prints any cut
-below 1,000,000. Phases 5 and 6 always load their 1,000,000 records. A
+below 1,000,000; `--compact-gb G` sets a phase-7 pass's store (default
+1.0). Phases 5 and 6 always load their 1,000,000 records. A
 printed cut keeps the whole run near the time it took before phase 6
 came: the flavour-axis check runs 64 flavours at key width 32 only (16
 at the wider keys).
@@ -722,6 +745,313 @@ def time_tables_multi(device) -> list:
         out.append(row)
         del blocks, cols
     return out
+
+
+# ---- phase 3: the compaction-filter kernel -------------------------------
+
+# rows of the chunks checked: full 256-row tiles, a ragged tail, one row
+COMPACT_CHECK_ROWS = (4096, 4059, 777, 1)
+# the rulesets the check rotates through (None: TTL and split only)
+COMPACT_RULESETS = (
+    None,
+    # every match type on both regions, all three update types
+    [{"op": "delete_key", "rules": [
+        {"type": "hashkey_pattern", "match": "anywhere", "pattern": "bc"},
+        {"type": "sortkey_pattern", "match": "prefix", "pattern": "a"}]},
+     {"op": "update_ttl", "update_ttl_type": "from_current", "value": 100,
+      "rules": [{"type": "sortkey_pattern", "match": "anywhere",
+                 "pattern": "dd"}]},
+     {"op": "update_ttl", "update_ttl_type": "timestamp",
+      "value": 1451606400 + 12345, "rules": [
+          {"type": "hashkey_pattern", "match": "postfix", "pattern": "a"}]},
+     {"op": "update_ttl", "update_ttl_type": "from_now", "value": 600,
+      "rules": [{"type": "hashkey_pattern", "match": "prefix",
+                 "pattern": "d"}]},
+     {"op": "delete_key", "rules": [
+         {"type": "sortkey_pattern", "match": "postfix", "pattern": "cb"},
+         {"type": "ttl_range", "start_ttl": 0, "stop_ttl": 0}]}],
+    # empty patterns (match nothing) beside a ttl_range delete
+    [{"op": "delete_key", "rules": [
+        {"type": "hashkey_pattern", "match": "prefix", "pattern": ""}]},
+     {"op": "delete_key", "rules": [
+         {"type": "sortkey_pattern", "match": "anywhere", "pattern": ""}]},
+     {"op": "delete_key", "rules": [
+         {"type": "ttl_range", "start_ttl": 100, "stop_ttl": 1000}]}],
+    # delete before update on the same rows; ranges and values that wrap
+    # past 2^32; a pattern longer than any row
+    [{"op": "delete_key", "rules": [
+        {"type": "sortkey_pattern", "match": "prefix", "pattern": "a"}]},
+     {"op": "update_ttl", "update_ttl_type": "from_now", "value": 7,
+      "rules": [{"type": "sortkey_pattern", "match": "prefix",
+                 "pattern": "a"}]},
+     {"op": "delete_key", "rules": [
+         {"type": "ttl_range", "start_ttl": 0xFFFFFF00,
+          "stop_ttl": 0xFFFFFFF0}]},
+     {"op": "update_ttl", "update_ttl_type": "from_current",
+      "value": 0xFFFFFF00, "rules": [
+          {"type": "hashkey_pattern", "match": "anywhere", "pattern": "c"}]},
+     {"op": "delete_key", "rules": [
+         {"type": "hashkey_pattern", "match": "anywhere",
+          "pattern": "abcd" * 70}]}],
+    # the table's bounds: 16 operations of 4 rules
+    [{"op": "update_ttl" if i % 2 else "delete_key",
+      "update_ttl_type": "from_now", "value": i, "rules": [
+          {"type": "hashkey_pattern", "match": "anywhere",
+           "pattern": "abcd"[i % 4] * (1 + i % 3)},
+          {"type": "sortkey_pattern", "match": "postfix",
+           "pattern": "dcba"[i % 4]},
+          {"type": "ttl_range", "start_ttl": 0, "stop_ttl": 1 << 31},
+          {"type": "hashkey_pattern", "match": "prefix",
+           "pattern": "abcd"[(i + 1) % 4]}]} for i in range(16)],
+)
+# BASELINE config #4's ruleset (bench.py:763-779)
+CONFIG4_RULES = [
+    {"op": "delete_key", "rules": [
+        {"type": "hashkey_pattern", "match": "prefix",
+         "pattern": "user000001"}]},
+    {"op": "delete_key", "rules": [
+        {"type": "hashkey_pattern", "match": "anywhere", "pattern": "7777"},
+        {"type": "sortkey_pattern", "match": "prefix", "pattern": "s0"}]},
+]
+COMPACT_NOWS = (5000, 0xFFFFFF00)
+
+
+def compaction_chunk_columns(rng, b: int, k: int):
+    """numpy chunk columns as compaction_eval_submit stacks them: keys
+    over the 4-letter alphabet with empty hashkeys, malformed headers and
+    invalid (padding) rows, hashkey_len from the big-endian prefix,
+    expire_ts around both COMPACT_NOWS and past 2^31, random hash_lo, a
+    pidx column of 4 partitions (a split in progress)."""
+    keys = np.zeros((b, k), dtype=np.uint8)
+    key_len = np.zeros(b, dtype=np.int32)
+    valid = rng.random(b) >= 0.05
+    lens = rng.integers(2, k + 1, b)
+    for i in np.flatnonzero(valid):
+        n = int(lens[i])
+        hkl = int(rng.integers(0, n - 1))
+        if rng.random() < 0.05:
+            hkl = n + int(rng.integers(0, 40))  # malformed header
+        keys[i, 0], keys[i, 1] = hkl >> 8, hkl & 0xFF
+        keys[i, 2:n] = rng.choice(ALPHABET, n - 2)
+        key_len[i] = n
+    hkl = ((key_len > 0) * ((keys[:, 0].astype(np.int32) << 8)
+                            | keys[:, 1])).astype(np.int32)
+    ets = rng.choice(np.array(
+        [0, 0, 100, 5000, 5100, 5300, 0x7FFFFFFF, 0x80000005, 0xFFFFFF10,
+         0xFFFFFFF5], np.uint32), b)
+    hash_lo = rng.integers(0, 1 << 32, b, dtype=np.uint64).astype(np.uint32)
+    pidx = rng.integers(0, 4, b).astype(np.uint32)
+    return keys, key_len, hkl, ets, valid, hash_lo, pidx
+
+
+def _device_columns(cols, device):
+    """The chunk columns as eval_block takes them on `device`."""
+    import torch
+
+    return [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)
+                             if a.dtype == np.uint32
+                             else np.ascontiguousarray(a)).to(device)
+            for a in cols]
+
+
+def _max_err(got, want, what: str) -> int:
+    """Largest difference of two integer or bool tensors of one shape."""
+    import torch
+
+    if got.shape != want.shape:
+        fail(f"compaction kernel != plain ({what}): shape "
+             f"{tuple(got.shape)}, plain {tuple(want.shape)}")
+    if not got.numel():
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def check_compaction(device, widths=(32, 64, 256),
+                     rows=COMPACT_CHECK_ROWS) -> dict:
+    """Phase 3, correctness of the compaction-filter kernel, bit for bit
+    against its plain torch version on the same tensors: the bulk
+    program (eval_block) at key widths 32, 64 and 256, validation off and
+    on (a per-row pidx column across a split), default_ttl 0 and
+    non-zero, want_ets and pack on and off, `now` low and near 2^32,
+    over a rotation of rulesets (COMPACT_RULESETS: every rule kind and match
+    type, empty patterns, all three update types, delete before update,
+    values past 2^32, the table's bounds); the merge path's filter
+    (compaction_filter_block) and its rules hook (compile_rules) on the
+    same chunks; a ruleset past the table's bounds must raise."""
+    import torch
+
+    from pegasus_tpu_torch.ops import compaction as tcomp
+    from pegasus_tpu_torch.ops import fused_compaction
+    from pegasus_tpu_torch.ops.compaction_rules import (
+        apply_rules_ops,
+        parse_rules,
+    )
+
+    rng = np.random.default_rng(20261021)
+    rulesets = [None if r is None else tuple(parse_rules(r))
+                for r in COMPACT_RULESETS]
+    pv = 3
+    compared = 0
+    max_err = 0
+    case = 0
+    for k in widths:
+        for b in rows:
+            cols = _device_columns(compaction_chunk_columns(rng, b, k),
+                                   device)
+            keys, key_len, hkl, ets, valid, hash_lo, pidx = cols
+            for validate in (False, True):
+                for dttl in (0, 0x500):
+                    for want_ets, pack in ((True, False), (False, True),
+                                           (True, True), (False, False)):
+                        which = case % len(rulesets)
+                        ops = rulesets[which]
+                        now = COMPACT_NOWS[case % len(COMPACT_NOWS)]
+                        case += 1
+                        args = (keys, key_len, hkl, ets, valid, hash_lo,
+                                now, dttl, pidx, pv, validate, True)
+                        got = tcomp.make_compaction_eval(ops)(
+                            *args, want_ets=want_ets, pack=pack)
+                        want = tcomp.eval_block_plain(
+                            ops, *args, want_ets=want_ets, pack=pack)
+                        for g, w, what in zip(got, want, ("drop", "ets2")):
+                            err = _max_err(g, w, what)
+                            max_err = max(max_err, err)
+                            if err:
+                                fail(f"compaction kernel != plain: {what} "
+                                     f"K={k} B={b} validate={validate} "
+                                     f"default_ttl={dttl} want_ets="
+                                     f"{want_ets} pack={pack} now={now} "
+                                     f"ruleset {which}")
+                        compared += 1
+            # the merge path's filter: scalar pidx, bool mask, ets2
+            for validate, pidx_s, now in ((False, 0, 5000), (True, 2, 5000),
+                                          (True, 1, 0xFFFFFF00)):
+                got = tcomp.compaction_filter_block(
+                    hash_lo, ets, valid, now, 0x500, pidx_s, pv, validate)
+                want = tcomp.compaction_filter_block_plain(
+                    hash_lo, ets, valid, now, 0x500, pidx_s, pv, validate)
+                for g, w in zip(got, want):
+                    max_err = max(max_err, _max_err(g, w, "merge filter"))
+                compared += 1
+            # the merge path's rules hook: no expiry, no validation (the
+            # kernel's own mode, so only on the card)
+            for ops in rulesets[1:] if device.type == "cuda" else ():
+                got = fused_compaction.compaction_filter(
+                    keys, key_len, ets, valid, None, 0, ops, 5000, 0, 0,
+                    validate_hash=False, expire=False, want_ets=True,
+                    pack=False)
+                want = apply_rules_ops(ops, keys, key_len, hkl, ets, valid,
+                                       5000)
+                max_err = max(max_err,
+                              _max_err(got[0], want[0], "rules hook drop"),
+                              _max_err(got[1].to(torch.int64) & 0xFFFFFFFF,
+                                       want[1], "rules hook ets"))
+                compared += 1
+            if max_err:
+                fail(f"compaction kernel != plain (merge path) K={k} B={b}")
+    if device.type == "cuda":
+        too_big = tuple(parse_rules([COMPACT_RULESETS[-1][0]] * 17))
+        try:
+            fused_compaction.compaction_filter(
+                keys, key_len, ets, valid, None, 0, too_big, 5000, 0, 0,
+                validate_hash=False)
+            fail("a ruleset of 17 operations must raise")
+        except ValueError:
+            pass
+        torch.cuda.synchronize()
+    return {"compared": compared, "max_abs_err": max_err}
+
+
+def fixture_keys(idx: np.ndarray) -> np.ndarray:
+    """uint8[n, 32] key rows of bench.py's compaction fixture for record
+    numbers `idx`: hashkey `user%08d` of idx // 10, sortkey `s%02d` of
+    idx % 10."""
+    n = idx.size
+    keys = np.zeros((n, 32), dtype=np.uint8)
+    keys[:, 1] = 12  # big-endian u16 hashkey length
+    keys[:, 2:14] = np.frombuffer(
+        b"".join(b"user%08d" % h for h in (idx // 10).tolist()),
+        dtype=np.uint8).reshape(n, 12)
+    keys[:, 14:17] = np.frombuffer(
+        b"".join(b"s%02d" % s for s in (idx % 10).tolist()),
+        dtype=np.uint8).reshape(n, 3)
+    return keys
+
+
+def compaction_bound(rows: int, k: int, *, pattern_rule: bool,
+                     validate: bool, want_ets: bool, ops: float):
+    """(bound_ms, bound_by) of one compaction-filter launch over `rows`
+    rows: valid 1 B and expire_ts 4 B a row; the key row k B and key_len
+    4 B with a pattern rule (the hashkey length is the row's own first
+    two bytes); hash_lo and the pidx column 4 B each with validation;
+    out the packed mask 1/8 B and ets2 4 B when asked."""
+    per = 5
+    if pattern_rule:
+        per += k + 4
+    if validate:
+        per += 8
+    nbytes = rows * per + -(-rows // 8) + (4 * rows if want_ets else 0)
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
+def time_compaction(device, rows: int = 1 << 18) -> dict:
+    """Phase 3, time of the compaction-filter kernel at phase 7's chunk
+    shape: 2^18 rows of the fixture's keys (K = 32), BASELINE config #4's
+    ruleset, no validation, no ets2, packed, as the bulk path launches
+    it; L2 flushed before each launch by writing FLUSH_BYTES."""
+    import torch
+
+    from pegasus_tpu_torch.ops import compaction as tcomp
+    from pegasus_tpu_torch.ops.compaction_rules import parse_rules
+
+    rng = np.random.default_rng(20261022)
+    idx = rng.integers(0, 7_000_000, rows)
+    keys = fixture_keys(idx)
+    key_len = np.full(rows, 17, dtype=np.int32)
+    ets = np.where(rng.random(rows) < 0.05, np.uint32(5000 - 100),
+                   np.uint32(0)).astype(np.uint32)
+    cols = _device_columns(
+        (keys, key_len, np.full(rows, 12, dtype=np.int32), ets,
+         np.ones(rows, bool), np.zeros(rows, np.uint32),
+         np.zeros(rows, np.uint32)), device)
+    ops = tuple(parse_rules(CONFIG4_RULES))
+    eval_block = tcomp.make_compaction_eval(ops)
+    args = (*cols[:6], 5000, 0, cols[6], 0, False, True)
+    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+
+    def flush():
+        dst.copy_(src)
+
+    def kernel():
+        eval_block(*args, want_ets=False, pack=True)
+
+    def plain():
+        tcomp.eval_block_plain(ops, *args, want_ets=False, pack=True)
+
+    # the match work: the 10-byte prefix of rule 1 and the 9 candidate
+    # starts of "7777" in a 12-byte hashkey, the 2-byte sortkey prefix
+    # where that matched, and ~8 for the rest of a row
+    hk = keys[:, 2:14]
+    ops_n = rows * (8 + 10 + 9) + 2.0 * sum(
+        b"7777" in bytes(r) for r in hk[:4096]) * rows / 4096
+    bound_ms, bound_by = compaction_bound(
+        rows, 32, pattern_rule=True, validate=False, want_ets=False,
+        ops=ops_n)
+    row = {"shape": f"{rows} rows, K=32, BASELINE config #4 ruleset, "
+                    f"packed, no ets2, no validation, L2 flushed",
+           "ms": _device_ms(kernel, 50, "compaction_filter_kernel", flush),
+           "call_ms": _cuda_ms(kernel, 50, flush),
+           "plain_ms": _device_ms(plain, 10, "", flush),
+           "plain_call_ms": _cuda_ms(plain, 10, flush),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if None in (row["ms"], row["plain_ms"]):
+        fail("torch.profiler recorded no device time for the compaction "
+             "kernel")
+    row["share"] = bound_ms / row["ms"]
+    return row
 
 
 # ---- phase 4: the slice ------------------------------------------------
@@ -1957,6 +2287,301 @@ def run_point_batch(device, n_records: int = POINT_RECORDS,
     return out
 
 
+# ---- phase 7: BASELINE configs #3 and #4, bulk manual compaction ---------
+
+COMPACT_GB = 1.0        # a pass's store: bench.py's PEGBENCH_COMPACT_GB
+COMPACT_FULL_GB = 10.0  # BASELINE config #3's table
+COMPACT_PARTS = 8       # partitions compacted at once, plus one warm one
+COMPACT_VALUE = 100     # bytes a value
+COMPACT_BLOCK = 4096    # records a block (bench.py's archival blocks)
+RECORD_BYTES = 145      # bench.py's on-disk estimate of a record
+# (pass, what, store flags, expired fraction, ruleset)
+COMPACT_PASSES = (
+    ("a", "config #3, TTL only, block_codec none", "none", 0.5, False),
+    ("b", "config #3, TTL only, dcz2 + sidecars", "dcz2", 0.5, False),
+    ("c", "config #4, rules, dcz2 + sidecars", "dcz2", 0.05, True),
+)
+
+
+def _config4_drops(h_lo: int, h_hi: int, s_count: int = 10):
+    """(hashkey drop, hashkey ANYWHERE hit, sortkey prefix hit) of
+    BASELINE config #4's ruleset for hashkey numbers [h_lo, h_hi) and
+    sortkey numbers [0, s_count), in plain Python over the key strings."""
+    hks = [b"user%08d" % h for h in range(h_lo, h_hi)]
+    prefix = np.array([hk.startswith(b"user000001") for hk in hks])
+    anywhere = np.array([b"7777" in hk for hk in hks])
+    sk_prefix = np.array([(b"s%02d" % s).startswith(b"s0")
+                          for s in range(s_count)])
+    return prefix, anywhere, sk_prefix
+
+
+def _digests():
+    import hashlib
+
+    return {name: hashlib.sha256()
+            for name in ("keys", "key_len", "expire_ts", "values")}
+
+
+def build_compaction_partition(pdir: str, part: int, per_part: int,
+                               expired_frac: float, seed: int, now: int,
+                               rules: bool) -> dict:
+    """One partition of bench.py:782 build_compact_store's fixture,
+    written with the port's SSTableWriter under the current store flags
+    as L1 runs of L1_RUN_CAPACITY records in blocks of 4096: keys
+    `user%08d` + `s%02d` (K = 32), 100-byte random values, `expired_frac`
+    of the records with a TTL 100 s in the past. Returns the oracle of
+    the compacted partition: the digests of the surviving records' keys,
+    lengths, TTLs and values and their count, from the generator and the
+    ruleset evaluated in plain Python."""
+    from pegasus_tpu_torch.ops.record_block import hash_lo_column
+    from pegasus_tpu_torch.storage.lsm import L1_RUN_CAPACITY
+    from pegasus_tpu_torch.storage.sstable import SSTableWriter
+
+    rng = np.random.default_rng(seed + part)
+    sst = os.path.join(pdir, "sst")
+    os.makedirs(sst, exist_ok=True)
+    meta = {"last_flushed_decree": 1, "data_version": 1}
+    names, seq, writer, in_run = [], 0, None, 0
+    base0 = part * per_part
+    oracle = _digests()
+    kept = 0
+    for base in range(0, per_part, COMPACT_BLOCK):
+        n = min(COMPACT_BLOCK, per_part - base)
+        idx = np.arange(base0 + base, base0 + base + n)
+        keys = fixture_keys(idx)
+        key_len = np.full(n, 17, dtype=np.int32)
+        ets = np.where(rng.random(n) < expired_frac,
+                       np.uint32(max(1, now - 100)),
+                       np.uint32(0)).astype(np.uint32)
+        heap = rng.integers(32, 126, size=n * COMPACT_VALUE, dtype=np.uint8)
+        offs = np.arange(n + 1, dtype=np.uint32) * COMPACT_VALUE
+        if writer is None:
+            writer = SSTableWriter(os.path.join(sst, f"l1-{seq}.sst"),
+                                   meta=meta, async_io=True,
+                                   block_capacity=COMPACT_BLOCK)
+            seq += 1
+        writer.add_block_columnar(keys, key_len, ets,
+                                  hash_lo_column(keys, key_len),
+                                  np.zeros(n, dtype=np.uint8), offs,
+                                  heap.tobytes())
+        in_run += n
+        if in_run >= L1_RUN_CAPACITY:
+            writer.finish()
+            names.append(os.path.basename(writer.path))
+            writer, in_run = None, 0
+        # the oracle: expired records drop, then the ruleset's deletes
+        keep = ets == 0
+        if rules:
+            h_lo = int(idx[0]) // 10
+            prefix, anywhere, sk_prefix = _config4_drops(
+                h_lo, int(idx[-1]) // 10 + 1)
+            h, s = idx // 10 - h_lo, idx % 10
+            keep &= ~(prefix[h] | (anywhere[h] & sk_prefix[s]))
+        oracle["keys"].update(keys[keep].tobytes())
+        oracle["key_len"].update(key_len[keep].tobytes())
+        oracle["expire_ts"].update(ets[keep].tobytes())
+        oracle["values"].update(
+            heap.reshape(n, COMPACT_VALUE)[keep].tobytes())
+        kept += int(keep.sum())
+    if writer is not None:
+        writer.finish()
+        names.append(os.path.basename(writer.path))
+    with open(os.path.join(sst, "MANIFEST.json"), "w") as f:
+        json.dump({"seq": seq, "l1": names}, f)
+    return {"count": kept,
+            **{k: h.hexdigest() for k, h in oracle.items()}}
+
+
+def compacted_digest(engine) -> dict:
+    """The digests of a compacted partition's records, read back block by
+    block from its L1 runs, in the oracle's form."""
+    got = _digests()
+    count = 0
+    for run in engine.lsm.l1_runs:
+        for i in range(len(run.blocks)):
+            blk = run.read_block(i)
+            if blk.keys.shape[1] != 32:
+                fail(f"compacted block of key width {blk.keys.shape[1]}")
+            offs = np.asarray(blk.value_offs, dtype=np.int64)
+            heap = np.asarray(blk.value_heap, dtype=np.uint8)
+            got["keys"].update(np.ascontiguousarray(blk.keys).tobytes())
+            got["key_len"].update(
+                np.asarray(blk.key_len, dtype=np.int32).tobytes())
+            got["expire_ts"].update(
+                np.asarray(blk.expire_ts, dtype=np.uint32).tobytes())
+            got["values"].update(heap[offs[0]:offs[-1]].tobytes())
+            count += blk.count
+    return {"count": count, **{k: h.hexdigest() for k, h in got.items()}}
+
+
+def check_chunk(engine, operations, now: int, device) -> int:
+    """The first chunk of a partition's compaction (up to 2^18 rows of
+    its first blocks, stacked as compaction_eval_submit stacks them)
+    through the kernel and through its plain version on the same device:
+    the largest difference of the packed drop masks (0: identical). Read
+    through a reader of its own, so the compaction's block cache stays
+    cold."""
+    from pegasus_tpu_torch.ops import compaction as tcomp
+    from pegasus_tpu_torch.storage.sstable import SSTable
+
+    run = SSTable(engine.lsm.l1_runs[0].path)
+    try:
+        chunk, rows = [], 0
+        for i in range(len(run.blocks)):
+            if rows + run.blocks[i].count > tcomp.COMPACT_CHUNK_ROWS:
+                break
+            chunk.append(((0, i), run.read_block(i), 0))
+            rows += run.blocks[i].count
+        cols, _spans, use_lo = tcomp.stack_chunk(chunk, rows, False)
+        cols = _device_columns(cols, device)
+        args = (*cols[:6], now, 0, cols[6], 0, False, use_lo)
+        got = tcomp.make_compaction_eval(operations)(*args, want_ets=False,
+                                                     pack=True)
+        want = tcomp.eval_block_plain(operations, *args, want_ets=False,
+                                      pack=True)
+        return _max_err(got[0], want[0], "phase-7 chunk")
+    finally:
+        run.close()
+
+
+def _store_bytes(dirs) -> int:
+    total = 0
+    for d in dirs:
+        sst = os.path.join(d, "sst")
+        total += sum(os.path.getsize(os.path.join(sst, n))
+                     for n in os.listdir(sst) if n.endswith(".sst"))
+    return total
+
+
+def run_compaction(device, gb: float = COMPACT_GB,
+                   n_parts: int = COMPACT_PARTS, seed: int = 7,
+                   card: str = "", cut_b: int = 0) -> dict:
+    """Phase 7: the three passes of COMPACT_PASSES, each timed as
+    bench.py:890 measure_compaction_scaled times it — a fresh fixture of
+    `gb` GB in `n_parts` partitions plus one untimed warm partition, every
+    partition's bulk manual compaction through
+    StorageEngine(device).manual_compact on a thread pool at once, GB/s =
+    store bytes before / wall seconds. Every partition's survivors must
+    equal the oracle, the first chunk of every partition must mask the
+    same through the kernel as through its plain version, and the
+    kernel's launches must be > 0 in passes a and c and 0 in pass b (the
+    host route). `cut_b` > 0 compacts that many partitions in pass b.
+    Returns {pass: result}."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.ops import fused_compaction
+    from pegasus_tpu_torch.ops.compaction_rules import (
+        compile_rules,
+        parse_rules,
+    )
+    from pegasus_tpu_torch.storage.engine import StorageEngine
+
+    n_records = int(gb * 1e9 / RECORD_BYTES)
+    per_part = n_records // n_parts
+    results = {}
+    for name, what, codec, expired_frac, rules in COMPACT_PASSES:
+        parts = cut_b if name == "b" and cut_b else n_parts
+        if parts != n_parts:
+            log(f"compact[{name}]: CUT to {parts} of {n_parts} partitions "
+                f"(keeps the run near its time before phase 7)")
+        flags = NONE_STORE if codec == "none" else DEFAULT_STORE
+        data_dir = tempfile.mkdtemp(prefix="pegasus_torch_compact_")
+        try:
+            with store_flags(flags):
+                now = epoch_now()
+                t0 = time.perf_counter()
+                dirs = [os.path.join(data_dir, f"p{p}")
+                        for p in range(parts + 1)]
+                with ThreadPoolExecutor(min(parts + 1, 9)) as ex:
+                    oracles = list(ex.map(
+                        lambda p: build_compaction_partition(
+                            dirs[p], p, per_part, expired_frac, seed, now,
+                            rules), range(parts + 1)))
+                build_s = time.perf_counter() - t0
+                rf = compile_rules(CONFIG4_RULES, device=device) \
+                    if rules else None
+                ops = tuple(parse_rules(CONFIG4_RULES)) if rules else None
+                engines = [StorageEngine(d, device=device) for d in dirs]
+                for eng in engines:
+                    if not eng.lsm.bulk_compact_eligible():
+                        fail(f"compact[{name}]: the fixture must take the "
+                             f"bulk path")
+                warm = engines.pop(0)
+                oracles.pop(0)
+                warm.manual_compact(rules_filter=rf)
+                warm.close()
+                chunk_err = max(check_chunk(e, ops, epoch_now(), device)
+                                for e in engines)
+                if chunk_err:
+                    fail(f"compact[{name}]: a chunk's kernel mask differs "
+                         f"from the plain version's by {chunk_err}")
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                os.sync()
+                timed = dirs[1:]
+                size_before = _store_bytes(timed)
+                fused_compaction.LAUNCHES["compaction"] = 0
+                trace = (device_trace() if name == "c"
+                         and device.type == "cuda"
+                         else contextlib.nullcontext())
+                with trace as prof:
+                    t0 = time.perf_counter()
+                    with ThreadPoolExecutor(parts) as ex:
+                        for f in [ex.submit(e.manual_compact,
+                                            rules_filter=rf)
+                                  for e in engines]:
+                            f.result()
+                    if device.type == "cuda":
+                        torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                launches = fused_compaction.LAUNCHES["compaction"]
+                # the pipelines' stall milliseconds, summed by stage
+                stalls = {stage: sum(
+                    getattr(e.last_pipeline, f"{stage}_stall_ms", 0)
+                    for e in engines) for stage in ("read", "filter",
+                                                    "write")}
+                size_after = _store_bytes(timed)
+                busy = None
+                if prof is not None:
+                    busy_s, spans = device_busy_s(prof)
+                    busy = {"busy_s": busy_s, "spans": spans,
+                            "share": busy_s / secs}
+                for p, (eng, want) in enumerate(zip(engines, oracles)):
+                    got = compacted_digest(eng)
+                    if got != want:
+                        fail(f"compact[{name}] partition {p + 1}: survivors "
+                             f"{got['count']} differ from the oracle's "
+                             f"{want['count']} ({got} != {want})")
+                    eng.close()
+                if device.type == "cuda" and (launches == 0) != (name == "b"):
+                    fail(f"compact[{name}]: {launches} kernel launches; "
+                         f"pass b must launch none, a and c some")
+                res = {"gb_s": size_before / secs / 1e9, "seconds": secs,
+                       "bytes_in": size_before, "bytes_out": size_after,
+                       "records": per_part * parts,
+                       "survivors": sum(o["count"] for o in oracles),
+                       "launches": launches, "stall_ms": stalls,
+                       "build_s": build_s, "partitions": parts,
+                       "device_busy": busy}
+                log(f"compact[{name}] {what} on {card}: "
+                    f"{res['gb_s']} GB/s ({secs} s, {size_before} -> "
+                    f"{size_after} bytes, {per_part * parts} records, "
+                    f"{res['survivors']} survivors equal to the oracle); "
+                    f"kernel launches {launches}; pipeline stalls (ms) "
+                    f"{stalls}; fixture built in {build_s:.1f} s"
+                    + (f"; device busy {busy['busy_s']} s of {secs} s "
+                       f"({100 * busy['share']}%) in {busy['spans']} spans"
+                       if busy else ""))
+                results[name] = res
+        finally:
+            shutil.rmtree(data_dir, ignore_errors=True)
+    return results
+
+
 # ---- main --------------------------------------------------------------
 
 
@@ -1966,6 +2591,10 @@ def main(argv=None) -> int:
                         help="records of partition 0 to load in phase 4 "
                         f"(default {SLICE_RECORDS:,}; a cut below "
                         f"{FULL_RECORDS:,} is printed)")
+    parser.add_argument("--compact-gb", type=float, default=COMPACT_GB,
+                        help="GB of store a phase-7 pass compacts "
+                        f"(default {COMPACT_GB}; the configuration's table "
+                        f"is {COMPACT_FULL_GB} GB, a printed cut)")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1977,7 +2606,7 @@ def main(argv=None) -> int:
     if not os.path.isdir(os.path.join(here, "pegasus_tpu_torch")):
         fail("run from a checkout: pegasus_tpu_torch/ is missing")
     sys.path.insert(0, here)
-    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops import fused_compaction, fused_scan
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1991,19 +2620,23 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # 2. build: nvcc and g++ started together
+    # 2. build: one nvcc a kernel source and g++, all started together
     from concurrent.futures import ThreadPoolExecutor
 
     from pegasus_tpu_torch import native
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         cuda_build = pool.submit(fused_scan.build, force=True)
+        compact_build = pool.submit(fused_compaction.build, force=True)
         native_build = pool.submit(native.build, force=True)
         build_s, build_log = cuda_build.result()
+        compact_s, compact_log = compact_build.result()
         native_s, native_log = native_build.result()
     log(f"build: csrc/scan_predicate.cu -> sm_90a in {build_s:.2f} s; "
+        f"csrc/compaction_filter.cu -> sm_90a in {compact_s:.2f} s; "
         f"native/packer.cpp -> g++ -O3 in {native_s:.2f} s")
-    print((build_log + native_log).strip(), file=sys.stderr, flush=True)
+    print((build_log + compact_log + native_log).strip(), file=sys.stderr,
+          flush=True)
 
     # 3. kernel vs plain, then times
     t0 = time.perf_counter()
@@ -2043,7 +2676,20 @@ def main(argv=None) -> int:
             f"{t['call_ms'] * 1e3} us, plain {t['plain_call_ms'] * 1e3} us "
             f"(CUDA events); bound {t['bound_ms'] * 1e3} us "
             f"({t['bound_by']}), {100 * t['share']}% of it")
+    t0 = time.perf_counter()
+    cmp_compact = check_compaction(device)
+    log(f"compaction kernel vs plain: {cmp_compact['compared']} chunks "
+        f"bit-identical (max |diff| {cmp_compact['max_abs_err']}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tc = time_compaction(device)
+    log(f"compaction_filter {tc['shape']} on {card}: device time kernel "
+        f"{tc['ms'] * 1e3} us, plain {tc['plain_ms'] * 1e3} us (profiler); "
+        f"per call with the host kernel {tc['call_ms'] * 1e3} us, plain "
+        f"{tc['plain_call_ms'] * 1e3} us (CUDA events); bound "
+        f"{tc['bound_ms'] * 1e3} us ({tc['bound_by']}), "
+        f"{100 * tc['share']}% of it")
     log(f"phase 3 in {time.perf_counter() - t_start:.1f} s since the start")
+    fused_compaction.LAUNCHES["compaction"] = 0
 
     # 4. the slice
     if args.records != FULL_RECORDS:
@@ -2070,9 +2716,22 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"point: done in {time.perf_counter() - t0:.1f} s; kernel "
         f"launches {point}")
+    # the merge-path compactions of phases 4-6 went through the
+    # compaction-filter kernel too
+    merge_launches = fused_compaction.LAUNCHES["compaction"]
+    log(f"compaction_filter launches of phases 4-6 (merge-path "
+        f"compactions): {merge_launches}")
+    log(f"chip_smoke: phases 1-6 in {time.perf_counter() - t_start:.1f} s")
+
+    # 7. bulk manual compaction, BASELINE configs #3 and #4
+    t0 = time.perf_counter()
+    log(f"compact: CUT to {args.compact_gb} GB a pass (BASELINE config "
+        f"#3's table is {COMPACT_FULL_GB} GB)")
+    compact = run_compaction(device, gb=args.compact_gb, card=card)
+    log(f"compact: done in {time.perf_counter() - t0:.1f} s")
 
     # summary
-    log(f"chip_smoke: phases 1-6 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s")
     t = timings[LARGE_SHAPE]
     tm = timings_multi[MULTI_LARGE_SHAPE]
     log(json.dumps({"kernels": [{
@@ -2095,7 +2754,17 @@ def main(argv=None) -> int:
         "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
-        "call_ms": tm["call_ms"], "shape": tm["shape"]}]}))
+        "call_ms": tm["call_ms"], "shape": tm["shape"]}, {
+        "name": "compaction_filter", "route": "cuda",
+        "source": "pegasus_tpu_torch/csrc/compaction_filter.cu",
+        "replaces": "pegasus_tpu/ops/compaction.py:110",
+        "launches": sum(r["launches"] for r in compact.values()),
+        "launches_by_pass": {p: r["launches"] for p, r in compact.items()},
+        "launches_merge_path": merge_launches,
+        "max_abs_err": cmp_compact["max_abs_err"], "ms": tc["ms"],
+        "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
+        "bound_by": tc["bound_by"], "library_ms": None,
+        "call_ms": tc["call_ms"], "shape": tc["shape"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 A JAX `RecordBlock` given as numpy arrays (uint32 columns, `hash_lo`
 possibly None) becomes the port's `RecordBlock` on a device (uint32
 columns as int32 bit patterns, `hash_lo` always present), and a
-`(filter_type, raw pattern)` pair becomes a `FilterSpec` there, and a JAX
-`PushdownSpec` the port's. On-disk state needs no conversion: at any of
+`(filter_type, raw pattern)` pair becomes a `FilterSpec` there, a JAX
+`PushdownSpec` the port's, and a ruleset the JAX package parsed the
+JSON-shaped list the port's `parse_rules` takes. On-disk state needs no conversion: at any of
 the three codecs (`none`, `dcz`, `dcz2`), with or without bloom and
 perfect-hash sidecars, both packages read and write the same SST, WAL and
 manifest files, so a store carries over as it is.
@@ -53,3 +54,31 @@ def pushdown_spec(spec) -> PushdownSpec:
         value_filter_type=int(spec.value_filter_type),
         value_filter_pattern=bytes(spec.value_filter_pattern),
         aggregate=str(spec.aggregate), k=int(spec.k), seed=int(spec.seed))
+
+
+_MATCH_NAMES = {1: "anywhere", 2: "prefix", 3: "postfix"}
+
+
+def rules_spec(operations) -> list:
+    """The list of operation dicts that the port's
+    `ops.compaction_rules.parse_rules` takes, for a ruleset parsed by
+    either package (`compile_rules(...).operations`); both packages then
+    give the ruleset the same content key. Patterns stay bytes."""
+    out = []
+    for op in operations:
+        spec = {"op": op.op, "rules": []}
+        if op.op == "update_ttl":
+            spec["update_ttl_type"] = op.utot
+            spec["value"] = int(op.value)
+        for r in op.rules:
+            if r.kind == "ttl_range":
+                spec["rules"].append({"type": "ttl_range",
+                                      "start_ttl": int(r.start_ttl),
+                                      "stop_ttl": int(r.stop_ttl)})
+            else:
+                spec["rules"].append({
+                    "type": r.kind,
+                    "match": _MATCH_NAMES[int(r.filter.filter_type)],
+                    "pattern": bytes(r.filter.raw)})
+        out.append(spec)
+    return out

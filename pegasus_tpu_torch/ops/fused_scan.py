@@ -65,6 +65,7 @@ LAUNCHES = {"static": 0, "now": 0, "multi": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "scan_predicate.cu")
+_HEADER = os.path.join(_PKG_DIR, "csrc", "match.cuh")  # shared matcher
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _LIB_PATH = os.path.join(BUILD_DIR, "libscan_predicate.so")
 
@@ -95,12 +96,13 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> Tuple[float, str]:
     """Compile csrc/scan_predicate.cu into _build/ when the library is
-    missing, older than its source, or `force` is set. Returns the
+    missing, older than its sources, or `force` is set. Returns the
     seconds spent and nvcc's output (ptxas' register and shared-memory
     report); raises when nvcc fails."""
     t0 = time.perf_counter()
+    newest = max(os.path.getmtime(_SOURCE), os.path.getmtime(_HEADER))
     if (not force and os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SOURCE)):
+            and os.path.getmtime(_LIB_PATH) >= newest):
         return 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"

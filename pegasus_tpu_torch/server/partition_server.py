@@ -42,6 +42,12 @@ uncompressed runs and blocks holding malformed rows reach the kernel.
 A scan's pushdown spec (ops/pushdown.py) is evaluated on the host: a
 value filter joins the live mask, an aggregate folds the survivors.
 
+Per-table app-envs (`update_app_envs`) set the compaction filter's
+`default_ttl` and `user_specified_compaction` rules, which every manual,
+env-triggered (`manual_compact.once.trigger_time`) and automatic
+compaction of the partition runs; manual_compact merges off the write
+lock and takes it only to freeze the overlay and to publish.
+
 Standalone mode assigns decrees locally.
 """
 
@@ -62,6 +68,7 @@ from pegasus_tpu_torch.base.key_schema import (
     restore_key,
 )
 from pegasus_tpu_torch.base.value_schema import (
+    PEGASUS_EPOCH_BEGIN,
     check_if_ts_expired,
     epoch_now,
     expire_ts_from_ttl,
@@ -69,6 +76,7 @@ from pegasus_tpu_torch.base.value_schema import (
     header_length,
 )
 from pegasus_tpu_torch.ops import pushdown as pushdown_ops
+from pegasus_tpu_torch.ops.compaction_rules import compile_rules
 from pegasus_tpu_torch.ops.fused_scan import STATUS_KEEP, scan_table
 from pegasus_tpu_torch.ops.predicates import (
     FT_MATCH_ANYWHERE,
@@ -107,6 +115,7 @@ from pegasus_tpu_torch.server.types import (
     ScanResponse,
 )
 from pegasus_tpu_torch.server.write_service import WriteService
+from pegasus_tpu_torch.storage.compact_governor import GOVERNOR
 from pegasus_tpu_torch.storage.engine import StorageEngine
 from pegasus_tpu_torch.storage.memtable import TOMBSTONE
 from pegasus_tpu_torch.storage.bloom import MultiProbe, bloom_probe_enabled
@@ -246,9 +255,38 @@ class PartitionServer:
         # of a raw run or an encoded block with malformed rows
         self.mask_routes = {"encoded": 0, "device_raw": 0,
                             "device_malformed": 0}
-        self.engine.lsm.on_publish = self._on_store_publish
+        # per-table dynamic app-envs (src/common/replica_envs.h:39-83),
+        # set through update_app_envs; the compaction filter's context
+        self.app_envs: dict = {}
+        self._default_ttl = 0
+        self._compaction_rules = None   # compiled rules_filter
+        # env-triggered manual compaction: the newest trigger seen, and
+        # whether a run is in flight
+        self._mc_trigger_seen = 0
+        self._mc_running = False
+        self.install_engine(self.engine)
+
+    def install_engine(self, engine: StorageEngine) -> None:
+        """Wire a storage engine into this server: write service,
+        auto-compaction filter context, and the store publish hook that
+        keeps the serving caches from pinning dead runs."""
+        self.engine = engine
+        ws = getattr(self, "write_service", None)
+        if ws is not None:
+            ws.engine = engine
+        # auto-compaction runs with THIS partition's filter context (TTL
+        # + stale-split + user rules), as every rocksdb compaction runs
+        # the filter in the reference
+        engine.auto_compact_ctx = lambda: {
+            "default_ttl": self._default_ttl,
+            "pidx": self.pidx,
+            "partition_version": self.partition_version,
+            "validate_hash": self.validate_partition_hash,
+            "rules_filter": self._compaction_rules,
+        }
+        engine.lsm.on_publish = self._on_store_publish
         # write-through row-cache invalidation, before the write is acked
-        self.engine.on_write_keys = self._invalidate_rows
+        engine.on_write_keys = self._invalidate_rows
         ROW_CACHE.invalidate_gid((self.app_id, self.pidx))
 
     def _invalidate_rows(self, keys) -> None:
@@ -276,6 +314,113 @@ class PartitionServer:
         self._point_cache = None
         self._plan_expired_cache = (None, {})
         ROW_CACHE.invalidate_gid((self.app_id, self.pidx))
+
+    # env key -> (derived attribute, default): when a FULL env set
+    # arrives, a previously set key now absent resets to its default
+    _ENV_DEFAULTS = {
+        "default_ttl": ("_default_ttl", 0),
+        "user_specified_compaction": ("_compaction_rules", None),
+    }
+    # keys the port records in app_envs but does not apply yet: the
+    # request gates, throttles, slow log and usage scenario of the RPC
+    # and replica layers
+    _ENV_RECORDED = ("replica.deny_client_request",
+                     "replica.write_throttling", "replica.read_throttling",
+                     "replica.slow_query_threshold_ms",
+                     "rocksdb.usage_scenario")
+
+    def update_app_envs(self, envs: dict, full_set: bool = False) -> None:
+        """Apply per-table dynamic settings: `default_ttl`,
+        `user_specified_compaction` and `manual_compact.once.trigger_time`
+        (the other known keys are recorded, not applied). Validation is
+        two-phase: every value parses first, then everything applies — a
+        malformed env never leaves half-applied state.
+
+        `full_set=True`: `envs` is the table's complete env map, so keys
+        set before and absent now reset to their defaults."""
+        staged = []
+        if full_set:
+            for key, (attr, dflt) in self._ENV_DEFAULTS.items():
+                if key in self.app_envs and key not in envs:
+                    staged.append((attr, dflt))
+        for key, value in envs.items():
+            try:
+                if key == "default_ttl":
+                    staged.append(("_default_ttl", int(value)))
+                elif key == "user_specified_compaction":
+                    staged.append((
+                        "_compaction_rules",
+                        compile_rules(value, device=self.device)
+                        if value else None))
+                elif key == "manual_compact.once.trigger_time":
+                    # unix seconds (`date +%s`) or pegasus-epoch seconds,
+                    # normalized to the pegasus epoch
+                    ts = int(value) if value else 0
+                    if ts > PEGASUS_EPOCH_BEGIN:
+                        ts -= PEGASUS_EPOCH_BEGIN
+                    staged.append(("_mc_once_trigger", ts))
+                elif key == "replica.slow_query_threshold_ms":
+                    float(value)
+                elif key == "rocksdb.usage_scenario":
+                    if value not in ("normal", "prefer_write", "bulk_load"):
+                        raise ValueError("unknown scenario")
+            except Exception as exc:
+                raise ValueError(f"invalid app-env {key}={value!r}: {exc}") \
+                    from exc
+        for attr, parsed in staged:
+            if attr == "_mc_once_trigger":
+                self._maybe_start_manual_compact(parsed)
+            else:
+                setattr(self, attr, parsed)
+        if full_set:
+            self.app_envs = dict(envs)
+        else:
+            self.app_envs.update(envs)
+
+    def _maybe_start_manual_compact(self, trigger_ts: int) -> None:
+        """Env-driven manual compaction (pegasus_manual_compact_service,
+        the `manual_compact.once.trigger_time` env): a trigger newer than
+        the last one seen starts one asynchronous full compaction;
+        re-deliveries of the same value are idempotent, and a trigger
+        arriving while a run is in flight is absorbed. A trigger older
+        than the store's recorded compaction finish time is already
+        satisfied. A trigger the cluster stagger denies is deferred, not
+        consumed, so its re-delivery tries again.
+
+        The compaction runs on its own thread: manual_compact merges off
+        the write lock from an immutable snapshot and revalidates the run
+        set at publish, so serving continues meanwhile."""
+        if trigger_ts <= 0 or trigger_ts <= self._mc_trigger_seen:
+            return
+        if trigger_ts <= self.engine.lsm.compact_finish_time:
+            self._mc_trigger_seen = trigger_ts
+            return
+        if self._mc_running:
+            self._mc_trigger_seen = trigger_ts
+            return
+        if not GOVERNOR.heavy_allowed():
+            GOVERNOR.note_deferred()
+            return
+        self._mc_trigger_seen = trigger_ts
+        self._mc_running = True
+        GOVERNOR.begin_heavy()
+
+        def run() -> None:
+            try:
+                # a recent trigger doubles as the table-shared filter
+                # timestamp, so sibling partitions filter under identical
+                # params; a stale or skewed one falls back to the clock
+                shared_now = (trigger_ts
+                              if abs(epoch_now() - trigger_ts) <= 600
+                              else None)
+                self.manual_compact(now=shared_now)
+            finally:
+                self._mc_running = False
+                GOVERNOR.end_heavy()
+
+        threading.Thread(
+            target=run, daemon=True,
+            name=f"manual-compact-{self.app_id}.{self.pidx}").start()
 
     def close(self) -> None:
         self.engine.close()
@@ -2057,15 +2202,32 @@ class PartitionServer:
         with self._write_lock:
             return self.engine.flush()
 
-    def manual_compact(self, default_ttl: int = 0,
+    def manual_compact(self, default_ttl: Optional[int] = None,
+                       rules_filter=None,
                        now: Optional[int] = None) -> None:
-        """Parity: pegasus_manual_compact_service (manual CompactRange):
-        freeze the overlay with a flush, then merge everything through
-        the TTL / stale-split filter on the server's device. Writers are
-        excluded for the whole merge."""
-        with self._write_lock:
-            self.engine.flush()
+        """Parity: pegasus_manual_compact_service (manual CompactRange).
+        `default_ttl` and `rules_filter` default to the table's app-envs
+        (`default_ttl`, `user_specified_compaction`); `now` pins the
+        filter timestamp (epoch_now() inside the engine by default).
+
+        The writer critical section is narrow: the overlay is frozen with
+        one flush under _write_lock, the merge runs from that immutable
+        snapshot with writes flowing, and _write_lock is retaken only for
+        the publish cut-over (with the run-set revalidation of
+        lsm._publish_l1). engine.compact_lock serializes compactions; the
+        write path's auto-compaction skips its trigger while this runs."""
+        if default_ttl is None:
+            default_ttl = self._default_ttl
+        if rules_filter is None:
+            rules_filter = self._compaction_rules
+        with self.engine.compact_lock:
+            with self._write_lock:
+                # post-freeze writes land in the fresh memtable / newer
+                # L0s, which the publish leaves untouched
+                self.engine.flush()
             self.engine.manual_compact(
                 default_ttl=default_ttl, pidx=self.pidx,
                 partition_version=self.partition_version,
-                validate_hash=self.validate_partition_hash, now=now)
+                validate_hash=self.validate_partition_hash,
+                rules_filter=rules_filter, now=now,
+                publish_lock=self._write_lock)

@@ -207,10 +207,14 @@ class SSTableWriter:
     """Writes a sorted record stream into a columnar SST.
 
     The codec, the block-CRC switch and both sidecar switches are latched
-    at construction, so a flag flip mid-write cannot tear one table."""
+    at construction, so a flag flip mid-write cannot tear one table.
+    `async_io=True` moves file writes onto a background thread (bounded
+    queue, one FIFO, so the order is kept); finish() joins it before
+    writing the index, so data still precedes index and rename."""
 
     def __init__(self, path: str, block_capacity: int = BLOCK_CAPACITY,
-                 meta: Optional[dict] = None) -> None:
+                 meta: Optional[dict] = None,
+                 async_io: bool = False) -> None:
         self.path = path
         self._block_capacity = block_capacity
         self._meta = dict(meta or {})
@@ -219,7 +223,10 @@ class SSTableWriter:
         self._pending: List[Tuple[bytes, bytes, int, int]] = []
         self._last_key: Optional[bytes] = None
         self._count = 0
-        self._offset = 0
+        self._offset = 0  # logical file position (writes may be queued)
+        self._io_q = None
+        self._io_thread = None
+        self._io_err: List[BaseException] = []
         # the bloom filter and the perfect-hash index both consume one
         # full-key crc64 column per block, accumulated by _sidecar_note
         self._bloom_bits_per_key = bloom_build_bits()
@@ -234,11 +241,40 @@ class SSTableWriter:
         self._codec_raw_bytes = 0     # logical (raw-format) bytes
         self._codec_stored_bytes = 0  # bytes actually written
         self._key_hashes: List[np.ndarray] = []
+        if async_io:
+            import queue
+
+            self._io_q = queue.Queue(maxsize=8)
+            self._io_thread = threading.Thread(
+                target=self._io_loop, name="sst-io", daemon=True)
+            self._io_thread.start()
         self._write(MAGIC)
+
+    def _io_loop(self) -> None:
+        while True:
+            buf = self._io_q.get()
+            if buf is None:
+                return
+            try:
+                if not self._io_err:
+                    self._f.write(buf)
+            except BaseException as e:  # noqa: BLE001 - surfaced at join
+                self._io_err.append(e)
 
     def _write(self, buf) -> None:
         self._offset += len(buf)
-        self._f.write(buf)
+        if self._io_q is not None:
+            self._io_q.put(buf)
+        else:
+            self._f.write(buf)
+
+    def _join_io(self) -> None:
+        if self._io_thread is not None:
+            self._io_q.put(None)
+            self._io_thread.join()
+            self._io_thread = None
+            if self._io_err:
+                raise self._io_err[0]
 
     def _sidecar_note(self, keys: np.ndarray, key_len: np.ndarray,
                       hashes: Optional[np.ndarray] = None) -> None:
@@ -398,6 +434,7 @@ class SSTableWriter:
 
     def finish(self) -> None:
         self._flush_block()
+        self._join_io()
         index = {
             "blocks": [
                 {"off": b.offset, "size": b.size, "count": b.count,
@@ -461,6 +498,10 @@ class SSTableWriter:
                                   **ph.meta()}
 
     def abandon(self) -> None:
+        try:
+            self._join_io()
+        except Exception:  # noqa: BLE001 - the write failed; abandoning
+            pass
         self._f.close()
         try:
             os.remove(self.path + ".tmp")

@@ -36,8 +36,50 @@ def test_port_modules_are_found():
                  "pegasus_tpu_torch.ops.pushdown",
                  "pegasus_tpu_torch.server.row_cache",
                  "pegasus_tpu_torch.server.read_coordinator",
+                 "pegasus_tpu_torch.ops.compaction_rules",
+                 "pegasus_tpu_torch.ops.fused_compaction",
+                 "pegasus_tpu_torch.storage.compact_governor",
+                 "pegasus_tpu_torch.storage.compact_pipeline",
                  "pegasus_tpu_torch.convert"):
         assert want in names
+
+
+def test_bulk_compaction_runs_without_jax(tmp_path):
+    """A PartitionServer on the CPU compacts with env rules and a default
+    TTL through the merge path, then through the pipelined bulk path of a
+    dcz2 store, with JAX blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from pegasus_tpu_torch.base.key_schema import generate_key\n"
+        "from pegasus_tpu_torch.server.partition_server import "
+        "PartitionServer\n"
+        "from pegasus_tpu_torch.storage import compact_pipeline\n"
+        f"s = PartitionServer({str(tmp_path)!r}, device='cpu')\n"
+        "s.update_app_envs({'default_ttl': '3600',\n"
+        "    'user_specified_compaction': '[{\"op\": \"delete_key\", '\n"
+        "    '\"rules\": [{\"type\": \"hashkey_pattern\", '\n"
+        "    '\"match\": \"prefix\", \"pattern\": \"tmp\"}]}]'})\n"
+        "for i in range(40):\n"
+        "    hk = b'tmp' if i % 4 == 0 else b'hk%02d' % i\n"
+        "    s.on_put(generate_key(hk, b's%02d' % i), b'v%d' % i)\n"
+        "s.manual_compact()\n"
+        "assert s.engine.lsm.bulk_compact_eligible()\n"
+        "s.manual_compact()\n"
+        "rows = list(s.engine.iterate())\n"
+        "assert len(rows) == 30 and all(e > 0 for _k, _v, e in rows)\n"
+        "assert s.engine.compact_count == 2\n"
+        "s.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
+        "             or m.startswith('pegasus_tpu.')\n"
+        "             or m.startswith('jax.') or m == 'jaxlib')\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
 
 
 def test_batched_path_runs_without_jax(tmp_path):

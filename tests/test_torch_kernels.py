@@ -1,4 +1,5 @@
-"""The scan-predicate kernel against its plain torch version, on the card.
+"""The hand-written kernels (the scan predicate, the compaction filter)
+against their plain torch versions, on the card.
 
 A small-size repeat of chip_smoke.py's phase-3 checks, on a machine
 with a card:
@@ -14,7 +15,9 @@ import pytest
 import torch
 
 from chip_smoke import (
+    CONFIG4_RULES,
     NOWS,
+    check_compaction,
     check_tables,
     check_tables_multi,
     device_block,
@@ -22,7 +25,9 @@ from chip_smoke import (
     random_block_columns,
     serving_block_columns,
 )
-from pegasus_tpu_torch.ops import fused_scan
+from pegasus_tpu_torch.ops import compaction as tcomp
+from pegasus_tpu_torch.ops import fused_compaction, fused_scan
+from pegasus_tpu_torch.ops.compaction_rules import compile_rules
 from pegasus_tpu_torch.ops.predicates import (
     FT_MATCH_ANYWHERE,
     FT_MATCH_PREFIX,
@@ -172,3 +177,79 @@ def test_empty_block_launches_nothing(card):
                                     True, 7, now=now)
         assert out.shape == (0,) and out.is_cuda
     assert fused_scan.LAUNCHES == before
+
+
+def test_compaction_kernel_matches_plain_on_every_case(card):
+    out = check_compaction(card, widths=(32, 256), rows=(777, 1))
+    # per width and row count: 2 validate x 2 default_ttl x 4 outputs,
+    # 3 merge-filter cases and 4 rules-hook rulesets
+    assert out["compared"] == 2 * 2 * (16 + 3 + 4)
+    assert out["max_abs_err"] == 0
+
+
+def test_compaction_paths_launch_the_kernel(card):
+    """The bulk program, the merge path's filter and the rules hook each
+    launch the kernel once on CUDA and agree with the CPU."""
+    rng = np.random.default_rng(12)
+    keys = [b"\x00\x04user" + b"%03d" % i + b"s%d" % (i % 10)
+            for i in range(300)]
+    ets = rng.choice(np.array([0, 100, 5000, 0x80000005], np.uint64), 300)
+    rf_dev = compile_rules(CONFIG4_RULES, device=card)
+    rf_cpu = compile_rules(CONFIG4_RULES, device="cpu")
+    before = fused_compaction.LAUNCHES["compaction"]
+    for a, b in zip(rf_dev(keys, ets, 1000), rf_cpu(keys, ets, 1000)):
+        np.testing.assert_array_equal(a, b)
+    assert fused_compaction.LAUNCHES["compaction"] == before + 1
+    cpu = block_from_columns(np.zeros((64, 32), np.uint8),
+                             np.full(64, 5, np.int32),
+                             ets[:64].astype(np.uint32),
+                             hash_lo=rng.integers(0, 1 << 32, 64,
+                                                  dtype=np.uint64).astype(
+                                 np.uint32))
+    dev = RecordBlock(*(t.to(card) for t in cpu))
+    for a, b in zip(tcomp.compaction_filter_block(
+            dev.hash_lo, dev.expire_ts, dev.valid, 1000, 77, 1, 3, True),
+            tcomp.compaction_filter_block(
+            cpu.hash_lo, cpu.expire_ts, cpu.valid, 1000, 77, 1, 3, True)):
+        assert torch.equal(a.cpu(), b)
+    assert fused_compaction.LAUNCHES["compaction"] == before + 2
+
+
+def test_compaction_wrapper_refuses_what_the_kernel_does_not_take(card):
+    ops = compile_rules(CONFIG4_RULES, device="cpu").operations
+    b = 64
+    keys = torch.zeros((b, 32), dtype=torch.uint8, device=card)
+    i32 = torch.zeros(b, dtype=torch.int32, device=card)
+    valid = torch.ones(b, dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_compaction.compaction_filter(
+            keys.cpu(), i32.cpu(), i32.cpu(), valid.cpu(), None, 0, ops, 5,
+            0, 0, validate_hash=False)
+    with pytest.raises(ValueError, match="expire_ts"):
+        fused_compaction.compaction_filter(
+            keys, i32, i32.to(torch.int64), valid, None, 0, ops, 5, 0, 0,
+            validate_hash=False)
+    with pytest.raises(ValueError, match="needs the keys"):
+        fused_compaction.compaction_filter(
+            None, None, i32, valid, None, 0, ops, 5, 0, 0,
+            validate_hash=False)
+    with pytest.raises(ValueError, match="hash_lo"):
+        fused_compaction.compaction_filter(
+            keys, i32, i32, valid, None, 0, ops, 5, 0, 0,
+            validate_hash=True)
+    with pytest.raises(ValueError, match="power of two"):
+        fused_compaction.compaction_filter(
+            keys[:, :24].contiguous(), i32, i32, valid, None, 0, ops, 5,
+            0, 0, validate_hash=False)
+    before = fused_compaction.LAUNCHES["compaction"]
+    drop, ets = fused_compaction.compaction_filter(
+        keys[:0], i32[:0], i32[:0], valid[:0], None, 0, ops, 5, 0, 0,
+        validate_hash=False, pack=True)
+    assert drop.shape == (0,) and ets.shape == (0,)
+    assert fused_compaction.LAUNCHES["compaction"] == before
+    # validation hashes keys on the host only in the plain version: on
+    # the card eval_block needs the hash_lo column
+    with pytest.raises(ValueError, match="use_hash_lo"):
+        tcomp.make_compaction_eval(ops)(
+            keys, i32, i32, i32, valid, i32, 5, 0, 0, 3, True, False)
+    assert fused_compaction.LAUNCHES["compaction"] == before
