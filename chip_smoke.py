@@ -255,9 +255,11 @@ def _cuda_ms(fn, iters: int, before=None) -> float:
 def _device_ms(fn, iters: int, kernel: str = "", before=None):
     """Device milliseconds per call from torch.profiler's CUDA trace: the
     kernels' own time, without the host gaps between launches. `kernel`
-    keeps only kernels whose name holds it (all kernels when empty); the
-    device-to-device copies of `before` (the L2 flush) never count.
-    None when the trace holds no device time."""
+    keeps only kernels whose name holds it (all kernels when empty), and
+    then `fn` must launch that kernel once a call: the mean is taken over
+    the launches the trace recorded, so a record the trace drops cannot
+    lower it. The device-to-device copies of `before` (the L2 flush)
+    never count. None when the trace holds no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -269,11 +271,14 @@ def _device_ms(fn, iters: int, kernel: str = "", before=None):
                 before()
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, launches = 0.0, 0
     for ev in prof.key_averages():
         if kernel in ev.key and not ev.key.startswith("Memcpy DtoD"):
             total_us += getattr(ev, "self_device_time_total", 0.0)
-    return total_us / iters / 1e3 if total_us > 0 else None
+            launches += ev.count
+    if total_us <= 0:
+        return None
+    return total_us / (launches if kernel else iters) / 1e3
 
 
 def _device_ops(fn, calls: int = 20) -> dict:
@@ -875,7 +880,9 @@ def check_compaction(device, widths=(32, 64, 256),
     non-zero, want_ets and pack on and off, `now` low and near 2^32,
     over a rotation of rulesets (COMPACT_RULESETS: every rule kind and match
     type, empty patterns, all three update types, delete before update,
-    values past 2^32, the table's bounds); the merge path's filter
+    values past 2^32, the table's bounds); validation without a hash_lo
+    column (the kernel hashes the keys) under every ruleset; the merge
+    path's filter
     (compaction_filter_block) and its rules hook (compile_rules) on the
     same chunks; a ruleset past the table's bounds must raise."""
     import torch
@@ -923,6 +930,25 @@ def check_compaction(device, widths=(32, 64, 256),
                                      f"{want_ets} pack={pack} now={now} "
                                      f"ruleset {which}")
                         compared += 1
+            # validation without a hash_lo column: the kernel hashes the
+            # keys, under every ruleset
+            for which, ops in enumerate(rulesets):
+                want_ets, pack = ((True, False), (False, True))[which % 2]
+                dttl = (0, 0x500)[which % 2]
+                now = COMPACT_NOWS[which % len(COMPACT_NOWS)]
+                args = (keys, key_len, hkl, ets, valid, hash_lo, now, dttl,
+                        pidx, pv, True, False)
+                got = tcomp.make_compaction_eval(ops)(
+                    *args, want_ets=want_ets, pack=pack)
+                want = tcomp.eval_block_plain(
+                    ops, *args, want_ets=want_ets, pack=pack)
+                for g, w, what in zip(got, want, ("drop", "ets2")):
+                    err = _max_err(g, w, what)
+                    max_err = max(max_err, err)
+                    if err:
+                        fail(f"compaction kernel != plain without hash_lo: "
+                             f"{what} K={k} B={b} ruleset {which}")
+                compared += 1
             # the merge path's filter: scalar pidx, bool mask, ets2
             for validate, pidx_s, now in ((False, 0, 5000), (True, 2, 5000),
                                           (True, 1, 0xFFFFFF00)):
@@ -978,31 +1004,44 @@ def fixture_keys(idx: np.ndarray) -> np.ndarray:
     return keys
 
 
-def compaction_bound(rows: int, k: int, *, pattern_rule: bool,
-                     validate: bool, want_ets: bool, ops: float):
+def compaction_bound(rows: int, k: int, *, keys: bool, hash_lo: bool,
+                     pidx_col: bool, pack: bool, want_ets: bool,
+                     ops: float):
     """(bound_ms, bound_by) of one compaction-filter launch over `rows`
     rows: valid 1 B and expire_ts 4 B a row; the key row k B and key_len
-    4 B with a pattern rule (the hashkey length is the row's own first
-    two bytes); hash_lo and the pidx column 4 B each with validation;
-    out the packed mask 1/8 B and ets2 4 B when asked."""
-    per = 5
-    if pattern_rule:
-        per += k + 4
-    if validate:
-        per += 8
-    nbytes = rows * per + -(-rows // 8) + (4 * rows if want_ets else 0)
+    4 B where a pattern rule or the key hash reads them (the hashkey
+    length is the row's own first two bytes); hash_lo and a pidx column
+    4 B each where read; out the drop mask (1/8 B packed, else 1 B) and
+    ets2 4 B when asked; `ops` integer operations at the card's scalar
+    rate."""
+    per = 5 + (k + 4 if keys else 0) + (4 if hash_lo else 0) \
+        + (4 if pidx_col else 0) + (4 if want_ets else 0)
+    nbytes = rows * per + (-(-rows // 8) if pack else rows)
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
 
 
-def time_compaction(device, rows: int = 1 << 18) -> dict:
-    """Phase 3, time of the compaction-filter kernel at phase 7's chunk
-    shape: 2^18 rows of the fixture's keys (K = 32), BASELINE config #4's
-    ruleset, no validation, no ets2, packed, as the bulk path launches
-    it; L2 flushed before each launch by writing FLUSH_BYTES."""
-    import torch
+# the merge path's filter batch: 16 blocks of 1024 records a device
+# evaluation (storage/lsm.py LSMStore.compact), its compaction_filter_block
+# launch on the padded batch
+MERGE_BATCH_ROWS = 16 * 1024
+# (name, rows, how): the bulk program at config #4's ruleset ("rules"),
+# the same validating a chunk without hash_lo ("rules, hash keys"), the
+# merge path's filter ("merge")
+COMPACT_TIMED_SHAPES = (
+    ("(i) chunk", 1 << 18, "rules"),
+    ("(ii) large", 1 << 20, "rules"),
+    ("(iii) merge batch", MERGE_BATCH_ROWS, "merge"),
+    ("(iv) chunk, validation without hash_lo", 1 << 18, "rules, hash keys"),
+)
 
+
+def compaction_timing_cases(device, rows: int, how: str):
+    """(kernel, plain, bound_ms, bound_by, shape) of one
+    COMPACT_TIMED_SHAPES entry on `device`: fixture keys (K = 32,
+    `user%08d` hashkeys of 12 bytes), 5% of the rows expired; `kernel`
+    and `plain` each make one call and return its outputs."""
     from pegasus_tpu_torch.ops import compaction as tcomp
     from pegasus_tpu_torch.ops.compaction_rules import parse_rules
 
@@ -1012,46 +1051,110 @@ def time_compaction(device, rows: int = 1 << 18) -> dict:
     key_len = np.full(rows, 17, dtype=np.int32)
     ets = np.where(rng.random(rows) < 0.05, np.uint32(5000 - 100),
                    np.uint32(0)).astype(np.uint32)
+    hash_lo = rng.integers(0, 1 << 32, rows,
+                           dtype=np.uint64).astype(np.uint32)
+    pidx = (hash_lo & 3).astype(np.uint32)
     cols = _device_columns(
         (keys, key_len, np.full(rows, 12, dtype=np.int32), ets,
-         np.ones(rows, bool), np.zeros(rows, np.uint32),
-         np.zeros(rows, np.uint32)), device)
+         np.ones(rows, bool), hash_lo, pidx), device)
+    if how == "merge":
+        # phases 4-6: a partition of 64 validating, scalar pidx, bool mask
+        # and ets2 back, default_ttl already applied
+        _k, _kl, _h, d_ets, d_valid, d_lo, _p = cols
+        args = (d_lo, d_ets, d_valid, 5000, 0, 1, 63, True)
+
+        def kernel():
+            return tcomp.compaction_filter_block(*args)
+
+        def plain():
+            return tcomp.compaction_filter_block_plain(*args)
+
+        bound_ms, bound_by = compaction_bound(
+            rows, 32, keys=False, hash_lo=True, pidx_col=False, pack=False,
+            want_ets=True, ops=rows * 8.0)
+        return (kernel, plain, bound_ms, bound_by,
+                f"{rows} rows (the merge path's filter batch), no keys, "
+                f"validation against hash_lo, scalar pidx, bool mask and "
+                f"ets2, L2 flushed")
+    hash_keys = how == "rules, hash keys"
     ops = tuple(parse_rules(CONFIG4_RULES))
     eval_block = tcomp.make_compaction_eval(ops)
-    args = (*cols[:6], 5000, 0, cols[6], 0, False, True)
+    args = (*cols[:6], 5000, 0, cols[6] if hash_keys else 0, 3,
+            hash_keys, not hash_keys)
+
+    def kernel():
+        return eval_block(*args, want_ets=False, pack=True)
+
+    def plain():
+        return tcomp.eval_block_plain(ops, *args, want_ets=False, pack=True)
+
+    # the match work: the 10-byte prefix of rule 1 and the 9 candidate
+    # starts of "7777" in a 12-byte hashkey, the 2-byte sortkey prefix
+    # where that matched, and ~8 for the rest of a row; the key hash
+    # about 8 operations a byte of its 12-byte hashkey region
+    hk = keys[:, 2:14]
+    ops_n = rows * (8 + 10 + 9) + 2.0 * sum(
+        b"7777" in bytes(r) for r in hk[:4096]) * rows / 4096
+    if hash_keys:
+        ops_n += rows * 8.0 * 12
+    bound_ms, bound_by = compaction_bound(
+        rows, 32, keys=True, hash_lo=False, pidx_col=hash_keys, pack=True,
+        want_ets=False, ops=ops_n)
+    return (kernel, plain, bound_ms, bound_by,
+            f"{rows} rows, K=32, BASELINE config #4 ruleset, packed, no "
+            + ("ets2, validation hashing the keys (no hash_lo), pidx "
+               "column" if hash_keys else "ets2, no validation")
+            + ", L2 flushed")
+
+
+def time_compaction(device, shapes=COMPACT_TIMED_SHAPES) -> list:
+    """Phase 3, times of the compaction-filter kernel through its
+    wrappers at `shapes` (COMPACT_TIMED_SHAPES entries), L2 flushed
+    before each launch by writing FLUSH_BYTES (and, for the kernel, again
+    after a flush that only reads them, which leaves no dirty lines in L2
+    to write back): device time (torch.profiler), per call with the host
+    (CUDA events), the plain version's two, the bound, and launches a
+    call."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fused_compaction
+
     src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
     dst = torch.empty_like(src)
 
     def flush():
         dst.copy_(src)
 
-    def kernel():
-        eval_block(*args, want_ets=False, pack=True)
+    def read_flush():
+        src.view(torch.int32).sum()
 
-    def plain():
-        tcomp.eval_block_plain(ops, *args, want_ets=False, pack=True)
-
-    # the match work: the 10-byte prefix of rule 1 and the 9 candidate
-    # starts of "7777" in a 12-byte hashkey, the 2-byte sortkey prefix
-    # where that matched, and ~8 for the rest of a row
-    hk = keys[:, 2:14]
-    ops_n = rows * (8 + 10 + 9) + 2.0 * sum(
-        b"7777" in bytes(r) for r in hk[:4096]) * rows / 4096
-    bound_ms, bound_by = compaction_bound(
-        rows, 32, pattern_rule=True, validate=False, want_ets=False,
-        ops=ops_n)
-    row = {"shape": f"{rows} rows, K=32, BASELINE config #4 ruleset, "
-                    f"packed, no ets2, no validation, L2 flushed",
-           "ms": _device_ms(kernel, 50, "compaction_filter_kernel", flush),
-           "call_ms": _cuda_ms(kernel, 50, flush),
-           "plain_ms": _device_ms(plain, 10, "", flush),
-           "plain_call_ms": _cuda_ms(plain, 10, flush),
-           "bound_ms": bound_ms, "bound_by": bound_by}
-    if None in (row["ms"], row["plain_ms"]):
-        fail("torch.profiler recorded no device time for the compaction "
-             "kernel")
-    row["share"] = bound_ms / row["ms"]
-    return row
+    out = []
+    for name, rows, how in shapes:
+        kernel, plain, bound_ms, bound_by, shape = compaction_timing_cases(
+            device, rows, how)
+        before = fused_compaction.LAUNCHES["compaction"]
+        kernel()
+        torch.cuda.synchronize()
+        launches = fused_compaction.LAUNCHES["compaction"] - before
+        row = {"shape": f"{name}: {shape}", "rows": rows,
+               "ms": _device_ms(kernel, 50, "compaction_filter_kernel",
+                                flush),
+               "ms_read_flushed": _device_ms(
+                   kernel, 50, "compaction_filter_kernel", read_flush),
+               "call_ms": _cuda_ms(kernel, 50, flush),
+               "plain_ms": _device_ms(plain, 10, "", flush),
+               "plain_call_ms": _cuda_ms(plain, 10, flush),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "launches_per_call": launches}
+        if None in (row["ms"], row["ms_read_flushed"], row["plain_ms"]):
+            fail(f"torch.profiler recorded no device time for the "
+                 f"compaction kernel at {name}")
+        if launches != 1:
+            fail(f"the compaction wrapper launched {launches} kernels a "
+                 f"call at {name}, not 1")
+        row["share"] = bound_ms / row["ms"]
+        out.append(row)
+    return out
 
 
 # ---- phase 4: the slice ------------------------------------------------
@@ -2681,13 +2784,17 @@ def main(argv=None) -> int:
     log(f"compaction kernel vs plain: {cmp_compact['compared']} chunks "
         f"bit-identical (max |diff| {cmp_compact['max_abs_err']}) in "
         f"{time.perf_counter() - t0:.1f} s")
-    tc = time_compaction(device)
-    log(f"compaction_filter {tc['shape']} on {card}: device time kernel "
-        f"{tc['ms'] * 1e3} us, plain {tc['plain_ms'] * 1e3} us (profiler); "
-        f"per call with the host kernel {tc['call_ms'] * 1e3} us, plain "
-        f"{tc['plain_call_ms'] * 1e3} us (CUDA events); bound "
-        f"{tc['bound_ms'] * 1e3} us ({tc['bound_by']}), "
-        f"{100 * tc['share']}% of it")
+    timings_compact = time_compaction(device)
+    for t in timings_compact:
+        log(f"compaction_filter {t['shape']} on {card}: device time "
+            f"kernel {t['ms'] * 1e3} us ({t['ms_read_flushed'] * 1e3} us "
+            f"after a read-only flush), plain {t['plain_ms'] * 1e3} us "
+            f"(profiler); per call with the host kernel "
+            f"{t['call_ms'] * 1e3} us, plain {t['plain_call_ms'] * 1e3} us "
+            f"(CUDA events); bound {t['bound_ms'] * 1e3} us "
+            f"({t['bound_by']}), {100 * t['share']}% of it; "
+            f"{t['launches_per_call']} launch a call")
+    tc = timings_compact[0]
     log(f"phase 3 in {time.perf_counter() - t_start:.1f} s since the start")
     fused_compaction.LAUNCHES["compaction"] = 0
 

@@ -114,9 +114,9 @@ def _key_hash_lo(keys: torch.Tensor, key_len: torch.Tensor,
     """int32[B] lo lane of pegasus_key_hash from the key rows (the JAX
     package's key_hash_device: crc64 of the hashkey region, of the
     sortkey region when the hashkey is empty, at most K bytes), for
-    chunks whose blocks carry no hash_lo column; the plain version's
-    only (no bulk caller reaches it: bulk_compact_eligible requires the
-    column)."""
+    chunks whose blocks carry no hash_lo column; the plain version of
+    the kernel's own key hash (no bulk caller reaches it:
+    bulk_compact_eligible requires the column)."""
     k = keys.shape[1]
     kl = key_len.cpu().numpy().astype(np.int64)
     hkl = hashkey_len.cpu().numpy().astype(np.int64)
@@ -170,9 +170,9 @@ def make_compaction_eval(operations=None):
     use_hash_lo, want_ets=True, pack=False)` takes tensors of one device
     (the uint32 columns as int32 bit patterns, `pidx` an int or an int32
     column, hashkey_len the keys' big-endian u16 prefix) and launches the
-    compaction-filter kernel on CUDA, the plain version on the CPU. On
-    CUDA, validation needs the hash_lo column (`use_hash_lo`); hashing
-    the keys instead is the plain version's alone."""
+    compaction-filter kernel on CUDA, the plain version on the CPU.
+    Validation without `use_hash_lo` hashes the keys (the kernel on
+    CUDA, `_key_hash_lo` in the plain version)."""
     key = _ops_key(operations)
     with _EVAL_LOCK:
         cached = _EVAL_CACHE.get(key)
@@ -191,13 +191,10 @@ def make_compaction_eval(operations=None):
                                     default_ttl, pidx, partition_version,
                                     validate_hash, use_hash_lo,
                                     want_ets=want_ets, pack=pack)
-        if validate_hash and not use_hash_lo:
-            # the kernel reads the stored hash_lo column; every bulk
-            # caller has one (lsm.bulk_compact_eligible)
-            raise ValueError("the compaction kernel validates against a "
-                             "hash_lo column: use_hash_lo must be set")
+        # without use_hash_lo the kernel hashes the keys itself
         drop, ets = fused_compaction.compaction_filter(
-            keys, key_len, expire_ts, valid, hash_lo, pidx, ops,
+            keys, key_len, expire_ts, valid,
+            hash_lo if use_hash_lo else None, pidx, ops,
             now, default_ttl, partition_version, validate_hash=validate_hash,
             expire=True, want_ets=want_ets, pack=pack)
         return (drop, ets) if want_ets else (drop,)

@@ -14,6 +14,11 @@ card. It takes CUDA tensors only and raises on anything else; the plain
 torch version the CPU runs, and chip_smoke.py holds the kernel against,
 is ops/compaction.eval_block_plain.
 
+Validation reads a chunk's stored `hash_lo` column or, where the chunk
+has none, hashes the keys inside the kernel (the JAX package's
+`key_hash_device`, ops/device_crc.py:65) with the port's crc64 table
+(base/crc.py), copied to the card once a device.
+
 The kernel is csrc/compaction_filter.cu, built with nvcc for sm_90a at
 first use into `_build/` and bound through ctypes; the build and the
 load happen once, under a lock (the bulk compactions of several
@@ -34,6 +39,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from pegasus_tpu_torch.base.crc import TABLE64_NP
 from pegasus_tpu_torch.base.value_schema import PEGASUS_EPOCH_BEGIN
 from pegasus_tpu_torch.ops.fused_scan import BUILD_DIR, _nvcc
 
@@ -69,6 +75,7 @@ _UTOT = {"from_now": 0, "from_current": 1, "timestamp": 2}
 
 # flag bits of the entry point
 _F_VALIDATE, _F_EXPIRE, _F_WANT_ETS, _F_PACK, _F_NEED_KEYS = 1, 2, 4, 8, 16
+_F_HASH_KEYS = 32
 
 
 def build(force: bool = False) -> Tuple[float, str]:
@@ -104,7 +111,7 @@ def _library():
             p, u32_, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
             fn.argtypes = [p, p, p, p, p, p, u32_, ctypes.c_int64, i32,
                            ctypes.c_char_p, i32, ctypes.c_char_p, i32, p,
-                           u32_, u32_, u32_, i32, p, p, p]
+                           u32_, u32_, u32_, i32, p, p, p, p]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -179,6 +186,13 @@ def _table(key: tuple, device: torch.device):
             len(rules) // _RULE.size)
 
 
+@functools.lru_cache(maxsize=8)
+def _crc_table(device: torch.device) -> torch.Tensor:
+    """The crc64 table (256 entries) on `device`, for the in-kernel key
+    hash: one host-to-device copy a device."""
+    return torch.from_numpy(TABLE64_NP.view(np.int64).copy()).to(device)
+
+
 def _check(t: Optional[torch.Tensor], name: str, dtype, shape,
            dev: torch.device) -> None:
     if (t is None or t.dtype != dtype or t.device != dev
@@ -190,7 +204,8 @@ def _check(t: Optional[torch.Tensor], name: str, dtype, shape,
 
 def compaction_filter(keys: Optional[torch.Tensor],
                       key_len: Optional[torch.Tensor],
-                      expire_ts: torch.Tensor, valid: torch.Tensor, hash_lo: Optional[torch.Tensor],
+                      expire_ts: torch.Tensor, valid: torch.Tensor,
+                      hash_lo: Optional[torch.Tensor],
                       pidx, operations: Sequence, now: int,
                       default_ttl: int, partition_version: int, *,
                       validate_hash: bool, expire: bool = True,
@@ -201,10 +216,12 @@ def compaction_filter(keys: Optional[torch.Tensor],
     keys uint8[B, K] (K a power of two >= 32, rows 16-byte aligned),
     key_len / expire_ts / hash_lo int32[B] (the uint32 columns as bit
     patterns), valid bool[B]; `pidx` an int or an int32[B] column;
-    `hash_lo` is read only with `validate_hash`, and the two key columns
-    may be None for a ruleset without pattern rules. The kernel reads a
-    row's hashkey length from its big-endian u16 prefix (0 where key_len
-    is 0), as every block's hashkey_len column holds it.
+    `hash_lo` is read only with `validate_hash`, and with `validate_hash`
+    and no `hash_lo` the kernel hashes the keys instead. The two key
+    columns may be None for a ruleset without pattern rules that does
+    not hash keys. The kernel reads a row's hashkey length from its
+    big-endian u16 prefix (0 where key_len is 0), as every block's
+    hashkey_len column holds it.
     `expire=False` leaves out expiry (the merge path's rules hook).
     drop is bool[B], or uint8[ceil(B / 8)] in packbits order with
     `pack`; ets2 is int32[B] (uint32 bits), or None without `want_ets`."""
@@ -216,10 +233,14 @@ def compaction_filter(keys: Optional[torch.Tensor],
     _check(expire_ts, "expire_ts", torch.int32, (b,), dev)
     ops, rules, pats, need_keys, n_ops, n_rules = _table(
         ops_key(operations), dev)
+    hash_keys = validate_hash and hash_lo is None
     if keys is None:
         # no rule reads a key byte: the key columns may be left out
         if need_keys:
             raise ValueError("a ruleset with pattern rules needs the keys")
+        if hash_keys:
+            raise ValueError("validation without a hash_lo column hashes "
+                             "the keys: pass them")
         k = 32
     else:
         if keys.dim() != 2:
@@ -232,7 +253,7 @@ def compaction_filter(keys: Optional[torch.Tensor],
             raise ValueError("key rows must start 16-byte aligned")
         _check(key_len, "key_len", torch.int32, (b,), dev)
     _check(valid, "valid", torch.bool, (b,), dev)
-    if validate_hash:
+    if validate_hash and not hash_keys:
         _check(hash_lo, "hash_lo", torch.int32, (b,), dev)
     if isinstance(pidx, torch.Tensor):
         _check(pidx, "pidx", torch.int32, (b,), dev)
@@ -248,15 +269,18 @@ def compaction_filter(keys: Optional[torch.Tensor],
     flags = ((_F_VALIDATE if validate_hash else 0)
              | (_F_EXPIRE if expire else 0)
              | (_F_WANT_ETS if want_ets else 0) | (_F_PACK if pack else 0)
-             | (_F_NEED_KEYS if need_keys else 0))
+             | (_F_NEED_KEYS if need_keys or hash_keys else 0)
+             | (_F_HASH_KEYS if hash_keys else 0))
     err = _library().pegasus_compaction_filter(
         *((0, 0) if keys is None else (keys.data_ptr(), key_len.data_ptr())),
         expire_ts.data_ptr(), valid.data_ptr(),
-        hash_lo.data_ptr() if validate_hash else 0, pidx_col, pidx_scalar,
-        b, k, ops, n_ops, rules, n_rules, pats.data_ptr(), int(now) & _M32,
-        int(default_ttl) & _M32, int(partition_version) & _M32, flags,
-        drop.data_ptr(), ets.data_ptr() if want_ets else 0,
-        torch.cuda.current_stream(dev).cuda_stream)
+        hash_lo.data_ptr() if validate_hash and not hash_keys else 0,
+        pidx_col, pidx_scalar, b, k, ops, n_ops, rules, n_rules,
+        pats.data_ptr(), int(now) & _M32, int(default_ttl) & _M32,
+        int(partition_version) & _M32, flags, drop.data_ptr(),
+        ets.data_ptr() if want_ets else 0,
+        torch.cuda.current_stream(dev).cuda_stream,
+        _crc_table(dev).data_ptr() if hash_keys else 0)
     if err != 0:
         raise RuntimeError(f"compaction_filter launch failed: cuda error "
                            f"{err}")

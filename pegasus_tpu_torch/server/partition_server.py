@@ -45,8 +45,11 @@ value filter joins the live mask, an aggregate folds the survivors.
 Per-table app-envs (`update_app_envs`) set the compaction filter's
 `default_ttl` and `user_specified_compaction` rules, which every manual,
 env-triggered (`manual_compact.once.trigger_time`) and automatic
-compaction of the partition runs; manual_compact merges off the write
-lock and takes it only to freeze the overlay and to publish.
+compaction of the partition runs (manual_compact merges off the write
+lock and takes it only to freeze the overlay and to publish); the
+request gates (`replica.deny_client_request` and the read and write
+throttles, checked by every handler before its hash gate); and the
+engine's flush and compaction triggers (`rocksdb.usage_scenario`).
 
 Standalone mode assigns decrees locally.
 """
@@ -126,6 +129,14 @@ from pegasus_tpu_torch.storage.phash import (
 from pegasus_tpu_torch.storage.sstable import BLOCK_CAPACITY
 from pegasus_tpu_torch.utils.device import resolve_device
 from pegasus_tpu_torch.utils.errors import ErrorCode, StorageStatus
+from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+from pegasus_tpu_torch.utils.token_bucket import parse_throttle_env
+
+define_flag("pegasus.server", "scan_pushdown_enabled", True,
+            "evaluate GetScannerRequest.pushdown specs (value filters and "
+            "aggregates) inside the scan-page path; off, a spec is ignored "
+            "and pushdown_applied stays False (a pre-pushdown server)",
+            mutable=True)
 
 # candidate records gathered per merge-path predicate launch
 PREDICATE_BATCH = 2048
@@ -260,6 +271,12 @@ class PartitionServer:
         self.app_envs: dict = {}
         self._default_ttl = 0
         self._compaction_rules = None   # compiled rules_filter
+        # request gates: "", "all", "read" or "write" denied, and the
+        # (delay bucket, reject bucket) of each throttle, or None
+        self._deny_client = ""
+        self._write_throttle = None
+        self._read_throttle = None
+        self._usage_scenario = "normal"
         # env-triggered manual compaction: the newest trigger seen, and
         # whether a run is in flight
         self._mc_trigger_seen = 0
@@ -318,21 +335,23 @@ class PartitionServer:
     # env key -> (derived attribute, default): when a FULL env set
     # arrives, a previously set key now absent resets to its default
     _ENV_DEFAULTS = {
+        "replica.deny_client_request": ("_deny_client", ""),
+        "replica.write_throttling": ("_write_throttle", None),
+        "replica.read_throttling": ("_read_throttle", None),
         "default_ttl": ("_default_ttl", 0),
+        "rocksdb.usage_scenario": ("_usage_scenario", "normal"),
         "user_specified_compaction": ("_compaction_rules", None),
     }
-    # keys the port records in app_envs but does not apply yet: the
-    # request gates, throttles, slow log and usage scenario of the RPC
-    # and replica layers
-    _ENV_RECORDED = ("replica.deny_client_request",
-                     "replica.write_throttling", "replica.read_throttling",
-                     "replica.slow_query_threshold_ms",
-                     "rocksdb.usage_scenario")
+    # keys the port records in app_envs but does not apply yet: the slow
+    # query log's threshold (observability, no answer changes)
+    _ENV_RECORDED = ("replica.slow_query_threshold_ms",)
 
     def update_app_envs(self, envs: dict, full_set: bool = False) -> None:
         """Apply per-table dynamic settings: `default_ttl`,
-        `user_specified_compaction` and `manual_compact.once.trigger_time`
-        (the other known keys are recorded, not applied). Validation is
+        `user_specified_compaction`, `manual_compact.once.trigger_time`,
+        `replica.deny_client_request` (the value after its last `*`),
+        `replica.{write,read}_throttling` and `rocksdb.usage_scenario`
+        (`_ENV_RECORDED` keys are recorded, not applied). Validation is
         two-phase: every value parses first, then everything applies — a
         malformed env never leaves half-applied state.
 
@@ -345,7 +364,16 @@ class PartitionServer:
                     staged.append((attr, dflt))
         for key, value in envs.items():
             try:
-                if key == "default_ttl":
+                if key == "replica.deny_client_request":
+                    staged.append(("_deny_client",
+                                   value.split("*")[-1] if value else ""))
+                elif key == "replica.write_throttling":
+                    staged.append(("_write_throttle",
+                                   parse_throttle_env(value)))
+                elif key == "replica.read_throttling":
+                    staged.append(("_read_throttle",
+                                   parse_throttle_env(value)))
+                elif key == "default_ttl":
                     staged.append(("_default_ttl", int(value)))
                 elif key == "user_specified_compaction":
                     staged.append((
@@ -364,12 +392,15 @@ class PartitionServer:
                 elif key == "rocksdb.usage_scenario":
                     if value not in ("normal", "prefer_write", "bulk_load"):
                         raise ValueError("unknown scenario")
+                    staged.append(("_usage_scenario", value))
             except Exception as exc:
                 raise ValueError(f"invalid app-env {key}={value!r}: {exc}") \
                     from exc
         for attr, parsed in staged:
             if attr == "_mc_once_trigger":
                 self._maybe_start_manual_compact(parsed)
+            elif attr == "_usage_scenario":
+                self._apply_usage_scenario(parsed)
             else:
                 setattr(self, attr, parsed)
         if full_set:
@@ -422,6 +453,50 @@ class PartitionServer:
             target=run, daemon=True,
             name=f"manual-compact-{self.app_id}.{self.pidx}").start()
 
+    def _apply_usage_scenario(self, scenario: str) -> None:
+        """The usage-scenario tuning (pegasus_server_impl.cpp:1758): normal
+        serves balanced; prefer_write buffers more before flushing;
+        bulk_load buffers most and defers auto-compaction until the load
+        ends. bulk_load leaves the L0 trigger as it was."""
+        self._usage_scenario = scenario
+        eng = self.engine
+        if scenario == "normal":
+            eng.memtable_flush_trigger = 100_000
+            eng.auto_compact = True
+            eng.lsm._l0_trigger = 4
+        elif scenario == "prefer_write":
+            eng.memtable_flush_trigger = 250_000
+            eng.auto_compact = True
+            eng.lsm._l0_trigger = 8
+        else:  # bulk_load
+            eng.memtable_flush_trigger = 500_000
+            eng.auto_compact = False
+
+    def _gate(self, bucket, denied: bool) -> int:
+        """The deny and throttle gate (replica_2pc.cpp:117-207,
+        replica_throttle.cpp): a denied request, or one a reject-mode
+        throttle refuses, is TryAgain; a delay-mode throttle over its
+        budget sleeps (at most 0.1 s) and serves."""
+        if denied:
+            return int(StorageStatus.TRY_AGAIN)
+        if bucket is not None:
+            delay_b, reject_b = bucket
+            if reject_b is not None and not reject_b.try_consume():
+                return int(StorageStatus.TRY_AGAIN)
+            if reject_b is None and delay_b is not None:
+                wait = delay_b.consume_or_delay()
+                if wait > 0:
+                    time.sleep(min(wait, 0.1))
+        return int(StorageStatus.OK)
+
+    def _write_gate(self) -> int:
+        return self._gate(self._write_throttle,
+                          self._deny_client in ("all", "write"))
+
+    def _read_gate(self) -> int:
+        return self._gate(self._read_throttle,
+                          self._deny_client in ("all", "read"))
+
     def close(self) -> None:
         self.engine.close()
 
@@ -442,6 +517,9 @@ class PartitionServer:
     def on_put(self, key: bytes, user_data: bytes, ttl_seconds: int = 0,
                decree: Optional[int] = None,
                partition_hash: Optional[int] = None) -> int:
+        gate = self._write_gate()
+        if gate:
+            return gate
         with self._write_lock:
             gate = self._hash_gate(partition_hash)
             if gate:
@@ -452,6 +530,9 @@ class PartitionServer:
 
     def on_remove(self, key: bytes, decree: Optional[int] = None,
                   partition_hash: Optional[int] = None) -> int:
+        gate = self._write_gate()
+        if gate:
+            return gate
         with self._write_lock:
             gate = self._hash_gate(partition_hash)
             if gate:
@@ -462,6 +543,9 @@ class PartitionServer:
     def on_multi_put(self, req: MultiPutRequest,
                      decree: Optional[int] = None,
                      partition_hash: Optional[int] = None) -> int:
+        gate = self._write_gate()
+        if gate:
+            return gate
         with self._write_lock:
             gate = self._hash_gate(partition_hash)
             if gate:
@@ -475,7 +559,7 @@ class PartitionServer:
                partition_hash: Optional[int] = None) -> Tuple[int, bytes]:
         """Parity: on_get (pegasus_server_impl.cpp:418): expired records
         are NotFound."""
-        gate = self._hash_gate(partition_hash)
+        gate = self._read_gate() or self._hash_gate(partition_hash)
         if gate:
             return gate, b""
         hit = self.engine.get(key)
@@ -489,6 +573,11 @@ class PartitionServer:
 
     def on_multi_get(self, req: MultiGetRequest) -> MultiGetResponse:
         """Parity: on_multi_get (pegasus_server_impl.cpp:496)."""
+        gate = self._read_gate()
+        if gate:
+            resp = MultiGetResponse()
+            resp.error = gate
+            return resp
         now = epoch_now()
         resp = MultiGetResponse()
         if not req.hash_key:
@@ -592,14 +681,14 @@ class PartitionServer:
         wide = False  # any op wide enough for the native gather path
         for i, (op, args, ph) in enumerate(ops):
             if op in ("get", "ttl"):
-                gate = self._hash_gate(ph)
+                gate = self._read_gate() or self._hash_gate(ph)
                 if gate:
                     results[i] = (gate, b"") if op == "get" else (gate, 0)
                     continue
                 op_keys[i] = (args,)
                 probes.append((args, op == "get"))
             elif op == "multi_get":
-                gate = self._hash_gate(ph)
+                gate = self._read_gate() or self._hash_gate(ph)
                 if gate:
                     resp = MultiGetResponse()
                     resp.error = gate
@@ -618,6 +707,12 @@ class PartitionServer:
                     wide = True
                 probes.extend((k, want) for k in keys)
             elif op == "batch_get":
+                gate = self._read_gate()
+                if gate:
+                    resp = BatchGetResponse()
+                    resp.error = gate
+                    results[i] = resp
+                    continue
                 if self.validate_partition_hash and args.keys:
                     # per-key staleness gate, one vectorized crc pass
                     lo = host_key_hash_lo(
@@ -1317,6 +1412,11 @@ class PartitionServer:
 
     def on_get_scanner(self, req: GetScannerRequest) -> ScanResponse:
         """Parity: on_get_scanner (pegasus_server_impl.cpp:1151)."""
+        gate = self._read_gate()
+        if gate:
+            resp = ScanResponse()
+            resp.error = gate
+            return resp
         start_key = req.start_key or b""
         if start_key and not req.start_inclusive:
             start_key = _after(start_key)
@@ -1327,6 +1427,11 @@ class PartitionServer:
 
     def on_scan(self, context_id: int) -> ScanResponse:
         """Parity: on_scan (pegasus_server_impl.cpp:1399)."""
+        gate = self._read_gate()
+        if gate:
+            resp = ScanResponse()
+            resp.error = gate
+            return resp
         ctx = self._scan_cache.take(context_id)
         if ctx is None:
             resp = ScanResponse()
@@ -1342,10 +1447,14 @@ class PartitionServer:
     # ---- scan pushdown (ops/pushdown.py) ------------------------------
 
     def _pushdown_of(self, req: GetScannerRequest):
-        """The request's PushdownSpec when it asks for work, else None (no
-        spec, or an empty one)."""
+        """The request's PushdownSpec when this server evaluates it, else
+        None: no spec, an empty one, or the `scan_pushdown_enabled` kill
+        switch off (the spec is ignored, pushdown_applied stays False and
+        the client evaluates locally)."""
         spec = req.pushdown
         if spec is None:
+            return None
+        if not FLAGS.get("pegasus.server", "scan_pushdown_enabled"):
             return None
         spec.check()  # ValueError on a malformed spec
         if spec.value_filter is None and not spec.aggregate:
@@ -1551,15 +1660,27 @@ class PartitionServer:
         state = self.plan_scan_batch(reqs)
         if state is None:
             return [self.on_get_scanner(r) for r in reqs]
+        if "precomputed" in state:  # the read gate refused the batch
+            return state["precomputed"]
         keep_masks = self.eval_planned_masks(state)
         return self.finish_scan_batch(state, keep_masks)
 
     def plan_scan_batch(self, reqs: List[GetScannerRequest],
                         now: Optional[int] = None, flavor=None):
         """Phase 1: qualify the batch and plan each request's blocks.
-        None: the caller serves per request. `flavor` is the (validate,
-        filter_key) the caller already grouped by (scan_coordinator), which
-        skips the per-request re-derivation."""
+        None: the caller serves per request; {"precomputed": responses}:
+        the read gate refused the batch (one gate a batch, as the JAX
+        package's :2524). `flavor` is the (validate, filter_key) the
+        caller already grouped by (scan_coordinator), which skips the
+        per-request re-derivation."""
+        gate = self._read_gate()
+        if gate:
+            out = []
+            for _r in reqs:
+                resp = ScanResponse()
+                resp.error = gate
+                out.append(resp)
+            return {"precomputed": out}
         lsm = self.engine.lsm
         # the generation is read before the run set and checked again
         # after planning: a batch planned across a compaction publish

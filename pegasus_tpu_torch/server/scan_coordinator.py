@@ -98,7 +98,7 @@ def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
     eval_groups: Dict[tuple, dict] = {}
     for server, _reqs, sub in states:
         for _idxs, state in sub:
-            if state is None:
+            if state is None or "precomputed" in state:
                 continue
             misses = server.planned_misses(state)
             if not misses:
@@ -126,7 +126,7 @@ def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
     hdr_set = set()
     for server, _reqs, sub in states:
         for _idxs, state in sub:
-            if state is None:
+            if state is None or "precomputed" in state:
                 continue
             fast = server.prepare_serve(state, state["cached_keep"])
             if not fast:
@@ -151,6 +151,8 @@ def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
         for idxs, state in sub:
             if state is None:
                 rs = [server.on_get_scanner(reqs[i]) for i in idxs]
+            elif "precomputed" in state:  # the read gate refused them
+                rs = state["precomputed"]
             else:
                 rs = server.finish_scan_batch(
                     state, state["cached_keep"],

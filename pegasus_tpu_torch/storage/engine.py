@@ -90,8 +90,11 @@ class StorageEngine:
             self.last_flushed_decree = max(self.last_flushed_decree, d)
         self.last_committed_decree = self.last_flushed_decree
 
-        # auto-maintenance: a memtable of this many records flushes
+        # auto-maintenance: a memtable of this many records flushes, and
+        # with `auto_compact` the flush that leaves lsm._l0_trigger L0
+        # tables compacts (the usage scenario tunes all three)
         self.memtable_flush_trigger = 100_000
+        self.auto_compact = True
         self.auto_compact_ctx = None  # the server installs its filter context
         # serializes compactions: the env-triggered manual path holds it
         # across its (unlocked) merge; the write path's auto-compaction
@@ -157,7 +160,7 @@ class StorageEngine:
         if len(self.lsm.memtable) < self.memtable_flush_trigger:
             return
         self.flush()
-        if self.lsm.should_compact():
+        if self.auto_compact and self.lsm.should_compact():
             if not self.compact_lock.acquire(blocking=False):
                 return  # manual compaction in flight covers this trigger
             try:

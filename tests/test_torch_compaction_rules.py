@@ -318,6 +318,39 @@ def test_random_rulesets_through_eval_block(seed):
                 got[1].numpy().view(np.uint32), np.asarray(want[1]))
 
 
+@pytest.mark.parametrize("width", [32, 256])
+def test_validation_without_hash_lo_matches_jax(width):
+    """Validation of a chunk without a hash_lo column: the plain version
+    hashes the keys on the host (crc64 of the hashkey region, of the
+    sortkey region where the hashkey is empty, bytes past K reading the
+    last one), the JAX program on its device (key_hash_device); the
+    chunks hold empty and non-empty hashkeys and malformed headers."""
+    rng = np.random.default_rng(width)
+    j_ops = jrules.compile_rules(random_spec(rng)).operations
+    t_ops = trules.parse_rules(convert.rules_spec(j_ops))
+    keys, key_len, hkl, ets, valid, hash_lo, pidx = random_chunk(
+        rng, 700, width)
+    assert (hkl[valid] == 0).any() and (hkl[valid] > 0).any()
+    for ops_j, ops_t, pv in ((None, None, 3), (j_ops, t_ops, 1)):
+        want = jcomp.make_compaction_eval(ops_j)(
+            keys, key_len, hkl, ets, valid, hash_lo, np.uint32(5000),
+            np.uint32(0), pidx, np.uint32(pv), True, False, want_ets=True,
+            pack=False)
+        got = tcomp.eval_block_plain(
+            ops_t, _t(keys), _t(key_len), _t(hkl), _t(ets, np.int32),
+            _t(valid), _t(hash_lo, np.int32), 5000, 0, _t(pidx, np.int32),
+            pv, True, False, want_ets=True, pack=False)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy().view(np.uint32),
+                                      np.asarray(want[1]))
+        # the key hash decided the split term, not the (random) column
+        from_column = tcomp.eval_block_plain(
+            ops_t, _t(keys), _t(key_len), _t(hkl), _t(ets, np.int32),
+            _t(valid), _t(hash_lo, np.int32), 5000, 0, _t(pidx, np.int32),
+            pv, True, True, want_ets=False, pack=False)
+        assert not np.array_equal(from_column[0].numpy(), got[0].numpy())
+
+
 class _Blk:
     """The fields compaction_eval_submit reads of an SST block."""
 
@@ -443,10 +476,10 @@ def test_envs_validate_before_applying(tmp_path):
             t.update_app_envs({"default_ttl": "60",
                                "user_specified_compaction": "[{bad json"})
         assert t._default_ttl == 50  # nothing of the bad set applied
-        # the request-gate keys are recorded, not applied (RPC layer)
+        # the request gates apply: a denied write is TryAgain
         t.update_app_envs({"replica.deny_client_request": "reject*write"})
         assert t.app_envs["replica.deny_client_request"] == "reject*write"
-        assert t.on_put(k(b"h", b"s"), b"v") == 0
+        assert t.on_put(k(b"h", b"s"), b"v") == 13
         with pytest.raises(ValueError):
             t.update_app_envs({"rocksdb.usage_scenario": "nope"})
     finally:

@@ -17,9 +17,11 @@ import torch
 from chip_smoke import (
     CONFIG4_RULES,
     NOWS,
+    _device_columns,
     check_compaction,
     check_tables,
     check_tables_multi,
+    compaction_chunk_columns,
     device_block,
     predicate_cases,
     random_block_columns,
@@ -182,8 +184,9 @@ def test_empty_block_launches_nothing(card):
 def test_compaction_kernel_matches_plain_on_every_case(card):
     out = check_compaction(card, widths=(32, 256), rows=(777, 1))
     # per width and row count: 2 validate x 2 default_ttl x 4 outputs,
-    # 3 merge-filter cases and 4 rules-hook rulesets
-    assert out["compared"] == 2 * 2 * (16 + 3 + 4)
+    # 5 rulesets validated without hash_lo, 3 merge-filter cases and 4
+    # rules-hook rulesets
+    assert out["compared"] == 2 * 2 * (16 + 5 + 3 + 4)
     assert out["max_abs_err"] == 0
 
 
@@ -235,7 +238,7 @@ def test_compaction_wrapper_refuses_what_the_kernel_does_not_take(card):
             validate_hash=False)
     with pytest.raises(ValueError, match="hash_lo"):
         fused_compaction.compaction_filter(
-            keys, i32, i32, valid, None, 0, ops, 5, 0, 0,
+            None, None, i32, valid, None, 0, (), 5, 0, 0,
             validate_hash=True)
     with pytest.raises(ValueError, match="power of two"):
         fused_compaction.compaction_filter(
@@ -247,9 +250,55 @@ def test_compaction_wrapper_refuses_what_the_kernel_does_not_take(card):
         validate_hash=False, pack=True)
     assert drop.shape == (0,) and ets.shape == (0,)
     assert fused_compaction.LAUNCHES["compaction"] == before
-    # validation hashes keys on the host only in the plain version: on
-    # the card eval_block needs the hash_lo column
-    with pytest.raises(ValueError, match="use_hash_lo"):
-        tcomp.make_compaction_eval(ops)(
-            keys, i32, i32, i32, valid, i32, 5, 0, 0, 3, True, False)
-    assert fused_compaction.LAUNCHES["compaction"] == before
+
+
+def _hashless_chunk(rng, b, k, card):
+    """A validated chunk's columns on the card and on the CPU."""
+    cols = compaction_chunk_columns(rng, b, k)
+    return _device_columns(cols, card), _device_columns(
+        cols, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("k", [32, 256])
+def test_compaction_kernel_hashes_keys_without_hash_lo(card, k):
+    """Validation without a hash_lo column launches the kernel once, which
+    hashes the keys, and equals the plain version (which hashes them on
+    the host) bit for bit."""
+    rng = np.random.default_rng(31)
+    ops = compile_rules(CONFIG4_RULES, device="cpu").operations
+    dev, cpu = _hashless_chunk(rng, 3001, k, card)
+    for operations in ((), ops):
+        before = fused_compaction.LAUNCHES["compaction"]
+        got = tcomp.make_compaction_eval(operations)(
+            *dev[:6], 5000, 0x500, dev[6], 3, True, False, want_ets=True,
+            pack=True)
+        assert fused_compaction.LAUNCHES["compaction"] == before + 1
+        want = tcomp.eval_block_plain(
+            operations, *cpu[:6], 5000, 0x500, cpu[6], 3, True, False,
+            want_ets=True, pack=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("rows", [1 << 19, 1])
+def test_compaction_kernel_one_launch_at_any_size(card, rows):
+    """One launch covers a chunk far larger than the blocks the card
+    holds at once (a block a tile, 2048 tiles, several waves) and a
+    chunk of one row, with and without key rows, and agrees with the
+    plain version."""
+    rng = np.random.default_rng(rows)
+    config4 = compile_rules(CONFIG4_RULES, device="cpu").operations
+    dev, cpu = _hashless_chunk(rng, rows, 32, card)
+    for ops, use_lo in (((), True), ((), False), (config4, True),
+                        (config4, False)):
+        before = fused_compaction.LAUNCHES["compaction"]
+        got = tcomp.make_compaction_eval(ops)(
+            *dev[:6], 5000, 0, dev[6], 3, True, use_lo, want_ets=True,
+            pack=True)
+        torch.cuda.synchronize()
+        assert fused_compaction.LAUNCHES["compaction"] == before + 1
+        want = tcomp.eval_block_plain(
+            ops, *cpu[:6], 5000, 0, cpu[6], 3, True, use_lo, want_ets=True,
+            pack=True)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
