@@ -61,7 +61,20 @@ Phases, each fatal on failure:
    same through the kernel and its plain version, and the kernel must
    launch in (a) and (c) and never in (b), whose masks come from the
    encoded columns on the host, as the JAX package routes them. Pass (c)
-   runs under a CUDA trace that gives the device's busy share.
+   runs under a CUDA trace that gives the device's busy share;
+8. the in-process client: (a) BASELINE config #5 in the shape of
+   bench.py's measure_geo: a raw and an index Table of 8 partitions,
+   20,000 points through GeoClient.set, the index compacted, 150 radius
+   searches of 500 m (a warm, a timed and a traced pass), every search
+   held to a float64 haversine oracle within the float32 band; the cell
+   scans must launch the scan kernel and every search the distance
+   filter (torch ops) on the card; (b) an 8-partition Table of 400,000
+   records through multi_set, 20,000 seeded incr / check_and_set /
+   check_and_mutate / multi_del / batch_get / ttl / sortkey_count ops
+   against an oracle, Table.split 8 -> 16 with a full scan and sampled
+   sortkey_counts held to the oracle (the stale half hidden by the scan
+   kernel's ownership check), then manual_compact_all, which must launch
+   the compaction kernel and keep exactly the oracle's records.
 
 Phase 3 also holds the compaction-filter kernel bit-exact against its
 plain version
@@ -69,7 +82,7 @@ plain version
 default_ttl 0 and not, want_ets and pack on and off, a rotation of
 rulesets) and times it at phase 7's chunk shape.
 
-Phases 4 and 5 pin the store flags `block_codec = none`,
+Phases 4, 5 and 8 pin the store flags `block_codec = none`,
 `bloom_bits_per_key = 0`, `phash_index = false` (every block reaches the
 kernel); phases 6 and 7 (b, c) pin the defaults, 7 (a) pins `none`
 without sidecars. The line before the last lists the
@@ -2688,6 +2701,518 @@ def run_compaction(device, gb: float = COMPACT_GB,
 # ---- main --------------------------------------------------------------
 
 
+# ---- phase 8: the in-process client, geo radius search and split --------
+
+GEO_PARTITIONS = 8      # bench.py:3020 measure_geo: two tables of 8
+GEO_POINTS = 20_000     # points in a ~20 x 20 km box around (40, -74)
+GEO_SEARCHES = 150      # radius searches a pass
+GEO_RADIUS_M = 500.0
+CLIENT_PARTITIONS = 8
+CLIENT_HASHKEYS = 40_000   # x 10 sortkeys: 400,000 records
+CLIENT_OPS = 20_000
+CLIENT_SAMPLED = 2_000     # hashkeys whose sortkey_count is checked
+SHORT_TTL_EVERY = 50       # 1 hashkey in 50 loaded with a 2 s TTL
+LONG_TTL_EVERY = 7         # 1 in 7 with a one-day TTL
+
+
+def haversine_m64(lat: float, lng: float, lats, lngs) -> np.ndarray:
+    """geo/cells.haversine_m in float64 over arrays: the oracle."""
+    p1, p2 = np.radians(lat), np.radians(lats)
+    dl = np.radians(lngs - lng)
+    a = (np.sin((p2 - p1) / 2) ** 2
+         + np.cos(p1) * np.cos(p2) * np.sin(dl / 2) ** 2)
+    return 2 * 6_371_000.0 * np.arcsin(np.minimum(1.0, np.sqrt(a)))
+
+
+# float32 operations of the distance filter a candidate: two radians, two
+# differences, two halvings, sin, cos, sin, two squares, two products,
+# the sum, sqrt, the clamp, asin, the scale, the compare and the `and`
+# (a transcendental counted as one operation at the float32 rate)
+HAVERSINE_OPS = 21
+# bytes a candidate: latitude and longitude in (float32 each), the valid
+# flag in, the keep flag and the float32 distance out
+HAVERSINE_BYTES = 4 + 4 + 1 + 1 + 4
+
+
+def haversine_bound_us(candidates: float):
+    """(µs, "bytes" or "operations"): the least time the card could take
+    to filter `candidates` rows."""
+    by_bytes = candidates * HAVERSINE_BYTES / HBM_BYTES_PER_S
+    by_ops = candidates * HAVERSINE_OPS / SCALAR_OPS_PER_S
+    if by_bytes >= by_ops:
+        return by_bytes * 1e6, "bytes"
+    return by_ops * 1e6, "operations"
+
+
+def run_geo(device, n_points: int = GEO_POINTS,
+            n_searches: int = GEO_SEARCHES, seed: int = 11,
+            card: str = "") -> dict:
+    """Phase 8 (a): BASELINE config #5 in the shape of bench.py:3020
+    measure_geo. A raw and an index Table of GEO_PARTITIONS partitions
+    on `device`, n_points loaded through GeoClient.set, flushed, the
+    index compacted (pure L1, so the cell scans ride scan_multi's
+    batched path), then n_searches radius searches of GEO_RADIUS_M: a
+    warm pass, a timed pass and, on the card, a pass under a CUDA trace.
+    Every search of every pass is checked against a float64 haversine
+    over all the points: no hit beyond the radius plus the float32 band
+    (ops/geo.f32_error_band_m), no point inside the radius minus the
+    band missed. Returns the launches and times it printed."""
+    import torch
+
+    from pegasus_tpu_torch.client import PegasusClient, Table
+    from pegasus_tpu_torch.geo import GeoClient
+    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops import geo as geo_ops
+
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    lats = 40.0 + (rng.random(n_points) - 0.5) * 0.18
+    lngs = -74.0 + (rng.random(n_points) - 0.5) * 0.24
+    values = [b"%f|%f|poi-%d" % (lats[i], lngs[i], i)
+              for i in range(n_points)]
+    # the stored coordinates are the values' 6-decimal text
+    st_lat = np.array([float(v.split(b"|")[0]) for v in values])
+    st_lng = np.array([float(v.split(b"|")[1]) for v in values])
+    centers = rng.integers(0, n_points, size=n_searches)
+    data_dir = tempfile.mkdtemp(prefix="pegasus_torch_geo_")
+    tables = []
+    try:
+        fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+        geo_ops.LAUNCHES["radius_filter"] = 0
+        for app_id, name in ((1, "raw"), (2, "idx")):
+            tables.append(Table(os.path.join(data_dir, name), app_id=app_id,
+                                partition_count=GEO_PARTITIONS,
+                                device=device))
+        raw, idx = tables
+        geo = GeoClient(PegasusClient(raw), PegasusClient(idx))
+        if geo.device != device:
+            fail(f"GeoClient runs on {geo.device}, its index on {device}")
+        t0 = time.perf_counter()
+        for i in range(n_points):
+            if geo.set(b"poi%06d" % i, b"s", values[i]) != 0:
+                fail(f"geo.set of point {i} refused")
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw.flush_all()
+        idx.flush_all()
+        idx.manual_compact_all()
+        compact_s = time.perf_counter() - t0
+
+        def check(results, what: str) -> int:
+            hits = 0
+            for ci, res in zip(centers, results):
+                c_lat, c_lng = float(lats[ci]), float(lngs[ci])
+                d64 = haversine_m64(c_lat, c_lng, st_lat, st_lng)
+                band = geo_ops.f32_error_band_m(c_lat, c_lng, GEO_RADIUS_M)
+                got = set()
+                for r in res:
+                    i = int(r.hash_key[3:])
+                    if r.sort_key != b"s" or r.value != values[i]:
+                        fail(f"geo {what}: hit {r.hash_key!r} returned "
+                             f"{r.sort_key!r} / {r.value!r}")
+                    if d64[i] > GEO_RADIUS_M + band:
+                        fail(f"geo {what}: hit {i} lies {d64[i]} m from "
+                             f"the centre, beyond {GEO_RADIUS_M} + {band}")
+                    if abs(r.distance_m - d64[i]) > band:
+                        fail(f"geo {what}: hit {i} at {r.distance_m} m, "
+                             f"float64 {d64[i]} m, band {band}")
+                    got.add(i)
+                if len(got) != len(res):
+                    fail(f"geo {what}: a point returned twice")
+                missed = set(np.flatnonzero(
+                    d64 <= GEO_RADIUS_M - band).tolist()) - got
+                if missed:
+                    fail(f"geo {what}: points {sorted(missed)[:5]} inside "
+                         f"the radius were missed")
+                dists = [r.distance_m for r in res]
+                if dists != sorted(dists):
+                    fail(f"geo {what}: hits not sorted by distance")
+                hits += len(res)
+            return hits
+
+        def search_pass():
+            return [geo.search_radial(float(lats[ci]), float(lngs[ci]),
+                                      GEO_RADIUS_M) for ci in centers]
+
+        def launched_since(before):
+            return {k: fused_scan.LAUNCHES[k] - before[k] for k in before}
+
+        before = dict(fused_scan.LAUNCHES)
+        t0 = time.perf_counter()
+        warm = search_pass()
+        warm_s = time.perf_counter() - t0
+        warm_launches = launched_since(before)
+        hits = check(warm, "warm pass")
+        before = dict(fused_scan.LAUNCHES)
+        rf_before = geo_ops.LAUNCHES["radius_filter"]
+        rows_before = geo_ops.ROWS["radius_filter"]
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timed = search_pass()
+        if on_card:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        timed_launches = launched_since(before)
+        rf_launches = geo_ops.LAUNCHES["radius_filter"] - rf_before
+        candidates = geo_ops.ROWS["radius_filter"] - rows_before
+        if check(timed, "timed pass") != hits:
+            fail("geo: the timed pass found other hits than the warm one")
+        out = {"searches_per_s": n_searches / secs, "hits": hits,
+               "warm": warm_launches, "timed": timed_launches,
+               "radius_filter_launches": rf_launches}
+        log(f"geo: {n_points} points loaded through GeoClient.set into two "
+            f"tables of {GEO_PARTITIONS} partitions in {load_s:.1f} s, "
+            f"flushed and the index compacted in {compact_s:.1f} s; warm "
+            f"pass {warm_s:.2f} s, scan kernel launches {warm_launches}")
+        log(f"geo on {card}: {n_searches} radius searches of "
+            f"{GEO_RADIUS_M} m: {out['searches_per_s']} searches/s "
+            f"({secs} s, timed pass), {hits} hits, every search equal to "
+            f"a float64 haversine over all {n_points} points within the "
+            f"float32 band; timed pass scan kernel launches "
+            f"{timed_launches}, radius_filter launches {rf_launches}")
+        if on_card:
+            if rf_launches != n_searches:
+                fail(f"radius_filter ran {rf_launches} times on the card "
+                     f"for {n_searches} searches")
+            if warm_launches["static"] == 0:
+                fail("the warm pass's cell scans never launched the scan "
+                     "kernel")
+            before = dict(fused_scan.LAUNCHES)
+            with device_trace() as prof:
+                traced = search_pass()
+                torch.cuda.synchronize()
+            if check(traced, "traced pass") != hits:
+                fail("geo: the traced pass found other hits")
+            if any(launched_since(before).values()):
+                fail("geo: the traced pass launched the scan kernel")
+            kernel_us = sum(
+                getattr(ev, "self_device_time_total", 0.0)
+                for ev in prof.key_averages()
+                if str(getattr(ev, "device_type", "")).endswith("CUDA")
+                and not ev.key.startswith(("Memcpy", "Memset")))
+            busy_s, spans = device_busy_s(prof)
+            bound_us, bound_by = haversine_bound_us(candidates / n_searches)
+            out.update(rf_kernel_us=kernel_us / n_searches,
+                       rf_busy_us=busy_s * 1e6 / n_searches,
+                       candidates=candidates, bound_us=bound_us)
+            log(f"geo on {card}: radius_filter device time per search "
+                f"{out['rf_kernel_us']} us in kernels, {out['rf_busy_us']} "
+                f"us busy with its copies ({spans} device spans over "
+                f"{n_searches} searches, traced pass; the scan masks were "
+                f"cached, so every span is the filter's); "
+                f"{candidates / n_searches} candidates a search (timed "
+                f"pass), bound {bound_us} us ({bound_by}), "
+                f"{100 * bound_us / out['rf_kernel_us']}% of it")
+        out["launches"] = dict(fused_scan.LAUNCHES)
+    finally:
+        for t in tables:
+            t.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return out
+
+
+class ClientOracle:
+    """What phase 8 (b)'s table must hold: (hash_key, sort_key) -> (user
+    value, lowest and highest possible expire_ts); the two differ only
+    for a TTL set while the clock's second could tick."""
+
+    def __init__(self) -> None:
+        self.rows: dict = {}
+
+    def put(self, hk, sk, value, lo=0, hi=0) -> None:
+        self.rows[(hk, sk)] = (value, lo, hi)
+
+    def visible(self, hk, sk, now: int):
+        row = self.rows.get((hk, sk))
+        if row is None or (row[1] and row[2] <= now):
+            return None
+        if row[1] and row[1] <= now:
+            fail(f"oracle: the expiry of {hk!r}/{sk!r} is ambiguous at "
+                 f"{now}")
+        return row
+
+    def live(self, now: int) -> dict:
+        return {k: r for k, r in self.rows.items()
+                if self.visible(k[0], k[1], now) is not None}
+
+
+CLIENT_OPS_KINDS = ("incr", "check_and_set", "check_and_mutate",
+                    "multi_del", "batch_get", "ttl", "sortkey_count")
+
+
+def _client_op(c, oracle, rng, hashkeys, i) -> str:
+    """One seeded op of phase 8 (b) through PegasusClient `c`, checked
+    against `oracle`, which it updates. Returns the op's name."""
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.server.types import (
+        CasCheckType,
+        Mutate,
+        MutateOperation,
+    )
+    from pegasus_tpu_torch.utils.errors import StorageStatus
+
+    ok, try_again = int(StorageStatus.OK), int(StorageStatus.TRY_AGAIN)
+    hk = hashkeys[int(rng.integers(0, len(hashkeys)))]
+    f = b"f%d" % int(rng.integers(0, 10))
+    kind = CLIENT_OPS_KINDS[int(rng.integers(0, len(CLIENT_OPS_KINDS)))]
+    now = epoch_now()
+
+    def value_of(h, s):
+        row = oracle.visible(h, s, now)
+        return None if row is None else row[0]
+
+    if kind == "incr":
+        sk = b"cnt" if rng.random() < 0.9 else f
+        inc = int(rng.integers(-5, 100))
+        resp = c.incr(hk, sk, inc)
+        row = oracle.visible(hk, sk, now)
+        old = row[0] if row else b"0"
+        if not old.lstrip(b"-").isdigit():
+            want = (int(StorageStatus.INVALID_ARGUMENT),)
+            got = (resp.error,)
+        else:
+            want = (ok, int(old) + inc)
+            got = (resp.error, resp.new_value)
+            oracle.put(hk, sk, b"%d" % want[1],
+                       *(row[1:] if row else (0, 0)))
+    elif kind == "check_and_set":
+        cur = value_of(hk, f)
+        if rng.random() < 0.5:
+            ct, operand = CasCheckType.CT_VALUE_EXIST, b""
+            passed = cur is not None
+        else:
+            operand = (cur if cur is not None and rng.random() < 0.6
+                       else b"v-none")
+            ct = CasCheckType.CT_VALUE_BYTES_EQUAL
+            passed = cur is not None and cur == operand
+        new = b"cas-%d" % i
+        resp = c.check_and_set(hk, f, int(ct), operand, b"cas", new,
+                               return_check_value=True)
+        want = (ok if passed else try_again, True, cur is not None,
+                cur or b"")
+        got = (resp.error, resp.check_value_returned,
+               resp.check_value_exist, resp.check_value)
+        if passed:
+            oracle.put(hk, b"cas", new)
+    elif kind == "check_and_mutate":
+        locked = value_of(hk, b"lock") is not None
+        muts = [Mutate(int(MutateOperation.MO_PUT), b"lock", b"l%d" % i)]
+        for _ in range(int(rng.integers(1, 4))):
+            sk = b"f%d" % int(rng.integers(0, 10))
+            if rng.random() < 0.5:
+                muts.append(Mutate(int(MutateOperation.MO_DELETE), sk))
+            else:
+                muts.append(Mutate(int(MutateOperation.MO_PUT), sk,
+                                   b"m%d" % i))
+        resp = c.check_and_mutate(hk, b"lock",
+                                  int(CasCheckType.CT_VALUE_NOT_EXIST),
+                                  b"", muts)
+        want, got = (try_again if locked else ok), resp.error
+        if not locked:
+            for m in muts:  # in list order: the last op on a key wins
+                if m.operation == MutateOperation.MO_DELETE:
+                    oracle.rows.pop((hk, m.sort_key), None)
+                else:
+                    oracle.put(hk, m.sort_key, m.value)
+        if rng.random() < 0.5:  # release the lock
+            if c.delete(hk, b"lock") != ok:
+                fail(f"client op {i}: delete of the lock refused")
+            oracle.rows.pop((hk, b"lock"), None)
+    elif kind == "multi_del":
+        sks = [b"f%d" % int(s) for s in rng.integers(0, 10, size=3)]
+        got = c.multi_del(hk, sks)
+        want = (ok, 3)
+        for sk in sks:
+            oracle.rows.pop((hk, sk), None)
+    elif kind == "batch_get":
+        keys = [(hashkeys[int(rng.integers(0, len(hashkeys)))],
+                 b"f%d" % int(rng.integers(0, 10)))
+                for _ in range(int(rng.integers(1, 7)))]
+        err, rows = c.batch_get(keys)
+        got = (err, sorted(rows))
+        want = (ok, sorted((h, s, value_of(h, s)) for h, s in keys
+                           if value_of(h, s) is not None))
+    elif kind == "ttl":
+        err, ttl = c.ttl(hk, f)
+        after = epoch_now()
+        row = oracle.visible(hk, f, now)
+        if row is None:
+            want, got = (int(StorageStatus.NOT_FOUND),), (err,)
+        elif row[1] == 0:
+            want, got = (ok, -1), (err, ttl)
+        else:
+            want = (ok, True)
+            got = (err, row[1] - after <= ttl <= row[2] - now)
+    else:
+        got = c.sortkey_count(hk)
+        sks = [b"f%d" % j for j in range(10)] + [b"cnt", b"cas", b"lock"]
+        want = (ok, sum(value_of(hk, sk) is not None for sk in sks))
+    if got != want:
+        fail(f"client op {i} ({kind} on {hk!r}): got {got}, oracle "
+             f"{want}")
+    return kind
+
+
+def run_client_split(device, n_hashkeys: int = CLIENT_HASHKEYS,
+                     n_ops: int = CLIENT_OPS, seed: int = 17,
+                     card: str = "") -> dict:
+    """Phase 8 (b): an 8-partition Table on `device` loaded with
+    n_hashkeys x 10 records through PegasusClient.multi_set (1 hashkey
+    in SHORT_TTL_EVERY with a 2 s TTL, expired before the traffic, 1 in
+    LONG_TTL_EVERY with a one-day TTL), n_ops seeded incr /
+    check_and_set / check_and_mutate / multi_del / batch_get / ttl /
+    sortkey_count ops each checked against a ClientOracle, then
+    Table.split 8 -> 16: a full unordered scan and the sortkey_count of
+    CLIENT_SAMPLED hashkeys must equal the oracle with the stale half
+    hidden by the scan kernel's ownership check; then manual_compact_all
+    must launch the compaction kernel and leave exactly the oracle's
+    records, each in the partition that owns it. Returns the launches
+    and seconds of each step."""
+    from pegasus_tpu_torch.base.key_schema import key_hash_parts, restore_key
+    from pegasus_tpu_torch.base.value_schema import (
+        epoch_now,
+        extract_user_data,
+    )
+    from pegasus_tpu_torch.client import PegasusClient, ScanOptions, Table
+    from pegasus_tpu_torch.ops import fused_compaction, fused_scan
+    from pegasus_tpu_torch.utils.errors import StorageStatus
+
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    hashkeys = [b"acct%08d" % h for h in range(n_hashkeys)]
+    oracle = ClientOracle()
+    data_dir = tempfile.mkdtemp(prefix="pegasus_torch_client_")
+    table = None
+    secs = {}
+    launches = {}
+
+    def reset() -> None:
+        fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+        fused_compaction.LAUNCHES["compaction"] = 0
+
+    def step(name: str, t0: float) -> None:
+        secs[name] = time.perf_counter() - t0
+        launches[name] = dict(fused_scan.LAUNCHES,
+                              compaction=fused_compaction.LAUNCHES[
+                                  "compaction"])
+        reset()
+
+    try:
+        reset()
+        t0 = time.perf_counter()
+        table = Table(data_dir, app_id=3, partition_count=CLIENT_PARTITIONS,
+                      device=device)
+        c = PegasusClient(table)
+        short_hi = 0
+        for h, hk in enumerate(hashkeys):
+            ttl = (2 if h % SHORT_TTL_EVERY == 0
+                   else 86_400 if h % LONG_TTL_EVERY == 0 else 0)
+            kvs = {b"f%d" % j: b"v%d-%d" % (h, j) for j in range(10)}
+            lo = epoch_now()
+            if c.multi_set(hk, kvs, ttl) != 0:
+                fail(f"multi_set of {hk!r} refused")
+            hi = epoch_now()
+            for sk, v in kvs.items():
+                oracle.put(hk, sk, v, *((lo + ttl, hi + ttl) if ttl
+                                        else (0, 0)))
+            if ttl == 2:
+                short_hi = hi + ttl
+        while epoch_now() <= short_hi:  # every 2 s TTL has expired
+            time.sleep(0.1)
+        step("load", t0)
+        t0 = time.perf_counter()
+        counts = dict.fromkeys(CLIENT_OPS_KINDS, 0)
+        for i in range(n_ops):
+            counts[_client_op(c, oracle, rng, hashkeys, i)] += 1
+        step("ops", t0)
+        log(f"client: {n_hashkeys * 10} records loaded through multi_set "
+            f"into {CLIENT_PARTITIONS} partitions in {secs['load']:.1f} s; "
+            f"{n_ops} ops {counts} equal to the oracle in "
+            f"{secs['ops']:.1f} s; kernel launches {launches['ops']}")
+        t0 = time.perf_counter()
+        table.split()
+        step("split", t0)
+        pv = table.partition_count - 1
+        if table.partition_count != 2 * CLIENT_PARTITIONS or any(
+                p.partition_version != pv or p.device != device
+                for p in table.all_partitions()):
+            fail("split: the partitions did not flip to the doubled count")
+        live = oracle.live(epoch_now())
+        t0 = time.perf_counter()
+        rows = {}
+        for sc in c.get_unordered_scanners(
+                table.partition_count, ScanOptions(batch_size=1000)):
+            for hk, sk, v in sc:
+                if (hk, sk) in rows:
+                    fail(f"scan after the split: {hk!r}/{sk!r} twice")
+                rows[(hk, sk)] = v
+        if rows != {k: r[0] for k, r in live.items()}:
+            fail(f"scan after the split: {len(rows)} rows, oracle "
+                 f"{len(live)}; missing {sorted(set(live) - set(rows))[:3]}"
+                 f", extra {sorted(set(rows) - set(live))[:3]}")
+        per_hk = {}
+        for hk, _sk in live:
+            per_hk[hk] = per_hk.get(hk, 0) + 1
+        sampled = rng.choice(n_hashkeys, size=min(CLIENT_SAMPLED,
+                                                  n_hashkeys),
+                             replace=False)
+        for h in sampled:
+            hk = hashkeys[int(h)]
+            got = c.sortkey_count(hk)
+            if got != (int(StorageStatus.OK), per_hk.get(hk, 0)):
+                fail(f"sortkey_count of {hk!r} after the split: {got}, "
+                     f"oracle {per_hk.get(hk, 0)}")
+        step("scan", t0)
+        physical = sum(sum(t.total_count for t in p.engine.lsm.l0)
+                       + sum(t.total_count for t in p.engine.lsm.l1_runs)
+                       + len(p.engine.lsm.memtable)
+                       for p in table.all_partitions())
+        if physical <= len(live):
+            fail(f"split: {physical} physical rows, {len(live)} live: the "
+                 f"stale halves should still be on disk")
+        t0 = time.perf_counter()
+        table.manual_compact_all()
+        step("compact", t0)
+        survivors = {}
+        for p in table.all_partitions():
+            for key, value, ets in p.engine.iterate():
+                hk, sk = restore_key(key)
+                if key_hash_parts(hk, sk) & pv != p.pidx:
+                    fail(f"compaction kept {hk!r}/{sk!r} in partition "
+                         f"{p.pidx}, which no longer owns it")
+                survivors[(hk, sk)] = (extract_user_data(1, value), ets)
+        live = oracle.live(epoch_now())
+        bad = [k for k, r in live.items()
+               if k not in survivors or survivors[k][0] != r[0]
+               or not r[1] <= survivors[k][1] <= r[2]]
+        if bad or len(survivors) != len(live):
+            fail(f"compaction survivors: {len(survivors)}, oracle "
+                 f"{len(live)}; wrong {bad[:3]}")
+        log(f"client: split 8 -> 16 in {secs['split']:.1f} s; the full "
+            f"unordered scan ({len(rows)} rows) and {len(sampled)} "
+            f"sortkey_counts equal the oracle over {physical} physical "
+            f"rows in {secs['scan']:.1f} s, kernel launches "
+            f"{launches['scan']}; manual_compact_all in "
+            f"{secs['compact']:.1f} s kept {len(survivors)} records, each "
+            f"in its owner, kernel launches {launches['compact']}")
+        if on_card:
+            if launches["ops"]["now"] == 0:
+                fail("the ops' sortkey_counts never launched the scan "
+                     "kernel's now contract")
+            if launches["scan"]["static"] + launches["scan"]["now"] == 0:
+                fail("the scans after the split never launched the scan "
+                     "kernel")
+            if launches["compact"]["compaction"] == 0:
+                fail("manual_compact_all after the split never launched "
+                     "the compaction kernel")
+    finally:
+        if table is not None:
+            table.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+    return {"secs": secs, "launches": launches}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--records", type=int, default=SLICE_RECORDS,
@@ -2836,9 +3361,30 @@ def main(argv=None) -> int:
         f"#3's table is {COMPACT_FULL_GB} GB)")
     compact = run_compaction(device, gb=args.compact_gb, card=card)
     log(f"compact: done in {time.perf_counter() - t0:.1f} s")
+    log(f"chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s")
+
+    # 8. the in-process client: geo radius search (BASELINE config #5),
+    # then the atomic writes and a split
+    t0 = time.perf_counter()
+    with store_flags(NONE_STORE):
+        geo = run_geo(device, card=card)
+    torch.cuda.synchronize()
+    log(f"geo: done in {time.perf_counter() - t0:.1f} s; scan kernel "
+        f"launches {geo['launches']}")
+    t0 = time.perf_counter()
+    with store_flags(NONE_STORE):
+        client = run_client_split(device, card=card)
+    torch.cuda.synchronize()
+    client_scan = {k: sum(step[k] for step in client["launches"].values())
+                   for k in ("static", "now", "multi")}
+    client_compact = sum(step["compaction"]
+                         for step in client["launches"].values())
+    log(f"client: done in {time.perf_counter() - t0:.1f} s; seconds "
+        f"{client['secs']}; scan kernel launches {client_scan}, "
+        f"compaction kernel launches {client_compact}")
 
     # summary
-    log(f"chip_smoke: phases 1-7 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-8 in {time.perf_counter() - t_start:.1f} s")
     t = timings[LARGE_SHAPE]
     tm = timings_multi[MULTI_LARGE_SHAPE]
     log(json.dumps({"kernels": [{
@@ -2846,18 +3392,24 @@ def main(argv=None) -> int:
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/pallas_scan.py:43",
         "launches": (launches["static"] + launches["now"]
-                     + batched["static"] + point["static"] + point["now"]),
+                     + batched["static"] + point["static"] + point["now"]
+                     + geo["launches"]["static"] + client_scan["static"]
+                     + client_scan["now"]),
         "max_abs_err": cmp["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
         "call_ms": t["call_ms"], "shape": t["shape"],
         "launches_by_path": {"slice": launches["static"] + launches["now"],
                              "batched": batched["static"],
-                             "point": point["static"] + point["now"]}}, {
+                             "point": point["static"] + point["now"],
+                             "geo": geo["launches"]["static"],
+                             "client": client_scan["static"]
+                             + client_scan["now"]}}, {
         "name": "scan_predicate_multi", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/predicates.py:539",
-        "launches": batched["multi"] + point["multi"],
+        "launches": (batched["multi"] + point["multi"]
+                     + geo["launches"]["multi"] + client_scan["multi"]),
         "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
@@ -2865,8 +3417,10 @@ def main(argv=None) -> int:
         "name": "compaction_filter", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/compaction_filter.cu",
         "replaces": "pegasus_tpu/ops/compaction.py:110",
-        "launches": sum(r["launches"] for r in compact.values()),
+        "launches": (sum(r["launches"] for r in compact.values())
+                     + client_compact),
         "launches_by_pass": {p: r["launches"] for p, r in compact.items()},
+        "launches_client_split": client_compact,
         "launches_merge_path": merge_launches,
         "max_abs_err": cmp_compact["max_abs_err"], "ms": tc["ms"],
         "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],

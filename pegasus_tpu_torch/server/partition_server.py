@@ -1,11 +1,13 @@
 """PartitionServer: the rrdb storage app for one partition.
 
 Parity: src/server/pegasus_server_impl.{h,cpp}. The port serves put /
-multi_put / remove, get / multi_get, get_scanner / scan / clear_scanner,
-flush and manual_compact, and the batched point-read path (get / ttl /
-multi_get with sort keys / batch_get through plan_get_batch,
-point_chunks and finish_get_batch, which server/read_coordinator drives
-across partitions).
+multi_put / remove / multi_remove, the atomic writes incr /
+check_and_set / check_and_mutate, get / ttl / multi_get / batch_get /
+sortkey_count, get_scanner / scan / clear_scanner, flush, checkpoint,
+manual_compact and the partition-count flip of a split, and the batched
+point-read path (get / ttl / multi_get with sort keys / batch_get
+through plan_get_batch, point_chunks and finish_get_batch, which
+server/read_coordinator drives across partitions).
 
 Point reads are host work, as in the JAX package: bloom filters and
 perfect-hash indexes (storage/bloom.py, storage/phash.py) prune and
@@ -68,6 +70,7 @@ from pegasus_tpu_torch.base.key_schema import (
     check_key_hash,
     generate_key,
     generate_next_bytes,
+    key_hash_parts,
     restore_key,
 )
 from pegasus_tpu_torch.base.value_schema import (
@@ -106,12 +109,20 @@ from pegasus_tpu_torch.server import page
 from pegasus_tpu_torch.server.row_cache import ROW_CACHE
 from pegasus_tpu_torch.server.scan_coordinator import stacked_block_eval
 from pegasus_tpu_torch.server.types import (
+    BatchGetRequest,
     BatchGetResponse,
+    CheckAndMutateRequest,
+    CheckAndMutateResponse,
+    CheckAndSetRequest,
+    CheckAndSetResponse,
     FullData,
+    IncrRequest,
+    IncrResponse,
     KeyValue,
     MultiGetRequest,
     MultiGetResponse,
     MultiPutRequest,
+    MultiRemoveRequest,
     SCAN_CONTEXT_ID_COMPLETED,
     SCAN_CONTEXT_ID_NOT_EXIST,
     GetScannerRequest,
@@ -553,6 +564,56 @@ class PartitionServer:
             d = self._next_decree() if decree is None else decree
             return self.write_service.multi_put(req, d)
 
+    def on_multi_remove(self, req: MultiRemoveRequest,
+                        decree: Optional[int] = None,
+                        partition_hash: Optional[int] = None
+                        ) -> Tuple[int, int]:
+        gate = self._write_gate()
+        if gate:
+            return gate, 0
+        with self._write_lock:
+            gate = self._hash_gate(partition_hash)
+            if gate:
+                return gate, 0
+            d = self._next_decree() if decree is None else decree
+            return self.write_service.multi_remove(req, d)
+
+    def _atomic_write(self, fused, resp_type, req, decree, partition_hash):
+        """The gates of incr / check_and_set / check_and_mutate in the
+        reference's order (write gate, then the hash gate under the write
+        lock), then the fused translate-and-apply."""
+        gate = self._write_gate()
+        if gate:
+            return resp_type(error=gate)
+        with self._write_lock:
+            gate = self._hash_gate(partition_hash)
+            if gate:
+                return resp_type(error=gate)
+            d = self._next_decree() if decree is None else decree
+            return fused(req, d)
+
+    def on_incr(self, req: IncrRequest,
+                decree: Optional[int] = None,
+                partition_hash: Optional[int] = None) -> IncrResponse:
+        return self._atomic_write(self.write_service.incr, IncrResponse,
+                                  req, decree, partition_hash)
+
+    def on_check_and_set(self, req: CheckAndSetRequest,
+                         decree: Optional[int] = None,
+                         partition_hash: Optional[int] = None
+                         ) -> CheckAndSetResponse:
+        return self._atomic_write(self.write_service.check_and_set,
+                                  CheckAndSetResponse, req, decree,
+                                  partition_hash)
+
+    def on_check_and_mutate(self, req: CheckAndMutateRequest,
+                            decree: Optional[int] = None,
+                            partition_hash: Optional[int] = None
+                            ) -> CheckAndMutateResponse:
+        return self._atomic_write(self.write_service.check_and_mutate,
+                                  CheckAndMutateResponse, req, decree,
+                                  partition_hash)
+
     # ---- point reads --------------------------------------------------
 
     def on_get(self, key: bytes,
@@ -570,6 +631,48 @@ class PartitionServer:
             return int(StorageStatus.NOT_FOUND), b""
         return (int(StorageStatus.OK),
                 extract_user_data(self.data_version, value))
+
+    def on_ttl(self, key: bytes,
+               partition_hash: Optional[int] = None) -> Tuple[int, int]:
+        """(error, ttl seconds), -1 for no TTL (parity on_ttl:1092)."""
+        gate = self._read_gate() or self._hash_gate(partition_hash)
+        if gate:
+            return gate, 0
+        now = epoch_now()
+        hit = self.engine.get(key)
+        if hit is None:
+            return int(StorageStatus.NOT_FOUND), 0
+        _, ets = hit
+        if check_if_ts_expired(now, ets):
+            return int(StorageStatus.NOT_FOUND), 0
+        return int(StorageStatus.OK), (ets - now) if ets > 0 else -1
+
+    def on_batch_get(self, req: BatchGetRequest) -> BatchGetResponse:
+        """Parity: on_batch_get (pegasus_server_impl.cpp:906). After a
+        split, a key this partition no longer owns rejects the whole batch
+        (the client grouped it under the old partition count)."""
+        gate = self._read_gate()
+        if gate:
+            return BatchGetResponse(error=gate)
+        if self.validate_partition_hash:
+            for fk in req.keys:
+                h = key_hash_parts(fk.hash_key, fk.sort_key)
+                if (h & self.partition_version) != self.pidx:
+                    return BatchGetResponse(
+                        error=int(ErrorCode.ERR_PARENT_PARTITION_MISUSED))
+        now = epoch_now()
+        resp = BatchGetResponse()
+        for fk in req.keys:
+            hit = self.engine.get(generate_key(fk.hash_key, fk.sort_key))
+            if hit is None:
+                continue
+            value, ets = hit
+            if check_if_ts_expired(now, ets):
+                continue
+            resp.data.append(FullData(
+                fk.hash_key, fk.sort_key,
+                extract_user_data(self.data_version, value)))
+        return resp
 
     def on_multi_get(self, req: MultiGetRequest) -> MultiGetResponse:
         """Parity: on_multi_get (pegasus_server_impl.cpp:496)."""
@@ -630,6 +733,23 @@ class PartitionServer:
         if not exhausted and not req.reverse and resume_key is not None:
             resp.resume_sort_key = restore_key(resume_key)[1]
         return resp
+
+    def on_sortkey_count(self, hash_key: bytes) -> Tuple[int, int]:
+        """Parity: on_sortkey_count (pegasus_server_impl.cpp:1018): the
+        live records under a hash key, INCOMPLETE past the range-read
+        budget."""
+        gate = self._read_gate()
+        if gate:
+            return gate, 0
+        stop_key = generate_next_bytes(hash_key)
+        records, exhausted, _ = self._batched_scan(
+            generate_key(hash_key, b""), stop_key or None, epoch_now(),
+            FilterSpec.none(self.device), FilterSpec.none(self.device),
+            validate_hash=False, limiter=RangeReadLimiter(),
+            max_records=-1, max_bytes=-1, with_values=False)
+        if not exhausted:
+            return int(StorageStatus.INCOMPLETE), len(records)
+        return int(StorageStatus.OK), len(records)
 
     # ---- batched point reads: a flush of get / ttl / multi_get(sort
     # keys) / batch_get resolves overlay hits on the host, locates base
@@ -2322,6 +2442,33 @@ class PartitionServer:
     def flush(self) -> bool:
         with self._write_lock:
             return self.engine.flush()
+
+    def checkpoint(self, dest_dir: str) -> int:
+        """A frozen snapshot under the single-writer lock (the flush and
+        the walk of the run set must not interleave with an env-triggered
+        compaction's publish)."""
+        with self._write_lock:
+            return self.engine.checkpoint(dest_dir)
+
+    def update_partition_count(self, new_count: int) -> None:
+        """Partition-count flip after a split (parity: the group
+        partition-count update in replica_split_manager.h:76-123):
+        routing and the ownership predicate follow the new count, so the
+        stale half is hidden from every scan at once and dropped by the
+        next manual compaction. Static masks are keyed by the
+        partition_version they were computed under; the caches that hold
+        rows or plans resolved under the old routing are dropped."""
+        if new_count < self.partition_count:
+            raise ValueError("partition count can only grow")
+        self.partition_count = new_count
+        self.partition_version = new_count - 1
+        self.validate_partition_hash = (
+            new_count > 1 and (new_count & (new_count - 1)) == 0)
+        self._live_cache = {}
+        self._plan_cache = None
+        self._point_cache = None
+        self._plan_expired_cache = (None, {})
+        ROW_CACHE.invalidate_gid((self.app_id, self.pidx))
 
     def manual_compact(self, default_ttl: Optional[int] = None,
                        rules_filter=None,

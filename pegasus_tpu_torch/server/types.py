@@ -1,12 +1,14 @@
 """rrdb request/response structs served by the port's PartitionServer.
 
 Parity: idl/rrdb.thrift — the same field sets and semantics as
-pegasus_tpu/server/types.py, limited to put / multi_put / remove / get /
-ttl / multi_get / batch_get / get_scanner / scan / clear_scanner.
+pegasus_tpu/server/types.py: the single and multi writes, the atomic
+writes (incr, check_and_set, check_and_mutate), the point and range reads
+and the scanner.
 """
 
 from __future__ import annotations
 
+import enum
 import struct
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -14,6 +16,34 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from pegasus_tpu_torch.ops.predicates import FT_NO_FILTER
+
+
+class CasCheckType(enum.IntEnum):
+    """idl/rrdb.thrift:35-62."""
+
+    CT_NO_CHECK = 0
+    CT_VALUE_NOT_EXIST = 1
+    CT_VALUE_NOT_EXIST_OR_EMPTY = 2
+    CT_VALUE_EXIST = 3
+    CT_VALUE_NOT_EMPTY = 4
+    CT_VALUE_MATCH_ANYWHERE = 5
+    CT_VALUE_MATCH_PREFIX = 6
+    CT_VALUE_MATCH_POSTFIX = 7
+    CT_VALUE_BYTES_LESS = 8
+    CT_VALUE_BYTES_LESS_OR_EQUAL = 9
+    CT_VALUE_BYTES_EQUAL = 10
+    CT_VALUE_BYTES_GREATER_OR_EQUAL = 11
+    CT_VALUE_BYTES_GREATER = 12
+    CT_VALUE_INT_LESS = 13
+    CT_VALUE_INT_LESS_OR_EQUAL = 14
+    CT_VALUE_INT_EQUAL = 15
+    CT_VALUE_INT_GREATER_OR_EQUAL = 16
+    CT_VALUE_INT_GREATER = 17
+
+
+class MutateOperation(enum.IntEnum):
+    MO_PUT = 0
+    MO_DELETE = 1
 
 
 @dataclass(slots=True)
@@ -102,6 +132,12 @@ class MultiPutRequest:
 
 
 @dataclass
+class MultiRemoveRequest:
+    hash_key: bytes
+    sort_keys: List[bytes]
+
+
+@dataclass
 class MultiGetRequest:
     hash_key: bytes
     sort_keys: List[bytes] = field(default_factory=list)
@@ -151,6 +187,69 @@ class BatchGetResponse:
 
 
 @dataclass
+class IncrRequest:
+    key: bytes                    # full encoded key
+    increment: int
+    expire_ts_seconds: int = 0    # 0 keep, >0 reset, <0 clear
+
+
+@dataclass
+class IncrResponse:
+    error: int = 0
+    new_value: int = 0
+    decree: int = -1
+
+
+@dataclass
+class CheckAndSetRequest:
+    hash_key: bytes
+    check_sort_key: bytes
+    check_type: int
+    check_operand: bytes = b""
+    set_diff_sort_key: bool = False
+    set_sort_key: bytes = b""
+    set_value: bytes = b""
+    set_expire_ts_seconds: int = 0
+    return_check_value: bool = False
+
+
+@dataclass
+class CheckAndSetResponse:
+    error: int = 0
+    check_value_returned: bool = False
+    check_value_exist: bool = False
+    check_value: bytes = b""
+    decree: int = -1
+
+
+@dataclass
+class Mutate:
+    operation: int                # MutateOperation
+    sort_key: bytes
+    value: bytes = b""
+    set_expire_ts_seconds: int = 0
+
+
+@dataclass
+class CheckAndMutateRequest:
+    hash_key: bytes
+    check_sort_key: bytes
+    check_type: int
+    check_operand: bytes = b""
+    mutate_list: List[Mutate] = field(default_factory=list)
+    return_check_value: bool = False
+
+
+@dataclass
+class CheckAndMutateResponse:
+    error: int = 0
+    check_value_returned: bool = False
+    check_value_exist: bool = False
+    check_value: bytes = b""
+    decree: int = -1
+
+
+@dataclass
 class GetScannerRequest:
     start_key: bytes = b""        # full encoded keys
     stop_key: bytes = b""
@@ -175,6 +274,11 @@ class GetScannerRequest:
 
 
 @dataclass
+class ScanRequest:
+    context_id: int
+
+
+@dataclass
 class ScanResponse:
     error: int = 0
     kvs: List[KeyValue] = field(default_factory=list)
@@ -182,6 +286,25 @@ class ScanResponse:
     kv_count: int = -1
     pushdown_applied: bool = False
     agg: Optional[Dict[str, Any]] = None
+
+    def wire_bytes(self) -> int:
+        """Approximate serialized size of this response (what a
+        scanner's `shipped_bytes` accumulates)."""
+        n = 24  # error/context_id/kv_count/flags framing
+        kvs = self.kvs
+        if isinstance(kvs, ScanPage):
+            n += (len(kvs.key_offs) + len(kvs.key_blob)
+                  + len(kvs.val_offs) + len(kvs.val_blob)
+                  + len(kvs.ets))
+        else:
+            for kv in kvs:
+                n += 8 + len(kv.key) + len(kv.value)
+        if self.agg is not None:
+            n += 64
+            for it in self.agg.get("items") or ():
+                n += 16 + sum(len(x) for x in it
+                              if isinstance(x, (bytes, bytearray)))
+        return n
 
 
 # scan context ids (parity: src/base/pegasus_const.h SCAN_CONTEXT_ID_*)

@@ -20,11 +20,16 @@ exactly which decree it contains:
   key bytes, as the JAX package routes them.
 - write_batch() flushes a full memtable and auto-compacts a deep L0 with
   the installed filter context (`auto_compact_ctx`).
+- checkpoint() / restore_from_checkpoint(): a flushed copy of the SST
+  files and manifest, and an engine opened on one (a split's child is a
+  checkpoint of its parent); ingest_sst_file() adopts an external SST as
+  the newest L0 run under its decree.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 import time
 from dataclasses import dataclass
@@ -51,8 +56,19 @@ from pegasus_tpu_torch.storage.compact_pipeline import (
     transform_workers,
 )
 from pegasus_tpu_torch.storage.lsm import LSMStore
+from pegasus_tpu_torch.storage.sstable import SSTable, SSTableWriter
 from pegasus_tpu_torch.storage.wal import OP_DEL, WalRecord, WriteAheadLog
 from pegasus_tpu_torch.utils.device import resolve_device
+
+
+def _copy_store_files(src_dir: str, dest_dir: str) -> None:
+    """The SST files and the manifest: without the manifest a multi-run
+    store would reopen through the legacy newest-L1-wins recovery and
+    drop runs."""
+    for name in os.listdir(src_dir):
+        if name.endswith(".sst") or name == "MANIFEST.json":
+            shutil.copy2(os.path.join(src_dir, name),
+                         os.path.join(dest_dir, name))
 
 
 @dataclass
@@ -190,6 +206,64 @@ class StorageEngine:
     def iterate(self, start: bytes = b"", stop: Optional[bytes] = None,
                 reverse: bool = False):
         return self.lsm.iterate(start, stop, reverse)
+
+    # ---- checkpoint (parity: replication_app_base.h:171-236 + rocksdb
+    # Checkpoint::CreateCheckpoint usage in pegasus_server_impl) ----------
+
+    def checkpoint(self, dest_dir: str) -> int:
+        """Flush, then copy a consistent snapshot of the store (its SST
+        files and manifest) into `dest_dir`. Returns the decree the
+        checkpoint contains."""
+        self.flush()
+        os.makedirs(dest_dir, exist_ok=True)
+        _copy_store_files(os.path.join(self.data_dir, "sst"), dest_dir)
+        return self.last_flushed_decree
+
+    @staticmethod
+    def restore_from_checkpoint(checkpoint_dir: str, data_dir: str,
+                                device=None) -> "StorageEngine":
+        """Open a fresh engine on `device` whose state is the checkpoint's
+        content (parity: storage_apply_checkpoint,
+        pegasus_server_impl.cpp:1624)."""
+        sst_dir = os.path.join(data_dir, "sst")
+        shutil.rmtree(sst_dir, ignore_errors=True)
+        os.makedirs(sst_dir, exist_ok=True)
+        _copy_store_files(checkpoint_dir, sst_dir)
+        wal = os.path.join(data_dir, "wal.log")
+        if os.path.exists(wal):
+            os.remove(wal)
+        return StorageEngine(data_dir, device=device)
+
+    # ---- ingestion (parity: rocksdb_wrapper.cpp:248-266
+    # IngestExternalFile with the decree watermark carried atomically) --
+
+    def ingest_sst_file(self, path: str, decree: int) -> None:
+        """Adopt an externally built SST as the newest L0 run, its meta
+        rewritten to carry the ingesting decree. The memtable is flushed
+        first, so earlier unflushed writes neither get skipped by WAL
+        recovery nor outrank the newer ingested run."""
+        if decree <= self.last_committed_decree:
+            raise ValueError(
+                f"ingest decree {decree} <= last committed "
+                f"{self.last_committed_decree}")
+        self.flush()
+        src = SSTable(path)
+
+        def build(dest: str, meta) -> None:
+            writer = SSTableWriter(dest, meta=meta)
+            for key, value, ets in src.iterate():
+                writer.add(key, value or b"", ets, tombstone=value is None)
+            writer.finish()
+
+        try:
+            self.lsm.ingest(build, meta={
+                "last_flushed_decree": decree,
+                "data_version": self.data_version,
+            })
+        finally:
+            src.close()
+        self.last_committed_decree = decree
+        self.last_flushed_decree = decree
 
     # ---- compaction ---------------------------------------------------
 

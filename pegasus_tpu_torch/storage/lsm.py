@@ -203,6 +203,17 @@ class LSMStore:
         self.generation += 1
         return table
 
+    def ingest(self, build_sst, meta: Optional[dict] = None) -> SSTable:
+        """Adopt an externally built run as the newest L0 SST.
+        `build_sst(dest_path, meta)` writes the file; the naming and
+        newest-first invariants stay inside the store."""
+        dest = self._next_path("l0")
+        build_sst(dest, meta)
+        table = SSTable(dest)
+        self.l0.insert(0, table)
+        self.generation += 1
+        return table
+
     def should_compact(self) -> bool:
         return len(self.l0) >= self._l0_trigger
 

@@ -40,7 +40,14 @@ def test_port_modules_are_found():
                  "pegasus_tpu_torch.ops.fused_compaction",
                  "pegasus_tpu_torch.storage.compact_governor",
                  "pegasus_tpu_torch.storage.compact_pipeline",
-                 "pegasus_tpu_torch.convert"):
+                 "pegasus_tpu_torch.convert",
+                 "pegasus_tpu_torch.client.table",
+                 "pegasus_tpu_torch.client.client",
+                 "pegasus_tpu_torch.geo.cells",
+                 "pegasus_tpu_torch.geo.geo_client",
+                 "pegasus_tpu_torch.ops.geo",
+                 "pegasus_tpu_torch.redis_proxy.resp",
+                 "pegasus_tpu_torch.redis_proxy.proxy"):
         assert want in names
 
 
@@ -56,6 +63,8 @@ def test_bulk_compaction_runs_without_jax(tmp_path):
         "from pegasus_tpu_torch.server.partition_server import "
         "PartitionServer\n"
         "from pegasus_tpu_torch.storage import compact_pipeline\n"
+        "import pegasus_tpu_torch.client, pegasus_tpu_torch.geo\n"
+        "import pegasus_tpu_torch.redis_proxy, pegasus_tpu_torch.ops.geo\n"
         f"s = PartitionServer({str(tmp_path)!r}, device='cpu')\n"
         "s.update_app_envs({'default_ttl': '3600',\n"
         "    'user_specified_compaction': '[{\"op\": \"delete_key\", '\n"
@@ -85,7 +94,8 @@ def test_bulk_compaction_runs_without_jax(tmp_path):
 def test_batched_path_runs_without_jax(tmp_path):
     """scan_multi and point_read_multi over a CPU partition compacted at
     the default store flags (dcz2, bloom, phash), through the native
-    library (built with g++ at first use), with JAX blocked."""
+    library (built with g++ at first use), then GEO commands through the
+    Redis handler over a split, compacted geo index, with JAX blocked."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -115,6 +125,22 @@ def test_batched_path_runs_without_jax(tmp_path):
         "assert res == (0, b'v3'), res\n"
         "assert s.point_stats['phash_located'] == 1\n"
         "s.close()\n"
+        "from pegasus_tpu_torch.client import PegasusClient, Table\n"
+        "from pegasus_tpu_torch.geo import GeoClient\n"
+        "from pegasus_tpu_torch.redis_proxy import RedisHandler\n"
+        f"raw = Table({str(tmp_path / 'raw')!r}, app_id=1, "
+        "partition_count=2, device='cpu')\n"
+        f"idx = Table({str(tmp_path / 'idx')!r}, app_id=2, "
+        "partition_count=2, device='cpu')\n"
+        "geo = GeoClient(PegasusClient(raw), PegasusClient(idx))\n"
+        "h = RedisHandler(PegasusClient(raw), geo=geo).handle\n"
+        "assert h([b'GEOADD', b'g', b'-74', b'40', b'a', b'-74', "
+        "b'40.001', b'b']) == b':2\\r\\n'\n"
+        "idx.split(); idx.manual_compact_all()\n"
+        "assert h([b'GEORADIUS', b'g', b'-74', b'40', b'50', b'm']) == "
+        "b'*1\\r\\n$1\\r\\na\\r\\n'\n"
+        "assert h([b'INCRBY', b'n', b'3']) == b':3\\r\\n'\n"
+        "raw.close(); idx.close()\n"
         "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
         "             or m.startswith('pegasus_tpu.')\n"
         "             or m.startswith('jax.') or m == 'jaxlib')\n"

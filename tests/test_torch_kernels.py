@@ -302,3 +302,30 @@ def test_compaction_kernel_one_launch_at_any_size(card, rows):
             pack=True)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [1, 65, 5000, 20000])
+def test_radius_filter_on_card_matches_cpu(card, n):
+    """Geo's distance filter (torch ops on the card, no hand-written
+    kernel) against its CPU run, within tests/test_torch_geo.py's
+    tolerance: 2R·eps + 16·eps·d metres."""
+    from pegasus_tpu_torch.ops import geo
+
+    rng = np.random.default_rng(n)
+    eps = float(np.finfo(np.float32).eps)
+    lats = 40.0 + (rng.random(n) - 0.5) * 0.18
+    lngs = -74.0 + (rng.random(n) - 0.5) * 0.24
+    valid = rng.random(n) < 0.95
+    before = geo.LAUNCHES["radius_filter"]
+    rows = geo.ROWS["radius_filter"]
+    keep, dist = geo.radius_filter(lats, lngs, 40.01, -73.99, 500.0,
+                                   valid=valid, device=card)
+    assert geo.LAUNCHES["radius_filter"] == before + 1
+    assert geo.ROWS["radius_filter"] == rows + n
+    want_keep, want_dist = geo.radius_filter(lats, lngs, 40.01, -73.99,
+                                             500.0, valid=valid,
+                                             device="cpu")
+    tol = 2 * geo.EARTH_RADIUS_M * eps + 16 * eps * want_dist
+    assert (np.abs(dist.astype(np.float64) - want_dist) <= tol).all()
+    near = np.abs(want_dist - 500.0) <= tol
+    assert (keep[~near] == want_keep[~near]).all()
