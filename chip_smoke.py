@@ -38,7 +38,15 @@ Phases, each fatal on failure:
    compaction and MaskPrefresher passes a flush of unfiltered scans must
    launch nothing, both while those records live and once they expired,
    with the expired records it planned counted as the oracle counts
-   them;
+   them. Between the traffic and the TTL rewrite, the observability
+   layer is switched off and on, A B B A, over the same 60 seeded
+   flushes: off is `[pegasus.perfctx] enabled` false and
+   `[pegasus.tracing] sample_ratio` 0, on is PerfContexts, sample_ratio
+   1 with a span a flush, and the slow log at 0 ms; scans/s is printed
+   for each pass, and in every on pass each flush's states must leave
+   one slow-log entry with its PerfContext (rows_evaluated equal to the
+   rows the plan sent to masks) and the flush's span the JAX package's
+   stage names;
 6. the point-get path: BASELINE config #1 (onebox, one table of 4
    partitions, YCSB-C, 1,000,000 records) at the JAX package's default
    store flags (dcz2 blocks, bloom filters, perfect-hash indexes, the
@@ -74,15 +82,28 @@ Phases, each fatal on failure:
    against an oracle, Table.split 8 -> 16 with a full scan and sampled
    sortkey_counts held to the oracle (the stale half hidden by the scan
    kernel's ownership check), then manual_compact_all, which must launch
-   the compaction kernel and keep exactly the oracle's records.
+   the compaction kernel and keep exactly the oracle's records;
+9. integrity: one partition in phase 5's layout (125,000 records,
+   `none`) under at-rest encryption (a LocalKmsClient with a fixed root
+   key) and as its plaintext twin, 4,000 YCSB-E scans through
+   scan_multi: every page of the encrypted store, the twin and a PGT1
+   copy of the twin (the same blocks without hash_lo, written by
+   write_pgt1) equal to each other and to an oracle; the scan kernel
+   must launch on the encrypted store and its key-hash instance on the
+   PGT1 copy; ReplicaScrubber.scrub_now passes the twin clean and
+   reports exactly the one block of a copy with a flipped byte.
 
 Phase 3 also holds the compaction-filter kernel bit-exact against its
 plain version
 (check_compaction: key widths 32, 64 and 256, validation off and on,
 default_ttl 0 and not, want_ets and pack on and off, a rotation of
-rulesets) and times it at phase 7's chunk shape.
+rulesets) and times it at phase 7's chunk shape, and holds the scan
+kernel's key-hash instance (blocks without a stored hash_lo, hashed in
+the kernel) bit-exact against its plain version on the same seeded
+tables with hash_lo dropped, through both entries, K in {32, 64, 256},
+and times it at 2^20 records, K = 32.
 
-Phases 4, 5 and 8 pin the store flags `block_codec = none`,
+Phases 4, 5, 8 and 9 pin the store flags `block_codec = none`,
 `bloom_bits_per_key = 0`, `phash_index = false` (every block reaches the
 kernel); phases 6 and 7 (b, c) pin the defaults, 7 (a) pins `none`
 without sidecars. The line before the last lists the
@@ -662,6 +683,7 @@ def time_window(device, n_blocks: int = 8, reps: int = 200) -> dict:
     what one such call issues on the device."""
     import torch
 
+    from pegasus_tpu_torch.ops import fused_scan
     from pegasus_tpu_torch.ops.record_block import block_from_columns
     from pegasus_tpu_torch.server.scan_coordinator import stacked_block_eval
 
@@ -688,9 +710,22 @@ def time_window(device, n_blocks: int = 8, reps: int = 200) -> dict:
         seconds.append(time.perf_counter() - t)
     if len(masks) != n_blocks or any(m.shape != (1024,) for _t, m in masks):
         fail("stacked_block_eval returned the wrong masks")
-    ops = _device_ops(window)
+    # a trace that recorded fewer scan kernels than the wrapper launched
+    # while it ran dropped records, and cannot count the device ops: take
+    # another (at most three)
+    for profiles in range(1, 4):
+        before = fused_scan.LAUNCHES["static"]
+        ops = _device_ops(window)
+        launched = fused_scan.LAUNCHES["static"] - before
+        recorded = sum(c for name, c in ops["names"].items()
+                       if "scan_table_kernel" in name)
+        if recorded >= launched:
+            break
+        log(f"stacked_block_eval: the trace recorded {recorded} of the "
+            f"{launched} kernel launches; profiling again")
     return {"blocks": n_blocks, "median_us": float(np.median(seconds)) * 1e6,
-            "mean_us": float(np.mean(seconds)) * 1e6, **ops}
+            "mean_us": float(np.mean(seconds)) * 1e6, "profiles": profiles,
+            **ops}
 
 
 # the timed shapes of the flavour axis: (name, blocks, records per block,
@@ -763,6 +798,176 @@ def time_tables_multi(device) -> list:
         out.append(row)
         del blocks, cols
     return out
+
+
+# ---- phase 3: the scan kernel's key-hash instance -----------------------
+
+# (name, records, K, filter (type, pattern) of the sortkey) of the
+# key-hash instance's timed shape: phase 3's large serving shape without
+# its stored hash_lo column, validation on, no filter
+KEYHASH_TIMED_SHAPE = ("large K=32, no stored hash_lo", 1 << 20, 32)
+KEYHASH_FILTERS = ((0, b"", 0, b""), (2, b"ab", 3, b"c"),
+                   (1, b"b", 2, b"a"))
+KEYHASH_NOWS = (None, 0x80000010)
+
+
+def drop_hash(block):
+    """The same RecordBlock without its stored hash_lo column, as a PGT1
+    file's block reaches the scan kernel."""
+    return block._replace(hash_lo=None)
+
+
+def check_key_hash(device, widths=(32, 64, 256),
+                   counts=CHECK_COUNTS) -> dict:
+    """Phase 3, correctness of the key-hash instance: check_tables' seeded
+    tables with hash_lo dropped (every block, and every other block, so
+    that a table mixes stored and hashed columns) through both entries,
+    scan_table (static and with `now`) and scan_table_multi, validation
+    on, against the plain versions (which hash with
+    ops/device_crc.key_hash_device on the same device), bit for bit. Every
+    launch must take the instance. Returns the tables compared, the
+    largest byte difference and the instance's launches."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops.predicates import FilterSpec, pack_mask
+
+    rng = np.random.default_rng(20261016)
+    pv = 7
+    compared = max_err = 0
+    before = fused_scan.LAUNCHES["keyhash"]
+    launched = 0
+    for k in widths:
+        stored, pidxs = [], []
+        for i, count in enumerate(counts):
+            cols = random_block_columns(rng, count, k)
+            stored.append(device_block(cols, device))
+            if i % 2:
+                owned = rng.random(count) < 0.5
+                col = np.where(owned, cols[3] & pv,
+                               rng.integers(0, pv + 1, count))
+                pidxs.append(torch.from_numpy(col.astype(np.int32)).to(
+                    device))
+            else:
+                pidxs.append(int(rng.integers(0, pv + 1)))
+        for mix in ("all", "alternate"):
+            blocks = [drop_hash(b) if mix == "all" or i % 2 == 0 else b
+                      for i, b in enumerate(stored)]
+            for hft, hp, sft, sp in KEYHASH_FILTERS:
+                hf = FilterSpec.make(hft, hp, device)
+                sf = FilterSpec.make(sft, sp, device)
+                for now in KEYHASH_NOWS:
+                    plain = []
+                    for block, pidx in zip(blocks, pidxs):
+                        status = fused_scan.scan_status_plain(
+                            block, hf, sf, True, pidx, pv, now)
+                        plain.append(status if now is not None else
+                                     pack_mask(status
+                                               == fused_scan.STATUS_KEEP))
+                    for lo, hi in CHECK_TABLES:
+                        hashed = any(b.hash_lo is None
+                                     for b in blocks[lo:hi])
+                        n0 = fused_scan.LAUNCHES["keyhash"]
+                        got = fused_scan.scan_table(
+                            blocks[lo:hi], pidxs[lo:hi], hf, sf, True, pv,
+                            now)
+                        want = torch.cat(plain[lo:hi])
+                        err = int((got.int() - want.int()).abs().max())
+                        max_err = max(max_err, err)
+                        if err or got.shape != want.shape:
+                            fail(f"key-hash instance != plain: table "
+                                 f"{lo}:{hi} K={k} {mix} hft={hft} "
+                                 f"sft={sft} now={now}")
+                        counted = fused_scan.LAUNCHES["keyhash"] - n0
+                        if device.type == "cuda" and counted != hashed:
+                            fail(f"table {lo}:{hi} {mix}: the key-hash "
+                                 f"instance launched {counted} times")
+                        launched += counted
+                        compared += 1
+            # the flavour axis: 5 sortkey POSTFIX flavours
+            flavors = [(FilterSpec.none(device),
+                        FilterSpec.make(3, p, device))
+                       for p in (b"a", b"b", b"ab", b"", b"dc")]
+            plain = [fused_scan.scan_table_multi_plain(
+                [block], [pidx], flavors, True, pv)
+                for block, pidx in zip(blocks, pidxs)]
+            for lo, hi in CHECK_TABLES:
+                got = fused_scan.scan_table_multi(
+                    blocks[lo:hi], pidxs[lo:hi], flavors, True, pv)
+                want = torch.cat(plain[lo:hi], dim=1)
+                err = (int((got.int() - want.int()).abs().max())
+                       if want.numel() else 0)
+                max_err = max(max_err, err)
+                if err or got.shape != want.shape:
+                    fail(f"key-hash instance (flavour axis) != plain: "
+                         f"table {lo}:{hi} K={k} {mix}")
+                compared += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"compared": compared, "max_abs_err": max_err,
+            "launches": fused_scan.LAUNCHES["keyhash"] - before}
+
+
+def key_hash_bound(cols) -> tuple:
+    """(bound_ms, bound_by) of the key-hash instance over `cols`, static,
+    validation on, no filter: each record's valid 1 B, key row K B,
+    key_len 4 B and hashkey_len 4 B read once and its packed keep bit
+    written once, over HBM; or about 8 integer operations a hashed byte
+    (the crc64 step) and 8 a record (the status), over the non-tensor
+    peak, whichever is larger."""
+    keys, key_len, _ets, _hash_lo = cols
+    n, k = keys.shape
+    hkl = np.where(key_len >= 2, (keys[:, 0].astype(np.int64) << 8)
+                   | keys[:, 1], 0)
+    region = np.clip(np.where(hkl > 0, hkl, key_len - 2), 0, k)
+    hashed = float(region[key_len >= 2].sum())
+    nbytes = n * (1 + k + 4 + 4) + -(-n // 8)
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (8.0 * hashed + 8.0 * n) / SCALAR_OPS_PER_S * 1e3
+    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
+def time_key_hash(device) -> dict:
+    """Phase 3, the key-hash instance's times at KEYHASH_TIMED_SHAPE, L2
+    flushed before each launch, as time_tables times the stored-hash
+    kernel: device time (torch.profiler), per call with the host (CUDA
+    events), the plain version's two times, the bound."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops.predicates import FilterSpec
+
+    rng = np.random.default_rng(20261021)
+    pv, pidx = 63, 0
+    name, n, k = KEYHASH_TIMED_SHAPE
+    cols = serving_block_columns(rng, n, k, pidx, pv)
+    blocks = [drop_hash(device_block(cols, device))]
+    hf, sf = FilterSpec.none(device), FilterSpec.none(device)
+    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+
+    def flush():
+        dst.copy_(src)
+
+    def kernel():
+        fused_scan.scan_table(blocks, [pidx], hf, sf, True, pv)
+
+    def plain():
+        fused_scan.scan_table_plain(blocks, [pidx], hf, sf, True, pv)
+
+    bound_ms, bound_by = key_hash_bound(cols)
+    row = {"shape": f"{name}: 1 x {n} records, K={k}, static, validation, "
+                    f"L2 flushed",
+           "ms": _device_ms(kernel, 50, "scan_table_kernel", flush),
+           "call_ms": _cuda_ms(kernel, 50, flush),
+           "plain_ms": _device_ms(plain, 3, "", flush),
+           "plain_call_ms": _cuda_ms(plain, 3, flush),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if None in (row["ms"], row["plain_ms"]):
+        fail("torch.profiler recorded no device time for the key-hash "
+             "instance")
+    row["share"] = bound_ms / row["ms"]
+    return row
 
 
 # ---- phase 3: the compaction-filter kernel -------------------------------
@@ -1729,6 +1934,125 @@ class BatchedOracle:
         return [(k, self.values[k]) for k in sorted(base + over)[:want]]
 
 
+OBS_FLUSHES = 60               # flushes of SCAN_FLUSH scans a pass
+OBS_ORDER = "ABBA"             # A: observability off, B: on
+
+
+def expected_scan_states(oracle, lst) -> list:
+    """What one partition's share of a scan_multi flush plans, state by
+    state, in the order scan_multi groups the requests (by flavour, in
+    order of first appearance): [(requests, rows sent to masks)], the
+    rows being every row of every unique L1 block the state's plans
+    touch (BatchedOracle.planned's block walk)."""
+    groups: dict = {}
+    for _r, start, limit, f in lst:
+        key = ((0, b"", 0, b"") if f[2] == 0 or not f[3] else f)
+        groups.setdefault(key, []).append((start, limit))
+    starts = oracle.starts
+    out = []
+    for reqs in groups.values():
+        blocks = set()
+        for start, limit in reqs:
+            i, end, _capped = oracle.planned(start, limit)
+            if end > i:
+                j0 = bisect.bisect_right(starts, i) - 1
+                j1 = bisect.bisect_right(starts, end - 1) - 1
+                blocks.update(range(j0, j1 + 1))
+        out.append((len(reqs), sum(starts[j + 1] - starts[j]
+                                   for j in blocks)))
+    return out
+
+
+def observability_ab(servers, oracles, flushes, check) -> dict:
+    """Phase 5's observability passes over the same seeded flushes, in
+    OBS_ORDER: A with the layer off (`[pegasus.perfctx] enabled` false,
+    `[pegasus.tracing] sample_ratio` 0), B with it on (PerfContexts,
+    sample_ratio 1 with one span a flush, the slow log at threshold 0).
+    Every page is checked against the oracle in both. In B, every state
+    of every flush must leave one slow-log entry carrying its PerfContext,
+    whose rows_evaluated equals the rows its plan sent to masks, and the
+    flush's span must carry the JAX package's stage names and the summed
+    cost vector. Returns scans/s a pass (flush wall only) and the checks
+    counted."""
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.server.scan_coordinator import scan_multi
+    from pegasus_tpu_torch.utils import tracing
+    from pegasus_tpu_torch.utils.flags import FLAGS
+
+    names = (("pegasus.perfctx", "enabled"),
+             ("pegasus.tracing", "sample_ratio"))
+    saved = {k: FLAGS.get(*k) for k in names}
+    thresholds = [s.slow_log.threshold_ms for s in servers]
+    out = {"order": OBS_ORDER, "scans_per_s": [], "entries": 0,
+           "spans": 0, "stages": set()}
+    try:
+        for mode in OBS_ORDER:
+            on = mode == "B"
+            FLAGS.set("pegasus.perfctx", "enabled", on, force=True)
+            FLAGS.set("pegasus.tracing", "sample_ratio", 1.0 if on else 0.0,
+                      force=True)
+            for s, t in zip(servers, thresholds):
+                s.update_app_envs({"replica.slow_query_threshold_ms":
+                                   "0" if on else str(t)})
+                s.slow_log.dump(clear=True)
+            tracing.reset()
+            ring = tracing.ring_for("chip-smoke-node")
+            wall = 0.0
+            n_scans = 0
+            for items in flushes:
+                now = epoch_now()
+                t = time.perf_counter()
+                span = (ring.start("scan_multi") if tracing.maybe_sample()
+                        else None)
+                with tracing.activate(span):
+                    got = scan_multi([(servers[p], [r for r, *_ in lst])
+                                      for p, lst in items], now)
+                if span is not None:
+                    span.finish()
+                wall += time.perf_counter() - t
+                n_scans += sum(len(lst) for _p, lst in items)
+                for (p, lst), resps in zip(items, got):
+                    for (_r, start, limit, f), resp in zip(lst, resps):
+                        check(resp, p, start, limit, f, now)
+                if not on:
+                    continue
+                if span is None:
+                    fail("sample_ratio 1 sampled no span")
+                total_rows = 0
+                for p, lst in items:
+                    want = expected_scan_states(oracles[p], lst)
+                    entries = servers[p].slow_log.dump(clear=True)
+                    got_states = [(e["perf"]["ops"],
+                                   e["perf"]["rows_evaluated"])
+                                  for e in entries
+                                  if e["name"].startswith("scan_batch.")
+                                  and "perf" in e]
+                    if len(entries) != len(want) or got_states != want:
+                        fail(f"partition {p}: slow-log entries "
+                             f"{[(e['name'], e.get('perf', {}).get('ops'), e.get('perf', {}).get('rows_evaluated')) for e in entries]}"
+                             f", the plan's states {want}")
+                    out["entries"] += len(entries)
+                    total_rows += sum(r for _o, r in want)
+                ann = [a for a, _t in span.annotations]
+                if not {"plan", "decode", "finish"} <= set(ann):
+                    fail(f"the flush's span carries {ann}")
+                pc = span.tags.get("perf")
+                if pc is None or pc["rows_evaluated"] != total_rows:
+                    fail(f"the flush's span perf {pc}, want rows_evaluated "
+                         f"{total_rows}")
+                out["spans"] += 1
+                out["stages"].update(ann)
+            out["scans_per_s"].append(n_scans / wall)
+    finally:
+        for k, v in saved.items():
+            FLAGS.set(*k, v, force=True)
+        for s, t in zip(servers, thresholds):
+            s.update_app_envs({"replica.slow_query_threshold_ms": str(t)})
+        tracing.reset()
+    out["stages"] = sorted(out["stages"])
+    return out
+
+
 def run_batched(device, n_records: int = BATCHED_RECORDS,
                 n_ops: int = BATCHED_OPS, seed: int = 11,
                 card: str = "") -> dict:
@@ -1961,6 +2285,43 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
         if on_card and (launches["static"] == 0 or launches["multi"] == 0):
             fail(f"the batched path must launch the static and the multi "
                  f"kernel: {launches}")
+
+        # the observability layer off and on, A B B A, over the same
+        # seeded flushes (scans only: the store stays as the oracle has it)
+        obs_rng = np.random.default_rng(seed + 1)
+        n_obs = OBS_FLUSHES * SCAN_FLUSH
+        obs_p = obs_rng.choice(NODE_PARTITIONS, n_obs,
+                               p=weights / weights.sum())
+        obs_ranks = zipf_ranks(obs_rng, n_hashkeys, n_obs)
+        obs_lens = obs_rng.integers(1, 101, n_obs)
+        obs_filtered = obs_rng.random(n_obs) < 0.15
+        obs_patterns = obs_rng.integers(0, len(POSTFIX_PATTERNS), n_obs)
+        obs_flushes = []
+        for lo in range(0, n_obs, SCAN_FLUSH):
+            items: dict = {}
+            for op in range(lo, lo + SCAN_FLUSH):
+                p = int(obs_p[op])
+                start = generate_key(
+                    hashkeys[p][orders[p][obs_ranks[op]]], b"")
+                f = ((0, b"", FT_MATCH_POSTFIX,
+                      POSTFIX_PATTERNS[obs_patterns[op]])
+                     if obs_filtered[op] else (0, b"", 0, b""))
+                limit = int(obs_lens[op])
+                items.setdefault(p, []).append(
+                    (request(start, limit, f), start, limit, f))
+            obs_flushes.append(list(items.items()))
+        obs = observability_ab(servers, oracles, obs_flushes, check)
+        off = [v for m, v in zip(obs["order"], obs["scans_per_s"])
+               if m == "A"]
+        on = [v for m, v in zip(obs["order"], obs["scans_per_s"])
+              if m == "B"]
+        log(f"batched: observability {obs['order']} over {OBS_FLUSHES} "
+            f"flushes of {SCAN_FLUSH} scans on {card}: scans/s "
+            f"{obs['scans_per_s']} (off: perfctx disabled, sample_ratio 0; "
+            f"on: PerfContexts, sample_ratio 1, slow log at 0 ms); on/off "
+            f"{sum(on) / sum(off)}; {obs['entries']} slow-log entries, "
+            f"each with its PerfContext and rows_evaluated equal to its "
+            f"plan's; {obs['spans']} spans with stages {obs['stages']}")
 
         # TTL records for the steady state: 1 in 50 L1 records of each
         # partition rewritten with a TTL of STEADY_TTL_S, so that the
@@ -2242,9 +2603,8 @@ def run_point_batch(device, n_records: int = POINT_RECORDS,
                 f"{DEEP_L0} L0 flushes; {n_keys} live records")
 
             not_found = int(StorageStatus.NOT_FOUND)
-            for s in servers:
-                s.point_stats.update(dict.fromkeys(s.point_stats, 0))
-                s.mask_routes.update(dict.fromkeys(s.mask_routes, 0))
+            # the traffic's counts: the readings now are the baseline
+            stats0 = [(s.point_stats, s.mask_routes) for s in servers]
             streams = (("gets", point_get_stream(n_ops, n_hashkeys,
                                                  seed + 1)),
                        ("misses", point_get_stream(n_ops // 5, n_hashkeys,
@@ -2373,9 +2733,11 @@ def run_point_batch(device, n_records: int = POINT_RECORDS,
                 f"{n_scans / sum(scan_flush_s)} scans/s over "
                 f"{sum(scan_flush_s)} s; per flush "
                 f"{percentiles(scan_flush_s)}")
-            stats = {k: sum(s.point_stats[k] for s in servers)
+            stats = {k: sum(s.point_stats[k] - b[0][k]
+                            for s, b in zip(servers, stats0))
                      for k in servers[0].point_stats}
-            routes = {k: sum(s.mask_routes[k] for s in servers)
+            routes = {k: sum(s.mask_routes[k] - b[1][k]
+                             for s, b in zip(servers, stats0))
                       for k in servers[0].mask_routes}
             out.update(point_stats=stats, mask_routes=routes,
                        launches=launches)
@@ -3213,6 +3575,269 @@ def run_client_split(device, n_hashkeys: int = CLIENT_HASHKEYS,
     return {"secs": secs, "launches": launches}
 
 
+# ---- phase 9: integrity on the card -------------------------------------
+
+INTEGRITY_RECORDS = 125_000    # phase 5's partition: 12,500 hashkeys x 10
+INTEGRITY_SCANS = 4_000        # scans over each store, in flushes of 32
+INTEGRITY_ROOT_KEY = b"chip-smoke-phase-9-kms-root-key!"
+
+
+def write_pgt1(src: str, dst: str) -> int:
+    """Write `src`, a `none`-codec SST, as a PGT1 file at `dst`: the
+    format before the hash_lo column, the same blocks without it, their
+    CRCs and the index recomputed, no bloom or perfect-hash sidecar.
+    Returns the blocks written."""
+    import json as _json
+    from zlib import crc32 as block_crc32
+
+    from pegasus_tpu_torch.base.crc import crc32
+    from pegasus_tpu_torch.storage.sstable import (
+        _BLOCK_HDR,
+        FOOTER,
+        MAGIC_V1,
+        SSTable,
+    )
+
+    table = SSTable(src, cache_bytes=0)
+    if table.codec is not None:
+        fail(f"{src}: a PGT1 copy needs a `none` file, not {table.codec}")
+    parts = [MAGIC_V1]
+    offset = len(MAGIC_V1)
+    blocks = []
+    for i, bm in enumerate(table.blocks):
+        blk = table.read_block(i)
+        heap = np.asarray(blk.value_heap, dtype=np.uint8).tobytes()
+        buf = b"".join((
+            _BLOCK_HDR.pack(blk.count, blk.keys.shape[1], len(heap)),
+            np.ascontiguousarray(blk.keys, dtype=np.uint8).tobytes(),
+            np.ascontiguousarray(blk.key_len, dtype=np.int32).tobytes(),
+            np.ascontiguousarray(blk.expire_ts, dtype=np.uint32).tobytes(),
+            np.ascontiguousarray(blk.flags, dtype=np.uint8).tobytes(),
+            np.ascontiguousarray(blk.value_offs, dtype=np.uint32).tobytes(),
+            heap))
+        blocks.append({"off": offset, "size": len(buf), "count": blk.count,
+                       "kw": int(blk.keys.shape[1]),
+                       "first": bm.first_key.hex(), "last": bm.last_key.hex(),
+                       "crc": block_crc32(buf)})
+        parts.append(buf)
+        offset += len(buf)
+    blob = _json.dumps({"blocks": blocks, "meta": table.meta,
+                        "total_count": table.total_count}).encode()
+    parts.append(blob)
+    parts.append(FOOTER.pack(offset, len(blob), crc32(blob), MAGIC_V1))
+    table.close()
+    tmp = dst + ".pgt1.tmp"
+    with open(tmp, "wb") as f:
+        f.write(b"".join(parts))
+    os.replace(tmp, dst)
+    return len(blocks)
+
+
+def _ssts(root: str) -> list:
+    return sorted(os.path.join(d, f) for d, _s, fs in os.walk(root)
+                  for f in fs if f.endswith(".sst"))
+
+
+def run_integrity(device, n_records: int = INTEGRITY_RECORDS,
+                  n_scans: int = INTEGRITY_SCANS, seed: int = 19,
+                  card: str = "") -> dict:
+    """Phase 9: one partition in phase 5's layout (partition 0 of 64,
+    `n_records` records at `none`) built twice, under at-rest encryption
+    (a LocalKmsClient with a fixed root key) and as its plaintext twin.
+    YCSB-E scans through scan_multi on `device`, 15% sortkey POSTFIX,
+    must give the same pages from the encrypted store, the twin, and a
+    PGT1 copy of the twin (its blocks without hash_lo, written by
+    write_pgt1), all equal to a BatchedOracle; the scan kernel must
+    launch on the encrypted store and the key-hash instance on the PGT1
+    copy. ReplicaScrubber.scrub_now must pass the twin clean and report
+    exactly the one block of a copy with one flipped byte. Returns the
+    kernel launches by store and the scrub results."""
+    import torch
+
+    from pegasus_tpu_torch.base.key_schema import generate_key, key_hash_parts
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops.predicates import FT_MATCH_POSTFIX
+    from pegasus_tpu_torch.security.kms import KeyProvider, LocalKmsClient
+    from pegasus_tpu_torch.server.partition_server import PartitionServer
+    from pegasus_tpu_torch.server.scan_coordinator import scan_multi
+    from pegasus_tpu_torch.server.types import (
+        SCAN_CONTEXT_ID_COMPLETED,
+        GetScannerRequest,
+        KeyValue,
+        MultiPutRequest,
+    )
+    from pegasus_tpu_torch.storage import efile
+    from pegasus_tpu_torch.storage.scrub import ReplicaScrubber
+
+    rng = np.random.default_rng(seed)
+    n_hashkeys = n_records // len(SORT_KEYS)
+    hashkeys = node_hashkeys({PIDX: n_hashkeys})[PIDX]
+    root = tempfile.mkdtemp(prefix="pegasus_torch_integrity_")
+    dirs = {name: os.path.join(root, name)
+            for name in ("encrypted", "plain", "flipped", "pgt1")}
+    servers: dict = {}
+    out: dict = {}
+    try:
+        os.makedirs(dirs["encrypted"])
+        efile.enable_encryption(dirs["encrypted"], KeyProvider(
+            dirs["encrypted"], LocalKmsClient(INTEGRITY_ROOT_KEY)))
+        oracle = BatchedOracle()
+        t0 = time.perf_counter()
+        for name in ("encrypted", "plain"):
+            srv = PartitionServer(dirs[name], pidx=PIDX,
+                                  partition_count=PARTITION_COUNT,
+                                  device=device)
+            for hk in hashkeys:
+                hnum = int(hk[4:])
+                kvs = [KeyValue(sk, b"field0=%064d" % (hnum * 10 + s))
+                       for s, sk in enumerate(SORT_KEYS)]
+                if srv.on_multi_put(MultiPutRequest(hk, kvs),
+                                    partition_hash=key_hash_parts(hk)):
+                    fail("multi_put refused")
+                if name == "plain":
+                    for kv in kvs:
+                        oracle.values[generate_key(hk, kv.key)] = kv.value
+            srv.manual_compact()
+            servers[name] = srv
+        oracle.compacted(servers["plain"].engine.lsm.l1_runs)
+        enc_ssts = _ssts(dirs["encrypted"])
+        if not enc_ssts or not all(efile.is_encrypted(p) for p in enc_ssts):
+            fail("the encrypted store's SST files are not encrypted")
+        log(f"integrity: 2 x {len(oracle.keys)} records (encrypted, plain) "
+            f"loaded and compacted in {time.perf_counter() - t0:.1f} s; "
+            f"{len(enc_ssts)} encrypted SST files")
+
+        # the twin's copies: one with a flipped byte, one as PGT1
+        servers.pop("plain").close()
+        for name in ("flipped", "pgt1"):
+            shutil.copytree(dirs["plain"], dirs[name])
+        n_pgt1 = sum(write_pgt1(p, p) for p in _ssts(dirs["pgt1"]))
+        for name in ("plain", "pgt1"):
+            servers[name] = PartitionServer(
+                dirs[name], pidx=PIDX, partition_count=PARTITION_COUNT,
+                device=device)
+        runs = servers["pgt1"].engine.lsm.l1_runs
+        if not runs or any(r._has_hash_lo for r in runs):
+            fail("the PGT1 copy's runs carry hash_lo")
+        log(f"integrity: PGT1 copy of the twin: {n_pgt1} blocks without "
+            f"hash_lo")
+
+        # the same seeded scans through every store
+        ranks = zipf_ranks(rng, n_hashkeys, n_scans)
+        lens = rng.integers(1, 101, n_scans)
+        filtered = rng.random(n_scans) < 0.15
+        patterns = rng.integers(0, len(POSTFIX_PATTERNS), n_scans)
+        flushes = []
+        for lo in range(0, n_scans, SCAN_FLUSH):
+            reqs = []
+            for i in range(lo, min(lo + SCAN_FLUSH, n_scans)):
+                start = generate_key(hashkeys[int(ranks[i])], b"")
+                f = ((0, b"", FT_MATCH_POSTFIX, POSTFIX_PATTERNS[patterns[i]])
+                     if filtered[i] else (0, b"", 0, b""))
+                reqs.append((GetScannerRequest(
+                    start_key=start, batch_size=int(lens[i]),
+                    validate_partition_hash=True, one_page=True,
+                    hash_key_filter_type=f[0], hash_key_filter_pattern=f[1],
+                    sort_key_filter_type=f[2], sort_key_filter_pattern=f[3]),
+                    start, int(lens[i]), f))
+            flushes.append(reqs)
+        pages = {}
+        for name in ("encrypted", "plain", "pgt1"):
+            srv = servers[name]
+            fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+            t0 = time.perf_counter()
+            got = []
+            for reqs in flushes:
+                now = epoch_now()
+                resps = scan_multi([(srv, [r for r, *_ in reqs])], now)[0]
+                for (_r, start, limit, f), resp in zip(reqs, resps):
+                    if (resp.error != 0
+                            or resp.context_id != SCAN_CONTEXT_ID_COMPLETED):
+                        fail(f"integrity {name}: scan error {resp.error}")
+                    page = [(kv.key, kv.value) for kv in resp.kvs]
+                    if page != oracle.page(start, limit, f, now):
+                        fail(f"integrity {name}: the page from {start!r} "
+                             f"limit {limit} filters {f} differs from the "
+                             f"oracle's")
+                    got.append(page)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            pages[name] = got
+            out[name] = {"launches": dict(fused_scan.LAUNCHES),
+                         "seconds": time.perf_counter() - t0}
+            log(f"integrity {name} on {card}: {n_scans} scans in "
+                f"{len(flushes)} flushes in {out[name]['seconds']:.2f} s, "
+                f"every page equal to the oracle's; scan kernel launches "
+                f"{out[name]['launches']}")
+        if not pages["encrypted"] == pages["plain"] == pages["pgt1"]:
+            fail("the encrypted store, its twin and the PGT1 copy served "
+                 "different pages")
+        if device.type == "cuda":
+            enc, pgt = out["encrypted"]["launches"], out["pgt1"]["launches"]
+            if enc["static"] == 0 or enc["keyhash"]:
+                fail(f"the encrypted store must launch the scan kernel "
+                     f"with stored hashes: {enc}")
+            if pgt["keyhash"] == 0:
+                fail(f"the PGT1 copy must launch the key-hash instance: "
+                     f"{pgt}")
+
+        # the scrubber: the twin clean, then one flipped byte found
+        def scrub(name):
+            hits = []
+            rep = type("Replica", (), {"server": servers[name]})()
+            sc = ReplicaScrubber(lambda: {(1, PIDX): rep},
+                                 lambda gpid, exc: hits.append((gpid, exc)))
+            return sc.scrub_now((1, PIDX), rep), hits
+
+        t0 = time.perf_counter()
+        clean, hits = scrub("plain")
+        n_blocks = sum(len(r.blocks) for r in servers["plain"].engine.lsm.l1_runs)
+        if clean.get("state") != "clean" or hits \
+                or clean["blocks_scanned"] != n_blocks:
+            fail(f"scrub of the twin: {clean}, {hits}")
+        tables = [os.path.basename(t.path) for t in
+                  list(servers["plain"].engine.lsm.l0)
+                  + list(servers["plain"].engine.lsm.l1_runs)]
+        ti = len(tables) // 2
+        target = os.path.join(os.path.dirname(
+            servers["plain"].engine.lsm.l1_runs[0].path), tables[ti])
+        flipped = target.replace(dirs["plain"], dirs["flipped"])
+        tbl = servers["plain"].engine.lsm.l1_runs[ti]
+        bi = len(tbl.blocks) // 2
+        bm = tbl.blocks[bi]
+        with open(flipped, "r+b") as f:
+            f.seek(bm.offset + bm.size // 2)
+            b = f.read(1)
+            f.seek(bm.offset + bm.size // 2)
+            f.write(bytes([b[0] ^ 0x10]))
+        servers["flipped"] = PartitionServer(
+            dirs["flipped"], pidx=PIDX, partition_count=PARTITION_COUNT,
+            device=device)
+        found, hits = scrub("flipped")
+        before = sum(len(t.blocks) for t in
+                     servers["plain"].engine.lsm.l1_runs[:ti])
+        if (found.get("state") != "corrupt" or len(hits) != 1
+                or found["blocks_scanned"] != before + bi
+                or f"block {bi} crc mismatch" not in found["detail"]
+                or os.path.basename(flipped) not in found["detail"]):
+            fail(f"scrub of the flipped copy: {found}, {len(hits)} hits; "
+                 f"the flip is in {os.path.basename(flipped)} block {bi}")
+        out["scrub"] = {"clean_blocks": clean["blocks_scanned"],
+                        "corrupt": found["detail"],
+                        "seconds": time.perf_counter() - t0}
+        log(f"integrity: scrub of the twin clean over {n_blocks} blocks; "
+            f"the copy with one flipped byte reported exactly "
+            f"{os.path.basename(flipped)} block {bi} "
+            f"({found['detail']!r}) in {out['scrub']['seconds']:.2f} s")
+    finally:
+        for s in servers.values():
+            s.close()
+        efile.disable_encryption(dirs["encrypted"])
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--records", type=int, default=SLICE_RECORDS,
@@ -3305,6 +3930,20 @@ def main(argv=None) -> int:
             f"(CUDA events); bound {t['bound_ms'] * 1e3} us "
             f"({t['bound_by']}), {100 * t['share']}% of it")
     t0 = time.perf_counter()
+    cmp_keyhash = check_key_hash(device)
+    log(f"key-hash instance vs plain: {cmp_keyhash['compared']} tables "
+        f"bit-identical (max |diff| {cmp_keyhash['max_abs_err']}), hash_lo "
+        f"dropped from every block and from every other block, both "
+        f"entries, K in {{32, 64, 256}}, {cmp_keyhash['launches']} launches "
+        f"of the instance, in {time.perf_counter() - t0:.1f} s")
+    tk = time_key_hash(device)
+    log(f"scan_predicate key-hash instance {tk['shape']} on {card}: device "
+        f"time kernel {tk['ms'] * 1e3} us, plain {tk['plain_ms'] * 1e3} us "
+        f"(profiler); per call with the host kernel {tk['call_ms'] * 1e3} "
+        f"us, plain {tk['plain_call_ms'] * 1e3} us (CUDA events); bound "
+        f"{tk['bound_ms'] * 1e3} us ({tk['bound_by']}), "
+        f"{100 * tk['share']}% of it")
+    t0 = time.perf_counter()
     cmp_compact = check_compaction(device)
     log(f"compaction kernel vs plain: {cmp_compact['compared']} chunks "
         f"bit-identical (max |diff| {cmp_compact['max_abs_err']}) in "
@@ -3383,8 +4022,24 @@ def main(argv=None) -> int:
         f"{client['secs']}; scan kernel launches {client_scan}, "
         f"compaction kernel launches {client_compact}")
 
-    # summary
     log(f"chip_smoke: phases 1-8 in {time.perf_counter() - t_start:.1f} s")
+
+    # 9. integrity on the card: an encrypted store, its plaintext twin, a
+    # PGT1 copy through the key-hash instance, the scrubber
+    t0 = time.perf_counter()
+    with store_flags(NONE_STORE):
+        integrity = run_integrity(device, card=card)
+    torch.cuda.synchronize()
+    keyhash_launches = integrity["pgt1"]["launches"]["keyhash"]
+    integrity_scan = {k: sum(integrity[s]["launches"][k]
+                             for s in ("encrypted", "plain", "pgt1"))
+                      for k in ("static", "now", "multi")}
+    log(f"integrity: done in {time.perf_counter() - t0:.1f} s; scan kernel "
+        f"launches {integrity_scan}, of them key-hash instance "
+        f"{keyhash_launches}")
+
+    # summary
+    log(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s")
     t = timings[LARGE_SHAPE]
     tm = timings_multi[MULTI_LARGE_SHAPE]
     log(json.dumps({"kernels": [{
@@ -3394,7 +4049,7 @@ def main(argv=None) -> int:
         "launches": (launches["static"] + launches["now"]
                      + batched["static"] + point["static"] + point["now"]
                      + geo["launches"]["static"] + client_scan["static"]
-                     + client_scan["now"]),
+                     + client_scan["now"] + integrity_scan["static"]),
         "max_abs_err": cmp["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
@@ -3404,16 +4059,27 @@ def main(argv=None) -> int:
                              "point": point["static"] + point["now"],
                              "geo": geo["launches"]["static"],
                              "client": client_scan["static"]
-                             + client_scan["now"]}}, {
+                             + client_scan["now"],
+                             "integrity": integrity_scan["static"]}}, {
         "name": "scan_predicate_multi", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/predicates.py:539",
         "launches": (batched["multi"] + point["multi"]
-                     + geo["launches"]["multi"] + client_scan["multi"]),
+                     + geo["launches"]["multi"] + client_scan["multi"]
+                     + integrity_scan["multi"]),
         "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
         "call_ms": tm["call_ms"], "shape": tm["shape"]}, {
+        "name": "scan_predicate_keyhash", "route": "cuda",
+        "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
+        "replaces": "pegasus_tpu/ops/device_crc.py:65",
+        "launches": keyhash_launches,
+        "max_abs_err": cmp_keyhash["max_abs_err"], "ms": tk["ms"],
+        "plain_ms": tk["plain_ms"], "bound_ms": tk["bound_ms"],
+        "bound_by": tk["bound_by"], "library_ms": None,
+        "call_ms": tk["call_ms"], "shape": tk["shape"],
+        "launches_by_path": {"integrity_pgt1": keyhash_launches}}, {
         "name": "compaction_filter", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/compaction_filter.cu",
         "replaces": "pegasus_tpu/ops/compaction.py:110",

@@ -60,15 +60,17 @@
 // the host from the flags: the row columns only (the merge path's filter,
 // TTL-only chunks: no matcher), with the key rows (pattern rules), and
 // with the key rows hashed for validation (kHashKeys), so that only the
-// last carries the crc64 loop. The key hash (key_hash_device) reads the
-// row a word at a time and looks the 256-entry crc64 table up in shared
-// memory, staged once a block. The byte matcher is match.cuh's, shared
+// last carries the crc64 loop. The key hash (key_hash_device, in
+// key_hash.cuh, shared with the scan kernel) reads the row a word at a
+// time and looks the 256-entry crc64 table up in shared memory, staged
+// once a block. The byte matcher is match.cuh's, shared
 // with the scan kernel. The packed mask comes from __ballot_sync, four
 // lanes writing a warp's four bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "key_hash.cuh"  // key_hash_lo and the crc64 table's staging
 #include "match.cuh"
 
 // Mirrored by _RULE and _OP in ops/fused_compaction.py.
@@ -168,32 +170,6 @@ __device__ __forceinline__ bool rule_holds(const Params& p,
   return false;  // kNever: an empty pattern
 }
 
-// The lo lane of key_hash_device: crc64 over bytes [2, 2 + n) of a
-// 4-byte aligned row, n = clip(hkl > 0 ? hkl : klen - 2, 0, k), bytes at
-// or past k reading row[k - 1]. `tab` is the crc64 table.
-__device__ uint32_t key_hash_lo(const uint8_t* row, int k, int klen,
-                                int hkl, const unsigned long long* tab) {
-  const int n = min(max(hkl > 0 ? hkl : klen - 2, 0), k);
-  const int end = 2 + min(n, k - 2);  // bytes [2, end) lie in the row
-  unsigned long long crc = ~0ull;
-  const uint32_t* words = reinterpret_cast<const uint32_t*>(row);
-  for (int w = 0; 4 * w < end; ++w) {
-    const uint32_t v = words[w];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int pos = 4 * w + i;
-      if (pos >= 2 && pos < end) {
-        crc = tab[(crc ^ (v >> (8 * i))) & 0xFF] ^ (crc >> 8);
-      }
-    }
-  }
-  const unsigned long long last = row[k - 1];
-  for (int j = end - 2; j < n; ++j) {
-    crc = tab[(crc ^ last) & 0xFF] ^ (crc >> 8);
-  }
-  return static_cast<uint32_t>(~crc);
-}
-
 // Evaluate row threadIdx.x of tile t, its key row read in place.
 template <int kMode>
 __device__ __forceinline__ void filter_tile(const Params& p, int64_t t,
@@ -272,11 +248,8 @@ __device__ __forceinline__ void filter_tile(const Params& p, int64_t t,
 template <int kMode>
 __global__ void __launch_bounds__(kTile, kMinBlocksPerSm)
     compaction_filter_kernel(const __grid_constant__ Params p) {
-  __shared__ unsigned long long tab[kMode == kKeyHash ? kTile : 1];
-  if (kMode == kKeyHash) {
-    tab[threadIdx.x] = p.crc_tab[threadIdx.x];
-    __syncthreads();
-  }
+  __shared__ unsigned long long tab[kMode == kKeyHash ? 256 : 1];
+  if (kMode == kKeyHash) stage_crc_table(tab, p.crc_tab);
   filter_tile<kMode>(p, blockIdx.x, tab);
 }
 

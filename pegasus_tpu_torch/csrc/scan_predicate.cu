@@ -80,6 +80,20 @@
 // memory as above plus K/8 B of output a record; with many flavours over
 // wide keys the match loop, K times the single-flavour work on the same
 // staged bytes, bounds it instead.
+//
+// The key-hash instance (kHashKeys) carries the JAX package's
+// ops/device_crc.py:65 `key_hash_device` for blocks without a stored hash:
+// a block whose descriptor has no hash_lo column (a PGT1 file's) hashes
+// its valid rows in the kernel when the table validates ownership, the
+// lo lane of the crc64 of the hashkey region (the sortkey region when the
+// hashkey is empty), read from the key row in place with the crc64 table
+// staged in shared memory (key_hash.cuh, shared with the compaction
+// kernel). Blocks of one table may mix stored and hashed columns. The
+// instance is chosen on the host: only a validating table holding such a
+// block takes it, so the other launches carry no crc loop. Bound: the
+// key row K B, key_len and hashkey_len 4 B each a record are read
+// besides the columns above, or about 8 integer operations a hashed byte
+// where that is larger.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -87,6 +101,9 @@
 // the byte matcher (load_word, equal_at, find_anywhere, match_region), the
 // key-tile staging and the ballot packing, shared with compaction_filter.cu
 #include "match.cuh"
+// key_hash_lo and the crc64 table's staging, shared with
+// compaction_filter.cu
+#include "key_hash.cuh"
 
 // Mirrored by _BlockDesc in ops/fused_scan.py; outside the anonymous
 // namespace so that the exported entry point can name it.
@@ -96,7 +113,8 @@ struct BlockDesc {
   const int32_t* hashkey_len;   // int32[count]
   const uint32_t* expire_ts;    // uint32 bits[count]
   const uint8_t* valid;         // bool[count]
-  const uint32_t* hash_lo;      // uint32 bits[count]
+  const uint32_t* hash_lo;      // uint32 bits[count], or null: no stored
+                                // hash (the key-hash instance hashes)
   const uint32_t* pidx_col;     // uint32 bits[count], or null: `pidx`
   uint32_t pidx;
   int32_t count;
@@ -120,6 +138,7 @@ struct Table {
   BlockDesc blocks[kMaxBlocks];
   Filter hash;
   Filter sort;
+  const unsigned long long* crc_tab;  // crc64 table[256], key-hash instance
   uint32_t pv;
   uint32_t now;
   int32_t n_blocks;
@@ -141,10 +160,13 @@ __device__ __forceinline__ int tile_block(const BlockDesc* blocks,
   return bi;
 }
 
+template <bool kHashKeys>
 __global__ void __launch_bounds__(kTile)
     scan_table_kernel(const __grid_constant__ Table t,
                       uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t tile_keys[];
+  __shared__ unsigned long long crc_tab[kHashKeys ? 256 : 1];
+  if (kHashKeys) stage_crc_table(crc_tab, t.crc_tab);
   const BlockDesc& d = t.blocks[tile_block(t.blocks, t.n_blocks)];
   const int base = (static_cast<int>(blockIdx.x) - d.first_tile) * kTile;
   const int n = min(kTile, d.count - base);
@@ -156,16 +178,19 @@ __global__ void __launch_bounds__(kTile)
   const bool sort_f = t.sort.len > 0;
   const bool need_keys = hash_f || sort_f;
 
+  // this block's rows are hashed here, not read from a stored column
+  const bool hashed = kHashKeys && t.validate && d.hash_lo == nullptr;
+
   // every column load of the tile is in flight before the key tile is
   // waited on
   const uint8_t valid = live ? d.valid[b] : 0;
   const uint32_t ets = live && t.has_now ? d.expire_ts[b] : 0;
-  const uint32_t hlo = live && t.validate ? d.hash_lo[b] : 0;
+  const uint32_t hlo = live && t.validate && !hashed ? d.hash_lo[b] : 0;
   const uint32_t owner = d.pidx_col == nullptr
                              ? d.pidx
                              : (live && t.validate ? d.pidx_col[b] : 0);
-  const int hkl = live && need_keys ? d.hashkey_len[b] : 0;
-  const int klen = live && sort_f ? d.key_len[b] : 0;
+  const int hkl = live && (need_keys || hashed) ? d.hashkey_len[b] : 0;
+  const int klen = live && (sort_f || hashed) ? d.key_len[b] : 0;
 
   const bool staged = need_keys && k <= kMaxStagedWidth;
   const int stride = k + 4;
@@ -173,9 +198,13 @@ __global__ void __launch_bounds__(kTile)
 
   uint8_t status = kPad;
   if (live && valid) {
+    const uint32_t lo =
+        hashed ? key_hash_lo(d.keys + (static_cast<size_t>(b) << t.k_shift),
+                             k, klen, hkl, crc_tab)
+               : hlo;
     if (t.has_now && ets > 0 && ets <= t.now) {
       status = kExpired;
-    } else if (t.validate && (hlo & t.pv) != owner) {
+    } else if (t.validate && (lo & t.pv) != owner) {
       status = kHashInvalid;
     } else {
       bool ok = true;
@@ -204,6 +233,7 @@ __global__ void __launch_bounds__(kTile)
 // lengths at plens[f] (hashkey) and plens[n_flavors + f] (sortkey).
 struct MultiTable {
   BlockDesc blocks[kMaxBlocks];
+  const unsigned long long* crc_tab;  // crc64 table[256], key-hash instance
   const uint8_t* hpats;
   const uint8_t* spats;
   const int32_t* plens;
@@ -223,10 +253,13 @@ struct MultiTable {
 };
 static_assert(sizeof(MultiTable) <= 4096, "kernel parameter limit");
 
+template <bool kHashKeys>
 __global__ void __launch_bounds__(kTile)
     scan_table_multi_kernel(const __grid_constant__ MultiTable t,
                             uint8_t* __restrict__ out) {
   extern __shared__ __align__(16) uint8_t tile_keys[];
+  __shared__ unsigned long long crc_tab[kHashKeys ? 256 : 1];
+  if (kHashKeys) stage_crc_table(crc_tab, t.crc_tab);
   const BlockDesc& d = t.blocks[tile_block(t.blocks, t.n_blocks)];
   const int base = (static_cast<int>(blockIdx.x) - d.first_tile) * kTile;
   const int n = min(kTile, d.count - base);
@@ -236,13 +269,14 @@ __global__ void __launch_bounds__(kTile)
   const int k = t.k;
   const bool need_keys = t.need_hash || t.need_sort;
 
+  const bool hashed = kHashKeys && t.validate && d.hash_lo == nullptr;
   const uint8_t valid = live ? d.valid[b] : 0;
-  const uint32_t hlo = live && t.validate ? d.hash_lo[b] : 0;
+  const uint32_t hlo = live && t.validate && !hashed ? d.hash_lo[b] : 0;
   const uint32_t owner = d.pidx_col == nullptr
                              ? d.pidx
                              : (live && t.validate ? d.pidx_col[b] : 0);
-  const int hkl = live && need_keys ? d.hashkey_len[b] : 0;
-  const int klen = live && t.need_sort ? d.key_len[b] : 0;
+  const int hkl = live && (need_keys || hashed) ? d.hashkey_len[b] : 0;
+  const int klen = live && (t.need_sort || hashed) ? d.key_len[b] : 0;
 
   const bool staged = need_keys && k <= kMaxStagedWidth;
   if (staged) stage_keys(d.keys, base, n, k, t.k_shift, tile_keys);
@@ -252,8 +286,13 @@ __global__ void __launch_bounds__(kTile)
 
   // flavour-independent: padding, invalid rows and foreign records fail
   // every flavour
+  const uint32_t lo =
+      hashed && live && valid
+          ? key_hash_lo(d.keys + (static_cast<size_t>(b) << t.k_shift), k,
+                        klen, hkl, crc_tab)
+          : hlo;
   const bool base_ok =
-      live && valid && (!t.validate || (hlo & t.pv) == owner);
+      live && valid && (!t.validate || (lo & t.pv) == owner);
   const int first = base + (r & ~31);
   for (int f = 0; f < t.n_flavors; ++f) {
     bool ok = base_ok;
@@ -279,25 +318,36 @@ __global__ void __launch_bounds__(kTile)
 // pointer is device memory. k is the table's key width, a power of two
 // >= 32; hplen/splen count pattern bytes (0 for FT_NO_FILTER). `out`
 // holds each block's bytes at its out_offset: `count` status bytes with
-// `now`, ceil(count / 8) packed keep bytes without.
+// `now`, ceil(count / 8) packed keep bytes without. A validating table
+// holding a block without a hash_lo column launches the key-hash instance,
+// which needs `crc_tab` (the crc64 table, 256 uint64 in device memory).
 extern "C" int pegasus_scan_table(const BlockDesc* blocks, int n_blocks,
                                   int k, uint32_t pv, int validate, int hft,
                                   const uint8_t* hpat, int hplen, int sft,
                                   const uint8_t* spat, int splen,
                                   int has_now, uint32_t now, uint8_t* out,
-                                  void* stream) {
+                                  void* stream,
+                                  const unsigned long long* crc_tab) {
   if (n_blocks < 1 || n_blocks > kMaxBlocks || k < 32 || (k & (k - 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Table t{};
   int tiles = 0;
+  bool hash_keys = false;
   for (int i = 0; i < n_blocks; ++i) {
     if (blocks[i].count < 0) return static_cast<int>(cudaErrorInvalidValue);
     t.blocks[i] = blocks[i];
     t.blocks[i].first_tile = tiles;
     tiles += (blocks[i].count + kTile - 1) / kTile;
+    // an empty block's columns may be null: it has nothing to hash
+    hash_keys |= validate && blocks[i].count > 0 &&
+                 blocks[i].hash_lo == nullptr;
+  }
+  if (hash_keys && crc_tab == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tiles == 0) return 0;
+  t.crc_tab = crc_tab;
   t.hash = {hpat, hplen, hft};
   t.sort = {spat, splen, sft};
   t.pv = pv;
@@ -309,18 +359,18 @@ extern "C" int pegasus_scan_table(const BlockDesc* blocks, int n_blocks,
   t.has_now = has_now;
   const bool staged = (hplen > 0 || splen > 0) && k <= kMaxStagedWidth;
   const size_t smem = staged ? static_cast<size_t>(kTile) * (k + 4) : 0;
+  const auto kernel =
+      hash_keys ? scan_table_kernel<true> : scan_table_kernel<false>;
   if (smem > 48 * 1024) {
-    static bool raised = false;
-    if (!raised) {
+    static bool raised[2] = {false, false};
+    if (!raised[hash_keys]) {
       const cudaError_t err = cudaFuncSetAttribute(
-          scan_table_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kMaxSmem);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      raised = true;
+      raised[hash_keys] = true;
     }
   }
-  scan_table_kernel<<<tiles, kTile, smem,
-                      static_cast<cudaStream_t>(stream)>>>(t, out);
+  kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(t, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,14 +380,16 @@ extern "C" int pegasus_scan_table(const BlockDesc* blocks, int n_blocks,
 // hpats/spats hold n_flavors patterns at a pitch of hpitch/spitch bytes
 // (multiples of 4, zero-padded), plens their 2 * n_flavors lengths
 // (hashkey, then sortkey; 0 for FT_NO_FILTER). All flavours share the
-// filter types hft/sft. Returns cudaGetLastError() of the launch, or
-// cudaErrorInvalidValue for a table the kernel does not take.
+// filter types hft/sft. A validating table holding a block without a
+// hash_lo column launches the key-hash instance (crc_tab as above).
+// Returns cudaGetLastError() of the launch, or cudaErrorInvalidValue for
+// a table the kernel does not take.
 extern "C" int pegasus_scan_table_multi(
     const BlockDesc* blocks, int n_blocks, int k, uint32_t pv, int validate,
     int hft, const uint8_t* hpats, int hpitch, int sft,
     const uint8_t* spats, int spitch, const int32_t* plens, int n_flavors,
     int need_hash, int need_sort, int64_t row_bytes, uint8_t* out,
-    void* stream) {
+    void* stream, const unsigned long long* crc_tab) {
   if (n_blocks < 1 || n_blocks > kMaxBlocks || k < 32 || (k & (k - 1)) ||
       n_flavors < 1 || hpitch < 4 || (hpitch & 3) || spitch < 4 ||
       (spitch & 3)) {
@@ -345,13 +397,21 @@ extern "C" int pegasus_scan_table_multi(
   }
   MultiTable t{};
   int tiles = 0;
+  bool hash_keys = false;
   for (int i = 0; i < n_blocks; ++i) {
     if (blocks[i].count < 0) return static_cast<int>(cudaErrorInvalidValue);
     t.blocks[i] = blocks[i];
     t.blocks[i].first_tile = tiles;
     tiles += (blocks[i].count + kTile - 1) / kTile;
+    // an empty block's columns may be null: it has nothing to hash
+    hash_keys |= validate && blocks[i].count > 0 &&
+                 blocks[i].hash_lo == nullptr;
+  }
+  if (hash_keys && crc_tab == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tiles == 0) return 0;
+  t.crc_tab = crc_tab;
   t.hpats = hpats;
   t.spats = spats;
   t.plens = plens;
@@ -370,17 +430,17 @@ extern "C" int pegasus_scan_table_multi(
   t.need_sort = need_sort;
   const bool staged = (need_hash || need_sort) && k <= kMaxStagedWidth;
   const size_t smem = staged ? static_cast<size_t>(kTile) * (k + 4) : 0;
+  const auto kernel = hash_keys ? scan_table_multi_kernel<true>
+                                : scan_table_multi_kernel<false>;
   if (smem > 48 * 1024) {
-    static bool raised = false;
-    if (!raised) {
+    static bool raised[2] = {false, false};
+    if (!raised[hash_keys]) {
       const cudaError_t err = cudaFuncSetAttribute(
-          scan_table_multi_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      raised = true;
+      raised[hash_keys] = true;
     }
   }
-  scan_table_multi_kernel<<<tiles, kTile, smem,
-                            static_cast<cudaStream_t>(stream)>>>(t, out);
+  kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(stream)>>>(t, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,9 +39,9 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from pegasus_tpu_torch.base.crc import crc64_batch
 from pegasus_tpu_torch.ops import fused_compaction
 from pegasus_tpu_torch.ops.compaction_rules import apply_rules_ops
+from pegasus_tpu_torch.ops.device_crc import key_hash_device
 from pegasus_tpu_torch.ops.fused_compaction import ops_key as _ops_key
 from pegasus_tpu_torch.ops.predicates import pack_mask, ttl_expired
 from pegasus_tpu_torch.ops.record_block import u32
@@ -111,19 +111,13 @@ _EVAL_LOCK = threading.Lock()
 
 def _key_hash_lo(keys: torch.Tensor, key_len: torch.Tensor,
                  hashkey_len: torch.Tensor) -> torch.Tensor:
-    """int32[B] lo lane of pegasus_key_hash from the key rows (the JAX
-    package's key_hash_device: crc64 of the hashkey region, of the
-    sortkey region when the hashkey is empty, at most K bytes), for
-    chunks whose blocks carry no hash_lo column; the plain version of
-    the kernel's own key hash (no bulk caller reaches it:
-    bulk_compact_eligible requires the column)."""
-    k = keys.shape[1]
-    kl = key_len.cpu().numpy().astype(np.int64)
-    hkl = hashkey_len.cpu().numpy().astype(np.int64)
-    region = np.clip(np.where(hkl > 0, hkl, kl - 2), 0, k)
-    lo = (crc64_batch(keys.cpu().numpy(), region, start=2)
-          & np.uint64(_M32)).astype(np.uint32).view(np.int32)
-    return torch.from_numpy(lo).to(keys.device)
+    """int32[B] lo lane of pegasus_key_hash from the key rows
+    (ops/device_crc.key_hash_device: crc64 of the hashkey region, of the
+    sortkey region when the hashkey is empty), for chunks whose blocks
+    carry no hash_lo column; the plain version of the kernel's own key
+    hash (no bulk caller reaches it: bulk_compact_eligible requires the
+    column)."""
+    return key_hash_device(keys, key_len, hashkey_len)[1]
 
 
 def eval_block_plain(operations, keys, key_len, hashkey_len, expire_ts,

@@ -39,9 +39,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pegasus_tpu_torch.base.crc import TABLE64_NP
 from pegasus_tpu_torch.base.value_schema import PEGASUS_EPOCH_BEGIN
-from pegasus_tpu_torch.ops.fused_scan import BUILD_DIR, _nvcc
+from pegasus_tpu_torch.ops.fused_scan import BUILD_DIR, _nvcc, crc_table
 
 _M32 = 0xFFFFFFFF
 
@@ -55,7 +54,9 @@ LAUNCHES = {"compaction": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "compaction_filter.cu")
-_HEADER = os.path.join(_PKG_DIR, "csrc", "match.cuh")
+# the matcher and the key hash, shared with scan_predicate.cu
+_HEADERS = (os.path.join(_PKG_DIR, "csrc", "match.cuh"),
+            os.path.join(_PKG_DIR, "csrc", "key_hash.cuh"))
 _LIB_PATH = os.path.join(BUILD_DIR, "libcompaction_filter.so")
 
 _lib = None
@@ -84,7 +85,7 @@ def build(force: bool = False) -> Tuple[float, str]:
     seconds spent and nvcc's output (ptxas' register and shared-memory
     report); raises when nvcc fails."""
     t0 = time.perf_counter()
-    newest = max(os.path.getmtime(_SOURCE), os.path.getmtime(_HEADER))
+    newest = max(os.path.getmtime(f) for f in (_SOURCE,) + _HEADERS)
     if (not force and os.path.exists(_LIB_PATH)
             and os.path.getmtime(_LIB_PATH) >= newest):
         return 0.0, ""
@@ -186,13 +187,6 @@ def _table(key: tuple, device: torch.device):
             len(rules) // _RULE.size)
 
 
-@functools.lru_cache(maxsize=8)
-def _crc_table(device: torch.device) -> torch.Tensor:
-    """The crc64 table (256 entries) on `device`, for the in-kernel key
-    hash: one host-to-device copy a device."""
-    return torch.from_numpy(TABLE64_NP.view(np.int64).copy()).to(device)
-
-
 def _check(t: Optional[torch.Tensor], name: str, dtype, shape,
            dev: torch.device) -> None:
     if (t is None or t.dtype != dtype or t.device != dev
@@ -280,7 +274,7 @@ def compaction_filter(keys: Optional[torch.Tensor],
         int(partition_version) & _M32, flags, drop.data_ptr(),
         ets.data_ptr() if want_ets else 0,
         torch.cuda.current_stream(dev).cuda_stream,
-        _crc_table(dev).data_ptr() if hash_keys else 0)
+        crc_table(dev).data_ptr() if hash_keys else 0)
     if err != 0:
         raise RuntimeError(f"compaction_filter launch failed: cuda error "
                            f"{err}")

@@ -13,6 +13,12 @@ axis: the static keep masks of K filter flavours over one table in one
 launch, one row of packed masks per flavour
 (ops/predicates.multi_static_block_predicate_submit).
 
+A block without a stored hash_lo column (`hash_lo` None: a PGT1 file's
+block) is hashed where the table validates ownership: on CUDA by the
+kernel's key-hash instance (csrc/key_hash.cuh, counted under
+LAUNCHES["keyhash"] besides its mode), in the plain version by
+ops/device_crc.key_hash_device.
+
 On CUDA blocks it launches the hand-written kernel in
 csrc/scan_predicate.cu, built with nvcc for sm_90a at first use into
 `_build/` and bound through ctypes; on CPU blocks it runs
@@ -36,6 +42,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from pegasus_tpu_torch.base.crc import TABLE64_NP
+from pegasus_tpu_torch.ops.device_crc import key_hash_device
 from pegasus_tpu_torch.ops.predicates import (
     FT_MATCH_ANYWHERE,
     FT_MATCH_POSTFIX,
@@ -59,13 +67,16 @@ STATUS_FILTERED = 4
 MAX_TABLE_BLOCKS = 16
 
 # kernel launches by mode: "static" (no `now`), "now", and "multi" (the
-# flavour axis); a launch made by the wrapper adds one here, nothing else
+# flavour axis), and "keyhash", the launches (of any mode) that took the
+# key-hash instance; a launch made by the wrapper adds here, nothing else
 # does
-LAUNCHES = {"static": 0, "now": 0, "multi": 0}
+LAUNCHES = {"static": 0, "now": 0, "multi": 0, "keyhash": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "scan_predicate.cu")
-_HEADER = os.path.join(_PKG_DIR, "csrc", "match.cuh")  # shared matcher
+# the matcher and the key hash, shared with compaction_filter.cu
+_HEADERS = (os.path.join(_PKG_DIR, "csrc", "match.cuh"),
+            os.path.join(_PKG_DIR, "csrc", "key_hash.cuh"))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _LIB_PATH = os.path.join(BUILD_DIR, "libscan_predicate.so")
 
@@ -100,7 +111,7 @@ def build(force: bool = False) -> Tuple[float, str]:
     seconds spent and nvcc's output (ptxas' register and shared-memory
     report); raises when nvcc fails."""
     t0 = time.perf_counter()
-    newest = max(os.path.getmtime(_SOURCE), os.path.getmtime(_HEADER))
+    newest = max(os.path.getmtime(f) for f in (_SOURCE,) + _HEADERS)
     if (not force and os.path.exists(_LIB_PATH)
             and os.path.getmtime(_LIB_PATH) >= newest):
         return 0.0, ""
@@ -126,15 +137,36 @@ def _library():
             fn = lib.pegasus_scan_table
             p, u32_, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
             fn.argtypes = [ctypes.c_char_p, i32, i32, u32_, i32, i32, p,
-                           i32, i32, p, i32, i32, u32_, p, p]
+                           i32, i32, p, i32, i32, u32_, p, p, p]
             fn.restype = ctypes.c_int
             fn = lib.pegasus_scan_table_multi
             fn.argtypes = [ctypes.c_char_p, i32, i32, u32_, i32, i32, p,
                            i32, i32, p, i32, p, i32, i32, i32,
-                           ctypes.c_int64, p, p]
+                           ctypes.c_int64, p, p, p]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+@functools.lru_cache(maxsize=8)
+def crc_table(device: torch.device) -> torch.Tensor:
+    """The crc64 table (256 entries) on `device`, for the kernels' key
+    hash: one host-to-device copy a device."""
+    return torch.from_numpy(TABLE64_NP.view(np.int64).copy()).to(device)
+
+
+def _hashes_keys(blocks: Sequence[RecordBlock], validate_hash: bool) -> bool:
+    """Does this table take the key-hash instance: validation on, and a
+    non-empty block without a stored hash_lo column?"""
+    return validate_hash and any(b.hash_lo is None and b.capacity
+                                 for b in blocks)
+
+
+def _hash_lo_of(block: RecordBlock) -> torch.Tensor:
+    """The block's hash_lo column, or the plain key hash of its rows."""
+    if block.hash_lo is not None:
+        return block.hash_lo
+    return key_hash_device(block.keys, block.key_len, block.hashkey_len)[1]
 
 
 def _pattern_len(spec: FilterSpec) -> int:
@@ -160,7 +192,9 @@ def _check_block(block: RecordBlock, dev: torch.device, k: int) -> int:
     b, width = block.keys.shape
     if width != k:
         raise ValueError(f"one table holds one key width: {width} != {k}")
-    for t, dtype in zip(block, _COLUMN_DTYPES):
+    for name, t, dtype in zip(RecordBlock._fields, block, _COLUMN_DTYPES):
+        if t is None and name == "hash_lo":
+            continue  # no stored hash: the key-hash instance hashes
         if t.dtype != dtype or t.device != dev or not t.is_contiguous():
             raise ValueError(f"scan kernel needs contiguous {dtype} on {dev}, "
                              f"got {t.dtype} on {t.device}")
@@ -197,7 +231,8 @@ def _descriptors(blocks: Sequence[RecordBlock], pidxs: Sequence,
             col, scalar = pidx.data_ptr(), 0
         else:
             col, scalar = 0, int(pidx) & 0xFFFFFFFF
-        descs.append(_DESC.pack(*(t.data_ptr() for t in block), col, scalar,
+        descs.append(_DESC.pack(*(0 if t is None else t.data_ptr()
+                                  for t in block), col, scalar,
                                 b, offset, 0, 0))
         offset += -(-b // 8) if packed else b
     return b"".join(descs), k, offset
@@ -215,6 +250,7 @@ def _launch_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
     if offset == 0:
         # nothing to launch, so nothing to count
         return out
+    hash_keys = _hashes_keys(blocks, validate_hash)
     err = _library().pegasus_scan_table(
         descs, len(blocks), k, partition_version & 0xFFFFFFFF,
         int(validate_hash), hash_filter.filter_type,
@@ -222,10 +258,13 @@ def _launch_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
         sort_filter.filter_type, sort_filter.pattern.data_ptr(),
         _pattern_len(sort_filter), int(now is not None),
         0 if now is None else int(now) & 0xFFFFFFFF, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream,
+        crc_table(dev).data_ptr() if hash_keys else 0)
     if err != 0:
         raise RuntimeError(f"scan_predicate launch failed: cuda error {err}")
     LAUNCHES["static" if now is None else "now"] += 1
+    if hash_keys:
+        LAUNCHES["keyhash"] += 1
     return out
 
 
@@ -242,8 +281,8 @@ def scan_status_plain(block: RecordBlock, hash_filter: FilterSpec,
     if validate_hash:
         owner = (u32(pidx) if isinstance(pidx, torch.Tensor)
                  else int(pidx) & 0xFFFFFFFF)
-        hash_ok = ((u32(block.hash_lo) & (partition_version & 0xFFFFFFFF))
-                   == owner)
+        hash_ok = ((u32(_hash_lo_of(block))
+                    & (partition_version & 0xFFFFFFFF)) == owner)
     else:
         hash_ok = torch.ones_like(valid)
     two = torch.full_like(block.key_len, 2)
@@ -365,17 +404,21 @@ def _launch_table_multi(blocks: Sequence[RecordBlock], pidxs: Sequence,
         dev, tuple((hf.raw, sf.raw) for hf, sf in flavors),
         hft != FT_NO_FILTER, sft != FT_NO_FILTER)
     base = buf.data_ptr()
+    hash_keys = _hashes_keys(blocks, validate_hash)
     err = _library().pegasus_scan_table_multi(
         descs, len(blocks), k, partition_version & 0xFFFFFFFF,
         int(validate_hash), hft, base, hpitch, sft,
         base + n_flavors * hpitch, spitch,
         base + n_flavors * (hpitch + spitch), n_flavors, need_hash,
         need_sort, row_bytes, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream,
+        crc_table(dev).data_ptr() if hash_keys else 0)
     if err != 0:
         raise RuntimeError(f"scan_predicate multi launch failed: cuda error "
                            f"{err}")
     LAUNCHES["multi"] += 1
+    if hash_keys:
+        LAUNCHES["keyhash"] += 1
     return out
 
 
@@ -394,7 +437,7 @@ def scan_table_multi_plain(blocks: Sequence[RecordBlock], pidxs: Sequence,
         if validate_hash:
             owner = (u32(pidx) if isinstance(pidx, torch.Tensor)
                      else int(pidx) & 0xFFFFFFFF)
-            base = base & ((u32(block.hash_lo)
+            base = base & ((u32(_hash_lo_of(block))
                             & (partition_version & 0xFFFFFFFF)) == owner)
         two = torch.full_like(block.key_len, 2)
         sort_start = 2 + block.hashkey_len

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from pegasus_tpu_torch.ops.record_block import RecordBlock, next_bucket, u32
+from pegasus_tpu_torch.utils.metrics import METRICS
 
 # rrdb filter_type values (idl/rrdb.thrift:27-33)
 FT_NO_FILTER = 0
@@ -305,6 +306,12 @@ def region_filter_plain(heap: np.ndarray, offs: np.ndarray,
         dtype=bool, count=n)
 
 
+# probes answered from a compressed block's encoded form, with no key
+# matrix rebuilt and no device launch
+_ENCODED_PROBE = METRICS.entity("storage", "node").relaxed_counter(
+    "encoded_probe_count")
+
+
 def encoded_static_keep(enc, validate_hash: bool, pidx: int,
                         partition_version: int,
                         filter_key) -> Optional[np.ndarray]:
@@ -332,6 +339,7 @@ def encoded_static_keep(enc, validate_hash: bool, pidx: int,
     if validate_hash and (partition_version < 0
                           or pidx > partition_version):
         # split-safety reject-all gate, mirroring static_block_predicate
+        _ENCODED_PROBE.increment()
         return np.zeros(n, dtype=bool)
     keep = np.asarray(enc.key_len) >= 2
     if validate_hash:
@@ -345,6 +353,7 @@ def encoded_static_keep(enc, validate_hash: bool, pidx: int,
     if sft != FT_NO_FILTER and sfp:
         keep = keep & _region_filter_host(enc.sk_heap, enc.sk_offs,
                                           sft, sfp)
+    _ENCODED_PROBE.increment()
     return keep
 
 

@@ -5,15 +5,18 @@
     hashkey_len int32[capacity]              decoded from the 2-byte header
     expire_ts   int32[capacity]              uint32 bits from the value header
     valid       bool[capacity]               padding / malformed-row mask
-    hash_lo     int32[capacity]              uint32 bits: lo lane of pegasus_key_hash
+    hash_lo     int32[capacity] | None       uint32 bits: lo lane of pegasus_key_hash
 
 The uint32 columns ride as int32 bit patterns, four bytes a record as on
 disk: the kernel reads them as uint32_t. torch's CPU uint32 has no
 ordering compares or shifts, so plain torch code widens them with
-`u32` before comparing. Every block carries `hash_lo` (computed on the
-host at pack time, as the SST writer does), so the scan kernel validates
-partition ownership with one compare and never hashes on the device.
-Key widths are bucketed to powers of two (min 32).
+`u32` before comparing. A block carries `hash_lo` (computed on the host
+at pack time, as the SST writer does, or read from its SST block), so
+the scan kernel validates partition ownership with one compare; a block
+from a file without the column (PGT1) has `hash_lo` None, and the scan
+predicate hashes its keys where it validates (the kernel's key-hash
+instance on the card, ops/device_crc.key_hash_device in the plain
+version). Key widths are bucketed to powers of two (min 32).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class RecordBlock(NamedTuple):
     hashkey_len: torch.Tensor  # int32[B]
     expire_ts: torch.Tensor    # int32[B], uint32 bits
     valid: torch.Tensor        # bool[B]
-    hash_lo: torch.Tensor      # int32[B], uint32 bits
+    hash_lo: "torch.Tensor | None"  # int32[B], uint32 bits; None: hashed
 
     @property
     def capacity(self) -> int:
@@ -97,7 +100,8 @@ def _to_block(keys: np.ndarray, key_len: np.ndarray,
     return RecordBlock(t(keys, np.uint8), t(key_len, np.int32),
                        t(hashkey_len, np.int32),
                        t(bits32(expire_ts), np.int32), t(valid, np.bool_),
-                       t(bits32(hash_lo), np.int32))
+                       None if hash_lo is None
+                       else t(bits32(hash_lo), np.int32))
 
 
 def build_record_block(keys: Sequence[bytes], expire_ts: Sequence[int],
@@ -144,14 +148,13 @@ def block_from_columns(keys: np.ndarray, key_len: np.ndarray,
                        capacity: int | None = None,
                        device="cpu") -> RecordBlock:
     """Block from already-columnar storage (an SST block), zero-padded to
-    `capacity` rows and placed on `device`. Blocks without a stored
-    hash_lo column get it computed here."""
+    `capacity` rows and placed on `device`. A block without a stored
+    hash_lo column keeps `hash_lo` None: the scan predicate hashes its
+    keys on the block's device, never here on the host."""
     keys = np.ascontiguousarray(keys, dtype=np.uint8)
     n = keys.shape[0]
     pad = (capacity or n) - n
     key_len = np.asarray(key_len, dtype=np.int32)
-    if hash_lo is None:
-        hash_lo = hash_lo_column(keys, key_len)
     hashkey_len = (keys[:, 0].astype(np.int32) << 8) | keys[:, 1].astype(
         np.int32)
     hashkey_len = np.where(key_len >= 2, hashkey_len, 0)
@@ -161,5 +164,6 @@ def block_from_columns(keys: np.ndarray, key_len: np.ndarray,
                      np.pad(hashkey_len, (0, pad)),
                      np.pad(bits32(expire_ts), (0, pad)),
                      np.pad(valid, (0, pad)),
-                     np.pad(bits32(hash_lo), (0, pad)),
+                     None if hash_lo is None
+                     else np.pad(bits32(hash_lo), (0, pad)),
                      device)

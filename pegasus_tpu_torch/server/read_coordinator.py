@@ -12,8 +12,9 @@ Point predicates are a crc compare and a TTL compare per key, so nothing
 here runs on the device; what batching buys is host-side: one clock
 read per flush, bloom and perfect-hash pruning and location of every
 (key x table) pair in one native call each, the node row cache, and one
-native gather per block for co-located keys. The JAX package's tenancy
-capacity-unit funnel is not part of the port (it changes no response).
+native gather per block for co-located keys. Each partition's finish
+runs with its tenant bound, so its capacity units debit that tenant
+(server/tenancy.py).
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ from __future__ import annotations
 from typing import List, Tuple
 
 from pegasus_tpu_torch.base.value_schema import epoch_now, header_length
+from pegasus_tpu_torch.server import tenancy
 from pegasus_tpu_torch.server.page import build_page
 from pegasus_tpu_torch.utils.errors import ErrorCode, PegasusError
+from pegasus_tpu_torch.utils.tracing import annotate
 
 
 def is_point_read(op: str, args) -> bool:
@@ -41,7 +44,8 @@ def is_point_read(op: str, args) -> bool:
 
 
 def point_read_multi(servers_and_ops: List[Tuple[object, list]],
-                     now=None, deadline=None, clock=None) -> List[list]:
+                     now=None, deadline=None, clock=None,
+                     tenants=None) -> List[list]:
     """[(PartitionServer, [(op, args, partition_hash)])] -> [[result]].
 
     Results equal the solo handlers'. One build_page call assembles every
@@ -50,7 +54,12 @@ def point_read_multi(servers_and_ops: List[Tuple[object, list]],
     `deadline`/`clock`: the flush's end-to-end deadline on the serving
     node's clock, checked between the per-partition planning passes and
     again before the cross-partition gather; past it the flush raises
-    ERR_TIMEOUT instead of finishing work its requesters abandoned."""
+    ERR_TIMEOUT instead of finishing work its requesters abandoned.
+
+    `tenants`: one tenant tag a partition's ops (None: untenanted); each
+    state's finish runs with its tenant bound, so its capacity units
+    debit that tenant (server/tenancy.py). The phases annotate the
+    active trace span: coord_plan, coord_gather, coord_finish."""
 
     def _check_deadline() -> None:
         if deadline is not None and clock is not None \
@@ -65,6 +74,7 @@ def point_read_multi(servers_and_ops: List[Tuple[object, list]],
         _check_deadline()
         states.append((server, server.plan_get_batch(ops, now=now)))
     _check_deadline()
+    annotate("coord_plan")
 
     # cross-partition native assembly: group by value-header width (the
     # only per-partition parameter of the gather), concatenate chunks
@@ -87,5 +97,14 @@ def point_read_multi(servers_and_ops: List[Tuple[object, list]],
         for state, _chunks in grp:
             state["_page"] = (pg, state.pop("_page_base"))
 
-    return [server.finish_get_batch(state, *state.pop("_page", (None, 0)))
-            for server, state in states]
+    annotate("coord_gather")
+
+    out = []
+    if tenants is None:
+        tenants = [None] * len(states)
+    for (server, state), tenant in zip(states, tenants):
+        pg, base = state.pop("_page", (None, 0))
+        with tenancy.bind(tenant):
+            out.append(server.finish_get_batch(state, pg, base))
+    annotate("coord_finish")
+    return out

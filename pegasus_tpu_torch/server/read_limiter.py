@@ -32,6 +32,11 @@ class RangeReadLimiter:
     def add_count(self, n: int = 1) -> None:
         self._count += n
 
+    @property
+    def iteration_count(self) -> int:
+        """Records examined so far."""
+        return self._count
+
     def count_exceeded(self) -> bool:
         return self._max_count > 0 and self._count >= self._max_count
 

@@ -25,12 +25,12 @@ Keying and correctness:
 
 Admission is gated by repeat traffic: a key must miss twice (bounded
 touch table) before its bytes are admitted — one-shot scans must not
-flush the working set. (The JAX package also fast-admits a hashkey its
-hotkey detection published; the port has no hotkey collector yet, so
-nothing is fast-admitted, which changes no response.)
+flush the working set — and the partition HotkeyCollector's published
+result is a fast-admit: a detected-hot hashkey caches on first touch.
 
-Knob: `[pegasus.server] row_cache_bytes` (mutable; 0 disables). Hits and
-misses are counted per partition (PartitionServer.point_stats).
+Knob: `[pegasus.server] row_cache_bytes` (mutable; 0 disables). Hits,
+misses and evicted bytes are counted on the node's ("storage", "node")
+metric entity, and per partition (PartitionServer.point_stats).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from collections import OrderedDict
 from typing import Optional, Tuple
 
 from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+from pegasus_tpu_torch.utils.metrics import METRICS
 
 define_flag("pegasus.server", "row_cache_bytes", 33_554_432,
             "node-level hot-row cache capacity in bytes (0 = disabled)",
@@ -76,6 +77,10 @@ class RowCache:
         # entries under the global lock to do it
         self._gid_index: dict = {}
         self._touch: "OrderedDict[tuple, int]" = OrderedDict()
+        ent = METRICS.entity("storage", "node")
+        self._hit = ent.relaxed_counter("row_cache_hit")
+        self._miss = ent.relaxed_counter("row_cache_miss")
+        self._evicted = ent.relaxed_counter("row_cache_evict_bytes")
 
     @property
     def capacity(self) -> int:
@@ -92,11 +97,14 @@ class RowCache:
                 # the node epoch so an in-flight admission that
                 # observed the enabled cache can never land later
                 with self._lock:
+                    evicted = self._bytes
                     self._entries.clear()
                     self._gid_index.clear()
                     self._touch.clear()
                     self._bytes = 0
                     self._flush_epoch += 1
+                if evicted:
+                    self._evicted.increment(evicted)
             return False
         return True
 
@@ -121,20 +129,29 @@ class RowCache:
                 if ent is not None:
                     entries.move_to_end(k)
                     out[key] = (ent[0], ent[1])
+        hits = len(out)
+        if hits:
+            self._hit.increment(hits)
+        misses = len(keys) - hits
+        if misses:
+            self._miss.increment(misses)
         return out
 
     # ---- admit --------------------------------------------------------
 
-    def note_and_check_many(self, gid, keys) -> list:
+    def note_and_check_many(self, gid, keys, fast=()) -> list:
         """Count one base-resolved miss per key; return the keys that
-        have earned admission (their second touch). One lock round per
-        flush."""
+        have earned admission (second touch, or membership in `fast` —
+        the hotkey fast-admit set). One lock round per flush."""
         if not self.enabled:
             return []
         granted = []
         touch = self._touch
         with self._lock:
             for key in keys:
+                if key in fast:
+                    granted.append(key)
+                    continue
                 t = (gid, key)
                 c = touch.get(t, 0) + 1
                 touch[t] = c
@@ -155,6 +172,7 @@ class RowCache:
         cap = self.capacity
         if cap <= 0:
             return
+        evicted = 0
         with self._lock:
             if epoch is not None and self._epochs.get(gid, 0) \
                     + self._flush_epoch != epoch:
@@ -176,6 +194,9 @@ class RowCache:
                 if idx is not None:
                     idx.discard(ek)
                 self._bytes -= nb
+                evicted += nb
+        if evicted:
+            self._evicted.increment(evicted)
 
     # ---- invalidate ---------------------------------------------------
 

@@ -19,6 +19,15 @@ Masks are static per (block, filter, partition_version): TTL expiry, the
 only `now`-dependent predicate, is applied on the host from the block's
 expire_ts column, so a block needs one evaluation in its lifetime and
 steady-state serving launches nothing.
+
+Each evaluated wave is audited as in the JAX package: the participating
+ops' PerfContexts (the ambient one and every coordinated state's) record
+the route (`device` for the kernel on the card, `host-XLA`, the JAX
+package's host-backend string, for the plain version on the CPU) and the
+wave's wall time up to its masks on the host (`measured_kernel_ms`). The
+placement cost model and its prediction (`predicted_kernel_ms`, the
+DRIFT samples) arrive with ops/placement.py; until then the prediction
+stays 0.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from pegasus_tpu_torch.ops.predicates import (
     static_block_predicate,
 )
 from pegasus_tpu_torch.ops.record_block import next_bucket
+from pegasus_tpu_torch.utils import perf_context as perf
 
 STACK_CHUNK = MAX_TABLE_BLOCKS
 
@@ -164,14 +174,21 @@ def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
     return out
 
 
-def stacked_block_eval(blocks, validate: bool, pv: int, filter_key=None):
+def stacked_block_eval(blocks, validate: bool, pv: int, filter_key=None,
+                       perf_ctxs=()):
     """`blocks`: [(tag, device RecordBlock, pidx)] -> yields
     (tag, static_keep bool numpy[cap]). Every table is launched before
-    the first result is copied to the host."""
-    submitted = list(stacked_block_submit(list(blocks), validate, pv,
+    the first result is copied to the host; the wave is audited on the
+    ambient PerfContext and on `perf_ctxs`."""
+    blocks = list(blocks)
+    if not blocks:
+        return
+    t0 = time.perf_counter()
+    submitted = list(stacked_block_submit(blocks, validate, pv,
                                           filter_key))
-    for group, packed in submitted:
-        host = packed.cpu().numpy()
+    fetched = [packed.cpu().numpy() for _group, packed in submitted]
+    _audit_kernel_wave(blocks, time.perf_counter() - t0, perf_ctxs)
+    for (group, _packed), host in zip(submitted, fetched):
         offset = 0
         for tag, dev, _p in group:
             cap = dev.capacity
@@ -179,6 +196,38 @@ def stacked_block_eval(blocks, validate: bool, pv: int, filter_key=None):
             yield tag, np.unpackbits(host[offset:offset + nbytes],
                                      count=cap).astype(bool)
             offset += nbytes
+
+
+def _audit_kernel_wave(blocks, measured_s: float, perf_ctxs=()) -> None:
+    """The wave's route and wall time on every participating op's
+    PerfContext: the ambient one and each coordinated state's (the
+    cross-partition path has no single ambient op). Every op waited the
+    whole wave, so each carries its full wall time."""
+    pcs = {id(pc): pc for pc in perf_ctxs if pc is not None}
+    amb = perf.current()
+    if amb is not None:
+        pcs[id(amb)] = amb
+    if not pcs:
+        return
+    verdict = ("device" if blocks[0][1].device.type == "cuda"
+               else "host-XLA")
+    for pc in pcs.values():
+        pc.placement = verdict
+        pc.measured_kernel_ms += measured_s * 1000.0
+
+
+def _state_perf_ctxs(states) -> list:
+    """Distinct PerfContexts of the coordinated states (the prefresher's
+    placeholder states have none)."""
+    out = {}
+    for state in states:
+        getter = getattr(state, "get", None)
+        if getter is None:
+            continue
+        pc = getter("perf")
+        if pc is not None:
+            out[id(pc)] = pc
+    return list(out.values())
 
 
 def stacked_block_submit(blocks, validate: bool, pv: int, filter_key=None):
@@ -224,8 +273,9 @@ def _eval_cross_partition(entries, validate: bool, pv: int,
     tables, each block with its owning partition's pidx."""
     blocks = [((server, state, ckey), dev, server.pidx)
               for server, state, ckey, dev in entries]
+    pcs = _state_perf_ctxs(state for _srv, state, _ck, _d in entries)
     for (server, state, ckey), keep in stacked_block_eval(
-            blocks, validate, pv, filter_key=filter_key):
+            blocks, validate, pv, filter_key=filter_key, perf_ctxs=pcs):
         state["cached_keep"][ckey] = keep
         server.store_mask(state, ckey, keep)
 
@@ -268,6 +318,7 @@ def _eval_cross_partition_multi(flavors: dict, validate: bool,
     specs = _flavor_specs(fkeys, blocks[0][1].device)
 
     # every table is launched before the first copy to the host
+    t0 = time.perf_counter()
     submitted = []
     for group in _tables(blocks):
         if len(group) == 1:
@@ -279,8 +330,11 @@ def _eval_cross_partition_multi(flavors: dict, validate: bool,
                 [d for _t, d, _p in group], specs, validate,
                 [p for _t, _d, p in group], pv)
         submitted.append((group, packed))
-    for group, packed in submitted:
-        host = packed.cpu().numpy()
+    fetched = [packed.cpu().numpy() for _group, packed in submitted]
+    _audit_kernel_wave(blocks, time.perf_counter() - t0,
+                       _state_perf_ctxs(st for states in wanted.values()
+                                        for st in states))
+    for (group, _packed), host in zip(submitted, fetched):
         offset = 0
         for (server, ckey), dev, _p in group:
             cap = dev.capacity

@@ -124,6 +124,10 @@ class WriteService:
         self.engine = engine
         self.data_version = data_version
         self.cluster_id = cluster_id
+        # the owning partition's WorkloadStats (set by PartitionServer):
+        # apply_items is the funnel every write shape routes through, so
+        # the op-mix and batch-size profile feeds here once a mutation
+        self.workload = None
 
     # -- helpers --------------------------------------------------------
 
@@ -311,6 +315,10 @@ class WriteService:
     def apply_items(self, items: List[WriteBatchItem], decree: int) -> None:
         """One engine batch per decree; an empty item list still advances
         the decree (reference empty_put, pegasus_write_service.cpp:210)."""
+        wl = self.workload
+        if wl is not None and items:
+            wl.note_write(1, len(items),
+                          [len(it.value) for it in items[:8]])
         self.engine.write_batch(items, decree)
 
     # -- fused convenience (standalone mode) ----------------------------

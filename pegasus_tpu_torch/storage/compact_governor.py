@@ -17,8 +17,12 @@ storage/compact_governor.py.
 The reference reads its pressure from the RPC dispatch counters
 (deadline expiries + read sheds); the port has no RPC layer yet, so its
 default source reports 0 and callers (and tests) inject their own. The
-reference's metrics become plain attributes: `throttle_mbps`,
-`rate_bps`, `backoff_count`, `stall_ms`, `defer_count`.
+JAX package's node metrics are published under its names on the
+("storage", "node") entity (`compaction_bytes_per_s`,
+`compact_throttle_mbps`, `compact_backoff_count`,
+`compact_throttle_stall_ms`, `compact_defer_count`); each governor also
+keeps its own readings as attributes: `throttle_mbps`, `rate_bps`,
+`backoff_count`, `stall_ms`, `defer_count`.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import time
 from typing import Callable, Optional
 
 from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+from pegasus_tpu_torch.utils.metrics import METRICS
 
 define_flag("pegasus.storage", "compact_max_mbps", 0,
             "hard background-compaction read-bandwidth cap in MB/s; "
@@ -91,6 +96,12 @@ class CompactionGovernor:
         self.backoff_count = 0
         self.stall_ms = 0
         self.defer_count = 0
+        ent = METRICS.entity("storage", "node")
+        self._g_rate = ent.gauge("compaction_bytes_per_s")
+        self._g_throttle = ent.gauge("compact_throttle_mbps")
+        self._c_backoff = ent.counter("compact_backoff_count")
+        self._c_stall_ms = ent.counter("compact_throttle_stall_ms")
+        self._c_defer = ent.counter("compact_defer_count")
 
     # ---- pacing (called by the pipeline's read stage) ------------------
 
@@ -106,6 +117,7 @@ class CompactionGovernor:
             dt = now - self._win_t
             if dt >= 1.0:
                 self.rate_bps = self._win_bytes / dt
+                self._g_rate.set(self.rate_bps)
                 self._win_t = now
                 self._win_bytes = 0
             rate = self.throttle_mbps
@@ -122,6 +134,7 @@ class CompactionGovernor:
                     self._tokens = 0.0
             if sleep_s > 0:
                 self.stall_ms += int(sleep_s * 1000)
+                self._c_stall_ms.increment(int(sleep_s * 1000))
         if sleep_s > 0:
             self._sleep(sleep_s)
 
@@ -152,6 +165,8 @@ class CompactionGovernor:
                 self._engaged_at_mbps = cur
             self.throttle_mbps = max(cur / 2, min_mbps)
             self.backoff_count += 1
+            self._c_backoff.increment()
+            self._g_throttle.set(self.throttle_mbps)
             return
         # quiet interval: multiplicative recovery toward the operator
         # cap, or toward disengaging a pressure-engaged cap
@@ -167,6 +182,7 @@ class CompactionGovernor:
             self._engaged_at_mbps = 0.0
         else:
             self.throttle_mbps = cur
+        self._g_throttle.set(self.throttle_mbps)
 
     # ---- cluster stagger ------------------------------------------------
 
@@ -191,6 +207,7 @@ class CompactionGovernor:
         next delivery: record the demand so the node asks for a slot."""
         self._heavy_waiting = True
         self.defer_count += 1
+        self._c_defer.increment()
 
     def begin_heavy(self) -> None:
         self._heavy_waiting = False

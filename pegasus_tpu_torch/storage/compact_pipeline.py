@@ -20,10 +20,12 @@ Shutdown: any stage exception travels down the queues and re-raises in
 the consumer; closing the consumer generator (writer failure) sets the
 stop event, unblocks both queues, and joins the threads.
 
-The reference's stall counters and queue-depth gauges are plain
-attributes of the pipeline (`read_stall_ms`, `filter_stall_ms`,
-`write_stall_ms`, `readq_depth`, `filtq_depth`); the engine keeps its
-last pipeline (`StorageEngine.last_pipeline`).
+The stall counters and queue-depth gauges are the JAX package's node
+metrics (`compact_{read,filter,write}_stall_ms`, `compact_readq_depth`,
+`compact_filtq_depth` on the ("storage", "node") entity), and each
+pipeline also keeps its own as attributes (`read_stall_ms`,
+`filter_stall_ms`, `write_stall_ms`, `readq_depth`, `filtq_depth`);
+the engine keeps its last pipeline (`StorageEngine.last_pipeline`).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import time
 from typing import Callable, Iterator, List, Optional, Sequence
 
 from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+from pegasus_tpu_torch.utils.metrics import METRICS
 
 define_flag("pegasus.storage", "compact_pipeline", True,
             "overlap bulk compaction's block-read / filter-eval / "
@@ -75,6 +78,13 @@ def stage_threads_enabled() -> bool:
     2-core host they fight the transform workers for the GIL."""
     return (os.cpu_count() or 2) >= 4
 
+
+_ENT = METRICS.entity("storage", "node")
+# stall = time a stage spent blocked on its neighbour's queue
+_STALL_MS = {stage: _ENT.relaxed_counter(f"compact_{stage}_stall_ms")
+             for stage in ("read", "filter", "write")}
+_READQ_DEPTH = _ENT.gauge("compact_readq_depth")
+_FILTQ_DEPTH = _ENT.gauge("compact_filtq_depth")
 
 _END = object()
 
@@ -125,6 +135,7 @@ class CompactPipeline:
         # each stage counts on its own thread: no two writers a counter
         name = f"{stage}_stall_ms"
         setattr(self, name, getattr(self, name) + int(waited * 1000))
+        _STALL_MS[stage].increment(int(waited * 1000))
 
     # ---- bounded-queue helpers that honor the stop event ---------------
 
@@ -165,6 +176,7 @@ class CompactPipeline:
                 items = [self._load(e)
                          for e in self._entries[off:off + w]]
                 self.readq_depth = self._q_read.qsize()
+                _READQ_DEPTH.set(self.readq_depth)
                 if not self._put(self._q_read, items, "read"):
                     return
             self._put(self._q_read, _END, "read")
@@ -188,6 +200,7 @@ class CompactPipeline:
                 token = self._submit(items)
                 if pending is not None:
                     self.filtq_depth = self._q_filt.qsize()
+                    _FILTQ_DEPTH.set(self.filtq_depth)
                     if not self._put(self._q_filt, self._drain(pending),
                                      "filter"):
                         return

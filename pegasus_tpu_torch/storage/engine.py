@@ -59,6 +59,7 @@ from pegasus_tpu_torch.storage.lsm import LSMStore
 from pegasus_tpu_torch.storage.sstable import SSTable, SSTableWriter
 from pegasus_tpu_torch.storage.wal import OP_DEL, WalRecord, WriteAheadLog
 from pegasus_tpu_torch.utils.device import resolve_device
+from pegasus_tpu_torch.utils.metrics import METRICS
 
 
 def _copy_store_files(src_dir: str, dest_dir: str) -> None:
@@ -118,8 +119,17 @@ class StorageEngine:
         # there would deadlock write-lock -> compact-lock against the
         # manual path's compact-lock -> write-lock publish ordering)
         self.compact_lock = threading.Lock()
-        # the reference's compaction event metrics, as plain counters,
-        # and the last bulk compaction's pipeline (its stall counters)
+        # flush and compaction event metrics (pegasus_event_listener),
+        # under the JAX package's names on this store's "engine" entity;
+        # the compaction ones also as attributes, with the last bulk
+        # compaction's pipeline (its stall counters)
+        ev = METRICS.entity("engine", data_dir, {"dir": data_dir})
+        self._ev_flush_count = ev.counter("flush_count")
+        self._ev_flush_bytes = ev.counter("flush_bytes")
+        self._ev_flush_ms = ev.percentile("flush_duration_ms")
+        self._ev_compact_count = ev.counter("compaction_count")
+        self._ev_compact_bytes = ev.counter("compaction_bytes")
+        self._ev_compact_ms = ev.percentile("compaction_duration_ms")
         self.compact_count = 0
         self.compact_bytes = 0
         self.compact_ms = 0.0  # the last compaction's duration
@@ -188,6 +198,7 @@ class StorageEngine:
 
     def flush(self) -> bool:
         """Memtable -> durable L0 SST stamped with the decree watermark."""
+        t0 = time.perf_counter()
         table = self.lsm.flush(meta={
             "last_flushed_decree": self.last_committed_decree,
             "data_version": self.data_version,
@@ -196,6 +207,9 @@ class StorageEngine:
             return False
         self.last_flushed_decree = self.last_committed_decree
         self.wal.truncate()
+        self._ev_flush_count.increment()
+        self._ev_flush_ms.set((time.perf_counter() - t0) * 1000.0)
+        self._ev_flush_bytes.increment(os.path.getsize(table.path))
         return True
 
     # ---- read path ----------------------------------------------------
@@ -488,5 +502,8 @@ class StorageEngine:
             self.wal.truncate()
         self.compact_count += 1
         self.compact_ms = (time.perf_counter() - t0) * 1000.0
-        self.compact_bytes += sum(
-            os.path.getsize(t.path) for t in self.lsm.l1_runs)
+        nbytes = sum(os.path.getsize(t.path) for t in self.lsm.l1_runs)
+        self.compact_bytes += nbytes
+        self._ev_compact_count.increment()
+        self._ev_compact_ms.set(self.compact_ms)
+        self._ev_compact_bytes.increment(nbytes)

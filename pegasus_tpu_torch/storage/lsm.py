@@ -63,6 +63,7 @@ from pegasus_tpu_torch.storage.sstable import (
     SSTableWriter,
     block_codec,
 )
+from pegasus_tpu_torch.utils.perf_context import current as _perf_current
 
 # (key, value|None, expire_ts) record triple
 Record = Tuple[bytes, Optional[bytes], int]
@@ -228,13 +229,19 @@ class LSMStore:
         shares) when a candidate table carries a bloom or a perfect-hash
         index. An indexed table answers through its perfect hash alone
         (a miss touches no block); each kill switch disables only its
-        own structure."""
+        own structure. The ambient PerfContext counts an overlay hit or
+        the runs the key was answered against."""
+        pc = _perf_current()  # solo-path cost vector (None = untracked)
         hit = self.memtable.get(key)
         if hit is not None:
+            if pc is not None:
+                pc.overlay_hits += 1
             value, ets = hit
             return None if value is TOMBSTONE else (value, ets)
         bloom_on = bloom_probe_enabled()
         phash_on = phash_probe_enabled()
+        if pc is not None:
+            pc.runs_considered += len(self.l0) + len(self.l1_runs)
         key_hash: Optional[int] = None  # computed at most once
 
         def lookup(table):

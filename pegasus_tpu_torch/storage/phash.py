@@ -55,6 +55,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+from pegasus_tpu_torch.utils.metrics import METRICS
 
 define_flag("pegasus.server", "phash_index", True,
             "build a perfect-hash (block, slot) index into new SST "
@@ -78,6 +79,15 @@ def phash_build_enabled() -> bool:
 def phash_probe_enabled() -> bool:
     return bool(FLAGS.get("pegasus.server", "phash_probe"))
 
+
+# node-wide observability (the bloom counters' siblings): useful =
+# definitive-absent answers that skipped every block touch; hit = keys
+# located straight to (block, slot); build_fail = runs stamped
+# "no phash" after the bounded seed retries
+_STORAGE = METRICS.entity("storage", "node")
+PHASH_USEFUL = _STORAGE.relaxed_counter("phash_useful_count")
+PHASH_HIT = _STORAGE.relaxed_counter("phash_hit_count")
+PHASH_BUILD_FAIL = _STORAGE.relaxed_counter("phash_build_fail_count")
 
 PHASH_VERSION = 1
 KNOWN_PHASH_VERSIONS = (1,)

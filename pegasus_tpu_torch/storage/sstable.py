@@ -21,14 +21,17 @@ File layout:  magic | block* | [bloom] | [phash] | index(JSON) | footer —
 byte-compatible with the JAX package's files: the index names the codec
 (absent for `none`), the bloom filter (storage/bloom.py) and the
 perfect-hash index (storage/phash.py), both built at finish from one
-full-key crc64 column per block. Encrypted files (the JAX package's
-efile) are refused at open.
+full-key crc64 column per block. Files open through storage/vfs.py:
+inside an at-rest encryption zone (storage/efile.py) they are written
+and read encrypted, and each package reads the other's encrypted files.
+Plaintext files are mapped; encrypted ones are read block by block.
 """
 
 from __future__ import annotations
 
 import bisect
 import json
+import io
 import mmap
 import os
 import struct
@@ -60,6 +63,9 @@ from pegasus_tpu_torch.storage.bloom import (
 )
 from pegasus_tpu_torch.storage.phash import (
     KNOWN_PHASH_VERSIONS,
+    PHASH_BUILD_FAIL,
+    PHASH_HIT,
+    PHASH_USEFUL,
     PHashIndex,
     phash_build_enabled,
     phash_probe_enabled,
@@ -67,6 +73,9 @@ from pegasus_tpu_torch.storage.phash import (
 from pegasus_tpu_torch.storage.vfs import fsync_dir, fsync_file, open_data_file
 from pegasus_tpu_torch.utils.errors import StorageCorruptionError
 from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+from pegasus_tpu_torch.utils.metrics import METRICS
+from pegasus_tpu_torch.utils.perf_context import current as _perf_current
+from pegasus_tpu_torch.utils.tracing import annotate as _trace_annotate
 
 define_flag("pegasus.storage", "block_crc", True,
             "write a crc32 per data block into new SST files and verify it "
@@ -93,12 +102,22 @@ def block_codec() -> str:
     return codec
 
 
+# node-wide storage observability (the rocksdb block-cache and filter
+# tickers the reference exports per server): relaxed counters, ticked once
+# per block read or filter probe
+_STORAGE_METRICS = METRICS.entity("storage", "node")
+_BLOCK_CACHE_HIT = _STORAGE_METRICS.relaxed_counter("block_cache_hit")
+_BLOCK_CACHE_MISS = _STORAGE_METRICS.relaxed_counter("block_cache_miss")
+_BLOOM_USEFUL = _STORAGE_METRICS.relaxed_counter("bloom_useful_count")
+_COMPRESSED_DECODE = _STORAGE_METRICS.relaxed_counter(
+    "compressed_block_decode_count")
+_BLOCK_EVICT_BYTES = _STORAGE_METRICS.relaxed_counter(
+    "block_cache_evict_bytes")
+
 MAGIC = b"PGT2"
 MAGIC_V1 = b"PGT1"  # pre-hash_lo format, still readable
 FOOTER = struct.Struct("<QII4s")  # index_offset, index_size, index_crc, magic
 _BLOCK_HDR = struct.Struct("<IIQ")  # count, key_width, value_heap_size
-# the JAX package's at-rest encryption header (storage/efile.py)
-_EFILE_MAGIC = b"PEGSENC1"
 
 BLOCK_CAPACITY = 1024
 
@@ -485,7 +504,9 @@ class SSTableWriter:
                 np.concatenate(self._key_hashes)
                 if len(self._key_hashes) > 1 else self._key_hashes[0],
                 [b.count for b in self._blocks])
-            if ph is not None:
+            if ph is None:
+                PHASH_BUILD_FAIL.increment()
+            else:
                 # a 4-byte aligned blob start: the native probe reads the
                 # mapped slots as u32
                 pad = (-self._f.tell()) % 4
@@ -516,24 +537,28 @@ class SSTable:
                  cache_bytes: Optional[int] = None) -> None:
         self.path = path
         self._f = open_data_file(path, "rb")
+        # plaintext files are mapped: blocks decode as zero-copy views
+        # over the map, and Linux keeps the mapping alive past
+        # close()/unlink until the last view dies. Encrypted files (an
+        # efile CipherFile) and fault-wrapped ones are read at offsets.
+        self._mv: Optional[memoryview] = None
+        self._read_lock = threading.Lock()
+        if isinstance(self._f, io.BufferedReader):
+            try:
+                self._mv = memoryview(mmap.mmap(
+                    self._f.fileno(), 0, access=mmap.ACCESS_READ))
+            except (ValueError, OSError):
+                self._mv = None  # empty file or a no-mmap file system
         self._f.seek(0, os.SEEK_END)
         file_size = self._f.tell()
         if file_size < len(MAGIC) + FOOTER.size:
             raise StorageCorruptionError(path, "not an sstable (too small)")
-        # blocks decode as zero-copy views over the map; Linux keeps the
-        # mapping alive past close()/unlink until the last view dies
-        self._mv = memoryview(mmap.mmap(self._f.fileno(), 0,
-                                        access=mmap.ACCESS_READ))
-        if bytes(self._mv[:len(_EFILE_MAGIC)]) == _EFILE_MAGIC:
-            raise StorageCorruptionError(
-                path, "encrypted SST file (at-rest encryption) is not "
-                      "supported by this reader")
         index_offset, index_size, index_crc, magic = FOOTER.unpack(
-            self._mv[file_size - FOOTER.size:])
+            self._read_at(file_size - FOOTER.size, FOOTER.size))
         if magic not in (MAGIC, MAGIC_V1):
             raise StorageCorruptionError(path, "bad footer magic")
         self._has_hash_lo = magic == MAGIC
-        blob = bytes(self._mv[index_offset:index_offset + index_size])
+        blob = bytes(self._read_at(index_offset, index_size))
         if crc32(blob) != index_crc:
             raise StorageCorruptionError(path, "index crc mismatch")
         try:
@@ -561,7 +586,7 @@ class SSTable:
         bl = index.get("bloom")
         if bl:
             self.bloom = BloomFilter.from_bytes(
-                self._mv[bl["off"]:bl["off"] + bl["size"]], bl["m"], bl["k"])
+                self._read_at(bl["off"], bl["size"]), bl["m"], bl["k"])
         # perfect-hash (block, slot) index: an unknown version is refused
         # at open, a torn blob degrades to bloom + bisect
         self.phash: Optional[PHashIndex] = None
@@ -573,7 +598,7 @@ class SSTable:
                           f"{ph.get('version')!r} (known: "
                           f"{', '.join(map(str, KNOWN_PHASH_VERSIONS))})")
             self.phash = PHashIndex.from_bytes(
-                self._mv[ph["off"]:ph["off"] + ph["size"]], ph)
+                self._read_at(ph["off"], ph["size"]), ph)
         # idx -> (Block, charged bytes); insert/evict accounting under a
         # lock (serving and the mask prefresher share run caches)
         self._cache: "OrderedDict[int, Tuple[Block, int]]" = OrderedDict()
@@ -587,8 +612,24 @@ class SSTable:
         self.last_key: Optional[bytes] = (
             self.blocks[-1].last_key if self.blocks else None)
 
+    def _read_at(self, offset: int, size: int):
+        """`size` bytes at logical `offset`: a view over the map, or a
+        read of the (decrypting) file under a lock, since the serving
+        thread and the mask prefresher share the handle."""
+        if self._mv is not None:
+            return self._mv[offset:offset + size]
+        with self._read_lock:
+            self._f.seek(offset)
+            return self._f.read(size)
+
     def close(self) -> None:
         self._f.close()
+
+    def clear_block_cache(self) -> None:
+        """Drop every decoded block and its byte accounting."""
+        with self._cache_lock:
+            self._cache.clear()
+            self._cache_bytes = 0
 
     def may_contain(self, key: bytes, key_hash: Optional[int] = None
                     ) -> bool:
@@ -597,13 +638,19 @@ class SSTable:
         bf = self.bloom
         if bf is None or not bloom_probe_enabled():
             return True
-        return (bf.may_contain_hash(key_hash) if key_hash is not None
-                else bf.may_contain(key))
+        hit = (bf.may_contain_hash(key_hash) if key_hash is not None
+               else bf.may_contain(key))
+        if not hit:
+            _BLOOM_USEFUL.increment()
+            pc = _perf_current()
+            if pc is not None:
+                pc.bloom_pruned += 1
+        return hit
 
     def _read_raw_block(self, idx: int):
         """(raw bytes of block `idx`, its BlockMeta), crc-verified."""
         bm = self.blocks[idx]
-        raw = self._mv[bm.offset:bm.offset + bm.size]
+        raw = self._read_at(bm.offset, bm.size)
         if bm.crc is not None and _block_crc32(raw) != bm.crc:
             raise StorageCorruptionError(
                 self.path, f"block {idx} crc mismatch (offset {bm.offset}, "
@@ -629,17 +676,27 @@ class SSTable:
         return o2i[bm.offset]
 
     def read_block(self, idx: int) -> Block:
+        pc = _perf_current()  # the op's PerfContext (None = untracked)
         hit = self._cache.get(idx)
         if hit is not None:
             try:
                 self._cache.move_to_end(idx)
             except KeyError:
                 pass  # raced a concurrent eviction; the block stays valid
+            _BLOCK_CACHE_HIT.increment()
+            if pc is not None:
+                pc.block_cache_hit += 1
             return hit[0]
+        _BLOCK_CACHE_MISS.increment()
+        if pc is not None:
+            pc.blocks_decoded += 1
+            pc.bytes_read += self.blocks[idx].size
         raw, bm = self._read_raw_block(idx)
         if self.codec is not None:
             enc = EncodedBlock.parse(raw)
             blk = enc.decode()
+            _COMPRESSED_DECODE.increment()
+            _trace_annotate("block_decode")
             # a decoded compressed block is real allocation
             nbytes = enc.mem_bytes()
         else:
@@ -662,10 +719,18 @@ class SSTable:
             heap = column(np.uint8, heap_size)
             blk = Block(keys, key_len, ets, hash_lo, flags, offs, heap)
             # charge the resident footprint a hot block grows (its key
-            # list and probe table), not the view bookkeeping
-            nbytes = 512 + n * (width + 64)
+            # list and probe table), not the view bookkeeping; a block
+            # read from an encrypted file also holds its decrypted bytes
+            lazy = 512 + n * (width + 64)
+            nbytes = lazy if self._mv is not None else bm.size + lazy
+        if pc is not None:
+            # materialized bytes after the codec: the decoded size of a
+            # compressed block, the on-disk size of a raw one
+            pc.bytes_decoded += (nbytes if self.codec is not None
+                                 else bm.size)
         budget = (self._cache_budget if self._cache_budget is not None
                   else int(FLAGS.get("pegasus.storage", "block_cache_bytes")))
+        evicted = 0
         with self._cache_lock:
             prev = self._cache.get(idx)
             if prev is not None:
@@ -677,7 +742,65 @@ class SSTable:
             while self._cache_bytes > budget and len(self._cache) > 1:
                 _k, (_b, nb) = self._cache.popitem(last=False)
                 self._cache_bytes -= nb
+                evicted += nb
+        if evicted:
+            _BLOCK_EVICT_BYTES.increment(evicted)
         return blk
+
+    def verify_block(self, idx: int) -> bool:
+        """Scrub entry point: re-read block `idx`'s raw bytes and check
+        them against the index CRC, with no decode and no block-cache
+        insert (a scrub of a cold table must not evict the serving
+        working set). False for a block written without a CRC; raises
+        StorageCorruptionError on a mismatch."""
+        bm = self.blocks[idx]
+        if bm.crc is None:
+            return False
+        raw = self._read_at(bm.offset, bm.size)
+        if len(raw) != bm.size or _block_crc32(raw) != bm.crc:
+            raise StorageCorruptionError(
+                self.path,
+                f"scrub: block {idx} crc mismatch (offset {bm.offset}, "
+                f"{bm.size} bytes)")
+        return True
+
+    def verify_index_consistency(self) -> None:
+        """Scrub's structural pass: block fences ordered within each
+        block and across the file; every block's first key answers
+        'maybe' from the bloom filter, and (with a perfect-hash index)
+        locates to exactly (that block, slot 0). A sidecar that denies or
+        mislocates a present key would turn into a silent NotFound."""
+        prev_last: Optional[bytes] = None
+        for i, bm in enumerate(self.blocks):
+            if bm.first_key > bm.last_key:
+                raise StorageCorruptionError(
+                    self.path, f"scrub: block {i} fence inverted")
+            if prev_last is not None and bm.first_key <= prev_last:
+                raise StorageCorruptionError(
+                    self.path, f"scrub: block {i} overlaps block {i - 1}")
+            prev_last = bm.last_key
+            if self.bloom is not None and \
+                    not self.bloom.may_contain(bm.first_key):
+                raise StorageCorruptionError(
+                    self.path,
+                    f"scrub: bloom filter denies resident key "
+                    f"(block {i} first key)")
+            if self.phash is not None:
+                loc = self.phash.lookup_hash(crc64(bm.first_key))
+                if loc < 0 or self.phash.unpack(loc) != (i, 0):
+                    raise StorageCorruptionError(
+                        self.path,
+                        f"scrub: phash index denies or mislocates "
+                        f"resident key (block {i} first key)")
+
+    def index_memory(self) -> dict:
+        """Resident sidecar bytes: {"bloom": ..., "phash": ...}."""
+        return {
+            "bloom": (self.bloom.bits.nbytes
+                      if self.bloom is not None else 0),
+            "phash": (self.phash.mem_bytes()
+                      if self.phash is not None else 0),
+        }
 
     def get(self, key: bytes, key_hash: Optional[int] = None
             ) -> Optional[Tuple[Optional[bytes], int]]:
@@ -690,17 +813,27 @@ class SSTable:
         already hashed skip the crc."""
         ph = self.phash
         if ph is not None and phash_probe_enabled():
+            pc = _perf_current()
             h = key_hash if key_hash is not None else crc64(key)
             loc = ph.lookup_hash(h)
             if loc < 0:
+                PHASH_USEFUL.increment()
+                if pc is not None:
+                    pc.phash_pruned += 1
                 return None
             bi, slot = ph.unpack(loc)
             if bi < len(self.blocks) and slot < self.blocks[bi].count:
                 blk = self.read_block(bi)
                 if blk.key_at(slot) == key:
+                    PHASH_HIT.increment()
+                    if pc is not None:
+                        pc.phash_located += 1
                     if blk.is_tombstone(slot):
                         return (None, 0)
                     return (blk.value_at(slot), int(blk.expire_ts[slot]))
+                PHASH_USEFUL.increment()
+                if pc is not None:
+                    pc.phash_pruned += 1
                 return None  # fingerprint collision: definitively absent
             # an out-of-range loc (corrupt index) serves via the bisect
         idx = self._block_for_key(key)

@@ -1,0 +1,120 @@
+"""Latency tracer: per-request stage-timestamp chains + slow-query log.
+
+Parity: src/utils/latency_tracer.h:94 (ADD_POINT :37 — every mutation
+carries a tracer whose stage chain is dumped when the request is slow,
+dump_trace_points :170) and the slow-query surfaces the shell reads.
+
+The port's copy of the JAX package's utils/latency_tracer.py, its imports rewritten to
+pegasus_tpu_torch (it imports nothing of that package).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+from pegasus_tpu_torch.utils.tracing import current_span as _current_span
+
+
+class LatencyTracer:
+    """One request's stage chain. Cheap: a list of (stage, t) tuples.
+
+    When a distributed-tracing span is active at creation (or passed
+    explicitly), every stage point ALSO lands on that span as an
+    annotation — the per-process stage chain and the cross-process span
+    tree share one instrumentation layer (utils/tracing.py)."""
+
+    __slots__ = ("name", "points", "_clock", "span", "perf")
+
+    def __init__(self, name: str, clock=time.perf_counter,
+                 span=None) -> None:
+        self.name = name
+        self._clock = clock
+        self.span = span if span is not None else _current_span()
+        # the op's PerfContext cost vector (utils/perf_context.py),
+        # bound by the paths that collect one: the slow log attaches it
+        # to the entry so a slow dump shows counts, not just durations
+        self.perf = None
+        self.points: List[Tuple[str, float]] = [("start", clock())]
+
+    def add_point(self, stage: str) -> None:
+        self.points.append((stage, self._clock()))
+        sp = self.span
+        if sp is not None:
+            sp.annotate(stage)
+
+    def total_ms(self) -> float:
+        return (self.points[-1][1] - self.points[0][1]) * 1000.0
+
+    def report(self) -> Dict[str, Any]:
+        """The dump shape (parity: dump_trace_points): cumulative and
+        per-stage deltas in ms."""
+        t0 = self.points[0][1]
+        stages = []
+        prev = t0
+        for stage, t in self.points[1:]:
+            stages.append({"stage": stage,
+                           "delta_ms": round((t - prev) * 1000.0, 3),
+                           "at_ms": round((t - t0) * 1000.0, 3)})
+            prev = t
+        return {"name": self.name,
+                "total_ms": round(self.total_ms(), 3),
+                "stages": stages}
+
+
+class SlowQueryLog:
+    """Bounded ring of slow-request dumps (newest last), one per node or
+    per partition server. Thread-safe: the TCP transport observes from
+    the dispatcher while remote commands read from HTTP threads."""
+
+    def __init__(self, threshold_ms: float = 20.0,
+                 capacity: int = 64) -> None:
+        self.threshold_ms = threshold_ms
+        self._ring: Deque[Dict[str, Any]] = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def observe(self, tracer: LatencyTracer,
+                extra: Optional[Dict[str, Any]] = None) -> bool:
+        ms = tracer.total_ms()
+        if ms < self.threshold_ms:
+            return False
+        report = tracer.report()
+        if extra:
+            report.update(extra)
+        if tracer.perf is not None:
+            # the op's cost vector rides the slow entry: WHY it cost
+            # what it cost, next to the stage chain's WHERE
+            report["perf"] = tracer.perf.to_dict()
+        with self._lock:
+            self._ring.append(report)
+        return True
+
+    def observe_simple(self, name: str, elapsed_ms: float,
+                       extra: Optional[Dict[str, Any]] = None) -> bool:
+        """For paths that only time start->end (the solo-read
+        fallback). The AMBIENT PerfContext (when the solo path
+        collected one) attaches here so solo and batched slow entries
+        stay field-comparable."""
+        if elapsed_ms < self.threshold_ms:
+            return False
+        report = {"name": name, "total_ms": round(elapsed_ms, 3)}
+        if extra:
+            report.update(extra)
+        if "perf" not in report:
+            from pegasus_tpu_torch.utils.perf_context import current as _pc
+
+            pc = _pc()
+            if pc is not None:
+                report["perf"] = pc.to_dict()
+        with self._lock:
+            self._ring.append(report)
+        return True
+
+    def dump(self, clear: bool = False) -> List[Dict[str, Any]]:
+        with self._lock:
+            out = list(self._ring)
+            if clear:
+                self._ring.clear()
+        return out

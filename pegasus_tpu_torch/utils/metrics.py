@@ -1,0 +1,361 @@
+"""Metrics: entities × {gauge, counter, volatile counter, percentile}.
+
+Parity: the reference's Kudu-inspired metric library (src/utils/metrics.h:71-135)
+— metric entities (server/table/replica/...) each hold attributed metrics;
+percentiles are computed by nth-element over a bounded sample window
+(p50..p999); snapshots are served as JSON over HTTP /metrics
+(src/http/builtin_http_calls.cpp:280-288). We reproduce the same model
+in-process; the HTTP surface arrives with the server layer.
+
+The port's copy of the JAX package's utils/metrics.py, its imports rewritten to
+pegasus_tpu_torch (it imports nothing of that package).
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+_PERCENTILES = (50.0, 90.0, 95.0, 99.0, 99.9)
+
+
+class Counter:
+    __slots__ = ("_value", "_lock")
+
+    def __init__(self) -> None:
+        self._value = 0
+        self._lock = threading.Lock()
+
+    def increment(self, by: int = 1) -> None:
+        with self._lock:
+            self._value += by
+
+    def value(self) -> int:
+        return self._value
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"type": "counter", "value": self._value}
+
+
+class RelaxedCounter(Counter):
+    """Lock-free counter for per-block hot paths (block-cache hits run
+    once per SST block read). `+=` on a Python int is not atomic across
+    threads, so concurrent increments may occasionally be lost — the
+    relaxed-memory-order trade every stats counter makes in the
+    reference; values are for observability, never for accounting."""
+
+    __slots__ = ()
+
+    def __init__(self) -> None:
+        self._value = 0
+        self._lock = None
+
+    def increment(self, by: int = 1) -> None:
+        self._value += by
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"type": "counter", "value": self._value}
+
+
+class VolatileCounter(Counter):
+    """Delta-readable counter (reference: metrics.h volatile counter).
+
+    The reference resets on read — safe there because exactly one
+    scraper owns each counter. Here the flight recorder, the info
+    collector, and `/metrics` scrapes all read concurrently, and
+    reset-on-read made them silently steal each other's deltas: a
+    delta consumed by one reader was a delta the others never saw.
+    The counter is now CUMULATIVE with a per-reader cursor:
+    `delta_since(reader_id)` returns the increments since that
+    reader's previous call, so every reader observes the full sum.
+    """
+
+    __slots__ = ("_cursors",)
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._cursors: Dict[str, int] = {}
+
+    def delta_since(self, reader_id: str) -> int:
+        """Increments since this reader's last call (first call: since
+        creation). Each reader's cursor is independent."""
+        with self._lock:
+            v = self._value
+            delta = v - self._cursors.get(reader_id, 0)
+            self._cursors[reader_id] = v
+            return delta
+
+    def fetch_and_reset(self) -> int:
+        """Deprecated shim for the old reset-on-read surface: one
+        implicit shared reader. `value()` keeps reporting the
+        cumulative sum (it no longer resets underneath anyone)."""
+        return self.delta_since("__legacy_reset__")
+
+    def snapshot(self) -> Dict[str, Any]:
+        # cumulative, like a plain counter: a snapshot (JSON /metrics or
+        # Prometheus scrape) must never consume another reader's delta —
+        # and Prometheus counters are cumulative by contract anyway
+        return {"type": "volatile_counter", "value": self._value}
+
+
+class Gauge:
+    __slots__ = ("_value",)
+
+    def __init__(self, initial: float = 0) -> None:
+        self._value = initial
+
+    def set(self, value: float) -> None:
+        self._value = value
+
+    def value(self) -> float:
+        return self._value
+
+    def snapshot(self) -> Dict[str, Any]:
+        return {"type": "gauge", "value": self._value}
+
+
+class Percentile:
+    """Bounded-window percentile metric (reference: metrics.h:104 percentile
+    via nth-element over a 4096-sample window).
+
+    The sorted view is version-cached: readers that poll faster than
+    writers feed (the flight recorder each tick, the profiler publish,
+    repeated snapshots) sort once per window CHANGE, not once per read
+    — without it a sim schedule that compresses hours of virtual time
+    re-sorted every window thousands of times."""
+
+    def __init__(self, window: int = 4096) -> None:
+        self._window = window
+        self._samples: List[float] = []
+        self._idx = 0
+        self._version = 0
+        self._sorted: Optional[Tuple[int, List[float]]] = None
+        self._lock = threading.Lock()
+
+    def set(self, sample: float) -> None:
+        with self._lock:
+            if len(self._samples) < self._window:
+                self._samples.append(sample)
+            else:
+                self._samples[self._idx] = sample
+                self._idx = (self._idx + 1) % self._window
+            self._version += 1
+
+    @property
+    def version(self) -> int:
+        """Bumps on every sample: lets pollers skip unchanged windows."""
+        return self._version
+
+    def _sorted_view(self) -> List[float]:
+        # caller holds self._lock
+        if self._sorted is None or self._sorted[0] != self._version:
+            self._sorted = (self._version, sorted(self._samples))
+        return self._sorted[1]
+
+    def percentile(self, p: float) -> float:
+        return self.quantiles((p,))[0]
+
+    def quantiles(self, ps) -> List[float]:
+        """Several percentile levels off ONE (cached) sort."""
+        with self._lock:
+            if not self._samples:
+                return [0.0] * len(ps)
+            s = self._sorted_view()
+            return [s[min(len(s) - 1, int(len(s) * p / 100.0))]
+                    for p in ps]
+
+    def snapshot(self) -> Dict[str, Any]:
+        vals = self.quantiles(_PERCENTILES)
+        return {
+            "type": "percentile",
+            **{f"p{str(p).rstrip('0').rstrip('.')}": v
+               for p, v in zip(_PERCENTILES, vals)},
+        }
+
+
+class MetricEntity:
+    """A named entity (server/table/replica/partition) owning metrics.
+
+    Parity: src/utils/metrics.h metric_entity with attributes.
+    """
+
+    def __init__(self, entity_type: str, entity_id: str,
+                 attrs: Optional[Dict[str, str]] = None) -> None:
+        self.entity_type = entity_type
+        self.entity_id = entity_id
+        self.attrs = dict(attrs or {})
+        self._metrics: Dict[str, Any] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_create(self, name: str, factory):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = factory()
+                self._metrics[name] = m
+            return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get_or_create(name, Counter)
+
+    def relaxed_counter(self, name: str) -> RelaxedCounter:
+        return self._get_or_create(name, RelaxedCounter)
+
+    def volatile_counter(self, name: str) -> VolatileCounter:
+        return self._get_or_create(name, VolatileCounter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get_or_create(name, Gauge)
+
+    def percentile(self, name: str) -> Percentile:
+        return self._get_or_create(name, Percentile)
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "type": self.entity_type,
+                "id": self.entity_id,
+                "attributes": dict(self.attrs),
+                "metrics": {n: m.snapshot() for n, m in self._metrics.items()},
+            }
+
+
+class MetricRegistry:
+    """Process-global registry of entities (reference: metrics.h:385 registry,
+    JSON snapshot with entity-type/metric filters metrics.h:522-551)."""
+
+    def __init__(self) -> None:
+        self._entities: Dict[Tuple[str, str], MetricEntity] = {}
+        self._lock = threading.Lock()
+
+    def entity(self, entity_type: str, entity_id: str,
+               attrs: Optional[Dict[str, str]] = None) -> MetricEntity:
+        key = (entity_type, entity_id)
+        with self._lock:
+            ent = self._entities.get(key)
+            if ent is None:
+                ent = MetricEntity(entity_type, entity_id, attrs)
+                self._entities[key] = ent
+            return ent
+
+    def entities(self) -> List[MetricEntity]:
+        """Live entity objects (the flight recorder walks these directly
+        each tick: cheaper than snapshot(), which computes every
+        percentile level, and it needs the metric OBJECTS to take
+        per-reader cursors on volatile counters)."""
+        with self._lock:
+            return list(self._entities.values())
+
+    def snapshot(self, entity_type: Optional[str] = None,
+                 metric_names: Optional[List[str]] = None) -> List[Dict[str, Any]]:
+        with self._lock:
+            entities = list(self._entities.values())
+        out = []
+        for ent in entities:
+            if entity_type is not None and ent.entity_type != entity_type:
+                continue
+            snap = ent.snapshot()
+            if metric_names is not None:
+                snap["metrics"] = {
+                    n: v for n, v in snap["metrics"].items() if n in metric_names
+                }
+            out.append(snap)
+        return out
+
+
+METRICS = MetricRegistry()
+
+
+# ---- Prometheus text exposition -----------------------------------------
+
+_PROM_NAME_BAD = None  # lazy-compiled regex
+
+
+def _prom_name(name: str) -> str:
+    global _PROM_NAME_BAD
+    if _PROM_NAME_BAD is None:
+        import re
+
+        _PROM_NAME_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+    out = _PROM_NAME_BAD.sub("_", name)
+    if out and out[0].isdigit():
+        out = "_" + out
+    return out
+
+
+def _prom_label_value(v: Any) -> str:
+    return str(v).replace("\\", "\\\\").replace("\n", "\\n") \
+        .replace('"', '\\"')
+
+
+def to_prometheus(snapshot: List[Dict[str, Any]],
+                  prefix: str = "pegasus_") -> str:
+    """Render a MetricRegistry snapshot in the Prometheus text format
+    (version 0.0.4): counters/gauges as-is, percentile windows as
+    summaries with quantile labels; entity type/id and entity
+    attributes become labels. The SURVEY collector->Prometheus sink
+    path works against this with any standard scraper."""
+    # group series by metric name: the exposition format requires all
+    # samples of one metric to be contiguous under one TYPE header
+    series: "OrderedDict[str, Tuple[str, List[str]]]" = OrderedDict()
+
+    def add(name: str, prom_type: str, labels: Dict[str, Any],
+            value: Any, extra_label: Optional[Tuple[str, str]] = None
+            ) -> None:
+        mname = prefix + _prom_name(name)
+        pairs = [(_prom_name(k), _prom_label_value(v))
+                 for k, v in labels.items()]
+        if extra_label is not None:
+            pairs.append(extra_label)
+        lbl = ",".join(f'{k}="{v}"' for k, v in pairs)
+        line = f"{mname}{{{lbl}}} {value}" if lbl else f"{mname} {value}"
+        ent = series.get(mname)
+        if ent is None:
+            series[mname] = (prom_type, [line])
+        else:
+            ent[1].append(line)
+
+    for ent_snap in snapshot:
+        labels = {"entity": ent_snap["type"], "id": ent_snap["id"]}
+        labels.update(ent_snap.get("attributes") or {})
+        for name, m in (ent_snap.get("metrics") or {}).items():
+            t = m.get("type")
+            if t in ("counter", "volatile_counter"):
+                add(name, "counter", labels, m["value"])
+            elif t == "gauge":
+                add(name, "gauge", labels, m["value"])
+            elif t == "percentile":
+                for k, v in m.items():
+                    if k == "type" or not k.startswith("p"):
+                        continue
+                    q = float(k[1:]) / 100.0
+                    add(name, "summary", labels, v,
+                        ("quantile", f"{q:g}"))
+    lines: List[str] = []
+    for mname, (prom_type, samples) in series.items():
+        lines.append(f"# TYPE {mname} {prom_type}")
+        lines.extend(samples)
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+class LatencyTimer:
+    """Context manager feeding a Percentile with elapsed ns.
+
+    Parity: METRIC_VAR_AUTO_LATENCY in hot paths
+    (src/server/pegasus_server_impl.cpp:422).
+    """
+
+    def __init__(self, percentile: Percentile) -> None:
+        self._p = percentile
+
+    def __enter__(self):
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self._p.set(time.perf_counter_ns() - self._t0)
+        return False

@@ -1,0 +1,237 @@
+"""PerfContext: a cheap per-op cost vector for the data plane.
+
+The slow log (utils/latency_tracer.py) and the trace spans
+(utils/tracing.py) answer WHERE time went; nothing answered WHY an op
+cost what it cost — how many runs were considered, how many the
+sidecars pruned, how many blocks were actually decoded versus served
+from cache, how many rows each kernel mask evaluated versus kept, and
+which device class the placement policy routed the kernels to. This is
+the RocksDB PerfContext/IOStatsContext layer for this engine: one
+mutable counter vector per op (or per batched flush — the batch IS the
+op on the coalesced paths), threaded ambient through the serving
+thread so the storage layer can tick it without plumbing an argument
+through every call.
+
+Design rules, in order:
+
+- OFF must be nearly free. The hot-path hook is one thread-local
+  attribute read + a truthiness check (the same discipline as
+  tracing.annotate); `start()` returns None when the
+  ``[pegasus.perfctx] enabled`` kill switch is off, so nothing is ever
+  pushed and every hook sees None. The bench `perfctx_overhead` phase
+  gates contexts-ENABLED within 2% of hard-off.
+- ON must stay cheap: fields are plain ints on a __slots__ object
+  (`pc.blocks_decoded += 1`), and batched paths accumulate locals in
+  their loops and add once per flush, exactly like the metric
+  counters they mirror.
+- Field names are REGISTERED (perf_field below) with a metric kind so
+  tools/metrics_lint.py lints them with the same sanitizer and
+  kind-conflict rules as real metric registrations — a perf field
+  named like an existing metric of a different kind, or a name the
+  Prometheus sanitizer would rewrite, fails the tier-1 lint gate.
+
+Contexts attach to slow-log entries (SlowQueryLog picks up the bound
+or ambient context) and to trace spans (`span.tags["perf"]`), so
+`shell trace <id>` and `shell explain --from-trace <id>` show counts,
+not just durations.
+
+The port's copy of the JAX package's utils/perf_context.py, its imports rewritten to
+pegasus_tpu_torch (it imports nothing of that package).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+
+define_flag("pegasus.perfctx", "enabled", True,
+            "collect per-op PerfContext cost vectors on the read/scan/"
+            "write paths (kill switch; bench-gated <=2% overhead)",
+            mutable=True)
+
+# (name, kind) registrations — metrics_lint scans the perf_field(...)
+# call sites statically, so every name below rides the same drift gate
+# as the real metric registrations
+FIELD_DEFS: List[Tuple[str, str]] = []
+
+
+def perf_field(name: str, kind: str = "counter") -> str:
+    """Register one PerfContext field (name must be a string literal at
+    the call site — the linter reads the source, not this list)."""
+    FIELD_DEFS.append((name, kind))
+    return name
+
+
+# -- the cost vector -------------------------------------------------------
+# counters: how much work the op did
+_COUNTER_FIELDS = (
+    perf_field("ops", "counter"),               # requests in the flush
+    perf_field("keys_resolved", "counter"),     # unique keys located
+    perf_field("runs_considered", "counter"),   # L0 tables + L1 runs
+    perf_field("bloom_pruned", "counter"),      # bloom said "absent"
+    perf_field("phash_pruned", "counter"),      # phash said "absent"
+    perf_field("phash_located", "counter"),     # phash gave (block,slot)
+    perf_field("row_cache_hit", "counter"),
+    perf_field("row_cache_miss", "counter"),
+    perf_field("block_cache_hit", "counter"),
+    perf_field("blocks_decoded", "counter"),    # cold block loads
+    perf_field("blocks_planned", "counter"),    # blocks a scan planned
+    perf_field("bytes_read", "counter"),        # on-disk bytes fetched
+    perf_field("bytes_decoded", "counter"),     # materialized after codec
+    perf_field("rows_evaluated", "counter"),    # rows under kernel masks
+    perf_field("rows_survived", "counter"),     # rows after all masks
+    perf_field("expired_rows", "counter"),      # TTL-dropped
+    perf_field("overlay_hits", "counter"),      # memtable/L0 answers
+    perf_field("bytes_returned", "counter"),    # key+value bytes out
+    # scan pushdown (ops/pushdown.py): rows the server-side value
+    # filter dropped before they could ship, and rows folded into a
+    # server-side partial aggregate instead of being returned
+    perf_field("pushdown_rows_pruned", "counter"),
+    perf_field("rows_aggregated", "counter"),
+    # resident mesh serving (parallel/mesh_resident.py): partitions whose
+    # blocks this op's waves answered from the stacked SPMD program
+    perf_field("mesh_partitions", "counter"),
+)
+# gauges: per-op measurements
+_GAUGE_FIELDS = (
+    # the group-commit flush-window wait (append_plog -> plog_durable;
+    # fed on the WRITE apply path — read flushes report 0 here because
+    # transports don't stamp per-message enqueue times today)
+    perf_field("queue_wait_ms", "gauge"),
+    perf_field("predicted_kernel_ms", "gauge"),  # placement cost model
+    perf_field("measured_kernel_ms", "gauge"),
+    perf_field("mesh_wave_ms", "gauge"),  # resident-mesh dispatch wall
+)
+
+FIELDS: Tuple[str, ...] = _COUNTER_FIELDS + _GAUGE_FIELDS
+
+
+class PerfContext:
+    """One op's (or one batched flush's) cost vector."""
+
+    __slots__ = ("op", "placement", "served_by", "tenant") + FIELDS
+
+    def __init__(self, op: str = "") -> None:
+        self.op = op
+        # device | host-XLA | native | numpy | mesh — which compute class
+        # the placement policy routed this op's kernels to ("" = no
+        # kernel; "mesh" = the resident whole-table SPMD program)
+        self.placement = ""
+        # primary | secondary — which replica role answered this read
+        # ("" = not a consistency-routed read, e.g. a write flush)
+        self.served_by = ""
+        # the QoS tenant this op was billed to ("" = untenanted
+        # background work) — slow-log entries and spans carry it, so
+        # `shell explain`/`shell timeline` answer "which tenant"
+        self.tenant = ""
+        for f in _COUNTER_FIELDS:
+            setattr(self, f, 0)
+        for f in _GAUGE_FIELDS:
+            setattr(self, f, 0.0)
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The FULL fixed vector (zeros included): solo and batched
+        slow-log entries stay field-set-comparable by construction, and
+        a field added here reaches every surface at once."""
+        d: Dict[str, Any] = {"op": self.op, "placement": self.placement,
+                             "served_by": self.served_by,
+                             "tenant": self.tenant}
+        for f in _COUNTER_FIELDS:
+            d[f] = getattr(self, f)
+        for f in _GAUGE_FIELDS:
+            d[f] = round(getattr(self, f), 3)
+        return d
+
+    def nonzero(self) -> Dict[str, Any]:
+        """Compact view (rendering): only the fields that moved."""
+        return {k: v for k, v in self.to_dict().items()
+                if v not in (0, 0.0, "", None)}
+
+
+# -- ambient threading -----------------------------------------------------
+
+_tls = threading.local()
+
+
+def enabled() -> bool:
+    return bool(FLAGS.get("pegasus.perfctx", "enabled"))
+
+
+def start(op: str) -> Optional[PerfContext]:
+    """A fresh context when collection is on, else None. The caller
+    activates it (or stores it in its batch state) explicitly."""
+    return PerfContext(op) if enabled() else None
+
+
+def current() -> Optional[PerfContext]:
+    """The ambient context (None when none active / collection off).
+    The hot-path hook: one thread-local attr read + a list check."""
+    st = getattr(_tls, "stack", None)
+    return st[-1] if st else None
+
+
+def push(pc: PerfContext) -> None:
+    st = getattr(_tls, "stack", None)
+    if st is None:
+        st = _tls.stack = []
+    st.append(pc)
+
+
+def pop(pc: PerfContext) -> None:
+    st = getattr(_tls, "stack", None)
+    if st and st[-1] is pc:
+        st.pop()
+    elif st and pc in st:  # defensive: unwind past a mispaired frame
+        st.remove(pc)
+
+
+def merge_span_perf(tags: Dict[str, Any], pc: "PerfContext") -> None:
+    """Fold `pc` into a span's perf tag. A batched carrier RPC serves
+    MANY partitions under ONE dispatch span — each partition's flush
+    context must ACCUMULATE (counters sum, timings add), not
+    overwrite, or the trace keeps only the last partition's costs."""
+    d = pc.to_dict()
+    prev = tags.get("perf")
+    if prev is None:
+        tags["perf"] = d
+        return
+    for f in _COUNTER_FIELDS:
+        prev[f] += d[f]
+    for f in _GAUGE_FIELDS:
+        prev[f] = round(prev[f] + d[f], 3)
+    if not prev.get("placement"):
+        prev["placement"] = d["placement"]
+    elif d["placement"] and d["placement"] != prev["placement"]:
+        prev["placement"] = "mixed"
+    # same accumulate-don't-overwrite rule for which replica answered:
+    # a carrier mixing primary- and secondary-served slots says so
+    if not prev.get("served_by"):
+        prev["served_by"] = d["served_by"]
+    elif d["served_by"] and d["served_by"] != prev["served_by"]:
+        prev["served_by"] = "mixed"
+    # and for the billed tenant — a transport flush coalescing several
+    # tenants' reads reports "mixed", never silently the last one
+    if not prev.get("tenant"):
+        prev["tenant"] = d["tenant"]
+    elif d["tenant"] and d["tenant"] != prev["tenant"]:
+        prev["tenant"] = "mixed"
+
+
+class activate:
+    """Context manager: make `pc` ambient (no-op for None)."""
+
+    __slots__ = ("_pc",)
+
+    def __init__(self, pc: Optional[PerfContext]) -> None:
+        self._pc = pc
+
+    def __enter__(self) -> Optional[PerfContext]:
+        if self._pc is not None:
+            push(self._pc)
+        return self._pc
+
+    def __exit__(self, *exc) -> None:
+        if self._pc is not None:
+            pop(self._pc)

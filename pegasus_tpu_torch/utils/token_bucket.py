@@ -58,6 +58,24 @@ class TokenBucket:
                 return 0.0
             return -self._tokens / self.rate
 
+    def debit(self, tokens: float) -> None:
+        """Post-debit charge: subtract unconditionally, allowing the
+        level to go negative. The CU-budget admission model charges the
+        ACTUAL capacity units after serving (they are only known then)
+        and gates the NEXT op on the sign of the level — an op that
+        overshoots pushes the bucket into debt the refill must pay off
+        before the tenant is admitted again."""
+        with self._lock:
+            self._refill(self._clock())
+            self._tokens -= tokens
+
+    def level(self) -> float:
+        """Current token level after refill (may be negative under
+        debit()); admission peeks this without consuming."""
+        with self._lock:
+            self._refill(self._clock())
+            return self._tokens
+
 
 def parse_throttle_env(value: str) -> Tuple[Optional[TokenBucket], Optional[TokenBucket]]:
     """Parse a throttle app-env of the reference's form

@@ -47,7 +47,24 @@ def test_port_modules_are_found():
                  "pegasus_tpu_torch.geo.geo_client",
                  "pegasus_tpu_torch.ops.geo",
                  "pegasus_tpu_torch.redis_proxy.resp",
-                 "pegasus_tpu_torch.redis_proxy.proxy"):
+                 "pegasus_tpu_torch.redis_proxy.proxy",
+                 # the observability and integrity layer
+                 "pegasus_tpu_torch.utils.metrics",
+                 "pegasus_tpu_torch.utils.fail_point",
+                 "pegasus_tpu_torch.utils.profiler",
+                 "pegasus_tpu_torch.utils.tracing",
+                 "pegasus_tpu_torch.utils.perf_context",
+                 "pegasus_tpu_torch.utils.latency_tracer",
+                 "pegasus_tpu_torch.server.tenancy",
+                 "pegasus_tpu_torch.server.capacity_units",
+                 "pegasus_tpu_torch.server.hotkey",
+                 "pegasus_tpu_torch.server.workload",
+                 "pegasus_tpu_torch.server.explain",
+                 "pegasus_tpu_torch.security.kms",
+                 "pegasus_tpu_torch.storage.efile",
+                 "pegasus_tpu_torch.storage.vfs",
+                 "pegasus_tpu_torch.storage.scrub",
+                 "pegasus_tpu_torch.ops.device_crc"):
         assert want in names
 
 
@@ -141,6 +158,85 @@ def test_batched_path_runs_without_jax(tmp_path):
         "b'*1\\r\\n$1\\r\\na\\r\\n'\n"
         "assert h([b'INCRBY', b'n', b'3']) == b':3\\r\\n'\n"
         "raw.close(); idx.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
+        "             or m.startswith('pegasus_tpu.')\n"
+        "             or m.startswith('jax.') or m == 'jaxlib')\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
+
+
+def test_observability_and_integrity_run_without_jax(tmp_path):
+    """An encrypted CPU partition serves a batched read and a scan under
+    PerfContexts, a sampled span and the slow log at 0 ms, explains an
+    op, bills capacity units to a tenant, passes a scrub, and hashes a
+    PGT1-style block with the plain key hash, with JAX blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import torch\n"
+        "from pegasus_tpu_torch.base.key_schema import generate_key\n"
+        "from pegasus_tpu_torch.ops import fused_scan\n"
+        "from pegasus_tpu_torch.ops.predicates import FilterSpec\n"
+        "from pegasus_tpu_torch.ops.record_block import build_record_block\n"
+        "from pegasus_tpu_torch.security.kms import KeyProvider, "
+        "LocalKmsClient\n"
+        "from pegasus_tpu_torch.server import explain, tenancy\n"
+        "from pegasus_tpu_torch.server.partition_server import "
+        "PartitionServer\n"
+        "from pegasus_tpu_torch.server.read_coordinator import "
+        "point_read_multi\n"
+        "from pegasus_tpu_torch.server.types import GetScannerRequest\n"
+        "from pegasus_tpu_torch.storage import efile\n"
+        "from pegasus_tpu_torch.storage.scrub import ReplicaScrubber\n"
+        "from pegasus_tpu_torch.utils import tracing\n"
+        "from pegasus_tpu_torch.utils.flags import FLAGS\n"
+        f"d = {str(tmp_path / 'enc')!r}\n"
+        "efile.enable_encryption(d, KeyProvider(d, LocalKmsClient(b'k' * "
+        "32)))\n"
+        "s = PartitionServer(d, device='cpu')\n"
+        "for i in range(200):\n"
+        "    s.on_put(generate_key(b'h%02d' % (i % 20), b's%03d' % i), "
+        "b'v%d' % i)\n"
+        "s.manual_compact()\n"
+        "assert all(efile.is_encrypted(t.path) for t in "
+        "s.engine.lsm.l1_runs)\n"
+        "s.update_app_envs({'replica.slow_query_threshold_ms': '0'})\n"
+        "FLAGS.set('pegasus.tracing', 'sample_ratio', 1.0)\n"
+        "tenancy.TENANTS.configure_from_envs({'qos.tenants': 'gold:2:0'})\n"
+        "assert tracing.maybe_sample()\n"
+        "span = tracing.ring_for('n').start('op')\n"
+        "with tracing.activate(span):\n"
+        "    (res,), = point_read_multi([(s, [('get', generate_key(b'h03', "
+        "b's003'), None)])], tenants=['gold'])\n"
+        "    s.on_get_scanner(GetScannerRequest(batch_size=5))\n"
+        "span.finish()\n"
+        "assert res == (0, b'v3'), res\n"
+        "names = [e['name'] for e in s.slow_log.dump()]\n"
+        "assert names == ['point_get_batch.1.0', 'scan.1.0'], names\n"
+        "assert all('perf' in e for e in s.slow_log.dump())\n"
+        "ann = [a for a, _t in span.annotations]\n"
+        "assert 'block_probe' in ann and 'coord_finish' in ann, ann\n"
+        "assert tenancy.TENANTS.snapshot()['gold']['cu_total'] == 1\n"
+        "rep = explain.explain_op(s, *explain.op_from_spec({'op': 'scan', "
+        "'hash_key': 'h04'}))\n"
+        "assert rep['perf']['rows_survived'] == 10, rep\n"
+        "rep_ns = type('R', (), {'server': s})()\n"
+        "res = ReplicaScrubber(lambda: {(1, 0): rep_ns}, print).scrub_now("
+        "(1, 0), rep_ns)\n"
+        "assert res['state'] == 'clean' and res['blocks_scanned'] > 0\n"
+        "s.close()\n"
+        "blk = build_record_block([generate_key(b'h%d' % i, b's') for i in "
+        "range(64)], [0] * 64)\n"
+        "none = FilterSpec.none('cpu')\n"
+        "want = fused_scan.scan_table([blk], [1], none, none, True, 3)\n"
+        "got = fused_scan.scan_table([blk._replace(hash_lo=None)], [1], "
+        "none, none, True, 3)\n"
+        "assert torch.equal(got, want) and 0 < int(want.sum())\n"
         "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
         "             or m.startswith('pegasus_tpu.')\n"
         "             or m.startswith('jax.') or m == 'jaxlib')\n"

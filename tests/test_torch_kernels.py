@@ -19,6 +19,7 @@ from chip_smoke import (
     NOWS,
     _device_columns,
     check_compaction,
+    check_key_hash,
     check_tables,
     check_tables_multi,
     compaction_chunk_columns,
@@ -179,6 +180,38 @@ def test_empty_block_launches_nothing(card):
                                     True, 7, now=now)
         assert out.shape == (0,) and out.is_cuda
     assert fused_scan.LAUNCHES == before
+
+
+def test_key_hash_instance_matches_plain(card):
+    """Blocks without a stored hash_lo (every block, every other block)
+    through both entries, validation on: the key-hash instance against
+    the plain version (ops/device_crc.key_hash_device), bit for bit."""
+    out = check_key_hash(card, widths=(32, 256), counts=SMALL_COUNTS)
+    assert out["compared"] > 0 and out["max_abs_err"] == 0
+    assert out["launches"] > 0
+
+
+def test_key_hash_instance_only_when_validating(card):
+    """A table without a stored hash takes the key-hash instance only
+    when it validates ownership; its masks equal those of the stored
+    column."""
+    rng = np.random.default_rng(31)
+    cols = serving_block_columns(rng, 1024, 32, 3, 7)
+    stored = device_block(cols, card)
+    hashed = stored._replace(hash_lo=None)
+    # the stored column of serving_block_columns is random: the key hash
+    # of the rows is the truth both must agree on
+    from pegasus_tpu_torch.ops.device_crc import key_hash_device
+
+    lo = key_hash_device(stored.keys, stored.key_len, stored.hashkey_len)[1]
+    truth = stored._replace(hash_lo=lo.contiguous())
+    none = FilterSpec.none(card)
+    for validate in (False, True):
+        before = fused_scan.LAUNCHES["keyhash"]
+        got = fused_scan.scan_table([hashed], [3], none, none, validate, 7)
+        want = fused_scan.scan_table([truth], [3], none, none, validate, 7)
+        assert torch.equal(got, want)
+        assert fused_scan.LAUNCHES["keyhash"] - before == int(validate)
 
 
 def test_compaction_kernel_matches_plain_on_every_case(card):

@@ -250,8 +250,9 @@ def test_malformed_throttle_raises_before_anything_applies(servers, env):
         assert s._deny_client == ""
         assert s._read_throttle is None and s._write_throttle is None
         assert s.on_get(generate_key(HASHKEYS[0], SORTKEYS[0]))[0] == OK
-    assert PartitionServer._ENV_RECORDED == (
-        "replica.slow_query_threshold_ms",)
+        # the slow-query threshold is applied by both packages, and a
+        # refused env set leaves it at its default
+        assert s.slow_log.threshold_ms == 20.0
 
 
 def _triggers(s):
