@@ -110,7 +110,8 @@ without sidecars. The line before the last lists the
 kernels as JSON; the last line is {"ok": true, "device": {...}}.
 `--records N` sets phase 4's load (default 500,000) and prints any cut
 below 1,000,000; `--compact-gb G` sets a phase-7 pass's store (default
-1.0). Phases 5 and 6 always load their 1,000,000 records. A
+1.0). `--times-only [--tree DIR]` builds the kernels of this checkout (or
+of DIR) and prints phase 3's times as one JSON line, nothing else. Phases 5 and 6 always load their 1,000,000 records. A
 printed cut keeps the whole run near the time it took before phase 6
 came: the flavour-axis check runs 64 flavours at key width 32 only (16
 at the wider keys).
@@ -293,26 +294,31 @@ def _device_ms(fn, iters: int, kernel: str = "", before=None):
     then `fn` must launch that kernel once a call: the mean is taken over
     the launches the trace recorded, so a record the trace drops cannot
     lower it. The device-to-device copies of `before` (the L2 flush)
-    never count. None when the trace holds no device time."""
+    never count. A trace that recorded no device time at all is taken
+    again (at most three); None when none of them did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if before is not None:
-                before()
-            fn()
-        torch.cuda.synchronize()
-    total_us, launches = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key and not ev.key.startswith("Memcpy DtoD"):
-            total_us += getattr(ev, "self_device_time_total", 0.0)
-            launches += ev.count
-    if total_us <= 0:
-        return None
-    return total_us / (launches if kernel else iters) / 1e3
+    for _trace in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        total_us, launches = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel in ev.key and not ev.key.startswith("Memcpy DtoD"):
+                total_us += getattr(ev, "self_device_time_total", 0.0)
+                launches += ev.count
+        if total_us > 0:
+            return total_us / (launches if kernel else iters) / 1e3
+        if _trace < 2:
+            log(f"torch.profiler recorded no device time for {iters} "
+                f"calls; profiling again")
+    return None
 
 
 def _device_ops(fn, calls: int = 20) -> dict:
@@ -490,13 +496,23 @@ MULTI_KS = (2, 5, 16, 64)
 MULTI_K_WIDE = 16
 
 
-def multi_patterns(rng, n: int, k: int, wide: bool) -> list:
-    """n patterns of lengths mixed within one pad width (what one launch
-    takes, since callers group flavours by it): 0..4 bytes, empty ones
-    included, or k/2..k bytes, about as long as a row of width k."""
-    lo, hi = (k // 2, k) if wide else (0, 4)
-    return [random_pattern(rng, int(rng.integers(lo, hi + 1)))
-            for _ in range(n)]
+# pattern lengths of one band: (lowest, highest) at key width k
+MULTI_BANDS = {"narrow": lambda k: (0, 4), "middle": lambda k: (5, k // 2 - 1),
+               "wide": lambda k: (k // 2, k)}
+
+
+def multi_patterns(rng, n: int, k: int, band: str) -> list:
+    """n patterns of lengths mixed within one band: "narrow" 0..4 bytes,
+    empty ones included; "middle" 5..k/2-1 (the sortkey window's 5-8
+    bytes and the exact matcher's longer ones); "wide" k/2..k, about as
+    long as a row of width k; or "mixed", flavour f from the bands in
+    turn (every path of the flavour axis in one launch)."""
+    bands = tuple(MULTI_BANDS) if band == "mixed" else (band,)
+    out = []
+    for f in range(n):
+        lo, hi = MULTI_BANDS[bands[f % len(bands)]](k)
+        out.append(random_pattern(rng, int(rng.integers(lo, hi + 1))))
+    return out
 
 
 def check_tables_multi(device, widths=(32, 64, 256), ks=MULTI_KS,
@@ -541,13 +557,17 @@ def check_tables_multi(device, widths=(32, 64, 256), ks=MULTI_KS,
                 n_flavors = ks[case % len(ks)]
                 if k > 32:
                     n_flavors = min(n_flavors, MULTI_K_WIDE)
-                wide = bool(case // len(ks) % 2)
+                # the sortkey window's pairs (no hashkey filter, sortkey
+                # PREFIX or POSTFIX) meet every band in one launch; the
+                # others rotate through the bands
+                band = ("mixed" if hft == 0 and sft in (2, 3) else
+                        ("narrow", "middle", "wide")[case // len(ks) % 3])
                 flavors = [
                     (FilterSpec.make(hft, hp, device),
                      FilterSpec.make(sft, sp, device))
                     for hp, sp in zip(
-                        multi_patterns(rng, n_flavors, k, wide),
-                        multi_patterns(rng, n_flavors, k, wide))]
+                        multi_patterns(rng, n_flavors, k, band),
+                        multi_patterns(rng, n_flavors, k, band))]
                 for validate in (False, True):
                     plain = [fused_scan.scan_table_multi_plain(
                         [block], [pidx], flavors, validate, pv)
@@ -735,6 +755,10 @@ MULTI_TIMED_SHAPES = (
      (b"a", b"b", b"c", b"d"), False),
     ("large K=32, 8 sortkey POSTFIX flavours", 1, 1 << 20, 32,
      (b"a", b"b", b"c", b"d", b"ab", b"bc", b"cd", b"da"), True),
+    # phase 5's own launch: a cold window of a flush's ten one-byte
+    # POSTFIX flavours (POSTFIX_PATTERNS)
+    ("phase 5 window, 10 sortkey POSTFIX flavours", 16, 1024, 32,
+     tuple(b"%d" % i for i in range(10)), False),
 )
 MULTI_LARGE_SHAPE = 1  # the shape reported in the kernels line
 
@@ -774,7 +798,7 @@ def time_tables_multi(device) -> list:
                                               pv)
 
         before = flush if flushed else None
-        iters, plain_iters = (50, 5) if flushed else (200, 20)
+        iters, plain_iters = (50, 5) if flushed else (200, 10)
         # the status work once a record, the matches once a flavour
         ops = sum(match_ops(c, ((0, b""), (3, p)), True, pidx, pv, None)
                   for c in cols for p in patterns)
@@ -3838,6 +3862,37 @@ def run_integrity(device, n_records: int = INTEGRITY_RECORDS,
     return out
 
 
+def times_only(torch, tree: str) -> int:
+    """Phase 3's times of the kernels of the pegasus_tpu_torch imported
+    from `tree`, as one JSON line: to hold two revisions' kernels against
+    each other on one card, run each in its own process in turns (P C C
+    P), `--tree` naming the other revision's unpacked checkout."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pegasus_tpu_torch.ops import fused_compaction, fused_scan
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    device = torch.device("cuda", torch.cuda.current_device())
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(fused_scan.build, force=True),
+                  pool.submit(fused_compaction.build, force=True)]
+        for b in builds:
+            b.result()
+    times = {"scan": time_tables(device),
+             "multi": time_tables_multi(device),
+             "keyhash": time_key_hash(device),
+             "compaction": time_compaction(device)}
+    log(json.dumps({"tree": tree, "card": smi.stdout.strip(),
+                    "times": {name: [{k: row[k] for k in ("shape", "ms",
+                                                           "call_ms")}
+                                     for row in (rows if isinstance(rows, list)
+                                                 else [rows])]
+                              for name, rows in times.items()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--records", type=int, default=SLICE_RECORDS,
@@ -3848,6 +3903,13 @@ def main(argv=None) -> int:
                         help="GB of store a phase-7 pass compacts "
                         f"(default {COMPACT_GB}; the configuration's table "
                         f"is {COMPACT_FULL_GB} GB, a printed cut)")
+    parser.add_argument("--times-only", action="store_true",
+                        help="build the kernels, print phase 3's times as "
+                        "one JSON line and stop")
+    parser.add_argument("--tree", default=None,
+                        help="with --times-only: the checkout whose "
+                        "pegasus_tpu_torch (and kernel sources) to time "
+                        "(default this one)")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3856,10 +3918,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
     here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "pegasus_tpu_torch")):
+    tree = os.path.abspath(args.tree) if args.tree else here
+    if not os.path.isdir(os.path.join(tree, "pegasus_tpu_torch")):
         fail("run from a checkout: pegasus_tpu_torch/ is missing")
-    sys.path.insert(0, here)
+    sys.path.insert(0, tree)
     from pegasus_tpu_torch.ops import fused_compaction, fused_scan
+
+    if args.times_only:
+        return times_only(torch, tree)
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -61,16 +61,20 @@
 // TTL-only chunks: no matcher), with the key rows (pattern rules), and
 // with the key rows hashed for validation (kHashKeys), so that only the
 // last carries the crc64 loop. The key hash (key_hash_device, in
-// key_hash.cuh, shared with the scan kernel) reads the row a word at a
-// time and looks the 256-entry crc64 table up in shared memory, staged
-// once a block. The byte matcher is match.cuh's, shared
+// key_hash.cuh, shared with the scan kernel) reads the row in place a
+// word at a time, each word one step of four independent lookups in the
+// crc64 slicing tables (4 x 256 entries), staged once a block in shared
+// memory; PR 9 moved it from a byte at a time over one table, and
+// instance (iv) (chip_smoke.COMPACT_TIMED_SHAPES) went from 13.70 /
+// 13.68 us to 13.05 / 13.06 us (NVIDIA H100 80GB HBM3, 700.00 W, the two
+// trees in turns on one card; PERF.md). The byte matcher is match.cuh's, shared
 // with the scan kernel. The packed mask comes from __ballot_sync, four
 // lanes writing a warp's four bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "key_hash.cuh"  // key_hash_lo and the crc64 table's staging
+#include "key_hash.cuh"  // key_hash_lo and the crc64 tables' staging
 #include "match.cuh"
 
 // Mirrored by _RULE and _OP in ops/fused_compaction.py.
@@ -114,10 +118,10 @@ constexpr int kPack = 8;
 constexpr int kNeedKeys = 16;
 constexpr int kHashKeys = 32;
 
-static_assert(kTile == 256, "one crc64 table entry a thread");
 // blocks an SM the register budget is set for: 8 x 256 threads is the
 // SM's whole thread count, and every warp of it hides load latency
 constexpr int kMinBlocksPerSm = 8;
+
 
 struct Params {
   OpDesc ops[kMaxOps];
@@ -129,7 +133,7 @@ struct Params {
   const uint32_t* hash_lo;      // uint32 bits[n]
   const uint32_t* pidx_col;     // uint32 bits[n], or null: `pidx`
   const uint8_t* pats;
-  const unsigned long long* crc_tab;  // crc64 table[256] with kHashKeys
+  const unsigned long long* crc_tab;  // slicing tables with kHashKeys
   uint8_t* drop_out;            // n bytes, or ceil(n / 8) packed
   uint32_t* ets_out;            // uint32[n] when asked
   int64_t n;
@@ -244,12 +248,17 @@ __device__ __forceinline__ void filter_tile(const Params& p, int64_t t,
 }
 
 // One block a tile. Only the key-hash instance carries the crc64 loop
-// and its table, staged in shared memory (its block's one barrier).
+// and its tables, staged in shared memory (its block's one barrier).
 template <int kMode>
 __global__ void __launch_bounds__(kTile, kMinBlocksPerSm)
     compaction_filter_kernel(const __grid_constant__ Params p) {
-  __shared__ unsigned long long tab[kMode == kKeyHash ? 256 : 1];
-  if (kMode == kKeyHash) stage_crc_table(tab, p.crc_tab);
+  __shared__ __align__(16) unsigned long long tab[kMode == kKeyHash
+                                                       ? kCrcWords
+                                                       : 2];
+  if (kMode == kKeyHash) {
+    stage_crc_tables(tab, p.crc_tab);
+    __syncthreads();
+  }
   filter_tile<kMode>(p, blockIdx.x, tab);
 }
 
@@ -263,8 +272,9 @@ __global__ void __launch_bounds__(kTile, kMinBlocksPerSm)
 // copied into the kernel's parameter. k is the key width, a power of two
 // >= 32. `flags`: kValidate, kExpire, kWantEts, kPack, kNeedKeys (the
 // kernel reads the key rows and key_len), kHashKeys (validation hashes
-// the keys with the crc64 table `crc_tab`, 256 uint64 in device memory,
-// instead of reading hash_lo; needs kNeedKeys).
+// the keys with the crc64 slicing tables `crc_tab`, kCrcSlices x 256
+// uint64 in device memory, 16-byte aligned, instead of reading hash_lo;
+// needs kNeedKeys).
 extern "C" int pegasus_compaction_filter(
     const uint8_t* keys, const int32_t* key_len, const uint32_t* expire_ts,
     const uint8_t* valid, const uint32_t* hash_lo, const uint32_t* pidx_col,

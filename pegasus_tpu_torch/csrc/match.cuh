@@ -21,7 +21,6 @@ constexpr int kPostfix = 3;
 
 constexpr int kTile = 256;            // records (threads) per thread block
 constexpr int kMaxStagedWidth = 256;  // widest key row staged in smem
-constexpr int kMaxSmem = kTile * (kMaxStagedWidth + 4);
 
 struct Filter {
   const uint8_t* pat;  // 4-byte aligned, zero-padded to a multiple of 4
@@ -83,6 +82,20 @@ __device__ bool find_anywhere(const uint8_t* row, int k, int start, int len,
   return false;
 }
 
+// PREFIX and POSTFIX of match_region for a pattern of plen >= 1 bytes
+// and a region at least as long: compare from offs (the region's start,
+// or its end less plen), reading clip(offs + j, 0, K - 1) where the
+// bytes leave the row.
+__device__ bool match_fixed(const uint8_t* row, int k, int offs,
+                            const uint8_t* pat, int plen) {
+  if (offs >= 0 && offs + plen <= k) return equal_at(row, offs, pat, plen);
+  for (int j = 0; j < plen; ++j) {
+    const int idx = min(max(offs + j, 0), k - 1);
+    if (row[idx] != __ldg(pat + j)) return false;
+  }
+  return true;
+}
+
 // Semantics of match_filter (ops/predicates.py): an empty pattern matches
 // everything; the region must be at least as long as the pattern; PREFIX
 // and POSTFIX read clip(offset + j, 0, K - 1); ANYWHERE tries starts t in
@@ -94,22 +107,18 @@ __device__ bool match_region(const uint8_t* row, int k, int start, int len,
   if (plen == 0) return true;
   if (len < plen) return false;
   if (f.type == kPrefix || f.type == kPostfix) {
-    const int offs = f.type == kPrefix ? start : start + len - plen;
-    if (offs >= 0 && offs + plen <= k) return equal_at(row, offs, f.pat, plen);
-    for (int j = 0; j < plen; ++j) {
-      const int idx = min(max(offs + j, 0), k - 1);
-      if (row[idx] != __ldg(f.pat + j)) return false;
-    }
-    return true;
+    return match_fixed(row, k, f.type == kPrefix ? start : start + len - plen,
+                       f.pat, plen);
   }
   return find_anywhere(row, k, start, len, f.pat, plen);
 }
 
-// Stage a tile's n key rows (one contiguous range of n x k bytes from row
+// Copy a tile's n key rows (one contiguous range of n x k bytes from row
 // `base`) into shared memory at a row stride of k + 4 (the threads of a
 // warp reading one offset of their rows hit 32 different banks), with
-// 16-byte loads, neighbouring threads on neighbouring addresses; then
-// wait for the whole block. Every thread of the block calls it.
+// 16-byte loads, neighbouring threads on neighbouring addresses. Every
+// thread of the block calls it; the caller waits for the block
+// (__syncthreads) before reading the tile.
 __device__ __forceinline__ void stage_keys(const uint8_t* keys, int64_t base,
                                            int n, int k, int k_shift,
                                            uint8_t* tile_keys) {
@@ -127,7 +136,6 @@ __device__ __forceinline__ void stage_keys(const uint8_t* keys, int64_t base,
     dst[2] = v.z;
     dst[3] = v.w;
   }
-  __syncthreads();
 }
 
 // Write a warp's ballot of bits as packbits bytes of a mask at `out` (the
@@ -145,6 +153,28 @@ __device__ __forceinline__ void write_packed(unsigned bits, int64_t first,
     if (lane < nbytes) {
       out[(first >> 3) + lane] = static_cast<uint8_t>(packed >> (8 * lane));
     }
+  }
+}
+
+// The same bytes written by one lane: `bits` is the ballot of the warp
+// whose first record is `first`, `out` the mask's first byte. One 4-byte
+// store where the warp's four bytes are all in the mask and 4-byte
+// aligned (a block's mask starts at any byte), else a byte store each.
+__device__ __forceinline__ void write_packed_lane(unsigned bits,
+                                                  int64_t first,
+                                                  int64_t count,
+                                                  uint8_t* out) {
+  if (first >= count) return;
+  const int64_t left = (count - first + 7) >> 3;
+  const int nbytes = left < 4 ? static_cast<int>(left) : 4;
+  const uint32_t packed = __byte_perm(__brev(bits), 0, 0x0123);
+  uint8_t* p = out + (first >> 3);
+  if (nbytes == 4 && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+    *reinterpret_cast<uint32_t*>(p) = packed;
+    return;
+  }
+  for (int i = 0; i < nbytes; ++i) {
+    p[i] = static_cast<uint8_t>(packed >> (8 * i));
   }
 }
 

@@ -16,8 +16,9 @@ is ops/compaction.eval_block_plain.
 
 Validation reads a chunk's stored `hash_lo` column or, where the chunk
 has none, hashes the keys inside the kernel (the JAX package's
-`key_hash_device`, ops/device_crc.py:65) with the port's crc64 table
-(base/crc.py), copied to the card once a device.
+`key_hash_device`, ops/device_crc.py:65) with the crc64 slicing tables
+of ops/fused_scan.crc_tables (from base/crc.py), copied to the card once
+a device.
 
 The kernel is csrc/compaction_filter.cu, built with nvcc for sm_90a at
 first use into `_build/` and bound through ctypes; the build and the
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from pegasus_tpu_torch.base.value_schema import PEGASUS_EPOCH_BEGIN
-from pegasus_tpu_torch.ops.fused_scan import BUILD_DIR, _nvcc, crc_table
+from pegasus_tpu_torch.ops.fused_scan import BUILD_DIR, _nvcc, crc_tables
 
 _M32 = 0xFFFFFFFF
 
@@ -274,7 +275,7 @@ def compaction_filter(keys: Optional[torch.Tensor],
         int(partition_version) & _M32, flags, drop.data_ptr(),
         ets.data_ptr() if want_ets else 0,
         torch.cuda.current_stream(dev).cuda_stream,
-        crc_table(dev).data_ptr() if hash_keys else 0)
+        crc_tables(dev).data_ptr() if hash_keys else 0)
     if err != 0:
         raise RuntimeError(f"compaction_filter launch failed: cuda error "
                            f"{err}")

@@ -37,6 +37,8 @@ import struct
 import subprocess
 import threading
 import time
+import weakref
+from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,6 +67,8 @@ STATUS_FILTERED = 4
 
 # blocks one launch takes (kMaxBlocks in csrc/scan_predicate.cu)
 MAX_TABLE_BLOCKS = 16
+# flavours one flavour-axis launch takes (kMaxFlavors)
+MAX_FLAVORS = 4096
 
 # kernel launches by mode: "static" (no `now`), "now", and "multi" (the
 # flavour axis), and "keyhash", the launches (of any mode) that took the
@@ -84,14 +88,24 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-# one block of a table, `BlockDesc` in csrc/scan_predicate.cu: seven
-# column pointers, pidx, count, out_offset, first_tile, reserved
-_DESC = struct.Struct("<7QIiqii")
-assert _DESC.size == 80
+# the six column pointers at the head of a `BlockDesc`
+# (csrc/scan_predicate.cu); _table_struct packs the rest
+_COLUMNS = struct.Struct("<6Q")
 
 # RecordBlock's columns in field order, as the kernel reads them
 _COLUMN_DTYPES = (torch.uint8, torch.int32, torch.int32, torch.int32,
                   torch.bool, torch.int32)
+
+# blocks whose columns passed _check_block, by id(block): (weak
+# references to its columns, the device they were checked on, key
+# width, record count, packed column pointers, no stored hash). A hit
+# needs every column to be the very tensor that was checked, so a freed
+# block whose id is reused, or a block rebuilt around other columns, is
+# checked anew. Bounded, oldest entry out first, so the entries of freed
+# blocks age out.
+_CHECKED: "OrderedDict[int, tuple]" = OrderedDict()
+_CHECKED_MAX = 4096
+_checked_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -128,38 +142,56 @@ def build(force: bool = False) -> Tuple[float, str]:
     return time.perf_counter() - t0, proc.stdout + proc.stderr
 
 
+# TableArgs and MultiArgs in csrc/scan_predicate.cu: the entry points'
+# arguments beside the block descriptors, packed so that a launch converts
+# two ctypes arguments
+_TABLE_ARGS = struct.Struct("<5Q2I8i")
+_MULTI_ARGS = struct.Struct("<8QqI11i")
+assert _TABLE_ARGS.size == 80 and _MULTI_ARGS.size == 120
+
+
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
             build()
             lib = ctypes.CDLL(_LIB_PATH)
-            fn = lib.pegasus_scan_table
-            p, u32_, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
-            fn.argtypes = [ctypes.c_char_p, i32, i32, u32_, i32, i32, p,
-                           i32, i32, p, i32, i32, u32_, p, p, p]
-            fn.restype = ctypes.c_int
-            fn = lib.pegasus_scan_table_multi
-            fn.argtypes = [ctypes.c_char_p, i32, i32, u32_, i32, i32, p,
-                           i32, i32, p, i32, p, i32, i32, i32,
-                           ctypes.c_int64, p, p, p]
-            fn.restype = ctypes.c_int
+            for fn in (lib.pegasus_scan_table, lib.pegasus_scan_table_multi):
+                fn.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
+# slicing tables of the kernels' key hash (kCrcSlices in
+# csrc/key_hash.cuh)
+CRC_SLICES = 4
+
+
+def crc_slices() -> np.ndarray:
+    """uint64[CRC_SLICES, 256]: entry [i][b] is the crc64 step of byte b
+    from a zero state followed by i zero bytes; row 0 is TABLE64."""
+    out = np.empty((CRC_SLICES, 256), dtype=np.uint64)
+    out[0] = TABLE64_NP
+    eight, low = np.uint64(8), np.uint64(0xFF)
+    for i in range(1, CRC_SLICES):
+        prev = out[i - 1]
+        out[i] = (prev >> eight) ^ TABLE64_NP[(prev & low).astype(np.intp)]
+    return out
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw handle of `dev`'s current CUDA stream (without building a
+    torch.cuda.Stream object a launch)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 @functools.lru_cache(maxsize=8)
-def crc_table(device: torch.device) -> torch.Tensor:
-    """The crc64 table (256 entries) on `device`, for the kernels' key
-    hash: one host-to-device copy a device."""
-    return torch.from_numpy(TABLE64_NP.view(np.int64).copy()).to(device)
-
-
-def _hashes_keys(blocks: Sequence[RecordBlock], validate_hash: bool) -> bool:
-    """Does this table take the key-hash instance: validation on, and a
-    non-empty block without a stored hash_lo column?"""
-    return validate_hash and any(b.hash_lo is None and b.capacity
-                                 for b in blocks)
+def crc_tables(device: torch.device) -> torch.Tensor:
+    """The crc64 slicing tables (CRC_SLICES x 256 entries) on `device`,
+    for the kernels' key hash: one host-to-device copy a device."""
+    return torch.from_numpy(crc_slices().view(np.int64).ravel().copy()).to(
+        device)
 
 
 def _hash_lo_of(block: RecordBlock) -> torch.Tensor:
@@ -205,11 +237,53 @@ def _check_block(block: RecordBlock, dev: torch.device, k: int) -> int:
     return b
 
 
+def _checked_columns(block: RecordBlock, dev: torch.device,
+                     k: int) -> Tuple[bytes, int, bool]:
+    """(packed column pointers, record count, no stored hash) of a block
+    in a table on `dev` of key width `k`: _check_block at the block's
+    first launch, the cached result at later ones (the device and the
+    width are compared every time)."""
+    hit = _CHECKED.get(id(block))
+    if hit is not None:
+        refs, on, width, count, cols, hashed = hit
+        hash_ref = refs[5]
+        if (refs[0]() is block[0] and refs[1]() is block[1]
+                and refs[2]() is block[2] and refs[3]() is block[3]
+                and refs[4]() is block[4]
+                and (None if hash_ref is None else hash_ref()) is block[5]):
+            if on != dev:
+                raise ValueError("a table's blocks share one device")
+            if width != k:
+                raise ValueError(f"one table holds one key width: {width} "
+                                 f"!= {k}")
+            return cols, count, hashed
+    if block.device != dev:
+        raise ValueError("a table's blocks share one device")
+    count = _check_block(block, dev, k)
+    cols = _COLUMNS.pack(*(0 if t is None else t.data_ptr() for t in block))
+    hashed = block.hash_lo is None and count > 0
+    entry = (tuple(None if t is None else weakref.ref(t) for t in block),
+             dev, k, count, cols, hashed)
+    with _checked_lock:
+        _CHECKED[id(block)] = entry
+        while len(_CHECKED) > _CHECKED_MAX:
+            _CHECKED.popitem(last=False)
+    return cols, count, hashed
+
+
+@functools.lru_cache(maxsize=MAX_TABLE_BLOCKS)
+def _table_struct(n_blocks: int) -> struct.Struct:
+    """A table of n BlockDescs: each its packed column pointers, then the
+    pidx column, pidx, count, out_offset, first_tile, reserved."""
+    return struct.Struct("<" + "48sQIiqii" * n_blocks)
+
+
 def _descriptors(blocks: Sequence[RecordBlock], pidxs: Sequence,
-                 packed: bool) -> Tuple[bytes, int, int]:
-    """(the table's packed BlockDesc array, key width, output bytes): each
-    block's output takes `count` bytes, or ceil(count / 8) when
-    `packed`."""
+                 packed: bool) -> Tuple[bytes, int, int, bool]:
+    """(the table's packed BlockDesc array, key width, output bytes,
+    whether a non-empty block lacks a stored hash): each block's output
+    takes `count` bytes, or ceil(count / 8) when `packed`. Every block
+    must lie on the first block's device."""
     if not 1 <= len(blocks) <= MAX_TABLE_BLOCKS:
         raise ValueError(f"a table holds 1..{MAX_TABLE_BLOCKS} blocks, "
                          f"got {len(blocks)}")
@@ -219,11 +293,15 @@ def _descriptors(blocks: Sequence[RecordBlock], pidxs: Sequence,
     k = blocks[0].key_width
     if k < 32 or k & (k - 1):
         raise ValueError(f"key width {k} is not a power of two >= 32")
-    descs = []
+    args = []
     offset = 0
+    any_hashed = False
     for block, pidx in zip(blocks, pidxs):
-        b = _check_block(block, dev, k)
-        if isinstance(pidx, torch.Tensor):
+        cols, b, hashed = _checked_columns(block, dev, k)
+        any_hashed |= hashed
+        if isinstance(pidx, (int, np.integer)):
+            col, scalar = 0, int(pidx) & 0xFFFFFFFF
+        elif isinstance(pidx, torch.Tensor):
             if (pidx.device != dev or pidx.dtype != torch.int32
                     or pidx.shape != (b,) or not pidx.is_contiguous()):
                 raise ValueError("per-record pidx must be int32[B] on the "
@@ -231,11 +309,9 @@ def _descriptors(blocks: Sequence[RecordBlock], pidxs: Sequence,
             col, scalar = pidx.data_ptr(), 0
         else:
             col, scalar = 0, int(pidx) & 0xFFFFFFFF
-        descs.append(_DESC.pack(*(0 if t is None else t.data_ptr()
-                                  for t in block), col, scalar,
-                                b, offset, 0, 0))
+        args += (cols, col, scalar, b, offset, 0, 0)
         offset += -(-b // 8) if packed else b
-    return b"".join(descs), k, offset
+    return (_table_struct(len(blocks)).pack(*args), k, offset, any_hashed)
 
 
 def _launch_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
@@ -243,23 +319,25 @@ def _launch_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
                   validate_hash: bool, partition_version: int,
                   now: Optional[int]) -> torch.Tensor:
     dev = blocks[0].device
-    descs, k, offset = _descriptors(blocks, pidxs, packed=now is None)
+    descs, k, offset, hashed = _descriptors(blocks, pidxs,
+                                            packed=now is None)
     _check_filter(hash_filter, dev)
     _check_filter(sort_filter, dev)
     out = torch.empty(offset, dtype=torch.uint8, device=dev)
     if offset == 0:
         # nothing to launch, so nothing to count
         return out
-    hash_keys = _hashes_keys(blocks, validate_hash)
-    err = _library().pegasus_scan_table(
-        descs, len(blocks), k, partition_version & 0xFFFFFFFF,
+    hash_keys = validate_hash and hashed
+    args = _TABLE_ARGS.pack(
+        hash_filter.pattern.data_ptr(), sort_filter.pattern.data_ptr(),
+        out.data_ptr(), _stream(dev),
+        crc_tables(dev).data_ptr() if hash_keys else 0,
+        partition_version & 0xFFFFFFFF,
+        0 if now is None else int(now) & 0xFFFFFFFF, len(blocks), k,
         int(validate_hash), hash_filter.filter_type,
-        hash_filter.pattern.data_ptr(), _pattern_len(hash_filter),
-        sort_filter.filter_type, sort_filter.pattern.data_ptr(),
-        _pattern_len(sort_filter), int(now is not None),
-        0 if now is None else int(now) & 0xFFFFFFFF, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-        crc_table(dev).data_ptr() if hash_keys else 0)
+        _pattern_len(hash_filter), sort_filter.filter_type,
+        _pattern_len(sort_filter), int(now is not None))
+    err = _library().pegasus_scan_table(args, descs)
     if err != 0:
         raise RuntimeError(f"scan_predicate launch failed: cuda error {err}")
     LAUNCHES["static" if now is None else "now"] += 1
@@ -334,11 +412,12 @@ def scan_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
     if not blocks:
         raise ValueError("empty table")
     dev = blocks[0].device
-    if any(b.device != dev for b in blocks):
-        raise ValueError("a table's blocks share one device")
     if dev.type == "cuda":
+        # every block's device is checked with its columns
         return _launch_table(blocks, pidxs, hash_filter, sort_filter,
                              validate_hash, partition_version, now)
+    if any(b.device != dev for b in blocks):
+        raise ValueError("a table's blocks share one device")
     if dev.type != "cpu":
         raise ValueError(f"no scan predicate for device {dev}")
     return scan_table_plain(blocks, pidxs, hash_filter, sort_filter,
@@ -362,32 +441,65 @@ def _flavor_types(flavors: Sequence[Tuple[FilterSpec, FilterSpec]]
     return hft, sft
 
 
+def _window(pattern: bytes, filter_type: int) -> Tuple[int, int]:
+    """(pattern, mask) of a sortkey pattern of up to 8 bytes against the
+    kernel's 8-byte window, little-endian: the region's first 8 bytes
+    for PREFIX (the pattern in the low bytes), its last 8 for POSTFIX
+    (the pattern in the high bytes); (0, 0) for an empty pattern, a
+    longer one or another filter type, which the window does not
+    decide."""
+    p = len(pattern)
+    if filter_type not in (FT_MATCH_PREFIX, FT_MATCH_POSTFIX) or not \
+            0 < p <= 8:
+        return 0, 0
+    shift = 0 if filter_type == FT_MATCH_PREFIX else 8 * (8 - p)
+    return (int.from_bytes(pattern, "little") << shift,
+            ((1 << 8 * p) - 1) << shift)
+
+
 @functools.lru_cache(maxsize=256)
 def _pattern_buffer(device: torch.device, raws: Tuple[Tuple[bytes, bytes]],
-                    hash_on: bool, sort_on: bool):
-    """(device buffer, hpitch, spitch, need_hash, need_sort) of K flavours'
-    patterns, as pegasus_scan_table_multi reads them: the hashkey patterns
-    at a pitch of hpitch bytes, then the sortkey patterns at spitch (each
-    a multiple of 4, zero-padded), then int32 lengths, K hashkey and K
-    sortkey (0 under FT_NO_FILTER). One host-to-device copy; cached,
-    since a flush re-sends the flavours of the last one."""
+                    hft: int, sft: int):
+    """(device buffer, hpitch, spitch, n_short, need_hash, need_sort) of K
+    flavours' patterns, as pegasus_scan_table_multi reads them. The
+    flavours go in a staged order: for a sortkey PREFIX or POSTFIX pair
+    without a hashkey filter, the n_short flavours of at most 8 sortkey
+    bytes first (the sortkey window's), then the rest, each group in the
+    callers' order; for any other pair the callers' order (n_short 0).
+    The buffer holds, by staged flavour: K sortkey windows (uint32
+    pattern lo, hi, mask lo, hi; `_window`), K (hashkey, sortkey) int32
+    lengths (0 under FT_NO_FILTER), K int32 output rows (the flavour's
+    index in `raws`), the hashkey patterns at a pitch of hpitch bytes,
+    the sortkey patterns at spitch (each pitch a multiple of 4,
+    zero-padded). One host-to-device copy; cached, since a flush re-sends
+    the flavours of the last one."""
     k = len(raws)
-    hlens = np.array([len(h) if hash_on else 0 for h, _s in raws],
-                     dtype=np.int32)
-    slens = np.array([len(s) if sort_on else 0 for _h, s in raws],
-                     dtype=np.int32)
-    hpitch = max(4, -(-int(hlens.max()) // 4) * 4)
-    spitch = max(4, -(-int(slens.max()) // 4) * 4)
-    buf = np.zeros(k * (hpitch + spitch) + 8 * k, dtype=np.uint8)
-    for f, (h, s) in enumerate(raws):
-        buf[f * hpitch:f * hpitch + hlens[f]] = np.frombuffer(
-            h[:hlens[f]], dtype=np.uint8)
-        so = k * hpitch + f * spitch
-        buf[so:so + slens[f]] = np.frombuffer(s[:slens[f]], dtype=np.uint8)
-    buf[k * (hpitch + spitch):] = np.concatenate([hlens, slens]).view(
-        np.uint8)
-    return (torch.from_numpy(buf).to(device), hpitch, spitch,
-            int(hlens.any()), int(slens.any()))
+    hlens = [len(h) if hft != FT_NO_FILTER else 0 for h, _s in raws]
+    slens = [len(s) if sft != FT_NO_FILTER else 0 for _h, s in raws]
+    rows = list(range(k))
+    n_short = 0
+    if hft == FT_NO_FILTER and sft in (FT_MATCH_PREFIX, FT_MATCH_POSTFIX):
+        rows.sort(key=lambda f: slens[f] > 8)
+        n_short = sum(n <= 8 for n in slens)
+    hpitch = max(4, -(-max(hlens) // 4) * 4)
+    spitch = max(4, -(-max(slens) // 4) * 4)
+    windows = np.zeros((k, 2), dtype=np.uint64)
+    lens = np.zeros((k, 2), dtype=np.int32)
+    hpats = np.zeros((k, hpitch), dtype=np.uint8)
+    spats = np.zeros((k, spitch), dtype=np.uint8)
+    for f, row in enumerate(rows):
+        h, s = raws[row]
+        hl, sl = hlens[row], slens[row]
+        windows[f] = _window(s[:sl], sft)
+        lens[f] = hl, sl
+        hpats[f, :hl] = np.frombuffer(h[:hl], dtype=np.uint8)
+        spats[f, :sl] = np.frombuffer(s[:sl], dtype=np.uint8)
+    buf = np.concatenate([windows.view(np.uint8).ravel(),
+                          lens.view(np.uint8).ravel(),
+                          np.array(rows, dtype=np.int32).view(np.uint8),
+                          hpats.ravel(), spats.ravel()])
+    return (torch.from_numpy(buf).to(device), hpitch, spitch, n_short,
+            int(any(hlens)), int(any(slens)))
 
 
 def _launch_table_multi(blocks: Sequence[RecordBlock], pidxs: Sequence,
@@ -395,24 +507,28 @@ def _launch_table_multi(blocks: Sequence[RecordBlock], pidxs: Sequence,
                         partition_version: int) -> torch.Tensor:
     dev = blocks[0].device
     hft, sft = _flavor_types(flavors)
-    descs, k, row_bytes = _descriptors(blocks, pidxs, packed=True)
     n_flavors = len(flavors)
+    if n_flavors > MAX_FLAVORS:
+        raise ValueError(f"one launch takes at most {MAX_FLAVORS} flavours, "
+                         f"got {n_flavors}")
+    descs, k, row_bytes, hashed = _descriptors(blocks, pidxs, packed=True)
     out = torch.empty((n_flavors, row_bytes), dtype=torch.uint8, device=dev)
     if row_bytes == 0:
         return out
-    buf, hpitch, spitch, need_hash, need_sort = _pattern_buffer(
-        dev, tuple((hf.raw, sf.raw) for hf, sf in flavors),
-        hft != FT_NO_FILTER, sft != FT_NO_FILTER)
-    base = buf.data_ptr()
-    hash_keys = _hashes_keys(blocks, validate_hash)
-    err = _library().pegasus_scan_table_multi(
-        descs, len(blocks), k, partition_version & 0xFFFFFFFF,
-        int(validate_hash), hft, base, hpitch, sft,
-        base + n_flavors * hpitch, spitch,
-        base + n_flavors * (hpitch + spitch), n_flavors, need_hash,
-        need_sort, row_bytes, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-        crc_table(dev).data_ptr() if hash_keys else 0)
+    buf, hpitch, spitch, n_short, need_hash, need_sort = _pattern_buffer(
+        dev, tuple((hf.raw, sf.raw) for hf, sf in flavors), hft, sft)
+    windows = buf.data_ptr()
+    lens = windows + 16 * n_flavors
+    perm = lens + 8 * n_flavors
+    hpats = perm + 4 * n_flavors
+    hash_keys = validate_hash and hashed
+    args = _MULTI_ARGS.pack(
+        hpats, hpats + n_flavors * hpitch, lens, windows, perm,
+        out.data_ptr(), _stream(dev),
+        crc_tables(dev).data_ptr() if hash_keys else 0, row_bytes,
+        partition_version & 0xFFFFFFFF, len(blocks), k, int(validate_hash),
+        hft, hpitch, sft, spitch, n_flavors, n_short, need_hash, need_sort)
+    err = _library().pegasus_scan_table_multi(args, descs)
     if err != 0:
         raise RuntimeError(f"scan_predicate multi launch failed: cuda error "
                            f"{err}")
@@ -468,11 +584,12 @@ def scan_table_multi(blocks: Sequence[RecordBlock], pidxs: Sequence,
     if not blocks:
         raise ValueError("empty table")
     dev = blocks[0].device
-    if any(b.device != dev for b in blocks):
-        raise ValueError("a table's blocks share one device")
     if dev.type == "cuda":
+        # every block's device is checked with its columns
         return _launch_table_multi(blocks, pidxs, flavors, validate_hash,
                                    partition_version)
+    if any(b.device != dev for b in blocks):
+        raise ValueError("a table's blocks share one device")
     if dev.type != "cpu":
         raise ValueError(f"no scan predicate for device {dev}")
     return scan_table_multi_plain(blocks, pidxs, flavors, validate_hash,

@@ -24,8 +24,10 @@ from chip_smoke import (
     check_tables_multi,
     compaction_chunk_columns,
     device_block,
+    multi_patterns,
     predicate_cases,
     random_block_columns,
+    random_pattern,
     serving_block_columns,
 )
 from pegasus_tpu_torch.ops import compaction as tcomp
@@ -169,6 +171,86 @@ def test_flavour_axis_is_one_launch_a_table(card):
                                                 9, 7)
     assert fused_scan.LAUNCHES["multi"] == before["multi"] + 1
     assert gated.shape == (4, 128) and not bool(gated.any())
+
+
+def _table(rng, k, card, counts=SMALL_COUNTS, pv=7):
+    """SMALL_COUNTS seeded blocks of width k on the card, every other one
+    with a pidx column, as chip_smoke.check_tables_multi builds them."""
+    blocks, pidxs = [], []
+    for i, count in enumerate(counts):
+        cols = random_block_columns(rng, count, k)
+        blocks.append(device_block(cols, card))
+        if i % 2:
+            col = np.where(rng.random(count) < 0.5, cols[3] & pv,
+                           rng.integers(0, pv + 1, count))
+            pidxs.append(torch.from_numpy(col.astype(np.int32)).to(card))
+        else:
+            pidxs.append(int(rng.integers(0, pv + 1)))
+    return blocks, pidxs
+
+
+def _multi_matches_plain(blocks, pidxs, flavors, validate, pv=7):
+    got = fused_scan.scan_table_multi(blocks, pidxs, flavors, validate, pv)
+    want = torch.cat([fused_scan.scan_table_multi_plain([b], [p], flavors,
+                                                        validate, pv)
+                      for b, p in zip(blocks, pidxs)], dim=1)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pair", [(0, 2), (0, 3), (2, 3), (1, 0), (3, 1)])
+def test_middle_band_patterns_match_plain(card, pair):
+    """Patterns of 5 to 15 bytes (past the sortkey window's 8 and below
+    half a row) through the flavour axis, the sortkey window's pairs and
+    others, and through the single-flavour table launch."""
+    hft, sft = pair
+    rng = np.random.default_rng(40 + 4 * hft + sft)
+    blocks, pidxs = _table(rng, 32, card)
+    flavors = [(FilterSpec.make(hft, random_pattern(rng, n), card),
+                FilterSpec.make(sft, random_pattern(rng, n), card))
+               for n in range(5, 16)]
+    for validate in (False, True):
+        _multi_matches_plain(blocks, pidxs, flavors, validate)
+        for hf, sf in flavors[::5]:
+            got = fused_scan.scan_table(blocks, pidxs, hf, sf, validate, 7)
+            want = fused_scan.scan_table_plain(blocks, pidxs, hf, sf,
+                                               validate, 7)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [64, 256])
+@pytest.mark.parametrize("pair", [(0, 3), (2, 1)])
+def test_64_flavours_at_wide_keys_match_plain(card, k, pair):
+    """64 flavours, one launch, patterns of every band (0 to k bytes)."""
+    hft, sft = pair
+    rng = np.random.default_rng(k + sft)
+    blocks, pidxs = _table(rng, k, card, counts=SMALL_COUNTS[:6])
+    flavors = [(FilterSpec.make(hft, hp, card), FilterSpec.make(sft, sp,
+                                                                card))
+               for hp, sp in zip(multi_patterns(rng, 64, k, "mixed"),
+                                 multi_patterns(rng, 64, k, "mixed"))]
+    before = fused_scan.LAUNCHES["multi"]
+    _multi_matches_plain(blocks, pidxs, flavors, True)
+    assert fused_scan.LAUNCHES["multi"] == before + 1
+
+
+@pytest.mark.parametrize("pair", [(0, 3), (0, 2), (1, 2)])
+def test_flavour_axis_mixes_stored_and_hashed_blocks(card, pair):
+    """A table whose every other block has no stored hash_lo, validating:
+    one launch of the key-hash instance, equal to the plain version."""
+    hft, sft = pair
+    rng = np.random.default_rng(50 + sft)
+    blocks, pidxs = _table(rng, 32, card)
+    blocks = [b._replace(hash_lo=None) if i % 2 == 0 else b
+              for i, b in enumerate(blocks)]
+    flavors = [(FilterSpec.make(hft, hp, card), FilterSpec.make(sft, sp,
+                                                                card))
+               for hp, sp in zip(multi_patterns(rng, 10, 32, "mixed"),
+                                 multi_patterns(rng, 10, 32, "mixed"))]
+    before = dict(fused_scan.LAUNCHES)
+    _multi_matches_plain(blocks, pidxs, flavors, True)
+    assert fused_scan.LAUNCHES["multi"] == before["multi"] + 1
+    assert fused_scan.LAUNCHES["keyhash"] == before["keyhash"] + 1
 
 
 def test_empty_block_launches_nothing(card):
