@@ -6,9 +6,9 @@
 Phases, each fatal on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles csrc/scan_predicate.cu and csrc/compaction_filter.cu
-   with nvcc for sm_90a and native/packer.cpp with g++, all started
-   together;
+2. build: compiles csrc/scan_predicate.cu, csrc/compaction_filter.cu
+   and csrc/mesh_step.cu with nvcc for sm_90a and native/packer.cpp with
+   g++, all started together;
 3. kernel vs plain: the scan-predicate kernel's table launch against
    its plain torch version on seeded random blocks: tables of 1, 3, 8
    and 16 blocks (counts not a multiple of the tile or of 8, an empty
@@ -91,7 +91,30 @@ Phases, each fatal on failure:
    write_pgt1) equal to each other and to an oracle; the scan kernel
    must launch on the encrypted store and its key-hash instance on the
    PGT1 copy; ReplicaScrubber.scrub_now passes the twin clean and
-   reports exactly the one block of a copy with a flipped byte.
+   reports exactly the one block of a copy with a flipped byte;
+10. the resident image (parallel/mesh_resident.py): BASELINE config #2
+   whole (bench.py:190's layout, not cut: 100,000 hashkeys x 10
+   sortkeys, 10% expired, over 64 PartitionServers on the card through
+   multi_put, `none`, compacted) attached to MESH_SERVING: a [64, B, 32]
+   image, B = 16384 or 32768 (printed). Against the host arm (the image
+   switched off by `[pegasus.mesh] serving_enabled`): (a) every
+   partition's blocks through stacked_block_eval, masks bit-identical
+   with the gate pinned open (one round a wave), then a partition's and
+   the whole table's wave under the measured gate, its verdict and both
+   times printed; (b) count and sum pushdown aggregates over all 64
+   partitions, equal, one round each on a frozen epoch second; (c) a
+   scan_multi drain of the table, equal, and equal to the oracle; (d) a
+   config #3 TTL pass and a config #4 rules pass over the 64 partitions
+   (gate pinned open): one round each, survivors equal to the oracle,
+   every partition equal to a detached twin, every refresh a survivor
+   gather; (e) sharded_scan_step over the image against its plain
+   version; (f) csrc/mesh_step.cu and the compaction kernel's slot-gate
+   instance against their plain versions at P in {1, 5, 16, 64}, B in
+   {8, 1024, 16384, 65536}, bit-identical, and their times at the
+   phase's P and B beside their bounds; then ops/placement's cost
+   constants measured on the card (measure_placement). The launches of
+   (a)-(d) must include the epilogue, the slot gate and the scan
+   kernel's static mode.
 
 Phase 3 also holds the compaction-filter kernel bit-exact against its
 plain version
@@ -103,7 +126,7 @@ the kernel) bit-exact against its plain version on the same seeded
 tables with hash_lo dropped, through both entries, K in {32, 64, 256},
 and times it at 2^20 records, K = 32.
 
-Phases 4, 5, 8 and 9 pin the store flags `block_codec = none`,
+Phases 4, 5, 8, 9 and 10 pin the store flags `block_codec = none`,
 `bloom_bits_per_key = 0`, `phash_index = false` (every block reaches the
 kernel); phases 6 and 7 (b, c) pin the defaults, 7 (a) pins `none`
 without sidecars. The line before the last lists the
@@ -373,8 +396,21 @@ def kernel_bound(n: int, k: int, *, hash_filter: bool, sort_filter: bool,
                  ops: float, mask_rows: int = 1):
     """(bound_ms, bound_by) of one table launch over `n` records of key
     width `k`: each input byte the call needs read once, each output byte
-    written once, over HBM; `ops` integer operations over the non-tensor
-    peak. Per record: valid 1 B; hash_lo 4 B (and the pidx column 4 B)
+    written once (table_bytes), over HBM; `ops` integer operations over
+    the non-tensor peak."""
+    nbytes = table_bytes(n, k, hash_filter=hash_filter,
+                         sort_filter=sort_filter, now=now, validate=validate,
+                         pidx_column=pidx_column, mask_rows=mask_rows)
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+
+
+def table_bytes(n: int, k: int, *, hash_filter: bool, sort_filter: bool,
+                now: bool, validate: bool, pidx_column: bool,
+                mask_rows: int = 1) -> int:
+    """The bytes one table launch over `n` records of key width `k`
+    moves. Per record: valid 1 B; hash_lo 4 B (and the pidx column 4 B)
     with validation; expire_ts 4 B with `now`; the key row k B and
     hashkey_len 4 B with any filter, key_len 4 B with a sortkey filter.
     Output: a status byte with `now`, a packed keep bit without, in each
@@ -388,10 +424,7 @@ def kernel_bound(n: int, k: int, *, hash_filter: bool, sort_filter: bool,
         per += k + 4
     if sort_filter:
         per += 4
-    nbytes = n * per + (n if now else mask_rows * -(-n // 8))
-    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / SCALAR_OPS_PER_S * 1e3
-    return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
+    return n * per + (n if now else mask_rows * -(-n // 8))
 
 
 def match_ops(cols, filters, validate: bool, pidx: int, pv: int,
@@ -1248,17 +1281,18 @@ def fixture_keys(idx: np.ndarray) -> np.ndarray:
 
 def compaction_bound(rows: int, k: int, *, keys: bool, hash_lo: bool,
                      pidx_col: bool, pack: bool, want_ets: bool,
-                     ops: float):
+                     ops: float, slots: int = 0):
     """(bound_ms, bound_by) of one compaction-filter launch over `rows`
     rows: valid 1 B and expire_ts 4 B a row; the key row k B and key_len
     4 B where a pattern rule or the key hash reads them (the hashkey
     length is the row's own first two bytes); hash_lo and a pidx column
-    4 B each where read; out the drop mask (1/8 B packed, else 1 B) and
-    ets2 4 B when asked; `ops` integer operations at the card's scalar
-    rate."""
+    4 B each where read; the slot gate's pidx (4 B) and allowed (1 B)
+    once a slot of `slots`; out the drop mask (1/8 B packed, else 1 B)
+    and ets2 4 B when asked; `ops` integer operations at the card's
+    scalar rate."""
     per = 5 + (k + 4 if keys else 0) + (4 if hash_lo else 0) \
         + (4 if pidx_col else 0) + (4 if want_ets else 0)
-    nbytes = rows * per + (-(-rows // 8) if pack else rows)
+    nbytes = rows * per + (-(-rows // 8) if pack else rows) + 5 * slots
     mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return (mem_ms, "bytes") if mem_ms >= ops_ms else (ops_ms, "operations")
@@ -3862,6 +3896,891 @@ def run_integrity(device, n_records: int = INTEGRITY_RECORDS,
     return out
 
 
+# ---- phase 10: the resident image -------------------------------------
+
+RESIDENT_PARTITIONS = 64       # BASELINE config #2: the whole table
+RESIDENT_HASHKEYS = 100_000    # x 10 sortkeys: 1,000,000 records
+RESIDENT_EXPIRED = 0.10        # bench.py: 10% of the records expired
+RESIDENT_APP = 10              # the phase's table; its twin is app 11
+RESIDENT_VALUE_FILTER = b"77"  # the aggregates' value filter (ANYWHERE)
+# (f): the epilogue and the slot gate against their plain versions
+RESIDENT_CHECK_P = (1, 5, 16, 64)
+RESIDENT_CHECK_B = (8, 1024, 16384, 65536)
+
+
+class FrozenClock:
+    """Stands in for a module's `time` while a check needs one epoch
+    second: `time()` is frozen at `t`, the rest is the real module."""
+
+    def __init__(self, t: float) -> None:
+        self.t = t
+
+    def time(self) -> float:
+        return self.t
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@contextlib.contextmanager
+def frozen_epoch():
+    """Freeze the port's epoch clock (base/value_schema's `time`)."""
+    from pegasus_tpu_torch.base import value_schema
+
+    real = value_schema.time
+    value_schema.time = FrozenClock(time.time())
+    try:
+        yield
+    finally:
+        value_schema.time = real
+
+
+@contextlib.contextmanager
+def gate_open(name: str):
+    """Pin one placement gate (ops/placement.mesh_wave_pays or
+    mesh_compact_pays) to True for an identity check."""
+    from pegasus_tpu_torch.ops import placement
+
+    real = getattr(placement, name)
+    setattr(placement, name, lambda *_a, **_k: True)
+    try:
+        yield
+    finally:
+        setattr(placement, name, real)
+
+
+# one epilogue launch a row: 1/8 B static mask, 4 B expire_ts, 1 B
+# present, 1 B extra and 1/8 B out
+MESH_STEP_ROW_BYTES = 6.25
+
+
+def mesh_step_bound(rows: int, with_sum: bool):
+    """(bound_ms, "bytes") of one epilogue launch: MESH_STEP_ROW_BYTES a
+    row, and 16 B of lanes with the sum."""
+    per = MESH_STEP_ROW_BYTES + (16 if with_sum else 0)
+    return rows * per / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def resident_load(device, data_dir: str, seed: int,
+                  n_hashkeys: int = RESIDENT_HASHKEYS):
+    """BASELINE config #2 (bench.py:190 build_cluster's layout, not cut):
+    `n_hashkeys` hashkeys x 10 sortkeys over RESIDENT_PARTITIONS
+    PartitionServers on `device`, through multi_put; RESIDENT_EXPIRED of
+    the records carry a 1 s TTL and the compaction runs at the load's
+    start, so the expired records stay in the store as bench.py's do.
+    Returns (servers, {pidx: sorted live keys}, {pidx: sorted expiring
+    keys}, load seconds, compaction seconds)."""
+    from pegasus_tpu_torch.base.crc import crc64_batch
+    from pegasus_tpu_torch.base.key_schema import generate_key, key_hash_parts
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.server.partition_server import PartitionServer
+    from pegasus_tpu_torch.server.types import KeyValue, MultiPutRequest
+
+    rng = np.random.default_rng(seed)
+    rows = _user_keys(0, n_hashkeys)
+    hashes = crc64_batch(rows, np.full(len(rows), 12, np.int64))
+    route = (hashes % np.uint64(RESIDENT_PARTITIONS)).astype(np.int64)
+    expiring = rng.random((n_hashkeys, len(SORT_KEYS))) \
+        < RESIDENT_EXPIRED
+    servers = [PartitionServer(os.path.join(data_dir, str(p)),
+                               app_id=RESIDENT_APP, pidx=p,
+                               partition_count=RESIDENT_PARTITIONS,
+                               device=device)
+               for p in range(RESIDENT_PARTITIONS)]
+    live = {p: [] for p in range(RESIDENT_PARTITIONS)}
+    dead = {p: [] for p in range(RESIDENT_PARTITIONS)}
+    t0 = time.perf_counter()
+    start = epoch_now()
+    for h in range(n_hashkeys):
+        hk = rows[h].tobytes()
+        p = int(route[h])
+        groups = ([], [])
+        for s, sk in enumerate(SORT_KEYS):
+            short = bool(expiring[h, s])
+            groups[short].append(KeyValue(sk, b"field0=%064d" % (h * 10 + s)))
+            (dead if short else live)[p].append(generate_key(hk, sk))
+        for kvs, ttl in zip(groups, (0, 1)):
+            if kvs and servers[p].on_multi_put(
+                    MultiPutRequest(hk, kvs, ttl),
+                    partition_hash=key_hash_parts(hk)) != 0:
+                fail("resident: multi_put refused")
+    load_s = time.perf_counter() - t0
+    deadline = epoch_now() + 2   # every 1 s TTL runs out first
+    t0 = time.perf_counter()
+    for s in servers:
+        s.manual_compact(now=start)   # before any TTL ran out
+    for d in (live, dead):
+        for keys in d.values():
+            keys.sort()
+    compact_s = time.perf_counter() - t0
+    while epoch_now() < deadline:
+        time.sleep(0.1)
+    return servers, live, dead, load_s, compact_s
+
+
+def partition_blocks(server) -> list:
+    """[(ckey, device block, pidx, rows)] of every L1 block of
+    `server`."""
+    out = []
+    for run in server.engine.lsm.l1_runs:
+        for i, bm in enumerate(run.blocks):
+            ckey = (run.path, bm.offset)
+            blk = run.read_block(i)
+            out.append((ckey, server._device_cached_block(ckey, blk),
+                        server.pidx, blk.count))
+    return out
+
+
+def clear_masks(servers) -> None:
+    for s in servers:
+        with s._mask_lock:
+            s._mask_cache.clear()
+
+
+def survivor_keys(engine) -> list:
+    out = []
+    for run in engine.lsm.l1_runs:
+        for i in range(len(run.blocks)):
+            blk = run.read_block(i)
+            out.extend(blk.key_at(j) for j in range(blk.count))
+    return out
+
+
+def drain_multi(servers, now: int) -> dict:
+    """Every partition's whole range through scan_multi (one flush of the
+    first pages) and on_scan (the rest): {pidx: [(key, value)]}."""
+    from pegasus_tpu_torch.server.scan_coordinator import scan_multi
+    from pegasus_tpu_torch.server.types import (
+        SCAN_CONTEXT_ID_COMPLETED,
+        GetScannerRequest,
+    )
+
+    resps = scan_multi([(s, [GetScannerRequest(batch_size=4096)])
+                        for s in servers], now)
+    out = {}
+    for s, (resp,) in zip(servers, resps):
+        rows = []
+        while True:
+            if resp.error != 0:
+                fail(f"resident drain: error {resp.error}")
+            rows.extend((kv.key, kv.value) for kv in resp.kvs)
+            if resp.context_id == SCAN_CONTEXT_ID_COMPLETED:
+                break
+            resp = s.on_scan(resp.context_id)
+        out[s.pidx] = rows
+    return out
+
+
+def measure_placement(device, win: dict, stack) -> dict:
+    """ops/placement's cost constants, measured on this card:
+    H2D_GBPS_EST and D2H_GBPS_EST (a pageable copy of 64 MB each way,
+    median of 5), ROUND_FIXED_S_EST (one resident round at P = 1, B = 8:
+    its two launches, the wait and the results home; median of 50),
+    HOST_DISPATCH_S_EST (phase 3's stacked_block_eval over 8 resident
+    blocks of 1024: one table call of the scan kernel with its host
+    cost, masks on the host), HOST_FILTER_GBPS_EST (numpy's TTL compare
+    over a uint32 column of 16 Mi rows, median of 5) and
+    MESH_EVAL_GBPS_EST (one round of the "rules" class at this phase's P
+    and B, L2 flushed before each launch: the scan kernel's static launch
+    with a sortkey filter, so it reads the key rows, plus the epilogue;
+    the bytes the two launches really move over the sum of their device
+    times, each timed a launch; fails above the card's HBM rate). The
+    same round with no key filter (the "ttl" class) is timed beside it
+    for the record."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fused_mesh
+    from pegasus_tpu_torch.ops.fused_scan import scan_table
+    from pegasus_tpu_torch.ops.predicates import FT_MATCH_POSTFIX, FilterSpec
+    from pegasus_tpu_torch.parallel.mesh_resident import (
+        MESH_SERVING,
+        _build_stack,
+        _Slab,
+    )
+
+    def median(fn, n):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[n // 2]
+
+    host = torch.ones(64 << 20, dtype=torch.uint8)
+    card = host.to(device)
+    torch.cuda.synchronize()
+
+    def h2d():
+        host.to(device)
+        torch.cuda.synchronize()
+
+    h2d_s = median(h2d, 5)
+    d2h_s = median(card.cpu, 5)
+    ets = np.random.default_rng(3).integers(
+        0, 1 << 32, 16 << 20, dtype=np.uint64).astype(np.uint32)
+    now32 = np.uint32(1 << 31)
+    filt_s = median(lambda: (ets > 0) & (ets <= now32), 5)
+
+    tiny = _Slab(None, 0, 0)
+    tiny.n_rows, tiny.width = 8, 32
+    tiny.keys = np.zeros((8, 32), np.uint8)
+    tiny.key_len = np.full(8, 2, np.int32)
+    tiny.hashkey_len = np.zeros(8, np.int32)
+    tiny.expire_ts = np.zeros(8, np.uint32)
+    tiny.valid = np.ones(8, bool)
+    tiny.hash_lo = np.zeros(8, np.uint32)
+    tiny_stack = _build_stack(device, [(0, tiny)])
+    fkey = (0, b"", 0, b"")
+    round_s = median(lambda: MESH_SERVING._run_program(
+        tiny_stack, False, -1, fkey, 0, tiny_stack.ones_extra, False), 50)
+
+    allowed = torch.ones(stack.P, dtype=torch.uint8, device=device)
+    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+
+    def flush():
+        dst.copy_(src)
+
+    rows, k = stack.P * stack.B, stack.flat.keys.shape[1]
+    none = FilterSpec.none(device)
+    classes = {}
+    for cls, sort in (("rules", FilterSpec.make(FT_MATCH_POSTFIX, b"5",
+                                                device)),
+                      ("ttl", none)):
+
+        def static_mask(sort=sort):
+            return scan_table([stack.flat], [stack.pidx_rows], none, sort,
+                              True, RESIDENT_PARTITIONS - 1)
+
+        static = static_mask().view(stack.P, stack.B // 8)
+
+        def epilogue(static=static):
+            fused_mesh.mesh_step(static, allowed, stack.ets2d, stack.present,
+                                 stack.ones_extra, None, 0, False)
+
+        # each kernel's time a launch (a trace may drop some launches)
+        parts = (_device_ms(static_mask, 20, "scan_table_kernel", flush),
+                 _device_ms(epilogue, 20, "mesh_step_kernel", flush))
+        if None in parts:
+            fail("torch.profiler recorded no device time for a resident "
+                 "round")
+        nbytes = table_bytes(rows, k, hash_filter=False,
+                             sort_filter=cls == "rules", now=False,
+                             validate=True, pidx_column=True) \
+            + rows * MESH_STEP_ROW_BYTES
+        gbps = nbytes / sum(parts) / 1e6
+        if gbps * 1e9 > HBM_BYTES_PER_S:
+            fail(f"the resident round ({cls}) moved {nbytes} B at "
+                 f"{gbps:.1f} GB/s, above the card's HBM rate")
+        classes[cls] = {"device_ms": sum(parts), "bytes": nbytes,
+                        "gbps": gbps}
+    return {
+        "H2D_GBPS_EST": host.numel() / h2d_s / 1e9,
+        "D2H_GBPS_EST": host.numel() / d2h_s / 1e9,
+        "ROUND_FIXED_S_EST": round_s,
+        "HOST_DISPATCH_S_EST": win["median_us"] / 1e6,
+        "HOST_FILTER_GBPS_EST": ets.nbytes / filt_s / 1e9,
+        "MESH_EVAL_GBPS_EST": classes["rules"]["gbps"],
+        "round_device_ms": classes["rules"]["device_ms"],
+        "rounds": classes,
+    }
+
+
+def check_mesh_step(device) -> dict:
+    """(f) the epilogue kernel against its plain version at every P of
+    RESIDENT_CHECK_P and B of RESIDENT_CHECK_B, the lanes' sum off and
+    on: random packed masks, an allowed gate with slots shut, TTLs around
+    `now` and past 2^31, rows past each slot's count, a value-filter
+    mask; bit-identical."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fused_mesh
+
+    rng = np.random.default_rng(1010)
+    now = 300_000_000
+    compared = 0
+    for p in RESIDENT_CHECK_P:
+        for b in RESIDENT_CHECK_B:
+            packed = torch.from_numpy(rng.integers(
+                0, 256, (p, b // 8), dtype=np.uint8)).to(device)
+            allowed = torch.from_numpy(
+                (rng.random(p) < 0.8).astype(np.uint8)).to(device)
+            ets = torch.from_numpy(rng.choice(np.array(
+                [0, 1, now - 1, now, now + 1, 0x80000010, 0xFFFFFFFF],
+                np.uint32), (p, b)).view(np.int32)).to(device)
+            present = torch.from_numpy(
+                np.arange(b)[None, :] < rng.integers(0, b + 1, (p, 1))
+            ).to(device)
+            extra = torch.from_numpy(rng.random((p, b)) < 0.6).to(device)
+            lanes = torch.from_numpy(rng.integers(
+                0, 1 << 16, (p, b, 4)).astype(np.int32)).to(device)
+            for with_sum in (False, True):
+                got = fused_mesh.mesh_step(packed, allowed, ets, present,
+                                           extra, lanes, now, with_sum)
+                want = fused_mesh.mesh_step_plain(
+                    packed, allowed, ets, present, extra, lanes, now,
+                    with_sum)
+                torch.cuda.synchronize()
+                for g, w, what in zip(got, want,
+                                      ("mask", "counts", "lane sums")):
+                    if not torch.equal(g, w):
+                        fail(f"mesh_step kernel != plain ({what}) at "
+                             f"P={p}, B={b}, sum={with_sum}")
+                compared += 1
+    return {"compared": compared, "max_abs_err": 0}
+
+
+def check_slot_gate(device) -> dict:
+    """(f) the compaction kernel's slot-gate instance (mesh_compact_step
+    on the card) against eval_block_plain with the same gate on the same
+    tensors, at every P and B of (f): fixture keys, hash_lo owned by the
+    slot's pidx for 90% of the rows, slots above the version, a default
+    TTL and config #4's ruleset in turns, want_ets off and on;
+    bit-identical."""
+    import torch
+
+    from pegasus_tpu_torch.ops import compaction as tcomp
+    from pegasus_tpu_torch.ops.compaction_rules import parse_rules
+
+    rng = np.random.default_rng(1011)
+    config4 = tuple(parse_rules(CONFIG4_RULES))
+    pv = 47
+    compared = turn = 0
+    for p in RESIDENT_CHECK_P:
+        for b in RESIDENT_CHECK_B:
+            rows = p * b
+            keys = fixture_keys(rng.integers(0, 7_000_000, rows))
+            pidx = rng.permutation(RESIDENT_PARTITIONS)[:p].astype(np.int32)
+            noise = rng.integers(0, 1 << 32, rows, dtype=np.uint64)
+            hash_lo = np.where(rng.random(rows) < 0.9,
+                               (noise & ~np.uint64(63))
+                               | np.repeat(pidx, b).astype(np.uint64),
+                               noise).astype(np.uint32)
+            ets = rng.choice(np.array([0, 0, 4900, 5000, 5100], np.uint32),
+                             rows)
+            present = (np.arange(b)[None, :]
+                       < rng.integers(0, b + 1, (p, 1)))
+            cols = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in (keys.reshape(p, b, 32),
+                              np.full((p, b), 17, np.int32),
+                              np.full((p, b), 12, np.int32),
+                              ets.view(np.int32).reshape(p, b), present,
+                              hash_lo.view(np.int32).reshape(p, b), pidx,
+                              pidx <= pv)]
+            k, kl, hkl, e, pr, lo, pi, al = cols
+            for want_ets in (False, True):
+                ops = config4 if turn % 2 else ()
+                ttl = 600 if turn % 3 == 0 else 0
+                turn += 1
+                got = tcomp.mesh_compact_step(
+                    *cols, 5000, ttl, pv, operations=ops,
+                    validate_hash=True, want_ets=want_ets)
+                want = tcomp.eval_block_plain(
+                    ops, k.reshape(rows, 32), kl.reshape(rows),
+                    hkl.reshape(rows), e.reshape(rows), pr.reshape(rows),
+                    lo.reshape(rows), 5000, ttl, pi,
+                    pv, True, True, want_ets=want_ets, pack=True,
+                    slot_allowed=al)
+                torch.cuda.synchronize()
+                if not torch.equal(got[0].reshape(-1), want[0]):
+                    fail(f"slot-gate instance != plain (drop) at P={p}, "
+                         f"B={b}")
+                if want_ets and not torch.equal(got[1].reshape(-1),
+                                                want[1]):
+                    fail(f"slot-gate instance != plain (ets2) at P={p}, "
+                         f"B={b}")
+                compared += 1
+    return {"compared": compared, "max_abs_err": 0}
+
+
+def time_resident_kernels(device, stack) -> dict:
+    """(f) times at this phase's P and B: the epilogue with the lanes'
+    sum off (a wave) and on (a sum aggregate), and the compaction
+    kernel's slot-gate instance in the TTL pass's shape (no ruleset,
+    validation against the resident hash_lo, pidx once a slot, packed, no
+    ets2) beside the same launch without the gate (which reads the
+    stack's resident per-row pidx column instead); L2 flushed before each
+    launch."""
+    import torch
+
+    from pegasus_tpu_torch.ops import compaction as tcomp
+    from pegasus_tpu_torch.ops import fused_compaction, fused_mesh
+    from pegasus_tpu_torch.ops.fused_scan import scan_table
+    from pegasus_tpu_torch.ops.predicates import FilterSpec
+
+    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+
+    def flush():
+        dst.copy_(src)
+
+    p, b = stack.P, stack.B
+    rows = p * b
+    none = FilterSpec.none(device)
+    static = scan_table([stack.flat], [stack.pidx_rows], none, none, True,
+                        RESIDENT_PARTITIONS - 1).view(p, b // 8)
+    allowed = torch.ones(p, dtype=torch.uint8, device=device)
+    lanes = stack.lanes_dev()
+    out = {}
+    for with_sum in (False, True):
+        args = (static, allowed, stack.ets2d, stack.present,
+                stack.ones_extra, lanes, 0, with_sum)
+
+        def kernel(a=args):
+            return fused_mesh.mesh_step(*a)
+
+        def plain(a=args):
+            return fused_mesh.mesh_step_plain(*a)
+
+        bound_ms, bound_by = mesh_step_bound(rows, with_sum)
+        row = {"shape": f"P={p}, B={b} ({rows} rows), lanes' sum "
+                        f"{'on' if with_sum else 'off'}, L2 flushed",
+               "ms": _device_ms(kernel, 50, "mesh_step_kernel", flush),
+               "call_ms": _cuda_ms(kernel, 50, flush),
+               "plain_ms": _device_ms(plain, 10, "", flush),
+               "plain_call_ms": _cuda_ms(plain, 10, flush),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if None in (row["ms"], row["plain_ms"]):
+            fail("torch.profiler recorded no device time for mesh_step")
+        row["share"] = bound_ms / row["ms"]
+        out["sum" if with_sum else "nosum"] = row
+    flat = stack.flat
+    valid = stack.present.view(-1)
+
+    def gated():
+        return tcomp.mesh_compact_step(
+            stack.view(flat.keys), stack.view(flat.key_len),
+            stack.view(flat.hashkey_len), stack.ets2d, stack.present,
+            stack.view(flat.hash_lo), stack.pidx, allowed, 5000, 0,
+            RESIDENT_PARTITIONS - 1, validate_hash=True, want_ets=False)
+
+    def ungated():
+        return fused_compaction.compaction_filter(
+            flat.keys, flat.key_len, flat.expire_ts, valid, flat.hash_lo,
+            stack.pidx_rows, (), 5000, 0,
+            RESIDENT_PARTITIONS - 1, validate_hash=True, expire=True,
+            want_ets=False, pack=True)
+
+    def plain_gate():
+        return tcomp.eval_block_plain(
+            (), flat.keys, flat.key_len, flat.hashkey_len, flat.expire_ts,
+            valid, flat.hash_lo, 5000, 0, stack.pidx,
+            RESIDENT_PARTITIONS - 1, True, True, want_ets=False, pack=True,
+            slot_allowed=allowed)
+
+    bound_ms, bound_by = compaction_bound(
+        rows, 32, keys=False, hash_lo=True, pidx_col=False, pack=True,
+        want_ets=False, ops=rows * 8.0, slots=p)
+    row = {"shape": f"P={p}, B={b} ({rows} rows), the TTL pass: no "
+                    f"ruleset, validation against hash_lo, pidx once a "
+                    f"slot, packed, no ets2, L2 flushed",
+           "call_ms": _cuda_ms(gated, 50, flush),
+           "plain_ms": _device_ms(plain_gate, 10, "", flush),
+           "plain_call_ms": _cuda_ms(plain_gate, 10, flush),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    # the gate on and off in turns (on, off, off, on): the device time of
+    # each, the mean of its two
+    turns = [_device_ms(fn, 50, "compaction_filter_kernel", flush)
+             for fn in (gated, ungated, ungated, gated)]
+    if None in turns or row["plain_ms"] is None:
+        fail("torch.profiler recorded no device time for the slot gate")
+    row["ms"] = (turns[0] + turns[3]) / 2
+    row["ungated_ms"] = (turns[1] + turns[2]) / 2
+    row["turns_ms"] = turns
+    row["share"] = bound_ms / row["ms"]
+    out["slot_gate"] = row
+    return out
+
+
+def resident_waves(blocks, pv: int, fkey) -> tuple:
+    """Every partition's blocks through stacked_block_eval, one wave a
+    partition: ({ckey: mask[:rows]}, seconds)."""
+    from pegasus_tpu_torch.server.scan_coordinator import stacked_block_eval
+
+    masks, secs = {}, 0.0
+    for part in blocks.values():
+        rows = {ck: n for ck, _d, _p, n in part}
+        t0 = time.perf_counter()
+        got = list(stacked_block_eval([(ck, d, p) for ck, d, p, _n in part],
+                                      True, pv, filter_key=fkey))
+        secs += time.perf_counter() - t0
+        for ck, keep in got:
+            masks[ck] = np.asarray(keep)[:rows[ck]]
+    return masks, secs
+
+
+def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
+                 seed: int = 10) -> dict:
+    """Phase 10: BASELINE config #2's whole table in the resident image on
+    the card (parallel/mesh_resident.py), every answer held against the
+    host arm (the image switched off by `[pegasus.mesh] serving_enabled`)
+    or an oracle, then the resident round's kernels against their plain
+    versions. Returns the launches of the main path's run ((a)-(d)),
+    the checks, the times and the measured placement constants. On the
+    CPU (a rehearsal at a small `n_hashkeys`) (a)-(e) run on the plain
+    versions, and the launch checks, (f) and the measurements are left
+    out."""
+    import torch
+
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.ops import fused_compaction, fused_mesh, fused_scan
+    from pegasus_tpu_torch.ops import placement
+    from pegasus_tpu_torch.ops.compaction_rules import compile_rules
+    from pegasus_tpu_torch.ops.predicates import (
+        FT_MATCH_ANYWHERE,
+        FT_MATCH_POSTFIX,
+        FT_NO_FILTER,
+        FilterSpec,
+    )
+    from pegasus_tpu_torch.ops.pushdown import PushdownSpec
+    from pegasus_tpu_torch.parallel import make_mesh, sharded_scan_step
+    from pegasus_tpu_torch.parallel.mesh_resident import MESH_SERVING
+    from pegasus_tpu_torch.parallel.partition_mesh import StackedBlocks
+    from pegasus_tpu_torch.server.partition_server import PartitionServer
+    from pegasus_tpu_torch.server.scan_coordinator import stacked_block_eval
+    from pegasus_tpu_torch.server.types import (
+        SCAN_CONTEXT_ID_COMPLETED,
+        GetScannerRequest,
+    )
+    from pegasus_tpu_torch.utils.flags import FLAGS
+
+    def serving(on: bool) -> None:
+        FLAGS.set("pegasus.mesh", "serving_enabled", on, force=True)
+
+    out = {}
+    data_dir = tempfile.mkdtemp(prefix="pegasus_torch_resident_")
+    servers, twins = [], []
+    iter_budget = FLAGS.get("pegasus.server", "rocksdb_max_iteration_count")
+    try:
+        servers, live, dead, load_s, compact_s = resident_load(
+            device, os.path.join(data_dir, "main"), seed, n_hashkeys)
+        for s in servers:
+            s.close()
+        shutil.copytree(os.path.join(data_dir, "main"),
+                        os.path.join(data_dir, "twin"))
+
+        def reopen(sub, app_id):
+            return [PartitionServer(os.path.join(data_dir, sub, str(p)),
+                                    app_id=app_id, pidx=p,
+                                    partition_count=RESIDENT_PARTITIONS,
+                                    device=device)
+                    for p in range(RESIDENT_PARTITIONS)]
+
+        servers = reopen("main", RESIDENT_APP)
+        twins = reopen("twin", RESIDENT_APP + 1)
+        rows_of = [sum(int(bm.count) for run in s.engine.lsm.l1_runs
+                       for bm in run.blocks) for s in servers]
+        log(f"resident: loaded {sum(rows_of)} records (BASELINE config #2, "
+            f"{n_hashkeys} hashkeys x {len(SORT_KEYS)}, "
+            f"{sum(len(d) for d in dead.values())} of them expired) into "
+            f"{RESIDENT_PARTITIONS} partitions through multi_put in "
+            f"{load_s:.1f} s, compacted in {compact_s:.1f} s; "
+            f"{min(rows_of)}..{max(rows_of)} rows a partition")
+        MESH_SERVING.reset()
+        t0 = time.perf_counter()
+        for s in servers:
+            MESH_SERVING.attach(s)
+        MESH_SERVING.ensure_current()
+        stack = MESH_SERVING._tables[RESIDENT_APP].stack
+        if stack is None:
+            fail("resident: the table does not fit the image")
+        log(f"resident: image P={stack.P}, B={stack.B}, K={stack.K} "
+            f"({stack.rows_total} rows, {stack.batch_bytes} predicate "
+            f"bytes) staged in {time.perf_counter() - t0:.1f} s")
+        if n_hashkeys != RESIDENT_HASHKEYS:
+            log(f"resident: CUT to {n_hashkeys} hashkeys (the configuration "
+                f"holds {RESIDENT_HASHKEYS})")
+        elif (stack.P, stack.K) != (RESIDENT_PARTITIONS, 32) \
+                or stack.B not in (16384, 32768):
+            fail(f"resident: image {stack.P} x {stack.B} x {stack.K}, not "
+                 f"64 x 16384|32768 x 32")
+        pv = RESIDENT_PARTITIONS - 1
+        blocks = {s.pidx: partition_blocks(s) for s in servers}
+        flavours = (None, (FT_NO_FILTER, b"", FT_MATCH_POSTFIX, b"3"))
+
+        # the main path's run: every count from 0
+        for launches in (fused_scan.LAUNCHES, fused_mesh.LAUNCHES,
+                         fused_compaction.LAUNCHES):
+            for k in launches:
+                launches[k] = 0
+
+        # (a) waves: every partition's blocks detached, then attached
+        # with the gate pinned open: bit-identical masks
+        waves = {}
+        for fkey in flavours:
+            serving(False)
+            clear_masks(servers)
+            host, host_s = resident_waves(blocks, pv, fkey)
+            serving(True)
+            clear_masks(servers)
+            w0 = MESH_SERVING.wave_dispatches
+            with gate_open("mesh_wave_pays"):
+                mesh, mesh_s = resident_waves(blocks, pv, fkey)
+            served = MESH_SERVING.wave_dispatches - w0
+            if served != RESIDENT_PARTITIONS:
+                fail(f"resident (a): {served} rounds for "
+                     f"{RESIDENT_PARTITIONS} waves")
+            if host.keys() != mesh.keys() or any(
+                    not np.array_equal(host[ck], mesh[ck]) for ck in host):
+                fail(f"resident (a): masks differ with the image attached "
+                     f"(filter {fkey})")
+            waves[str(fkey)] = {"host_s": host_s, "mesh_s": mesh_s,
+                                "rounds": served}
+            log(f"resident (a) {RESIDENT_PARTITIONS} partition waves, "
+                f"filter {fkey}: masks bit-identical; host arm {host_s} s, "
+                f"resident {mesh_s} s ({served} rounds, gate pinned open)")
+        # the same under the measured gate: a partition's wave and the
+        # whole table's wave
+        part = blocks[0]
+        part_bytes = sum(d.keys.numel() + 9 * d.expire_ts.numel()
+                         for _c, d, _p, _n in part)
+        whole = [b for p in sorted(blocks) for b in blocks[p]]
+        whole_bytes = sum(d.keys.numel() + 9 * d.expire_ts.numel()
+                          for _c, d, _p, _n in whole)
+        def stacked_launches(wave) -> int:
+            """The stacked path's table launches for `wave`, as try_wave
+            counts them: up to 16 blocks of one (key width, capacity)
+            a launch."""
+            flavours = {}
+            for _c, d, _p, _n in wave:
+                key = (d.key_width, d.capacity)
+                flavours[key] = flavours.get(key, 0) + 1
+            return sum(-(-c // 16) for c in flavours.values())
+
+        gate = {}
+        for name, wave, nbytes in (("partition", part, part_bytes),
+                                   ("table", whole, whole_bytes)):
+            n_prog = stacked_launches(wave)
+            verdict = placement.mesh_wave_pays(n_prog, nbytes,
+                                               stack.batch_bytes)
+            timed = {}
+            for on in (False, True):
+                serving(on)
+                clear_masks(servers)
+                w0 = MESH_SERVING.wave_dispatches
+                t0 = time.perf_counter()
+                list(stacked_block_eval([(c, d, p) for c, d, p, _n in wave],
+                                        True, pv))
+                timed[on] = (time.perf_counter() - t0,
+                             MESH_SERVING.wave_dispatches - w0)
+            if bool(timed[True][1]) != verdict:
+                fail(f"resident (a): the measured gate said {verdict} but "
+                     f"{timed[True][1]} rounds ran ({name})")
+            gate[name] = {"programs": n_prog, "bytes": nbytes,
+                          "pays": verdict, "host_s": timed[False][0],
+                          "gated_s": timed[True][0]}
+            log(f"resident (a) measured gate, one {name} wave ({len(wave)} "
+                f"blocks, {n_prog} stacked launches, {nbytes} B): "
+                f"{'resident round' if verdict else 'stacked path'}; host "
+                f"arm {timed[False][0] * 1e3} ms, gated "
+                f"{timed[True][0] * 1e3} ms")
+        out["waves"], out["gate"] = waves, gate
+
+        # (b) aggregates: count and sum over all 64 partitions, one round
+        # per (predicate, now) on a frozen epoch second
+        FLAGS.set("pegasus.server", "rocksdb_max_iteration_count", 0,
+                  force=True)
+        aggs = {}
+        with frozen_epoch():
+            for kind in ("count", "sum"):
+                def fold():
+                    res = {}
+                    for s in servers:
+                        req = GetScannerRequest(pushdown=PushdownSpec(
+                            value_filter_type=FT_MATCH_ANYWHERE,
+                            value_filter_pattern=RESIDENT_VALUE_FILTER,
+                            aggregate=kind))
+                        resp = s.on_get_scanner(req)
+                        while resp.context_id != SCAN_CONTEXT_ID_COMPLETED:
+                            resp = s.on_scan(resp.context_id)
+                        res[s.pidx] = resp.agg
+                    return res
+
+                serving(False)
+                host = fold()   # the value masks, cached per block
+                serving(True)
+                a0 = MESH_SERVING.agg_dispatches
+                mesh = fold()   # the image's lanes and value mask, built
+                rounds = MESH_SERVING.agg_dispatches - a0
+                if mesh != host:
+                    fail(f"resident (b): {kind} differs from the host arm")
+                if rounds != 1:
+                    fail(f"resident (b): {kind} took {rounds} rounds, not 1")
+                # warm times: each arm again, the resident one a new round
+                serving(False)
+                t0 = time.perf_counter()
+                host_again = fold()
+                host_s = time.perf_counter() - t0
+                serving(True)
+                MESH_SERVING._agg_cache.clear()
+                t0 = time.perf_counter()
+                mesh_again = fold()
+                mesh_s = time.perf_counter() - t0
+                if host_again != host or mesh_again != host:
+                    fail(f"resident (b): {kind} changed between passes")
+                aggs[kind] = {"host_s": host_s, "mesh_s": mesh_s,
+                              "total": sum(int(a["count"])
+                                           for a in host.values())}
+                log(f"resident (b) {kind} over {RESIDENT_PARTITIONS} "
+                    f"partitions (value filter ANYWHERE "
+                    f"{RESIDENT_VALUE_FILTER!r}): equal to the host arm, "
+                    f"{aggs[kind]['total']} rows folded, one round; warm: "
+                    f"host arm {host_s} s, resident {mesh_s} s")
+        FLAGS.set("pegasus.server", "rocksdb_max_iteration_count",
+                  iter_budget, force=True)
+        out["aggregates"] = aggs
+
+        # (c) a scan_multi drain of the whole table, detached and attached
+        now = epoch_now()
+        serving(False)
+        clear_masks(servers)
+        t0 = time.perf_counter()
+        host = drain_multi(servers, now)
+        host_s = time.perf_counter() - t0
+        serving(True)
+        clear_masks(servers)
+        w0 = MESH_SERVING.wave_dispatches
+        t0 = time.perf_counter()
+        mesh = drain_multi(servers, now)
+        mesh_s = time.perf_counter() - t0
+        if mesh != host:
+            fail("resident (c): the drain differs with the image attached")
+        want = sum(len(v) for v in live.values())
+        if sum(len(v) for v in host.values()) != want:
+            fail(f"resident (c): drained {sum(len(v) for v in host.values())}"
+                 f" records, the oracle holds {want}")
+        out["drain"] = {"host_s": host_s, "mesh_s": mesh_s,
+                        "rounds": MESH_SERVING.wave_dispatches - w0}
+        log(f"resident (c) scan_multi drain of {want} records: equal "
+            f"detached and attached ({out['drain']['rounds']} rounds under "
+            f"the measured gate); host arm {host_s} s, attached {mesh_s} s")
+
+        # (d) bulk compactions of all 64 partitions: config #3 (TTL), then
+        # config #4 (rules), against the detached twin and the oracle
+        rules = compile_rules(CONFIG4_RULES, device=device)
+        prefix, anywhere, _sk = _config4_drops(0, n_hashkeys)
+        dropped = {b"user%08d" % h for h in
+                   np.flatnonzero(prefix | anywhere).tolist()}
+        compact = {}
+        for name, rf in (("config #3 TTL", None), ("config #4 rules", rules)):
+            now = epoch_now()
+            st0 = MESH_SERVING.status()
+            secs = {}
+            for arm, group in (("resident", servers), ("twin", twins)):
+                t0 = time.perf_counter()
+                with gate_open("mesh_compact_pays"):
+                    for s in group:
+                        s.manual_compact(default_ttl=0, rules_filter=rf,
+                                         now=now)
+                secs[arm] = time.perf_counter() - t0
+            MESH_SERVING.ensure_current()
+            st1 = MESH_SERVING.status()
+            delta = {k: st1[k] - st0[k] for k in (
+                "compact_dispatches", "compact_mask_serves",
+                "refresh_reuses", "refresh_rebuilds")}
+            if delta["compact_dispatches"] != 1 or \
+                    delta["compact_mask_serves"] != RESIDENT_PARTITIONS:
+                fail(f"resident (d) {name}: {delta}, not one round serving "
+                     f"{RESIDENT_PARTITIONS} partitions")
+            if delta["refresh_reuses"] != RESIDENT_PARTITIONS or \
+                    delta["refresh_rebuilds"]:
+                fail(f"resident (d) {name}: refresh {delta}, not "
+                     f"{RESIDENT_PARTITIONS} survivor reuses")
+            if rf is not None:
+                for p in live:
+                    live[p] = [k for k in live[p]
+                               if k[2:14] not in dropped]
+            for s, t in zip(servers, twins):
+                if survivor_keys(s.engine) != live[s.pidx]:
+                    fail(f"resident (d) {name}: partition {s.pidx}'s "
+                         f"survivors differ from the oracle")
+                if compacted_digest(s.engine) != compacted_digest(t.engine):
+                    fail(f"resident (d) {name}: partition {s.pidx} differs "
+                         f"from its detached twin")
+            compact[name] = {"resident_s": secs["resident"],
+                             "twin_s": secs["twin"], **delta}
+            log(f"resident (d) {name}: {RESIDENT_PARTITIONS} partitions "
+                f"compacted, survivors equal to the oracle and to the "
+                f"detached twin; one round, {delta['refresh_reuses']} "
+                f"survivor-gather refreshes; resident {secs['resident']} s, "
+                f"twin {secs['twin']} s (gate pinned open; the measured "
+                f"gate: {placement.compact_breakdown(stack.batch_bytes)})")
+        out["compact"] = compact
+        out["launches"] = {"static": fused_scan.LAUNCHES["static"],
+                           "now": fused_scan.LAUNCHES["now"],
+                           "multi": fused_scan.LAUNCHES["multi"],
+                           "mesh_step": fused_mesh.LAUNCHES["mesh_step"],
+                           "compaction": fused_compaction.LAUNCHES[
+                               "compaction"],
+                           "slot_gate": fused_compaction.LAUNCHES[
+                               "slot_gate"]}
+        log(f"resident: launches of (a)-(d) {out['launches']}")
+        on_card = device.type == "cuda"
+        for k in ("mesh_step", "slot_gate", "static"):
+            if on_card and not out["launches"][k]:
+                fail(f"resident: no {k} launch on the main path")
+
+        # (e) sharded_scan_step over the image against its plain version
+        stack = MESH_SERVING._tables[RESIDENT_APP].stack
+        flat = stack.flat
+        stacked = StackedBlocks(stack.view(flat.keys),
+                                stack.view(flat.key_len),
+                                stack.view(flat.hashkey_len), stack.ets2d,
+                                stack.view(flat.valid), stack.pidx)
+        sort = FilterSpec.make(FT_MATCH_POSTFIX, b"3", device)
+        now = epoch_now()
+        got = sharded_scan_step(make_mesh(devices=[device]), stacked, now,
+                                sort, pv, True)
+        cpu = StackedBlocks(*(t.cpu() for t in stacked))
+        want = sharded_scan_step(make_mesh(devices=[torch.device("cpu")]),
+                                 cpu, now, sort, pv, True)
+        for g, w in zip(got, want):
+            if not torch.equal(g.cpu(), w):
+                fail("resident (e): sharded_scan_step differs from its "
+                     "plain version")
+        out["sharded"] = {"kept": int(got[1]), "expired": int(got[2])}
+        log(f"resident (e) sharded_scan_step over the image (validating, "
+            f"key-hash instance): equal to the plain version; kept "
+            f"{int(got[1])}, expired {int(got[2])}")
+
+        if not on_card:
+            return out
+
+        # (f) the kernels against their plain versions, and their times
+        t0 = time.perf_counter()
+        out["check_mesh_step"] = check_mesh_step(device)
+        out["check_slot_gate"] = check_slot_gate(device)
+        log(f"resident (f) mesh_step: {out['check_mesh_step']['compared']} "
+            f"launches bit-identical to the plain version; slot-gate "
+            f"instance: {out['check_slot_gate']['compared']} launches "
+            f"bit-identical; P in {RESIDENT_CHECK_P}, B in "
+            f"{RESIDENT_CHECK_B}, in {time.perf_counter() - t0:.1f} s")
+        out["times"] = time_resident_kernels(device, stack)
+        for name, t in out["times"].items():
+            log(f"resident (f) {name} {t['shape']}: device time kernel "
+                f"{t['ms'] * 1e3} us, plain {t['plain_ms'] * 1e3} us "
+                f"(profiler); per call with the host kernel "
+                f"{t['call_ms'] * 1e3} us, plain {t['plain_call_ms'] * 1e3} "
+                f"us (CUDA events); bound {t['bound_ms'] * 1e3} us "
+                f"({t['bound_by']}), {100 * t['share']}% of it"
+                + (f"; the same launch without the gate "
+                   f"{t['ungated_ms'] * 1e3} us (on, off, off, on: "
+                   f"{[x * 1e3 for x in t['turns_ms']]} us)"
+                   if "ungated_ms" in t else ""))
+        out["placement"] = measure_placement(device, win, stack)
+        log(f"resident: placement constants measured on this card: "
+            f"{json.dumps(out['placement'])}")
+        return out
+    finally:
+        FLAGS.set("pegasus.mesh", "serving_enabled", True, force=True)
+        FLAGS.set("pegasus.server", "rocksdb_max_iteration_count",
+                  iter_budget, force=True)
+        MESH_SERVING.reset()
+        for s in servers + twins:
+            s.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
 def times_only(torch, tree: str) -> int:
     """Phase 3's times of the kernels of the pegasus_tpu_torch imported
     from `tree`, as one JSON line: to hold two revisions' kernels against
@@ -3944,18 +4863,23 @@ def main(argv=None) -> int:
 
     from pegasus_tpu_torch import native
 
-    with ThreadPoolExecutor(3) as pool:
+    from pegasus_tpu_torch.ops import fused_mesh
+
+    with ThreadPoolExecutor(4) as pool:
         cuda_build = pool.submit(fused_scan.build, force=True)
         compact_build = pool.submit(fused_compaction.build, force=True)
+        mesh_build = pool.submit(fused_mesh.build, force=True)
         native_build = pool.submit(native.build, force=True)
         build_s, build_log = cuda_build.result()
         compact_s, compact_log = compact_build.result()
+        mesh_s, mesh_log = mesh_build.result()
         native_s, native_log = native_build.result()
     log(f"build: csrc/scan_predicate.cu -> sm_90a in {build_s:.2f} s; "
         f"csrc/compaction_filter.cu -> sm_90a in {compact_s:.2f} s; "
+        f"csrc/mesh_step.cu -> sm_90a in {mesh_s:.2f} s; "
         f"native/packer.cpp -> g++ -O3 in {native_s:.2f} s")
-    print((build_log + compact_log + native_log).strip(), file=sys.stderr,
-          flush=True)
+    print((build_log + compact_log + mesh_log + native_log).strip(),
+          file=sys.stderr, flush=True)
 
     # 3. kernel vs plain, then times
     t0 = time.perf_counter()
@@ -4104,8 +5028,19 @@ def main(argv=None) -> int:
         f"launches {integrity_scan}, of them key-hash instance "
         f"{keyhash_launches}")
 
-    # summary
     log(f"chip_smoke: phases 1-9 in {time.perf_counter() - t_start:.1f} s")
+
+    # 10. the resident image: BASELINE config #2's whole table on the card
+    t0 = time.perf_counter()
+    with store_flags(NONE_STORE):
+        resident = run_resident(device, win)
+    torch.cuda.synchronize()
+    log(f"resident: done in {time.perf_counter() - t0:.1f} s")
+
+    # summary
+    log(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s")
+    rl = resident["launches"]
+    rt = resident["times"]
     t = timings[LARGE_SHAPE]
     tm = timings_multi[MULTI_LARGE_SHAPE]
     log(json.dumps({"kernels": [{
@@ -4115,7 +5050,8 @@ def main(argv=None) -> int:
         "launches": (launches["static"] + launches["now"]
                      + batched["static"] + point["static"] + point["now"]
                      + geo["launches"]["static"] + client_scan["static"]
-                     + client_scan["now"] + integrity_scan["static"]),
+                     + client_scan["now"] + integrity_scan["static"]
+                     + rl["static"] + rl["now"]),
         "max_abs_err": cmp["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
@@ -4126,13 +5062,14 @@ def main(argv=None) -> int:
                              "geo": geo["launches"]["static"],
                              "client": client_scan["static"]
                              + client_scan["now"],
-                             "integrity": integrity_scan["static"]}}, {
+                             "integrity": integrity_scan["static"],
+                             "resident": rl["static"] + rl["now"]}}, {
         "name": "scan_predicate_multi", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/predicates.py:539",
         "launches": (batched["multi"] + point["multi"]
                      + geo["launches"]["multi"] + client_scan["multi"]
-                     + integrity_scan["multi"]),
+                     + integrity_scan["multi"] + rl["multi"]),
         "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
@@ -4150,14 +5087,37 @@ def main(argv=None) -> int:
         "source": "pegasus_tpu_torch/csrc/compaction_filter.cu",
         "replaces": "pegasus_tpu/ops/compaction.py:110",
         "launches": (sum(r["launches"] for r in compact.values())
-                     + client_compact),
+                     + client_compact + rl["compaction"]),
         "launches_by_pass": {p: r["launches"] for p, r in compact.items()},
         "launches_client_split": client_compact,
+        "launches_resident": rl["compaction"],
         "launches_merge_path": merge_launches,
         "max_abs_err": cmp_compact["max_abs_err"], "ms": tc["ms"],
         "plain_ms": tc["plain_ms"], "bound_ms": tc["bound_ms"],
         "bound_by": tc["bound_by"], "library_ms": None,
-        "call_ms": tc["call_ms"], "shape": tc["shape"]}]}))
+        "call_ms": tc["call_ms"], "shape": tc["shape"]}, {
+        "name": "mesh_step", "route": "cuda",
+        "source": "pegasus_tpu_torch/csrc/mesh_step.cu",
+        "replaces": "pegasus_tpu/parallel/mesh_resident.py:119",
+        "launches": rl["mesh_step"],
+        "max_abs_err": resident["check_mesh_step"]["max_abs_err"],
+        "ms": rt["nosum"]["ms"], "plain_ms": rt["nosum"]["plain_ms"],
+        "bound_ms": rt["nosum"]["bound_ms"],
+        "bound_by": rt["nosum"]["bound_by"], "library_ms": None,
+        "call_ms": rt["nosum"]["call_ms"], "shape": rt["nosum"]["shape"],
+        "with_sum": {k: rt["sum"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "call_ms", "shape")}}, {
+        "name": "compaction_filter_slot_gate", "route": "cuda",
+        "source": "pegasus_tpu_torch/csrc/compaction_filter.cu",
+        "replaces": "pegasus_tpu/ops/compaction.py:178",
+        "launches": rl["slot_gate"],
+        "max_abs_err": resident["check_slot_gate"]["max_abs_err"],
+        "ms": rt["slot_gate"]["ms"], "plain_ms": rt["slot_gate"]["plain_ms"],
+        "bound_ms": rt["slot_gate"]["bound_ms"],
+        "bound_by": rt["slot_gate"]["bound_by"], "library_ms": None,
+        "call_ms": rt["slot_gate"]["call_ms"],
+        "ungated_ms": rt["slot_gate"]["ungated_ms"],
+        "shape": rt["slot_gate"]["shape"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,8 +25,17 @@
 //   lo    = hash_lo[b], or with kHashKeys the lo lane of the crc64 of the
 //           key bytes [2, 2 + n), n = clip(hkl > 0 ? hkl : key_len - 2,
 //           0, K), bytes at or past K reading key[K - 1] (key_hash_device)
-//   drop  = ((expire && 0 < ets2 <= now) || (validate &&
-//           (lo & pv) != pidx)) && valid) || rule_drop
+//   stale = validate && (lo & pv) != pidx, and with kSlotGate also
+//           slot_allowed[b >> slot_shift] (the resident image's per-slot
+//           gate: pegasus_tpu/ops/compaction.py:219-221 `mesh_compact_step`,
+//           a slot being one partition's 2^slot_shift rows)
+//   drop  = ((expire && 0 < ets2 <= now) || stale) && valid) || rule_drop
+// With kSlotGate the same launch is the resident image's compaction filter
+// (pegasus_tpu/ops/compaction.py:178 `mesh_compact_step`, an XLA program
+// on the TPU): the [P, B] image flattened to P * B rows, `present` as
+// `valid`, the resident hash_lo, the per-slot gate, and pidx per slot
+// (pidx_col[b >> slot_shift]: the owner is read once a slot, not a row);
+// without the flag every instance computes what it did.
 // It writes the drop mask, one byte a row or bit-packed in jnp.packbits'
 // big-endian order, and ets2 when asked. The same kernel carries the merge
 // path's filter (no rules) and its rules hook (`expire` off, no
@@ -41,7 +50,8 @@
 // needs is read once: valid 1 B and expire_ts 4 B a row always; the key
 // row K B and key_len 4 B when a pattern rule or the key hash reads it;
 // hash_lo 4 B (unless the kernel hashes the keys) and a per-row pidx 4 B
-// with validation. Output: 1/8 B a row packed (1 B unpacked), ets2 4 B
+// with validation (with kSlotGate a slot's pidx 4 B and allowed 1 B
+// instead, read once a slot). Output: 1/8 B a row packed (1 B unpacked), ets2 4 B
 // when asked. BASELINE config #4's ruleset at K = 32, packed, without
 // validation or ets2 moves 41.125 B a row: 2^18 rows in about 3.2 us. The
 // key hash is about 8 integer operations a hashed byte; a ruleset heavy
@@ -117,6 +127,7 @@ constexpr int kWantEts = 4;
 constexpr int kPack = 8;
 constexpr int kNeedKeys = 16;
 constexpr int kHashKeys = 32;
+constexpr int kSlotGate = 64;
 
 // blocks an SM the register budget is set for: 8 x 256 threads is the
 // SM's whole thread count, and every warp of it hides load latency
@@ -131,9 +142,11 @@ struct Params {
   const uint32_t* expire_ts;    // uint32 bits[n]
   const uint8_t* valid;         // bool[n]
   const uint32_t* hash_lo;      // uint32 bits[n]
-  const uint32_t* pidx_col;     // uint32 bits[n], or null: `pidx`
+  const uint32_t* pidx_col;     // uint32 bits[n] (a slot's with
+                                // kSlotGate), or null: `pidx`
   const uint8_t* pats;
   const unsigned long long* crc_tab;  // slicing tables with kHashKeys
+  const uint8_t* slot_allowed;  // uint8[n >> slot_shift] with kSlotGate
   uint8_t* drop_out;            // n bytes, or ceil(n / 8) packed
   uint32_t* ets_out;            // uint32[n] when asked
   int64_t n;
@@ -145,6 +158,7 @@ struct Params {
   int32_t k_shift;
   int32_t n_ops;
   int32_t flags;
+  int32_t slot_shift;
 };
 static_assert(sizeof(Params) <= 4096, "kernel parameter limit");
 
@@ -193,9 +207,10 @@ __device__ __forceinline__ void filter_tile(const Params& p, int64_t t,
   const uint32_t ets0 = live ? p.expire_ts[b] : 0;
   const uint32_t hlo =
       kMode != kKeyHash && live && validate ? p.hash_lo[b] : 0;
+  const int64_t owner_at = (p.flags & kSlotGate) ? b >> p.slot_shift : b;
   const uint32_t owner = p.pidx_col == nullptr
                              ? p.pidx
-                             : (live && validate ? p.pidx_col[b] : 0);
+                             : (live && validate ? p.pidx_col[owner_at] : 0);
   const int klen = kKeys && live ? p.key_len[b] : 0;
 
   const uint8_t* row =
@@ -233,6 +248,9 @@ __device__ __forceinline__ void filter_tile(const Params& p, int64_t t,
                             ? key_hash_lo(row, p.k, klen, hkl, tab)
                             : hlo;
     stale = (lo & p.pv) != owner;
+    if ((p.flags & kSlotGate) && stale && live) {
+      stale = p.slot_allowed[owner_at] != 0;
+    }
   }
   const bool expired = (p.flags & kExpire) && ets2 > 0 && ets2 <= p.now;
   const bool drop = (live && valid && (expired || stale)) || rule_drop;
@@ -274,20 +292,28 @@ __global__ void __launch_bounds__(kTile, kMinBlocksPerSm)
 // kernel reads the key rows and key_len), kHashKeys (validation hashes
 // the keys with the crc64 slicing tables `crc_tab`, kCrcSlices x 256
 // uint64 in device memory, 16-byte aligned, instead of reading hash_lo;
-// needs kNeedKeys).
+// needs kNeedKeys), kSlotGate (the stale-split term also needs
+// slot_allowed[row >> slot_shift], uint8 in device memory, and a non-null
+// pidx_col holds one pidx a slot; with kValidate).
 extern "C" int pegasus_compaction_filter(
     const uint8_t* keys, const int32_t* key_len, const uint32_t* expire_ts,
     const uint8_t* valid, const uint32_t* hash_lo, const uint32_t* pidx_col,
     uint32_t pidx, int64_t n, int k, const OpDesc* ops, int n_ops,
     const RuleDesc* rules, int n_rules, const uint8_t* pats, uint32_t now,
     uint32_t default_ttl, uint32_t pv, int flags, uint8_t* drop_out,
-    uint32_t* ets_out, void* stream, const unsigned long long* crc_tab) {
+    uint32_t* ets_out, void* stream, const unsigned long long* crc_tab,
+    const uint8_t* slot_allowed, int slot_shift) {
   if (n < 0 || k < 32 || (k & (k - 1)) || n_ops < 0 || n_ops > kMaxOps ||
       n_rules < 0 || n_rules > kMaxRules) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if ((flags & kHashKeys) &&
       (!(flags & kNeedKeys) || crc_tab == nullptr || keys == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((flags & kSlotGate) &&
+      (!(flags & kValidate) || slot_allowed == nullptr || slot_shift < 0 ||
+       slot_shift > 62)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
@@ -308,6 +334,8 @@ extern "C" int pegasus_compaction_filter(
   p.pidx_col = pidx_col;
   p.pats = pats;
   p.crc_tab = crc_tab;
+  p.slot_allowed = slot_allowed;
+  p.slot_shift = slot_shift;
   p.drop_out = drop_out;
   p.ets_out = ets_out;
   p.n = n;

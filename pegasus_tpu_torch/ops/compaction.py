@@ -13,14 +13,17 @@ ops/compaction.py evaluates it:
    (check_if_stale_split_data, :114-121 — partition_version < 0 means
    KEEP here, the opposite of the scan path's reject).
 
-Two shapes, each with the JAX package's contract:
+Three shapes, each with the JAX package's contract:
 - `compaction_filter_block`: the merge path's per-batch filter (steps 1
   and 3), with the key hash from the block's precomputed `hash_lo`;
 - `make_compaction_eval(operations).eval_block`: the bulk path's program
   for one ruleset (all three steps), fed by `compaction_eval_submit` in
   chunks of up to COMPACT_CHUNK_ROWS rows and read back by
   `compaction_eval_drain`; `encoded_drop_mask` is its host twin for
-  compressed blocks when no ruleset touches key bytes.
+  compressed blocks when no ruleset touches key bytes;
+- `mesh_compact_step`: the bulk filter over a table's resident [P, B]
+  image (parallel/mesh_resident.py) in one launch, with a per-slot gate
+  on the stale-split term.
 
 On a CUDA device both launch the hand-written compaction-filter kernel
 (ops/fused_compaction.py); on the CPU they run the plain torch version
@@ -124,10 +127,13 @@ def eval_block_plain(operations, keys, key_len, hashkey_len, expire_ts,
                      valid, hash_lo, now: int, default_ttl: int, pidx,
                      partition_version: int, validate_hash: bool,
                      use_hash_lo: bool, want_ets: bool = True,
-                     pack: bool = False):
+                     pack: bool = False, slot_allowed=None):
     """Plain torch version of eval_block, on any device: (drop,) or
     (drop, ets2) with drop bool[B] (uint8[ceil(B / 8)] with `pack`) and
-    ets2 int32[B] of uint32 bits."""
+    ets2 int32[B] of uint32 bits. `slot_allowed` (uint8 or bool[P], B =
+    P * S rows) gates the stale-split term per slot of S rows, as the
+    kernel's slot-gate instance does (mesh_compact_step); a `pidx` tensor
+    is then int32[P], one owner a slot."""
     now &= _M32
     default_ttl &= _M32
     ets0 = u32(expire_ts)
@@ -145,7 +151,14 @@ def eval_block_plain(operations, keys, key_len, hashkey_len, expire_ts,
                  else _key_hash_lo(keys, key_len, hashkey_len))
         owner = (u32(pidx) if isinstance(pidx, torch.Tensor)
                  else int(pidx) & _M32)
+        if slot_allowed is not None:
+            rows = valid.shape[0] // slot_allowed.shape[0]
+            if isinstance(pidx, torch.Tensor):
+                owner = owner.repeat_interleave(rows)
         stale = (lo & (partition_version & _M32)) != owner
+        if slot_allowed is not None:
+            stale = stale & slot_allowed.to(torch.bool).repeat_interleave(
+                rows)
     else:
         stale = torch.zeros_like(valid)
     drop = ((expired | stale) & valid) | rule_drop
@@ -224,6 +237,53 @@ def encoded_drop_mask(enc, now: int, default_ttl: int, pidx: int,
         drop = drop | ((np.asarray(enc.hash_lo) & pv)
                        != np.uint32(pidx & _M32))
     return drop, (new_ets if want_ets else None)
+
+
+def mesh_compact_step(keys, key_len, hashkey_len, expire_ts, present,
+                      hash_lo, pidx, allowed, now: int, default_ttl: int,
+                      partition_version: int, *, operations=None,
+                      validate_hash: bool = False, want_ets: bool = True):
+    """The bulk filter over a table's resident [P, B] image
+    (parallel/mesh_resident.py) in one launch: eval_block's order
+    (default-TTL rewrite -> user rules -> expiry + stale-split) over the
+    image flattened to P * B rows with each slot's pidx read once a
+    slot, `present` as `valid` (every real SST row, tombstones included: the write stage
+    drops those by their flags), the resident `hash_lo`, and the
+    stale-split term gated per slot by `allowed` (pidx <=
+    partition_version: check_if_stale_split_data keeps the rows of a
+    partition above the version). As pegasus_tpu/ops/compaction.py:178.
+
+    keys uint8[P, B, K]; key_len, hashkey_len, expire_ts, hash_lo
+    int32[P, B] (uint32 bits); present bool[P, B]; pidx int32[P];
+    allowed bool or uint8[P]; B a power of two >= 8. Returns (packed drop
+    uint8[P, B/8], ets2 int32[P, B]) or (packed drop,) without
+    `want_ets`. On CUDA the compaction kernel's slot-gate instance, on
+    the CPU eval_block_plain with the same gate."""
+    p, b = expire_ts.shape
+    k = keys.shape[-1]
+    pv = max(int(partition_version), 0) & _M32
+    ops = tuple(operations or ())
+    flat = (keys.reshape(p * b, k), key_len.reshape(p * b),
+            expire_ts.reshape(p * b), present.reshape(p * b))
+    if keys.device.type == "cuda":
+        drop, ets = fused_compaction.compaction_filter(
+            flat[0], flat[1], flat[2], flat[3],
+            hash_lo.reshape(p * b) if validate_hash else None,
+            pidx if validate_hash else 0,
+            ops, now, default_ttl, pv, validate_hash=validate_hash,
+            expire=True, want_ets=want_ets, pack=True,
+            slot_allowed=(allowed.to(torch.uint8) if validate_hash
+                          else None))
+    else:
+        drop, *ets = eval_block_plain(
+            ops, flat[0], flat[1], hashkey_len.reshape(p * b), flat[2],
+            flat[3], hash_lo.reshape(p * b), now, default_ttl, pidx,
+            pv, validate_hash, True, want_ets=want_ets, pack=True,
+            slot_allowed=allowed if validate_hash else None)
+        ets = ets[0] if want_ets else None
+    if want_ets:
+        return drop.view(p, b // 8), ets.view(p, b)
+    return (drop.view(p, b // 8),)
 
 
 COMPACT_CHUNK_ROWS = 1 << 18  # 256k records per stacked launch

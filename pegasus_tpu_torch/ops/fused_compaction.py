@@ -50,8 +50,10 @@ _M32 = 0xFFFFFFFF
 MAX_OPS = 16
 MAX_RULES = 64
 
-# kernel launches; a launch made by the wrapper adds one, nothing else does
-LAUNCHES = {"compaction": 0}
+# kernel launches, and of them those with the resident image's slot gate
+# (ops/compaction.mesh_compact_step); a launch made by the wrapper adds
+# here, nothing else does
+LAUNCHES = {"compaction": 0, "slot_gate": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "compaction_filter.cu")
@@ -77,7 +79,7 @@ _UTOT = {"from_now": 0, "from_current": 1, "timestamp": 2}
 
 # flag bits of the entry point
 _F_VALIDATE, _F_EXPIRE, _F_WANT_ETS, _F_PACK, _F_NEED_KEYS = 1, 2, 4, 8, 16
-_F_HASH_KEYS = 32
+_F_HASH_KEYS, _F_SLOT_GATE = 32, 64
 
 
 def build(force: bool = False) -> Tuple[float, str]:
@@ -113,7 +115,7 @@ def _library():
             p, u32_, i32 = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_int
             fn.argtypes = [p, p, p, p, p, p, u32_, ctypes.c_int64, i32,
                            ctypes.c_char_p, i32, ctypes.c_char_p, i32, p,
-                           u32_, u32_, u32_, i32, p, p, p, p]
+                           u32_, u32_, u32_, i32, p, p, p, p, p, i32]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -204,7 +206,8 @@ def compaction_filter(keys: Optional[torch.Tensor],
                       pidx, operations: Sequence, now: int,
                       default_ttl: int, partition_version: int, *,
                       validate_hash: bool, expire: bool = True,
-                      want_ets: bool = True, pack: bool = False
+                      want_ets: bool = True, pack: bool = False,
+                      slot_allowed: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One launch over B rows on the current stream: (drop, ets2).
 
@@ -218,6 +221,10 @@ def compaction_filter(keys: Optional[torch.Tensor],
     big-endian u16 prefix (0 where key_len is 0), as every block's
     hashkey_len column holds it.
     `expire=False` leaves out expiry (the merge path's rules hook).
+    `slot_allowed` uint8[P] (with `validate_hash`, B = P * S rows, S a
+    power of two) is the resident image's slot gate: row r's stale-split
+    term also needs slot_allowed[r // S], and a `pidx` tensor is then
+    int32[P], one owner a slot (read as pidx[r // S]).
     drop is bool[B], or uint8[ceil(B / 8)] in packbits order with
     `pack`; ets2 is int32[B] (uint32 bits), or None without `want_ets`."""
     dev = expire_ts.device
@@ -250,8 +257,19 @@ def compaction_filter(keys: Optional[torch.Tensor],
     _check(valid, "valid", torch.bool, (b,), dev)
     if validate_hash and not hash_keys:
         _check(hash_lo, "hash_lo", torch.int32, (b,), dev)
+    slot_shift, n_owners = 0, b
+    if slot_allowed is not None:
+        n_slots = slot_allowed.shape[0] if slot_allowed.dim() == 1 else 0
+        slot_rows = b // n_slots if n_slots else 0
+        if (not validate_hash or not n_slots or slot_rows * n_slots != b
+                or slot_rows & (slot_rows - 1)):
+            raise ValueError("the slot gate needs validation and B = P * S "
+                             "rows, S a power of two")
+        _check(slot_allowed, "slot_allowed", torch.uint8, (n_slots,), dev)
+        slot_shift = slot_rows.bit_length() - 1
+        n_owners = n_slots
     if isinstance(pidx, torch.Tensor):
-        _check(pidx, "pidx", torch.int32, (b,), dev)
+        _check(pidx, "pidx", torch.int32, (n_owners,), dev)
         pidx_col, pidx_scalar = pidx.data_ptr(), 0
     else:
         pidx_col, pidx_scalar = 0, int(pidx) & _M32
@@ -265,7 +283,8 @@ def compaction_filter(keys: Optional[torch.Tensor],
              | (_F_EXPIRE if expire else 0)
              | (_F_WANT_ETS if want_ets else 0) | (_F_PACK if pack else 0)
              | (_F_NEED_KEYS if need_keys or hash_keys else 0)
-             | (_F_HASH_KEYS if hash_keys else 0))
+             | (_F_HASH_KEYS if hash_keys else 0)
+             | (_F_SLOT_GATE if slot_allowed is not None else 0))
     err = _library().pegasus_compaction_filter(
         *((0, 0) if keys is None else (keys.data_ptr(), key_len.data_ptr())),
         expire_ts.data_ptr(), valid.data_ptr(),
@@ -275,11 +294,15 @@ def compaction_filter(keys: Optional[torch.Tensor],
         int(partition_version) & _M32, flags, drop.data_ptr(),
         ets.data_ptr() if want_ets else 0,
         torch.cuda.current_stream(dev).cuda_stream,
-        crc_tables(dev).data_ptr() if hash_keys else 0)
+        crc_tables(dev).data_ptr() if hash_keys else 0,
+        slot_allowed.data_ptr() if slot_allowed is not None else 0,
+        slot_shift)
     if err != 0:
         raise RuntimeError(f"compaction_filter launch failed: cuda error "
                            f"{err}")
     with _count_lock:
         LAUNCHES["compaction"] += 1
+        if slot_allowed is not None:
+            LAUNCHES["slot_gate"] += 1
     return (drop if pack else drop.view(torch.bool)), \
         (ets if want_ets else None)

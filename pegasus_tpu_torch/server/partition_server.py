@@ -366,6 +366,11 @@ class PartitionServer:
         # whether a run is in flight
         self._mc_trigger_seen = 0
         self._mc_running = False
+        # external publish subscribers (the resident image,
+        # parallel/mesh_resident.py): called at the end of
+        # _on_store_publish, after the server's own cache eviction; an
+        # engine swap keeps them, since lsm.on_publish always points here
+        self.publish_listeners: list = []
         self.install_engine(self.engine)
 
     def _counts(self, names: dict) -> dict:
@@ -442,6 +447,8 @@ class PartitionServer:
         self._point_cache = None
         self._plan_expired_cache = (None, {})
         ROW_CACHE.invalidate_gid((self.app_id, self.pidx))
+        for fn in list(self.publish_listeners):
+            fn(live_paths)
 
     # env key -> (derived attribute, default): when a FULL env set
     # arrives, a previously set key now absent resets to its default
@@ -2073,6 +2080,23 @@ class PartitionServer:
                 self._register_flavor(validate, filter_key,
                                       time.monotonic())
 
+            # the resident arm: a fresh whole-range aggregate on an
+            # attached table folds off the table-wide round (count and
+            # sum from its per-partition counts and lanes, top_k and
+            # sample from its mask through the same AggState fold). A
+            # decline (paging budget, overlay, stale slab, the placement
+            # gate) falls through to the host arm unchanged.
+            if agg_state is None and not start_key and stop is None:
+                from pegasus_tpu_torch.parallel.mesh_resident import (
+                    MESH_SERVING,
+                )
+
+                mesh = (MESH_SERVING.try_aggregate(
+                            self, req, pd, validate, filter_key, now)
+                        if MESH_SERVING.enabled else None)
+                if mesh is not None:
+                    return self._mesh_aggregate_page(resp, mesh, tracer)
+
             def ranged_blocks():
                 for run in sorted_runs:
                     if stop is not None and (run.first_key or b"") >= stop:
@@ -2168,6 +2192,39 @@ class PartitionServer:
             resp.context_id = self._scan_cache.put(ScanContext(
                 request=req, resume_key=resume_key or start_key,
                 stop_key=stop_key, agg_state=state))
+        tracer.add_point("assemble")
+        return resp
+
+    def _mesh_aggregate_page(self, resp: ScanResponse, mesh: dict,
+                             tracer) -> ScanResponse:
+        """The final (only) page of an aggregate the resident image
+        answered (MESH_SERVING.try_aggregate's result `mesh`)."""
+        state = mesh["agg_state"]
+        if mesh["expired"]:
+            self._abnormal_reads.increment(mesh["expired"])
+        tracer.add_point("block_scan")
+        tracer.add_point("pushdown")
+        folded = mesh["folded"]
+        pruned = mesh["pruned"]
+        pc = tracer.perf
+        if pc is not None:
+            pc.ops += 1
+            pc.rows_evaluated += mesh["rows_evaluated"]
+            pc.rows_survived += folded
+            pc.keys_resolved += folded
+            pc.rows_aggregated += folded
+            pc.pushdown_rows_pruned += pruned
+            pc.placement = "mesh"
+            pc.mesh_partitions += mesh["partitions"]
+            pc.mesh_wave_ms += mesh["wave_ms"]
+            pc.predicted_kernel_ms += mesh["predicted_ms"]
+            pc.measured_kernel_ms += mesh["measured_ms"]
+        self.workload.note_scan(1, mesh["rows_evaluated"], folded)
+        self.workload.note_pushdown(1, pruned, folded)
+        resp.pushdown_applied = True
+        resp.error = int(StorageStatus.OK)
+        resp.context_id = SCAN_CONTEXT_ID_COMPLETED
+        resp.agg = state.to_wire()
         tracer.add_point("assemble")
         return resp
 

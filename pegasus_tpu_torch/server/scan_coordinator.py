@@ -20,14 +20,17 @@ only `now`-dependent predicate, is applied on the host from the block's
 expire_ts column, so a block needs one evaluation in its lifetime and
 steady-state serving launches nothing.
 
-Each evaluated wave is audited as in the JAX package: the participating
-ops' PerfContexts (the ambient one and every coordinated state's) record
-the route (`device` for the kernel on the card, `host-XLA`, the JAX
-package's host-backend string, for the plain version on the CPU) and the
-wave's wall time up to its masks on the host (`measured_kernel_ms`). The
-placement cost model and its prediction (`predicted_kernel_ms`, the
-DRIFT samples) arrive with ops/placement.py; until then the prediction
-stays 0.
+A wave whose blocks all lie in a table's resident image
+(parallel/mesh_resident.py) is answered by the image's one round when
+the placement model says that pays (`stacked_block_eval` asks it
+first). Each evaluated wave is audited as in the JAX package: one drift
+sample of ops/placement's prediction against the measured wall time
+(server/workload.DRIFT, class `ttl` without a key filter, `rules` with
+one), and on the participating ops' PerfContexts (the ambient one and
+every coordinated state's) the route (`device` for the kernel on the
+card, `host-XLA`, the JAX package's host-backend string, for the plain
+version on the CPU), `predicted_kernel_ms` and the wave's wall time up
+to its masks on the host (`measured_kernel_ms`).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from pegasus_tpu_torch.ops import placement
 from pegasus_tpu_torch.ops.fused_scan import MAX_TABLE_BLOCKS, scan_table
 from pegasus_tpu_torch.ops.predicates import (
     FT_NO_FILTER,
@@ -47,6 +51,7 @@ from pegasus_tpu_torch.ops.predicates import (
     static_block_predicate,
 )
 from pegasus_tpu_torch.ops.record_block import next_bucket
+from pegasus_tpu_torch.server.workload import DRIFT
 from pegasus_tpu_torch.utils import perf_context as perf
 
 STACK_CHUNK = MAX_TABLE_BLOCKS
@@ -183,11 +188,25 @@ def stacked_block_eval(blocks, validate: bool, pv: int, filter_key=None,
     blocks = list(blocks)
     if not blocks:
         return
+    # the resident image first: when every block of the wave lives in a
+    # table's image and the placement model says one round pays, that
+    # round answers the wave (and audits itself under "mesh"); a decline
+    # falls through unchanged
+    from pegasus_tpu_torch.parallel.mesh_resident import MESH_SERVING
+
+    if MESH_SERVING.enabled:
+        served = MESH_SERVING.try_wave(blocks, validate, pv,
+                                       filter_key=filter_key,
+                                       perf_ctxs=perf_ctxs)
+        if served is not None:
+            yield from served
+            return
     t0 = time.perf_counter()
     submitted = list(stacked_block_submit(blocks, validate, pv,
                                           filter_key))
     fetched = [packed.cpu().numpy() for _group, packed in submitted]
-    _audit_kernel_wave(blocks, time.perf_counter() - t0, perf_ctxs)
+    _audit_kernel_wave(blocks, filter_key, time.perf_counter() - t0,
+                       perf_ctxs)
     for (group, _packed), host in zip(submitted, fetched):
         offset = 0
         for tag, dev, _p in group:
@@ -198,21 +217,32 @@ def stacked_block_eval(blocks, validate: bool, pv: int, filter_key=None,
             offset += nbytes
 
 
-def _audit_kernel_wave(blocks, measured_s: float, perf_ctxs=()) -> None:
-    """The wave's route and wall time on every participating op's
-    PerfContext: the ambient one and each coordinated state's (the
+def _audit_kernel_wave(blocks, filter_key, measured_s: float,
+                       perf_ctxs=()) -> None:
+    """One drift sample a wave: the placement model's prediction against
+    the measured wall time, process-wide and on every participating op's
+    PerfContext (the ambient one and each coordinated state's: the
     cross-partition path has no single ambient op). Every op waited the
-    whole wave, so each carries its full wall time."""
+    whole wave, so each carries its full wall time. Waves without a key
+    filter are the "ttl" class, filtered ones "rules"."""
+    cls = ("ttl" if filter_key is None
+           or (filter_key[0] == FT_NO_FILTER
+               and filter_key[2] == FT_NO_FILTER) else "rules")
+    batch_bytes = sum(dev.keys.numel() + 9 * dev.expire_ts.numel()
+                      for _t, dev, _p in blocks)
+    device = blocks[0][1].device
+    predicted_s = placement.predict_kernel_seconds(cls, batch_bytes, device)
+    DRIFT.note(cls, predicted_s, measured_s)
     pcs = {id(pc): pc for pc in perf_ctxs if pc is not None}
     amb = perf.current()
     if amb is not None:
         pcs[id(amb)] = amb
     if not pcs:
         return
-    verdict = ("device" if blocks[0][1].device.type == "cuda"
-               else "host-XLA")
+    verdict = placement.placement_verdict(cls, device)
     for pc in pcs.values():
         pc.placement = verdict
+        pc.predicted_kernel_ms += predicted_s * 1000.0
         pc.measured_kernel_ms += measured_s * 1000.0
 
 
@@ -331,7 +361,11 @@ def _eval_cross_partition_multi(flavors: dict, validate: bool,
                 [p for _t, _d, p in group], pv)
         submitted.append((group, packed))
     fetched = [packed.cpu().numpy() for _group, packed in submitted]
-    _audit_kernel_wave(blocks, time.perf_counter() - t0,
+    # any filtered flavour makes the wave the "rules" class
+    audit_fkey = next((fk for fk in fkeys
+                       if fk[0] != FT_NO_FILTER or fk[2] != FT_NO_FILTER),
+                      fkeys[0])
+    _audit_kernel_wave(blocks, audit_fkey, time.perf_counter() - t0,
                        _state_perf_ctxs(st for states in wanted.values()
                                         for st in states))
     for (group, _packed), host in zip(submitted, fetched):

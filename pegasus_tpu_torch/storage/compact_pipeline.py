@@ -65,6 +65,14 @@ def pipeline_depth() -> int:
     return int(FLAGS.get("pegasus.storage", "compact_pipeline_depth"))
 
 
+def window_count(n_entries: int) -> int:
+    """Windows a compaction over `n_entries` blocks submits: the host
+    filter stage pays one launch a window, the unit the resident gate
+    (ops/placement.mesh_compact_pays) weighs one whole-table round
+    against."""
+    return max(1, -(-int(n_entries) // max(1, pipeline_window())))
+
+
 def transform_workers() -> int:
     """Write-stage transform pool size: the subset kernel / gather work
     per block runs GIL-free, so the pipelined rewrite keeps up to 4

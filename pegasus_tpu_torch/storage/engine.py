@@ -54,6 +54,7 @@ from pegasus_tpu_torch.storage.compact_pipeline import (
     pipeline_window,
     stage_threads_enabled,
     transform_workers,
+    window_count,
 )
 from pegasus_tpu_torch.storage.lsm import LSMStore
 from pegasus_tpu_torch.storage.sstable import SSTable, SSTableWriter
@@ -300,10 +301,29 @@ class StorageEngine:
         no launch; blocks of uncompressed runs, and every block when a
         ruleset is present, are decoded and evaluated by the
         compaction-filter kernel on the engine's device, in chunks of up
-        to COMPACT_CHUNK_ROWS rows."""
+        to COMPACT_CHUNK_ROWS rows.
+
+        Resident: when the table's blocks live in its resident image
+        (parallel/mesh_resident.py) and the placement gate says one round
+        pays, the whole store's drop masks come back from ONE round shared
+        by every sibling partition compacting under the same filter
+        parameters, and submit_window serves each window from them with
+        no launch. A decline is the gate's None; an error raises."""
+        from pegasus_tpu_torch.parallel.mesh_resident import MESH_SERVING
+
         ttl_may_change = bool(default_ttl) or bool(
             operations and any(op.op == "update_ttl" for op in operations))
         entries = self.lsm.bulk_compact_entries()
+        # the resident FILTER pre-pass: every block's drop mask up front;
+        # the READ stage below still pays the governor, the WRITE stage is
+        # unchanged
+        mesh_masks = None
+        if entries:
+            mesh_masks = MESH_SERVING.try_compact_masks(
+                self.lsm, entries, now_s, default_ttl, pidx,
+                partition_version, do_validate, operations,
+                want_ets=ttl_may_change,
+                n_windows=window_count(len(entries)))
         meta = {
             # snapshot mode: the output only covers decrees flushed at
             # freeze time — claiming last_committed would make boot skip
@@ -329,6 +349,17 @@ class StorageEngine:
 
         def submit_window(items):
             """FILTER stage phase 1: launch without waiting."""
+            if mesh_masks is not None:
+                served = {}
+                for run, i, _blk, _d in items:
+                    m = mesh_masks.get((run, i))
+                    if m is None:
+                        break
+                    served[(run, i)] = m
+                else:
+                    # the whole window was filtered by the resident
+                    # round: nothing in flight, forward it to WRITE
+                    return items, [], served
             blocks = [((run, i), blk, pidx)
                       for run, i, blk, is_direct in items
                       if not is_direct]
@@ -354,6 +385,8 @@ class StorageEngine:
                 got[tag] = (drop, new_ets)
             out = []
             for run, i, blk, _is_direct in items:
+                # host_done holds the host-direct masks and the resident
+                # round's; launched chunks land in got
                 m = host_done.get((run, i))
                 if m is None:
                     m = got[(run, i)]

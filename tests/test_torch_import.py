@@ -64,7 +64,12 @@ def test_port_modules_are_found():
                  "pegasus_tpu_torch.storage.efile",
                  "pegasus_tpu_torch.storage.vfs",
                  "pegasus_tpu_torch.storage.scrub",
-                 "pegasus_tpu_torch.ops.device_crc"):
+                 "pegasus_tpu_torch.ops.device_crc",
+                 "pegasus_tpu_torch.ops.placement",
+                 "pegasus_tpu_torch.ops.fused_mesh",
+                 "pegasus_tpu_torch.parallel",
+                 "pegasus_tpu_torch.parallel.partition_mesh",
+                 "pegasus_tpu_torch.parallel.mesh_resident"):
         assert want in names
 
 
@@ -82,6 +87,9 @@ def test_bulk_compaction_runs_without_jax(tmp_path):
         "from pegasus_tpu_torch.storage import compact_pipeline\n"
         "import pegasus_tpu_torch.client, pegasus_tpu_torch.geo\n"
         "import pegasus_tpu_torch.redis_proxy, pegasus_tpu_torch.ops.geo\n"
+        "import pegasus_tpu_torch.ops.placement, pegasus_tpu_torch.parallel\n"
+        "from pegasus_tpu_torch.parallel.mesh_resident import "
+        "MESH_SERVING\n"
         f"s = PartitionServer({str(tmp_path)!r}, device='cpu')\n"
         "s.update_app_envs({'default_ttl': '3600',\n"
         "    'user_specified_compaction': '[{\"op\": \"delete_key\", '\n"
@@ -92,7 +100,9 @@ def test_bulk_compaction_runs_without_jax(tmp_path):
         "    s.on_put(generate_key(hk, b's%02d' % i), b'v%d' % i)\n"
         "s.manual_compact()\n"
         "assert s.engine.lsm.bulk_compact_eligible()\n"
+        "MESH_SERVING.attach(s)\n"
         "s.manual_compact()\n"
+        "MESH_SERVING.reset()\n"
         "rows = list(s.engine.iterate())\n"
         "assert len(rows) == 30 and all(e > 0 for _k, _v, e in rows)\n"
         "assert s.engine.compact_count == 2\n"

@@ -1,5 +1,6 @@
-"""The hand-written kernels (the scan predicate, the compaction filter)
-against their plain torch versions, on the card.
+"""The hand-written kernels (the scan predicate, the compaction filter
+and its slot-gate instance, the resident round's epilogue) against their
+plain torch versions, on the card.
 
 A small-size repeat of chip_smoke.py's phase-3 checks, on a machine
 with a card:
@@ -444,3 +445,26 @@ def test_radius_filter_on_card_matches_cpu(card, n):
     assert (np.abs(dist.astype(np.float64) - want_dist) <= tol).all()
     near = np.abs(want_dist - 500.0) <= tol
     assert (keep[~near] == want_keep[~near]).all()
+
+
+def test_mesh_step_kernel_matches_plain(card):
+    """The resident round's epilogue (csrc/mesh_step.cu) at every (f)
+    shape of chip_smoke.py phase 10, the lanes' sum off and on."""
+    from chip_smoke import check_mesh_step
+    from pegasus_tpu_torch.ops import fused_mesh
+
+    before = fused_mesh.LAUNCHES["mesh_step"]
+    assert check_mesh_step(card)["compared"] == 32
+    assert fused_mesh.LAUNCHES["mesh_step"] == before + 32
+
+
+def test_slot_gate_instance_matches_plain(card):
+    """The compaction kernel's slot-gate instance (mesh_compact_step)
+    against eval_block_plain with the same gate, one launch a call."""
+    from chip_smoke import check_slot_gate
+
+    before = dict(fused_compaction.LAUNCHES)
+    assert check_slot_gate(card)["compared"] == 32
+    assert fused_compaction.LAUNCHES["slot_gate"] == before["slot_gate"] + 32
+    assert fused_compaction.LAUNCHES["compaction"] == \
+        before["compaction"] + 32
