@@ -108,13 +108,19 @@ Phases, each fatal on failure:
    (gate pinned open): one round each, survivors equal to the oracle,
    every partition equal to a detached twin, every refresh a survivor
    gather; (e) sharded_scan_step over the image against its plain
-   version; (f) csrc/mesh_step.cu and the compaction kernel's slot-gate
-   instance against their plain versions at P in {1, 5, 16, 64}, B in
-   {8, 1024, 16384, 65536}, bit-identical, and their times at the
-   phase's P and B beside their bounds; then ops/placement's cost
-   constants measured on the card (measure_placement). The launches of
-   (a)-(d) must include the epilogue, the slot gate and the scan
-   kernel's static mode.
+   version; (f) csrc/mesh_step.cu (its four instances: the lanes' sum
+   off and on, the value-filter mask read or all ones) and the
+   compaction kernel's slot gate (slot_gate_kernel, the TTL pass, and
+   compaction_filter_kernel's gated rules instance; want_ets off and on)
+   against their plain versions at P in {1, 5, 16, 64}, B in {8, 1024,
+   4096, 16384, 65536} (clusters of 1, 2 and 8 blocks a slot),
+   bit-identical; their times at the phase's P and B beside the bound of
+   the bytes each launch reads; what the device runs a round (a wave, a
+   sum aggregate, a compaction): no memset, at most one copy home; a
+   round's host wall split into launches, the copy home and the unpack;
+   then ops/placement's cost constants measured on the card
+   (measure_placement). The launches of (a)-(d) must include the
+   epilogue, both slot-gate kernels and the scan kernel's static mode.
 
 Phase 3 also holds the compaction-filter kernel bit-exact against its
 plain version
@@ -134,7 +140,10 @@ kernels as JSON; the last line is {"ok": true, "device": {...}}.
 `--records N` sets phase 4's load (default 500,000) and prints any cut
 below 1,000,000; `--compact-gb G` sets a phase-7 pass's store (default
 1.0). `--times-only [--tree DIR]` builds the kernels of this checkout (or
-of DIR) and prints phase 3's times as one JSON line, nothing else. Phases 5 and 6 always load their 1,000,000 records. A
+of DIR) and prints phase 3's times as one JSON line, nothing else;
+`--resident-times [--tree DIR]` likewise prints phase 10 (f)'s kernel
+times and a round's wall split on a synthetic image of phase 10's
+shape. Phases 5 and 6 always load their 1,000,000 records. A
 printed cut keeps the whole run near the time it took before phase 6
 came: the flavour-axis check runs 64 flavours at key width 32 only (16
 at the wider keys).
@@ -342,6 +351,24 @@ def _device_ms(fn, iters: int, kernel: str = "", before=None):
             log(f"torch.profiler recorded no device time for {iters} "
                 f"calls; profiling again")
     return None
+
+
+def _flusher(device):
+    """Two L2 flushes over FLUSH_BYTES: a device copy (which leaves dirty
+    lines that the next kernel's reads evict, as phase 3 times), and a
+    sum that only reads."""
+    import torch
+
+    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+
+    def flush():
+        dst.copy_(src)
+
+    def read_flush():
+        src.view(torch.int32).sum()
+
+    return flush, read_flush
 
 
 def _device_ops(fn, calls: int = 20) -> dict:
@@ -666,22 +693,12 @@ def time_tables(device) -> list:
     included (CUDA events), the plain version's two times, the bound.
     A flushed shape's kernel is also timed after a flush that only reads
     FLUSH_BYTES, which leaves no dirty lines in L2 to write back."""
-    import torch
-
     from pegasus_tpu_torch.ops import fused_scan
     from pegasus_tpu_torch.ops.predicates import FilterSpec
 
     rng = np.random.default_rng(20261017)
     pv, pidx, now_s = 63, 0, 300_000_000
-    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
-    dst = torch.empty_like(src)
-
-    def flush():
-        dst.copy_(src)
-
-    def read_flush():
-        src.view(torch.int32).sum()
-
+    flush, read_flush = _flusher(device)
     out = []
     for (name, n_blocks, n, k, with_now, hfk, sfk, flushed) in TIMED_SHAPES:
         now = now_s if with_now else None
@@ -801,19 +818,12 @@ def time_tables_multi(device) -> list:
     with validation on and a scalar pidx per block, as
     scan_coordinator._eval_cross_partition_multi launches it; the same
     columns as time_tables."""
-    import torch
-
     from pegasus_tpu_torch.ops import fused_scan
     from pegasus_tpu_torch.ops.predicates import FilterSpec
 
     rng = np.random.default_rng(20261020)
     pv, pidx = 63, 0
-    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
-    dst = torch.empty_like(src)
-
-    def flush():
-        dst.copy_(src)
-
+    flush, _read_flush = _flusher(device)
     out = []
     for name, n_blocks, n, k, patterns, flushed in MULTI_TIMED_SHAPES:
         cols = [serving_block_columns(rng, n, k, pidx, pv)
@@ -989,8 +999,6 @@ def time_key_hash(device) -> dict:
     flushed before each launch, as time_tables times the stored-hash
     kernel: device time (torch.profiler), per call with the host (CUDA
     events), the plain version's two times, the bound."""
-    import torch
-
     from pegasus_tpu_torch.ops import fused_scan
     from pegasus_tpu_torch.ops.predicates import FilterSpec
 
@@ -1000,11 +1008,7 @@ def time_key_hash(device) -> dict:
     cols = serving_block_columns(rng, n, k, pidx, pv)
     blocks = [drop_hash(device_block(cols, device))]
     hf, sf = FilterSpec.none(device), FilterSpec.none(device)
-    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
-    dst = torch.empty_like(src)
-
-    def flush():
-        dst.copy_(src)
+    flush, _read_flush = _flusher(device)
 
     def kernel():
         fused_scan.scan_table(blocks, [pidx], hf, sf, True, pv)
@@ -1395,15 +1399,7 @@ def time_compaction(device, shapes=COMPACT_TIMED_SHAPES) -> list:
 
     from pegasus_tpu_torch.ops import fused_compaction
 
-    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
-    dst = torch.empty_like(src)
-
-    def flush():
-        dst.copy_(src)
-
-    def read_flush():
-        src.view(torch.int32).sum()
-
+    flush, read_flush = _flusher(device)
     out = []
     for name, rows, how in shapes:
         kernel, plain, bound_ms, bound_by, shape = compaction_timing_cases(
@@ -3905,7 +3901,7 @@ RESIDENT_APP = 10              # the phase's table; its twin is app 11
 RESIDENT_VALUE_FILTER = b"77"  # the aggregates' value filter (ANYWHERE)
 # (f): the epilogue and the slot gate against their plain versions
 RESIDENT_CHECK_P = (1, 5, 16, 64)
-RESIDENT_CHECK_B = (8, 1024, 16384, 65536)
+RESIDENT_CHECK_B = (8, 1024, 4096, 16384, 65536)
 
 
 class FrozenClock:
@@ -3949,15 +3945,17 @@ def gate_open(name: str):
         setattr(placement, name, real)
 
 
-# one epilogue launch a row: 1/8 B static mask, 4 B expire_ts, 1 B
-# present, 1 B extra and 1/8 B out
-MESH_STEP_ROW_BYTES = 6.25
+def mesh_step_row_bytes(with_sum: bool, extra: bool) -> float:
+    """The bytes one epilogue launch moves a row: 1/8 B static mask, 4 B
+    expire_ts, 1 B present and 1/8 B out (a wave's instance: 5.25 B);
+    1 B more where it reads a value-filter mask, 16 B of lanes with the
+    sum."""
+    return 5.25 + (1 if extra else 0) + (16 if with_sum else 0)
 
 
-def mesh_step_bound(rows: int, with_sum: bool):
-    """(bound_ms, "bytes") of one epilogue launch: MESH_STEP_ROW_BYTES a
-    row, and 16 B of lanes with the sum."""
-    per = MESH_STEP_ROW_BYTES + (16 if with_sum else 0)
+def mesh_step_bound(rows: int, with_sum: bool, extra: bool = True):
+    """(bound_ms, "bytes") of one epilogue launch over `rows` rows."""
+    per = mesh_step_row_bytes(with_sum, extra)
     return rows * per / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -4073,9 +4071,12 @@ def drain_multi(servers, now: int) -> dict:
 
 def measure_placement(device, win: dict, stack) -> dict:
     """ops/placement's cost constants, measured on this card:
-    H2D_GBPS_EST and D2H_GBPS_EST (a pageable copy of 64 MB each way,
-    median of 5), ROUND_FIXED_S_EST (one resident round at P = 1, B = 8:
-    its two launches, the wait and the results home; median of 50),
+    H2D_GBPS_EST (a pageable copy of 64 MB to the card, median of 5),
+    D2H_GBPS_EST (64 MB home into page-locked memory, as a round copies
+    its results, median of 5; the pageable copy is measured beside it
+    for the record), ROUND_FIXED_S_EST (one resident round at P = 1,
+    B = 8: its two launches, the one copy home and the wait; median of
+    50),
     HOST_DISPATCH_S_EST (phase 3's stacked_block_eval over 8 resident
     blocks of 1024: one table call of the scan kernel with its host
     cost, masks on the host), HOST_FILTER_GBPS_EST (numpy's TTL compare
@@ -4115,7 +4116,14 @@ def measure_placement(device, win: dict, stack) -> dict:
         torch.cuda.synchronize()
 
     h2d_s = median(h2d, 5)
-    d2h_s = median(card.cpu, 5)
+    d2h_pageable_s = median(card.cpu, 5)
+    pinned = torch.empty(card.shape, dtype=torch.uint8, pin_memory=True)
+
+    def d2h():
+        pinned.copy_(card, non_blocking=True)
+        torch.cuda.synchronize()
+
+    d2h_s = median(d2h, 5)
     ets = np.random.default_rng(3).integers(
         0, 1 << 32, 16 << 20, dtype=np.uint64).astype(np.uint32)
     now32 = np.uint32(1 << 31)
@@ -4132,15 +4140,11 @@ def measure_placement(device, win: dict, stack) -> dict:
     tiny_stack = _build_stack(device, [(0, tiny)])
     fkey = (0, b"", 0, b"")
     round_s = median(lambda: MESH_SERVING._run_program(
-        tiny_stack, False, -1, fkey, 0, tiny_stack.ones_extra, False), 50)
+        tiny_stack, False, -1, fkey, 0, None, False), 50)
+    tiny_split = round_split(device, tiny_stack, n=50)["wave"]
 
     allowed = torch.ones(stack.P, dtype=torch.uint8, device=device)
-    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
-    dst = torch.empty_like(src)
-
-    def flush():
-        dst.copy_(src)
-
+    flush, _read_flush = _flusher(device)
     rows, k = stack.P * stack.B, stack.flat.keys.shape[1]
     none = FilterSpec.none(device)
     classes = {}
@@ -4155,8 +4159,8 @@ def measure_placement(device, win: dict, stack) -> dict:
         static = static_mask().view(stack.P, stack.B // 8)
 
         def epilogue(static=static):
-            fused_mesh.mesh_step(static, allowed, stack.ets2d, stack.present,
-                                 stack.ones_extra, None, 0, False)
+            fused_mesh.mesh_step_buffer(static, allowed, stack.ets2d,
+                                        stack.present, None, None, 0, False)
 
         # each kernel's time a launch (a trace may drop some launches)
         parts = (_device_ms(static_mask, 20, "scan_table_kernel", flush),
@@ -4167,7 +4171,7 @@ def measure_placement(device, win: dict, stack) -> dict:
         nbytes = table_bytes(rows, k, hash_filter=False,
                              sort_filter=cls == "rules", now=False,
                              validate=True, pidx_column=True) \
-            + rows * MESH_STEP_ROW_BYTES
+            + rows * mesh_step_row_bytes(False, False)
         gbps = nbytes / sum(parts) / 1e6
         if gbps * 1e9 > HBM_BYTES_PER_S:
             fail(f"the resident round ({cls}) moved {nbytes} B at "
@@ -4177,21 +4181,25 @@ def measure_placement(device, win: dict, stack) -> dict:
     return {
         "H2D_GBPS_EST": host.numel() / h2d_s / 1e9,
         "D2H_GBPS_EST": host.numel() / d2h_s / 1e9,
+        "d2h_pageable_gbps": host.numel() / d2h_pageable_s / 1e9,
         "ROUND_FIXED_S_EST": round_s,
         "HOST_DISPATCH_S_EST": win["median_us"] / 1e6,
         "HOST_FILTER_GBPS_EST": ets.nbytes / filt_s / 1e9,
         "MESH_EVAL_GBPS_EST": classes["rules"]["gbps"],
         "round_device_ms": classes["rules"]["device_ms"],
+        "round_fixed_split": tiny_split,
         "rounds": classes,
     }
 
 
 def check_mesh_step(device) -> dict:
     """(f) the epilogue kernel against its plain version at every P of
-    RESIDENT_CHECK_P and B of RESIDENT_CHECK_B, the lanes' sum off and
-    on: random packed masks, an allowed gate with slots shut, TTLs around
-    `now` and past 2^31, rows past each slot's count, a value-filter
-    mask; bit-identical."""
+    RESIDENT_CHECK_P and B of RESIDENT_CHECK_B (a slot's cluster of 1, 2
+    or 8 blocks), its four instances (the lanes' sum off and on, a
+    value-filter mask or None): random packed masks, an allowed gate
+    with slots shut, TTLs around `now` and past 2^31, rows past each
+    slot's count, a value-filter mask; the result buffer's three views
+    bit-identical to the plain outputs."""
     import torch
 
     from pegasus_tpu_torch.ops import fused_mesh
@@ -4211,32 +4219,36 @@ def check_mesh_step(device) -> dict:
             present = torch.from_numpy(
                 np.arange(b)[None, :] < rng.integers(0, b + 1, (p, 1))
             ).to(device)
-            extra = torch.from_numpy(rng.random((p, b)) < 0.6).to(device)
+            mask = torch.from_numpy(rng.random((p, b)) < 0.6).to(device)
             lanes = torch.from_numpy(rng.integers(
                 0, 1 << 16, (p, b, 4)).astype(np.int32)).to(device)
             for with_sum in (False, True):
-                got = fused_mesh.mesh_step(packed, allowed, ets, present,
-                                           extra, lanes, now, with_sum)
-                want = fused_mesh.mesh_step_plain(
-                    packed, allowed, ets, present, extra, lanes, now,
-                    with_sum)
-                torch.cuda.synchronize()
-                for g, w, what in zip(got, want,
-                                      ("mask", "counts", "lane sums")):
-                    if not torch.equal(g, w):
-                        fail(f"mesh_step kernel != plain ({what}) at "
-                             f"P={p}, B={b}, sum={with_sum}")
-                compared += 1
+                for extra in (None, mask):
+                    got = fused_mesh.mesh_step(packed, allowed, ets,
+                                               present, extra, lanes, now,
+                                               with_sum)
+                    want = fused_mesh.mesh_step_plain(
+                        packed, allowed, ets, present, extra, lanes, now,
+                        with_sum)
+                    torch.cuda.synchronize()
+                    for g, w, what in zip(got, want, ("mask", "counts",
+                                                      "lane sums")):
+                        if not torch.equal(g, w):
+                            fail(f"mesh_step kernel != plain ({what}) at "
+                                 f"P={p}, B={b}, sum={with_sum}, "
+                                 f"extra={extra is not None}")
+                    compared += 1
     return {"compared": compared, "max_abs_err": 0}
 
 
 def check_slot_gate(device) -> dict:
-    """(f) the compaction kernel's slot-gate instance (mesh_compact_step
-    on the card) against eval_block_plain with the same gate on the same
-    tensors, at every P and B of (f): fixture keys, hash_lo owned by the
-    slot's pidx for 90% of the rows, slots above the version, a default
-    TTL and config #4's ruleset in turns, want_ets off and on;
-    bit-identical."""
+    """(f) the compaction kernel's slot gate (mesh_compact_step on the
+    card) against eval_block_plain with the same gate on the same
+    tensors, at every P and B of (f), want_ets off and on: the TTL pass
+    (no ruleset: slot_gate_kernel) and config #4's ruleset
+    (compaction_filter_kernel's gated rules instance) each time, a
+    default TTL in turns; fixture keys, hash_lo owned by the slot's pidx
+    for 90% of the rows, slots above the version; bit-identical."""
     import torch
 
     from pegasus_tpu_torch.ops import compaction as tcomp
@@ -4269,38 +4281,44 @@ def check_slot_gate(device) -> dict:
                               pidx <= pv)]
             k, kl, hkl, e, pr, lo, pi, al = cols
             for want_ets in (False, True):
-                ops = config4 if turn % 2 else ()
-                ttl = 600 if turn % 3 == 0 else 0
-                turn += 1
-                got = tcomp.mesh_compact_step(
-                    *cols, 5000, ttl, pv, operations=ops,
-                    validate_hash=True, want_ets=want_ets)
-                want = tcomp.eval_block_plain(
-                    ops, k.reshape(rows, 32), kl.reshape(rows),
-                    hkl.reshape(rows), e.reshape(rows), pr.reshape(rows),
-                    lo.reshape(rows), 5000, ttl, pi,
-                    pv, True, True, want_ets=want_ets, pack=True,
-                    slot_allowed=al)
-                torch.cuda.synchronize()
-                if not torch.equal(got[0].reshape(-1), want[0]):
-                    fail(f"slot-gate instance != plain (drop) at P={p}, "
-                         f"B={b}")
-                if want_ets and not torch.equal(got[1].reshape(-1),
-                                                want[1]):
-                    fail(f"slot-gate instance != plain (ets2) at P={p}, "
-                         f"B={b}")
-                compared += 1
+                for ops in ((), config4):
+                    ttl = 600 if turn % 3 == 0 else 0
+                    turn += 1
+                    got = tcomp.mesh_compact_step(
+                        *cols, 5000, ttl, pv, operations=ops,
+                        validate_hash=True, want_ets=want_ets)
+                    want = tcomp.eval_block_plain(
+                        ops, k.reshape(rows, 32), kl.reshape(rows),
+                        hkl.reshape(rows), e.reshape(rows),
+                        pr.reshape(rows), lo.reshape(rows), 5000, ttl, pi,
+                        pv, True, True, want_ets=want_ets, pack=True,
+                        slot_allowed=al)
+                    torch.cuda.synchronize()
+                    what = "rules" if ops else "TTL pass"
+                    if not torch.equal(got[0].reshape(-1), want[0]):
+                        fail(f"slot gate ({what}) != plain (drop) at "
+                             f"P={p}, B={b}, want_ets={want_ets}")
+                    if want_ets and not torch.equal(got[1].reshape(-1),
+                                                    want[1]):
+                        fail(f"slot gate ({what}) != plain (ets2) at "
+                             f"P={p}, B={b}")
+                    compared += 1
     return {"compared": compared, "max_abs_err": 0}
 
 
 def time_resident_kernels(device, stack) -> dict:
-    """(f) times at this phase's P and B: the epilogue with the lanes'
-    sum off (a wave) and on (a sum aggregate), and the compaction
-    kernel's slot-gate instance in the TTL pass's shape (no ruleset,
-    validation against the resident hash_lo, pidx once a slot, packed, no
-    ets2) beside the same launch without the gate (which reads the
-    stack's resident per-row pidx column instead); L2 flushed before each
-    launch."""
+    """(f) times at this image's P and B, L2 flushed before each launch:
+    the epilogue's three instances on the main path (a wave: no sum and
+    no value-filter mask; an aggregate with a value filter: the mask
+    read; a sum aggregate: the mask and the lanes' sum), and the slot
+    gate in the TTL pass's shape (no ruleset, validation against the
+    resident hash_lo, pidx once a slot, packed, no ets2) in turns with
+    the same launch through compaction_filter_kernel's row-a-thread
+    instance (new, row, row, new). Against a checkout from before the
+    epilogue's redesign (no `mesh_step_buffer`) the wave instance reads
+    an all-ones mask, as that design did, and both slot-gate arms are
+    the row-a-thread kernel. Each kernel is also timed after a flush
+    that only reads (`ms_read_flushed`)."""
     import torch
 
     from pegasus_tpu_torch.ops import compaction as tcomp
@@ -4308,23 +4326,22 @@ def time_resident_kernels(device, stack) -> dict:
     from pegasus_tpu_torch.ops.fused_scan import scan_table
     from pegasus_tpu_torch.ops.predicates import FilterSpec
 
-    src = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
-    dst = torch.empty_like(src)
-
-    def flush():
-        dst.copy_(src)
-
+    flush, read_flush = _flusher(device)
+    new = hasattr(fused_mesh, "mesh_step_buffer")
     p, b = stack.P, stack.B
     rows = p * b
     none = FilterSpec.none(device)
     static = scan_table([stack.flat], [stack.pidx_rows], none, none, True,
                         RESIDENT_PARTITIONS - 1).view(p, b // 8)
     allowed = torch.ones(p, dtype=torch.uint8, device=device)
+    mask = torch.ones((p, b), dtype=torch.bool, device=device)
     lanes = stack.lanes_dev()
     out = {}
-    for with_sum in (False, True):
-        args = (static, allowed, stack.ets2d, stack.present,
-                stack.ones_extra, lanes, 0, with_sum)
+    for name, with_sum, extra in (("wave", False, None if new else mask),
+                                  ("extra", False, mask),
+                                  ("sum", True, mask)):
+        args = (static, allowed, stack.ets2d, stack.present, extra, lanes,
+                0, with_sum)
 
         def kernel(a=args):
             return fused_mesh.mesh_step(*a)
@@ -4332,18 +4349,24 @@ def time_resident_kernels(device, stack) -> dict:
         def plain(a=args):
             return fused_mesh.mesh_step_plain(*a)
 
-        bound_ms, bound_by = mesh_step_bound(rows, with_sum)
+        bound_ms, bound_by = mesh_step_bound(rows, with_sum,
+                                             extra is not None)
         row = {"shape": f"P={p}, B={b} ({rows} rows), lanes' sum "
-                        f"{'on' if with_sum else 'off'}, L2 flushed",
+                        f"{'on' if with_sum else 'off'}, value-filter mask "
+                        f"{'read' if extra is not None else 'none'}, L2 "
+                        f"flushed",
                "ms": _device_ms(kernel, 50, "mesh_step_kernel", flush),
+               "ms_read_flushed": _device_ms(kernel, 50, "mesh_step_kernel",
+                                             read_flush),
                "call_ms": _cuda_ms(kernel, 50, flush),
                "plain_ms": _device_ms(plain, 10, "", flush),
                "plain_call_ms": _cuda_ms(plain, 10, flush),
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        if None in (row["ms"], row["plain_ms"]):
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "row_bytes": mesh_step_row_bytes(with_sum, extra is not None)}
+        if None in (row["ms"], row["ms_read_flushed"], row["plain_ms"]):
             fail("torch.profiler recorded no device time for mesh_step")
         row["share"] = bound_ms / row["ms"]
-        out["sum" if with_sum else "nosum"] = row
+        out[name] = row
     flat = stack.flat
     valid = stack.present.view(-1)
 
@@ -4354,12 +4377,12 @@ def time_resident_kernels(device, stack) -> dict:
             stack.view(flat.hash_lo), stack.pidx, allowed, 5000, 0,
             RESIDENT_PARTITIONS - 1, validate_hash=True, want_ets=False)
 
-    def ungated():
+    def row_a_thread():
         return fused_compaction.compaction_filter(
             flat.keys, flat.key_len, flat.expire_ts, valid, flat.hash_lo,
-            stack.pidx_rows, (), 5000, 0,
-            RESIDENT_PARTITIONS - 1, validate_hash=True, expire=True,
-            want_ets=False, pack=True)
+            stack.pidx, (), 5000, 0, RESIDENT_PARTITIONS - 1,
+            validate_hash=True, expire=True, want_ets=False, pack=True,
+            slot_allowed=allowed)
 
     def plain_gate():
         return tcomp.eval_block_plain(
@@ -4371,25 +4394,229 @@ def time_resident_kernels(device, stack) -> dict:
     bound_ms, bound_by = compaction_bound(
         rows, 32, keys=False, hash_lo=True, pidx_col=False, pack=True,
         want_ets=False, ops=rows * 8.0, slots=p)
+    gate_kernel = ("slot_gate_kernel"
+                   if hasattr(fused_compaction, "slot_gate_filter")
+                   else "compaction_filter_kernel")
     row = {"shape": f"P={p}, B={b} ({rows} rows), the TTL pass: no "
                     f"ruleset, validation against hash_lo, pidx once a "
                     f"slot, packed, no ets2, L2 flushed",
+           "kernel": gate_kernel,
+           "ms_read_flushed": _device_ms(gated, 50, gate_kernel, read_flush),
            "call_ms": _cuda_ms(gated, 50, flush),
            "plain_ms": _device_ms(plain_gate, 10, "", flush),
            "plain_call_ms": _cuda_ms(plain_gate, 10, flush),
            "bound_ms": bound_ms, "bound_by": bound_by}
-    # the gate on and off in turns (on, off, off, on): the device time of
-    # each, the mean of its two
-    turns = [_device_ms(fn, 50, "compaction_filter_kernel", flush)
-             for fn in (gated, ungated, ungated, gated)]
-    if None in turns or row["plain_ms"] is None:
+    turns = [_device_ms(fn, 50, name, flush)
+             for fn, name in ((gated, gate_kernel),
+                              (row_a_thread, "compaction_filter_kernel"),
+                              (row_a_thread, "compaction_filter_kernel"),
+                              (gated, gate_kernel))]
+    if None in turns or None in (row["plain_ms"], row["ms_read_flushed"]):
         fail("torch.profiler recorded no device time for the slot gate")
     row["ms"] = (turns[0] + turns[3]) / 2
-    row["ungated_ms"] = (turns[1] + turns[2]) / 2
+    row["row_a_thread_ms"] = (turns[1] + turns[2]) / 2
     row["turns_ms"] = turns
     row["share"] = bound_ms / row["ms"]
     out["slot_gate"] = row
     return out
+
+
+def round_split(device, stack, n: int = 30) -> dict:
+    """A resident round's host wall, median of `n`, for a wave (no sum,
+    no value filter, one slot unpacked) and a sum aggregate (a value
+    mask and the lanes' sum, every slot's total recombined), split into
+    the launches (scan kernel and epilogue enqueued), the copy home
+    (with the wait for the kernels) and the unpack; and the whole of
+    `MeshServing._run_program` beside it. Against a checkout from before
+    the one-buffer contract (no `mesh_step_buffer`), the copy is its
+    three pageable copies."""
+    import torch
+
+    from pegasus_tpu_torch.ops import fused_mesh
+    from pegasus_tpu_torch.ops.fused_scan import scan_table
+    from pegasus_tpu_torch.ops.predicates import FilterSpec
+    from pegasus_tpu_torch.parallel.mesh_resident import MESH_SERVING
+
+    new = hasattr(fused_mesh, "mesh_step_buffer")
+    p, b = stack.P, stack.B
+    pv = RESIDENT_PARTITIONS - 1
+    none = FilterSpec.none(device)
+    allowed = torch.ones(p, dtype=torch.uint8, device=device)
+    mask = torch.ones((p, b), dtype=torch.bool, device=device)
+    lanes = stack.lanes_dev()
+    fkey = (0, b"", 0, b"")
+    out = {"contract": "one buffer, one pinned copy" if new
+           else "three outputs, three pageable copies"}
+    for kind in ("wave", "sum"):
+        with_sum = kind == "sum"
+        extra = mask if with_sum or not new else None
+        splits = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            static = scan_table([stack.flat], [stack.pidx_rows], none, none,
+                                True, pv).view(p, b // 8)
+            args = (static, allowed, stack.ets2d, stack.present, extra,
+                    lanes if with_sum else None, 0, with_sum)
+            if new:
+                from pegasus_tpu_torch.ops import result_buffer
+
+                buf = fused_mesh.mesh_step_buffer(*args)
+            else:
+                parts = fused_mesh.mesh_step(*args)
+            t1 = time.perf_counter()
+            if new:
+                packed, counts, sums = result_buffer.views(
+                    result_buffer.home(buf), fused_mesh.result_layout(p, b))
+            else:
+                packed, counts, sums = (parts[0].cpu().numpy(),
+                                        parts[1].cpu().numpy(),
+                                        parts[2].cpu().numpy().view(
+                                            np.uint32))
+            t2 = time.perf_counter()
+            if with_sum:
+                ln = sums.astype(np.uint64)
+                with np.errstate(over="ignore"):   # wraps mod 2^64
+                    [int(ln[s, 0] + (ln[s, 1] << np.uint64(16))
+                         + (ln[s, 2] << np.uint64(32))
+                         + (ln[s, 3] << np.uint64(48))) for s in range(p)]
+            else:
+                np.unpackbits(packed[0]).astype(bool)
+            t3 = time.perf_counter()
+            splits.append((t1 - t0, t2 - t1, t3 - t2, t3 - t0))
+        med = [sorted(col)[n // 2] for col in zip(*splits)]
+        walls = sorted(MESH_SERVING._run_program(
+            stack, True, pv, fkey, 0, extra, with_sum)[0]
+            for _ in range(n))
+        out[kind] = {"launch_s": med[0], "copy_s": med[1],
+                     "unpack_s": med[2], "total_s": med[3],
+                     "run_program_s": walls[n // 2]}
+    return out
+
+
+def copies_after(events, last: str) -> list:
+    """From device events [(start, name)]: the number of copies home
+    (`Memcpy DtoH`) after each launch whose name holds `last` and before
+    the next one. A trace can drop its first records, so rounds before
+    the first recorded launch are not counted."""
+    out = []
+    for _start, name in sorted(events):
+        if last in name:
+            out.append(0)
+        elif name.startswith("Memcpy DtoH") and out:
+            out[-1] += 1
+    return out
+
+
+def round_device_ops(stack, rounds_n: int = 40) -> dict:
+    """What the device runs a resident round, from torch.profiler over
+    `rounds_n` rounds each: a wave, a sum aggregate with a value mask,
+    and a compaction round (the TTL pass's shape, want_ets on). Each
+    recorded round's last kernel (the epilogue, the slot gate) must be
+    followed by exactly one copy home; fails on a memset anywhere in the
+    trace, or if no round was recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pegasus_tpu_torch.parallel.mesh_resident import MESH_SERVING
+
+    device = stack.device
+    pv = RESIDENT_PARTITIONS - 1
+    fkey = (0, b"", 0, b"")
+    mask = torch.ones((stack.P, stack.B), dtype=torch.bool, device=device)
+    allowed = torch.ones(stack.P, dtype=torch.uint8, device=device)
+    params = MESH_SERVING._compact_params(5000, 0, pv, True, (), True)
+    rounds = {
+        "wave": ("mesh_step_kernel", lambda: MESH_SERVING._run_program(
+            stack, True, pv, fkey, 0, None, False)),
+        "sum": ("mesh_step_kernel", lambda: MESH_SERVING._run_program(
+            stack, True, pv, fkey, 0, mask, True)),
+        "compaction": ("slot_gate_kernel",
+                       lambda: MESH_SERVING._compact_round(
+                           stack, allowed, params, ())),
+    }
+    out = {}
+    for name, (last, fn) in rounds.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds_n):
+                fn()
+            torch.cuda.synchronize()
+        events = [(ev.time_range.start, ev.name) for ev in prof.events()
+                  if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+        memsets = sum("Memset" in n for _t, n in events)
+        copies = copies_after(events, last)
+        if memsets:
+            fail(f"resident round ({name}) issued {memsets} memsets over "
+                 f"{rounds_n} rounds")
+        if not copies or any(c != 1 for c in copies):
+            fail(f"resident round ({name}): copies home after each "
+                 f"recorded {last} launch {copies}, not one each")
+        out[name] = {"recorded": len(copies), "d2h": sum(copies),
+                     "memsets": memsets}
+    return out
+
+
+def synthetic_stack(device, p: int = RESIDENT_PARTITIONS, n: int = 15_625,
+                    seed: int = 11):
+    """A [p, B, 32] resident image of `n` rows a slot from seeded numpy
+    columns (fixture keys, 10% expired, hash_lo owned by the slot, random
+    value lanes), built by mesh_resident._build_stack: phase 10's image
+    shape without its load, for --resident-times."""
+    from pegasus_tpu_torch.parallel.mesh_resident import _build_stack, _Slab
+
+    rng = np.random.default_rng(seed)
+    slabs = []
+    for part in range(p):
+        slab = _Slab(None, 0, 0)
+        slab.n_rows, slab.width = n, 32
+        slab.keys = fixture_keys(rng.integers(0, 7_000_000, n))
+        slab.key_len = np.full(n, 17, np.int32)
+        slab.hashkey_len = np.full(n, 12, np.int32)
+        slab.expire_ts = np.where(rng.random(n) < RESIDENT_EXPIRED,
+                                  np.uint32(1), np.uint32(0))
+        slab.valid = np.ones(n, bool)
+        noise = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+        slab.hash_lo = ((noise & ~np.uint64(63)) | np.uint64(part)).astype(
+            np.uint32)
+        slab.lanes = rng.integers(0, 1 << 16, (n, 4)).astype(np.uint32)
+        slabs.append((part, slab))
+    return _build_stack(device, slabs)
+
+
+def resident_times(torch, tree: str) -> int:
+    """--resident-times: phase 10 (f)'s kernel times and a round's wall
+    split on a synthetic image of phase 10's shape, for the
+    pegasus_tpu_torch imported from `tree`, as one JSON line: to hold two
+    revisions against each other on one card, run each in its own
+    process in turns (P C C P)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pegasus_tpu_torch.ops import fused_compaction, fused_mesh, fused_scan
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    device = torch.device("cuda", torch.cuda.current_device())
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(m.build, force=True)
+                  for m in (fused_scan, fused_compaction, fused_mesh)]
+        for b in builds:
+            b.result()
+    stack = synthetic_stack(device)
+    times = time_resident_kernels(device, stack)
+    split = round_split(device, stack)
+    log(json.dumps({"tree": tree, "card": smi.stdout.strip(),
+                    "P": stack.P, "B": stack.B,
+                    "times": {k: {f: v[f] for f in (
+                        "ms", "ms_read_flushed", "call_ms", "bound_ms",
+                        "share") if f in v}
+                              | ({"row_a_thread_ms": v["row_a_thread_ms"],
+                                  "turns_ms": v["turns_ms"]}
+                                 if "turns_ms" in v else {})
+                              for k, v in times.items()},
+                    "round_split": split}))
+    return 0
 
 
 def resident_waves(blocks, pv: int, fkey) -> tuple:
@@ -4713,10 +4940,12 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
                            "compaction": fused_compaction.LAUNCHES[
                                "compaction"],
                            "slot_gate": fused_compaction.LAUNCHES[
-                               "slot_gate"]}
+                               "slot_gate"],
+                           "slot_gate_columns": fused_compaction.LAUNCHES[
+                               "slot_gate_columns"]}
         log(f"resident: launches of (a)-(d) {out['launches']}")
         on_card = device.type == "cuda"
-        for k in ("mesh_step", "slot_gate", "static"):
+        for k in ("mesh_step", "slot_gate", "slot_gate_columns", "static"):
             if on_card and not out["launches"][k]:
                 fail(f"resident: no {k} launch on the main path")
 
@@ -4751,22 +4980,35 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
         out["check_mesh_step"] = check_mesh_step(device)
         out["check_slot_gate"] = check_slot_gate(device)
         log(f"resident (f) mesh_step: {out['check_mesh_step']['compared']} "
-            f"launches bit-identical to the plain version; slot-gate "
-            f"instance: {out['check_slot_gate']['compared']} launches "
-            f"bit-identical; P in {RESIDENT_CHECK_P}, B in "
-            f"{RESIDENT_CHECK_B}, in {time.perf_counter() - t0:.1f} s")
+            f"launches (sum off/on, value mask None/read) bit-identical to "
+            f"the plain version; slot gate: "
+            f"{out['check_slot_gate']['compared']} launches (TTL pass and "
+            f"rules, want_ets off/on) bit-identical; P in "
+            f"{RESIDENT_CHECK_P}, B in {RESIDENT_CHECK_B}, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out["device_ops"] = round_device_ops(stack)
+        for name, ops in out["device_ops"].items():
+            log(f"resident (f) a {name} round on the device: one copy home "
+                f"after each of its {ops['recorded']} recorded rounds (of "
+                f"40, torch.profiler), no memset")
         out["times"] = time_resident_kernels(device, stack)
         for name, t in out["times"].items():
             log(f"resident (f) {name} {t['shape']}: device time kernel "
-                f"{t['ms'] * 1e3} us, plain {t['plain_ms'] * 1e3} us "
+                f"{t['ms'] * 1e3} us ({t['ms_read_flushed'] * 1e3} us after "
+                f"a read-only flush), plain {t['plain_ms'] * 1e3} us "
                 f"(profiler); per call with the host kernel "
                 f"{t['call_ms'] * 1e3} us, plain {t['plain_call_ms'] * 1e3} "
                 f"us (CUDA events); bound {t['bound_ms'] * 1e3} us "
                 f"({t['bound_by']}), {100 * t['share']}% of it"
-                + (f"; the same launch without the gate "
-                   f"{t['ungated_ms'] * 1e3} us (on, off, off, on: "
+                + (f"; the same launch through compaction_filter_kernel "
+                   f"(a row a thread) {t['row_a_thread_ms'] * 1e3} us "
+                   f"(new, row, row, new: "
                    f"{[x * 1e3 for x in t['turns_ms']]} us)"
-                   if "ungated_ms" in t else ""))
+                   if "row_a_thread_ms" in t else ""))
+        out["round_split"] = round_split(device, stack)
+        log(f"resident (f) a round's host wall (median of 30; launches, "
+            f"copy home with the wait, unpack): "
+            f"{json.dumps(out['round_split'])}")
         out["placement"] = measure_placement(device, win, stack)
         log(f"resident: placement constants measured on this card: "
             f"{json.dumps(out['placement'])}")
@@ -4825,8 +5067,13 @@ def main(argv=None) -> int:
     parser.add_argument("--times-only", action="store_true",
                         help="build the kernels, print phase 3's times as "
                         "one JSON line and stop")
+    parser.add_argument("--resident-times", action="store_true",
+                        help="build the kernels, print phase 10 (f)'s "
+                        "kernel times and a round's wall split on a "
+                        "synthetic image as one JSON line and stop")
     parser.add_argument("--tree", default=None,
-                        help="with --times-only: the checkout whose "
+                        help="with --times-only or --resident-times: the "
+                        "checkout whose "
                         "pegasus_tpu_torch (and kernel sources) to time "
                         "(default this one)")
     args = parser.parse_args(argv)
@@ -4845,6 +5092,8 @@ def main(argv=None) -> int:
 
     if args.times_only:
         return times_only(torch, tree)
+    if args.resident_times:
+        return resident_times(torch, tree)
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5101,22 +5350,25 @@ def main(argv=None) -> int:
         "replaces": "pegasus_tpu/parallel/mesh_resident.py:119",
         "launches": rl["mesh_step"],
         "max_abs_err": resident["check_mesh_step"]["max_abs_err"],
-        "ms": rt["nosum"]["ms"], "plain_ms": rt["nosum"]["plain_ms"],
-        "bound_ms": rt["nosum"]["bound_ms"],
-        "bound_by": rt["nosum"]["bound_by"], "library_ms": None,
-        "call_ms": rt["nosum"]["call_ms"], "shape": rt["nosum"]["shape"],
-        "with_sum": {k: rt["sum"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "call_ms", "shape")}}, {
+        "ms": rt["wave"]["ms"], "plain_ms": rt["wave"]["plain_ms"],
+        "bound_ms": rt["wave"]["bound_ms"],
+        "bound_by": rt["wave"]["bound_by"], "library_ms": None,
+        "call_ms": rt["wave"]["call_ms"], "shape": rt["wave"]["shape"],
+        "instances": {name: {k: rt[name][k] for k in (
+            "ms", "plain_ms", "bound_ms", "call_ms", "shape")}
+            for name in ("extra", "sum")}}, {
         "name": "compaction_filter_slot_gate", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/compaction_filter.cu",
+        "kernel": rt["slot_gate"]["kernel"],
         "replaces": "pegasus_tpu/ops/compaction.py:178",
-        "launches": rl["slot_gate"],
+        "launches": rl["slot_gate_columns"],
+        "launches_gated_rules": rl["slot_gate"] - rl["slot_gate_columns"],
         "max_abs_err": resident["check_slot_gate"]["max_abs_err"],
         "ms": rt["slot_gate"]["ms"], "plain_ms": rt["slot_gate"]["plain_ms"],
         "bound_ms": rt["slot_gate"]["bound_ms"],
         "bound_by": rt["slot_gate"]["bound_by"], "library_ms": None,
         "call_ms": rt["slot_gate"]["call_ms"],
-        "ungated_ms": rt["slot_gate"]["ungated_ms"],
+        "row_a_thread_ms": rt["slot_gate"]["row_a_thread_ms"],
         "shape": rt["slot_gate"]["shape"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

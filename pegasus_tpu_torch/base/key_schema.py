@@ -20,6 +20,9 @@ from typing import Tuple
 
 from pegasus_tpu_torch.base.crc import crc64
 
+HASH_KEY_LEN_MAX = 0xFFFF - 1
+
+
 def generate_key(hash_key: bytes, sort_key: bytes = b"") -> bytes:
     if len(hash_key) >= 0xFFFF:
         raise ValueError("hash key length must be < 65535")
@@ -59,6 +62,11 @@ def key_hash(key: bytes) -> int:
             raise ValueError("key shorter than its hash_key_len header")
         return crc64(key[2:2 + hash_key_len])
     return crc64(key[2:])
+
+
+def hash_key_hash(hash_key: bytes) -> int:
+    """crc64 of a bare hashkey."""
+    return crc64(hash_key)
 
 
 def key_hash_parts(hash_key: bytes, sort_key: bytes = b"") -> int:

@@ -18,6 +18,10 @@ import time
 from typing import Optional
 
 PEGASUS_EPOCH_BEGIN = 1451606400  # 2016-01-01 00:00:00 UTC
+DATA_VERSION_MAX = 1
+
+_TIMESTAMP_MASK = (1 << 56) - 1
+
 
 def epoch_now(unix_now: Optional[float] = None) -> int:
     """Seconds since the Pegasus epoch (parity: utils::epoch_now)."""
@@ -34,6 +38,11 @@ def expire_ts_from_ttl(ttl_seconds: int, now: Optional[int] = None) -> int:
 
 def generate_timetag(timestamp_us: int, cluster_id: int, deleted: bool) -> int:
     return (timestamp_us << 8) | ((cluster_id & 0x7F) << 1) | int(deleted)
+
+
+def extract_timestamp_from_timetag(timetag: int) -> int:
+    """The 56-bit microsecond timestamp of a timetag."""
+    return (timetag >> 8) & _TIMESTAMP_MASK
 
 
 def generate_value(version: int, user_data: bytes, expire_ts: int,

@@ -80,6 +80,24 @@
 // trees in turns on one card; PERF.md). The byte matcher is match.cuh's, shared
 // with the scan kernel. The packed mask comes from __ballot_sync, four
 // lanes writing a warp's four bytes.
+//
+// The resident image's TTL pass (mesh_compact_step with no ruleset and
+// validation against the resident hash_lo) has a kernel of its own,
+// slot_gate_kernel: the same order (default-TTL rewrite, then expiry and
+// the slot-gated stale-split drop) over 8 rows a thread. Bound: memory,
+// 9.125 B a row (expire_ts 4, hash_lo 4, valid 1, 1/8 out) plus 5 B a
+// slot, 4 B more a row with ets2: 2^20 rows in about 2.86 us. filter_tile
+// takes a row a thread with byte loads of `valid` and measured 8.48 us
+// there (PERF.md), held by per-row latency. Here every warp instruction
+// reads contiguous bytes: expire_ts and hash_lo 16 bytes a lane (rows
+// 128 i + 4 lane .. + 3 in instruction i), `valid` 8 bytes a lane (the 8
+// rows of the mask byte the lane owns). The lane that loads 4 rows judges
+// them and their drop nibbles reach the owning lane by two shuffles; the
+// packed byte is built in registers and stored, and ets2 goes out as one
+// 16-byte store a load. A block of 2048 rows inside one slot reads the
+// slot's pidx and allowed once (a broadcast); a smaller slot reads them
+// for each 4-row load. Two tiles a warp, and blocks of 1024 threads,
+// measured no faster (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -280,7 +298,127 @@ __global__ void __launch_bounds__(kTile, kMinBlocksPerSm)
   filter_tile<kMode>(p, blockIdx.x, tab);
 }
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kGateRows = kTile * 8;  // rows a slot-gate block covers
+
+// 8 bool bytes (row m in byte m) -> one byte, row m at bit 7 - m
+// (jnp.packbits' order): byte m times 2^k lands at bit 56 + k for
+// k = 7 - m, and no two partial products share a bit.
+__device__ __forceinline__ uint32_t pack_bools(uint2 v) {
+  const unsigned long long x =
+      (static_cast<unsigned long long>(v.y) << 32) | v.x;
+  return static_cast<uint32_t>((x * 0x8040201008040201ull) >> 56);
+}
+
+// 4 rows of the TTL pass: the default-TTL rewrite into `ets`, and the
+// rows to drop before `valid` (expired, or stale in an allowed slot), the
+// first row at bit 3
+__device__ __forceinline__ uint32_t gate_nibble(uint4& ets, uint4 lo,
+                                                uint32_t owner, bool allowed,
+                                                uint32_t now, uint32_t ttl,
+                                                uint32_t pv) {
+  uint32_t e[4] = {ets.x, ets.y, ets.z, ets.w};
+  const uint32_t h[4] = {lo.x, lo.y, lo.z, lo.w};
+  uint32_t nib = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (ttl != 0 && e[q] == 0) e[q] = now + ttl;
+    const bool expired = e[q] > 0 && e[q] <= now;
+    const bool stale = allowed && (h[q] & pv) != owner;
+    nib |= static_cast<uint32_t>(expired || stale) << (3 - q);
+  }
+  ets = make_uint4(e[0], e[1], e[2], e[3]);
+  return nib;
+}
+
+__global__ void __launch_bounds__(kTile)
+    slot_gate_kernel(const uint32_t* __restrict__ expire_ts,
+                     const uint8_t* __restrict__ valid,
+                     const uint32_t* __restrict__ hash_lo,
+                     const uint32_t* __restrict__ slot_pidx,
+                     const uint8_t* __restrict__ slot_allowed, int64_t n,
+                     int slot_shift, uint32_t now, uint32_t default_ttl,
+                     uint32_t pv, uint8_t* __restrict__ drop_out,
+                     uint32_t* __restrict__ ets_out) {
+  const int lane = threadIdx.x & 31;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kGateRows;
+  const int64_t tr = first + (threadIdx.x >> 5) * 256;  // the warp's rows
+  const int64_t ra = tr + 4 * lane;  // this lane's loads: rows ra.., rb..
+  const int64_t rb = ra + 128;
+  const int64_t j = (tr >> 3) + lane;  // the mask byte this lane owns
+
+  // every load first
+  uint4 ea = make_uint4(0, 0, 0, 0), eb = ea, ha = ea, hb = ea;
+  if (ra < n) {
+    ea = *reinterpret_cast<const uint4*>(expire_ts + ra);
+    ha = *reinterpret_cast<const uint4*>(hash_lo + ra);
+  }
+  if (rb < n) {
+    eb = *reinterpret_cast<const uint4*>(expire_ts + rb);
+    hb = *reinterpret_cast<const uint4*>(hash_lo + rb);
+  }
+  uint2 vv = make_uint2(0, 0);
+  if (j * 8 < n) vv = *reinterpret_cast<const uint2*>(valid + j * 8);
+  uint32_t own_a, own_b;
+  bool al_a, al_b;
+  if ((int64_t{1} << slot_shift) >= kGateRows) {  // one slot a block
+    const int64_t s = first >> slot_shift;
+    own_a = own_b = slot_pidx[s];
+    al_a = al_b = slot_allowed[s] != 0;
+  } else {
+    const int64_t sa = (ra < n ? ra : 0) >> slot_shift;
+    const int64_t sb = (rb < n ? rb : 0) >> slot_shift;
+    own_a = slot_pidx[sa];
+    own_b = slot_pidx[sb];
+    al_a = slot_allowed[sa] != 0;
+    al_b = slot_allowed[sb] != 0;
+  }
+
+  const uint32_t nibs =
+      gate_nibble(ea, ha, own_a, al_a, now, default_ttl, pv) |
+      (gate_nibble(eb, hb, own_b, al_b, now, default_ttl, pv) << 4);
+  if (ets_out != nullptr) {
+    if (ra < n) *reinterpret_cast<uint4*>(ets_out + ra) = ea;
+    if (rb < n) *reinterpret_cast<uint4*>(ets_out + rb) = eb;
+  }
+  // the owner's byte: rows 8 lane .. + 7 are the nibbles of lanes
+  // 2 lane and 2 lane + 1, from their first load (lane < 16) or second
+  const uint32_t hi = __shfl_sync(kFull, nibs, (2 * lane) & 31);
+  const uint32_t lo = __shfl_sync(kFull, nibs, (2 * lane + 1) & 31);
+  const uint32_t gone =
+      lane < 16 ? ((hi & 0xF) << 4) | (lo & 0xF) : (hi & 0xF0) | (lo >> 4);
+  if (j * 8 < n) drop_out[j] = static_cast<uint8_t>(gone & pack_bools(vv));
+}
+
 }  // namespace
+
+// The resident image's TTL pass on `stream`: n rows (a multiple of 8) of
+// P slots of 2^slot_shift rows (slot_shift >= 3), validation against
+// hash_lo with the slot gate, no ruleset; returns the launch's error (0
+// on success) or cudaErrorInvalidValue for arguments the kernel does not
+// take. Device pointers: expire_ts and hash_lo uint32[n] (16-byte
+// aligned), valid uint8[n] (8-byte aligned), slot_pidx uint32[P],
+// slot_allowed uint8[P], drop_out uint8[n / 8] (packed as
+// jnp.packbits), ets_out uint32[n] (16-byte aligned) or null.
+extern "C" int pegasus_slot_gate_filter(
+    const uint32_t* expire_ts, const uint8_t* valid, const uint32_t* hash_lo,
+    const uint32_t* slot_pidx, const uint8_t* slot_allowed, int64_t n,
+    int slot_shift, uint32_t now, uint32_t default_ttl, uint32_t pv,
+    uint8_t* drop_out, uint32_t* ets_out, void* stream) {
+  if (n < 0 || (n & 7) || slot_shift < 3 || slot_shift > 62 ||
+      !expire_ts || !valid || !hash_lo || !slot_pidx || !slot_allowed ||
+      !drop_out) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const int64_t blocks = (n + kGateRows - 1) / kGateRows;
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  slot_gate_kernel<<<static_cast<unsigned>(blocks), kTile, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      expire_ts, valid, hash_lo, slot_pidx, slot_allowed, n, slot_shift, now,
+      default_ttl, pv, drop_out, ets_out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Launches one kernel over n rows on `stream` and returns
 // cudaGetLastError() of the launch (0 on success), or

@@ -23,7 +23,8 @@ Three shapes, each with the JAX package's contract:
   compressed blocks when no ruleset touches key bytes;
 - `mesh_compact_step`: the bulk filter over a table's resident [P, B]
   image (parallel/mesh_resident.py) in one launch, with a per-slot gate
-  on the stale-split term.
+  on the stale-split term, its results in one buffer
+  (`mesh_compact_buffer`) that a round copies home once.
 
 On a CUDA device both launch the hand-written compaction-filter kernel
 (ops/fused_compaction.py); on the CPU they run the plain torch version
@@ -42,7 +43,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from pegasus_tpu_torch.ops import fused_compaction
+from pegasus_tpu_torch.ops import fused_compaction, result_buffer
 from pegasus_tpu_torch.ops.compaction_rules import apply_rules_ops
 from pegasus_tpu_torch.ops.device_crc import key_hash_device
 from pegasus_tpu_torch.ops.fused_compaction import ops_key as _ops_key
@@ -239,51 +240,86 @@ def encoded_drop_mask(enc, now: int, default_ttl: int, pidx: int,
     return drop, (new_ets if want_ets else None)
 
 
-def mesh_compact_step(keys, key_len, hashkey_len, expire_ts, present,
-                      hash_lo, pidx, allowed, now: int, default_ttl: int,
-                      partition_version: int, *, operations=None,
-                      validate_hash: bool = False, want_ets: bool = True):
+def mesh_compact_layout(p: int, b: int, want_ets: bool) -> tuple:
+    """The parts of a compaction round's result buffer over a [p, b]
+    image: the packed drop mask uint8[p, b / 8], then ets2 uint32[p, b]
+    with `want_ets`."""
+    parts = (("u8", (p, b // 8)),)
+    return parts + ((("u32", (p, b)),) if want_ets else ())
+
+
+def mesh_compact_buffer(keys, key_len, hashkey_len, expire_ts, present,
+                        hash_lo, pidx, allowed, now: int, default_ttl: int,
+                        partition_version: int, *, operations=None,
+                        validate_hash: bool = False,
+                        want_ets: bool = True) -> torch.Tensor:
     """The bulk filter over a table's resident [P, B] image
-    (parallel/mesh_resident.py) in one launch: eval_block's order
+    (parallel/mesh_resident.py) in one launch, into one result buffer
+    (parts `mesh_compact_layout(P, B, want_ets)`): eval_block's order
     (default-TTL rewrite -> user rules -> expiry + stale-split) over the
     image flattened to P * B rows with each slot's pidx read once a
-    slot, `present` as `valid` (every real SST row, tombstones included: the write stage
-    drops those by their flags), the resident `hash_lo`, and the
-    stale-split term gated per slot by `allowed` (pidx <=
+    slot, `present` as `valid` (every real SST row, tombstones included:
+    the write stage drops those by their flags), the resident `hash_lo`,
+    and the stale-split term gated per slot by `allowed` (pidx <=
     partition_version: check_if_stale_split_data keeps the rows of a
     partition above the version). As pegasus_tpu/ops/compaction.py:178.
 
     keys uint8[P, B, K]; key_len, hashkey_len, expire_ts, hash_lo
     int32[P, B] (uint32 bits); present bool[P, B]; pidx int32[P];
-    allowed bool or uint8[P]; B a power of two >= 8. Returns (packed drop
-    uint8[P, B/8], ets2 int32[P, B]) or (packed drop,) without
-    `want_ets`. On CUDA the compaction kernel's slot-gate instance, on
-    the CPU eval_block_plain with the same gate."""
+    allowed bool or uint8[P]; B a power of two >= 8. On CUDA the
+    compaction kernel: its TTL pass (no ruleset, validating) is
+    slot_gate_kernel, everything else compaction_filter_kernel's
+    slot-gate instance; on the CPU eval_block_plain with the same
+    gate."""
     p, b = expire_ts.shape
     k = keys.shape[-1]
     pv = max(int(partition_version), 0) & _M32
     ops = tuple(operations or ())
+    layout = mesh_compact_layout(p, b, want_ets)
+    buf = result_buffer.empty(layout, keys.device)
+    drop, *ets = (v.reshape(-1) for v in result_buffer.views(buf, layout))
+    ets = ets[0] if want_ets else None
     flat = (keys.reshape(p * b, k), key_len.reshape(p * b),
             expire_ts.reshape(p * b), present.reshape(p * b))
-    if keys.device.type == "cuda":
-        drop, ets = fused_compaction.compaction_filter(
+    if keys.device.type == "cuda" and validate_hash and not ops:
+        fused_compaction.slot_gate_filter(
+            flat[2], flat[3], hash_lo.reshape(p * b), pidx,
+            allowed.to(torch.uint8), now, default_ttl, pv, drop, ets)
+    elif keys.device.type != "cuda":
+        got = eval_block_plain(
+            ops, flat[0], flat[1], hashkey_len.reshape(p * b), flat[2],
+            flat[3], hash_lo.reshape(p * b), now, default_ttl, pidx,
+            pv, validate_hash, True, want_ets=want_ets, pack=True,
+            slot_allowed=allowed if validate_hash else None)
+        drop.copy_(got[0])
+        if want_ets:
+            ets.copy_(got[1])
+    else:
+        fused_compaction.compaction_filter(
             flat[0], flat[1], flat[2], flat[3],
             hash_lo.reshape(p * b) if validate_hash else None,
             pidx if validate_hash else 0,
             ops, now, default_ttl, pv, validate_hash=validate_hash,
             expire=True, want_ets=want_ets, pack=True,
             slot_allowed=(allowed.to(torch.uint8) if validate_hash
-                          else None))
-    else:
-        drop, *ets = eval_block_plain(
-            ops, flat[0], flat[1], hashkey_len.reshape(p * b), flat[2],
-            flat[3], hash_lo.reshape(p * b), now, default_ttl, pidx,
-            pv, validate_hash, True, want_ets=want_ets, pack=True,
-            slot_allowed=allowed if validate_hash else None)
-        ets = ets[0] if want_ets else None
-    if want_ets:
-        return drop.view(p, b // 8), ets.view(p, b)
-    return (drop.view(p, b // 8),)
+                          else None),
+            out=(drop, ets))
+    return buf
+
+
+def mesh_compact_step(keys, key_len, hashkey_len, expire_ts, present,
+                      hash_lo, pidx, allowed, now: int, default_ttl: int,
+                      partition_version: int, *, operations=None,
+                      validate_hash: bool = False, want_ets: bool = True):
+    """`mesh_compact_buffer`'s views: (packed drop uint8[P, B/8], ets2
+    int32[P, B]) or (packed drop,) without `want_ets`."""
+    p, b = expire_ts.shape
+    return result_buffer.views(
+        mesh_compact_buffer(keys, key_len, hashkey_len, expire_ts, present,
+                            hash_lo, pidx, allowed, now, default_ttl,
+                            partition_version, operations=operations,
+                            validate_hash=validate_hash, want_ets=want_ets),
+        mesh_compact_layout(p, b, want_ets))
 
 
 COMPACT_CHUNK_ROWS = 1 << 18  # 256k records per stacked launch

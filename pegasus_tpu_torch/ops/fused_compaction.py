@@ -20,7 +20,13 @@ has none, hashes the keys inside the kernel (the JAX package's
 of ops/fused_scan.crc_tables (from base/crc.py), copied to the card once
 a device.
 
-The kernel is csrc/compaction_filter.cu, built with nvcc for sm_90a at
+`slot_gate_filter` launches the same source's second kernel, the
+resident image's TTL pass (ops/compaction.mesh_compact_step with no
+ruleset, validating against the resident hash_lo, the slot gate on):
+8 rows a thread, its packed drop mask and rewritten TTLs written into a
+caller's result buffer.
+
+The kernels are csrc/compaction_filter.cu, built with nvcc for sm_90a at
 first use into `_build/` and bound through ctypes; the build and the
 load happen once, under a lock (the bulk compactions of several
 partitions launch from their own filter-stage threads).
@@ -50,10 +56,12 @@ _M32 = 0xFFFFFFFF
 MAX_OPS = 16
 MAX_RULES = 64
 
-# kernel launches, and of them those with the resident image's slot gate
-# (ops/compaction.mesh_compact_step); a launch made by the wrapper adds
-# here, nothing else does
-LAUNCHES = {"compaction": 0, "slot_gate": 0}
+# kernel launches: "compaction" of compaction_filter_kernel, "slot_gate"
+# of the launches with the resident image's slot gate (either kernel:
+# ops/compaction.mesh_compact_step), "slot_gate_columns" of
+# slot_gate_kernel; a launch made by a wrapper adds here, nothing else
+# does
+LAUNCHES = {"compaction": 0, "slot_gate": 0, "slot_gate_columns": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "compaction_filter.cu")
@@ -117,6 +125,10 @@ def _library():
                            ctypes.c_char_p, i32, ctypes.c_char_p, i32, p,
                            u32_, u32_, u32_, i32, p, p, p, p, p, i32]
             fn.restype = ctypes.c_int
+            gate = lib.pegasus_slot_gate_filter
+            gate.argtypes = [p, p, p, p, p, ctypes.c_int64, i32, u32_, u32_,
+                             u32_, p, p, p]
+            gate.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -199,6 +211,63 @@ def _check(t: Optional[torch.Tensor], name: str, dtype, shape,
                          f"{dtype}{list(shape)} on {dev}, got {got}")
 
 
+def _check_aligned(t: torch.Tensor, name: str, align: int) -> None:
+    if t.data_ptr() % align:
+        raise ValueError(f"compaction kernel needs {name} {align}-byte "
+                         f"aligned")
+
+
+def slot_gate_filter(expire_ts: torch.Tensor, valid: torch.Tensor,
+                     hash_lo: torch.Tensor, pidx: torch.Tensor,
+                     slot_allowed: torch.Tensor, now: int, default_ttl: int,
+                     partition_version: int, drop: torch.Tensor,
+                     ets: Optional[torch.Tensor]) -> None:
+    """The resident image's TTL pass in one launch of slot_gate_kernel on
+    the current stream: B = P * S rows (S a power of two >= 8) of
+    expire_ts and hash_lo int32[B] (uint32 bits, 16-byte aligned), valid
+    bool[B] (8-byte aligned), pidx int32[P] and slot_allowed uint8[P] a
+    slot. Writes the packed drop mask into `drop` (uint8[B / 8]) and,
+    when `ets` is given (int32[B], 16-byte aligned), the rewritten TTLs:
+    eval_block's default-TTL rewrite, expiry and the slot-gated
+    stale-split drop, with no ruleset. CUDA tensors only."""
+    dev = expire_ts.device
+    if dev.type != "cuda":
+        raise ValueError(f"the compaction kernel runs on CUDA tensors, "
+                         f"got {dev}")
+    b = expire_ts.shape[0]
+    n_slots = slot_allowed.shape[0] if slot_allowed.dim() == 1 else 0
+    slot_rows = b // n_slots if n_slots else 0
+    if (not n_slots or slot_rows * n_slots != b or slot_rows < 8
+            or slot_rows & (slot_rows - 1)):
+        raise ValueError("the slot gate needs B = P * S rows, S a power of "
+                         "two >= 8")
+    _check(expire_ts, "expire_ts", torch.int32, (b,), dev)
+    _check(hash_lo, "hash_lo", torch.int32, (b,), dev)
+    _check(valid, "valid", torch.bool, (b,), dev)
+    _check(pidx, "pidx", torch.int32, (n_slots,), dev)
+    _check(slot_allowed, "slot_allowed", torch.uint8, (n_slots,), dev)
+    _check(drop, "drop", torch.uint8, (b // 8,), dev)
+    for t, name, align in ((expire_ts, "expire_ts", 16),
+                           (hash_lo, "hash_lo", 16), (valid, "valid", 8)):
+        _check_aligned(t, name, align)
+    if ets is not None:
+        _check(ets, "ets", torch.int32, (b,), dev)
+        _check_aligned(ets, "ets", 16)
+    err = _library().pegasus_slot_gate_filter(
+        expire_ts.data_ptr(), valid.data_ptr(), hash_lo.data_ptr(),
+        pidx.data_ptr(), slot_allowed.data_ptr(), b,
+        slot_rows.bit_length() - 1, int(now) & _M32,
+        int(default_ttl) & _M32, int(partition_version) & _M32,
+        drop.data_ptr(), 0 if ets is None else ets.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"slot_gate_filter launch failed: cuda error "
+                           f"{err}")
+    with _count_lock:
+        LAUNCHES["slot_gate"] += 1
+        LAUNCHES["slot_gate_columns"] += 1
+
+
 def compaction_filter(keys: Optional[torch.Tensor],
                       key_len: Optional[torch.Tensor],
                       expire_ts: torch.Tensor, valid: torch.Tensor,
@@ -207,7 +276,9 @@ def compaction_filter(keys: Optional[torch.Tensor],
                       default_ttl: int, partition_version: int, *,
                       validate_hash: bool, expire: bool = True,
                       want_ets: bool = True, pack: bool = False,
-                      slot_allowed: Optional[torch.Tensor] = None
+                      slot_allowed: Optional[torch.Tensor] = None,
+                      out: Optional[Tuple[torch.Tensor,
+                                          Optional[torch.Tensor]]] = None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One launch over B rows on the current stream: (drop, ets2).
 
@@ -226,7 +297,9 @@ def compaction_filter(keys: Optional[torch.Tensor],
     term also needs slot_allowed[r // S], and a `pidx` tensor is then
     int32[P], one owner a slot (read as pidx[r // S]).
     drop is bool[B], or uint8[ceil(B / 8)] in packbits order with
-    `pack`; ets2 is int32[B] (uint32 bits), or None without `want_ets`."""
+    `pack`; ets2 is int32[B] (uint32 bits), or None without `want_ets`.
+    `out` = (drop, ets2) are tensors of those shapes to write into (views
+    of a caller's result buffer) instead of new ones."""
     dev = expire_ts.device
     if dev.type != "cuda":
         raise ValueError(f"the compaction kernel runs on CUDA tensors, "
@@ -273,9 +346,16 @@ def compaction_filter(keys: Optional[torch.Tensor],
         pidx_col, pidx_scalar = pidx.data_ptr(), 0
     else:
         pidx_col, pidx_scalar = 0, int(pidx) & _M32
-    drop = torch.empty(-(-b // 8) if pack else b,
-                       dtype=torch.uint8, device=dev)
-    ets = torch.empty(b if want_ets else 0, dtype=torch.int32, device=dev)
+    if out is None:
+        drop = torch.empty(-(-b // 8) if pack else b,
+                           dtype=torch.uint8, device=dev)
+        ets = torch.empty(b if want_ets else 0, dtype=torch.int32,
+                          device=dev)
+    else:
+        drop, ets = out
+        _check(drop, "drop", torch.uint8, (-(-b // 8) if pack else b,), dev)
+        if want_ets:
+            _check(ets, "ets", torch.int32, (b,), dev)
     if b == 0:
         # nothing to launch, so nothing to count
         return (drop if pack else drop.bool()), (ets if want_ets else None)

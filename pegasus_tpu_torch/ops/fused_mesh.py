@@ -11,8 +11,15 @@ image as one block with a per-row pidx column
 csrc/mesh_step.cu. In torch ops this epilogue is about a dozen launches
 on every resident dispatch.
 
-On CUDA tensors `mesh_step` launches the kernel (or raises); on CPU
-tensors it runs `mesh_step_plain`, the plain torch version the CPU tests
+The results come as one uint8 buffer (`mesh_step_buffer`, laid out by
+`result_layout`): the gated packed mask, the counts and the lane sums,
+each part 16-byte aligned (at B >= 128 exactly P * B / 8 + 28 * P
+bytes). A round copies that buffer home once (ops/result_buffer.home);
+`mesh_step` returns its three views. `extra=None` is the all-ones value
+filter, a kernel instance that reads no mask.
+
+On CUDA tensors the kernel is launched (or the wrapper raises); on CPU
+tensors `mesh_step_plain` runs, the plain torch version the CPU tests
 and chip_smoke.py hold the kernel against. The kernel is built with nvcc
 for sm_90a at first use into `_build/` and bound through ctypes, once,
 under a lock.
@@ -25,10 +32,12 @@ import os
 import subprocess
 import threading
 import time
+import weakref
 from typing import Optional, Tuple
 
 import torch
 
+from pegasus_tpu_torch.ops import result_buffer
 from pegasus_tpu_torch.ops.fused_scan import BUILD_DIR, _nvcc, _stream
 from pegasus_tpu_torch.ops.predicates import ttl_expired
 from pegasus_tpu_torch.ops.record_block import u32
@@ -85,12 +94,12 @@ def _library():
 
 def mesh_step_plain(packed: torch.Tensor, allowed: torch.Tensor,
                     expire_ts: torch.Tensor, present: torch.Tensor,
-                    extra: torch.Tensor, lanes: Optional[torch.Tensor],
-                    now: int, with_sum: bool
+                    extra: Optional[torch.Tensor],
+                    lanes: Optional[torch.Tensor], now: int, with_sum: bool
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain torch version of `mesh_step`, on any device: (gated packed
     uint8[P, B/8], counts int32[P, 3], lane_sums int32[P, 4] of uint32
-    bits)."""
+    bits). `extra=None` keeps every considered row."""
     p, nbytes = packed.shape
     b = nbytes * 8
     gate = allowed.to(torch.bool)
@@ -99,7 +108,7 @@ def mesh_step_plain(packed: torch.Tensor, allowed: torch.Tensor,
               & gate[:, None])
     alive = ~ttl_expired(expire_ts, now)
     considered = static & alive
-    live = considered & extra
+    live = considered if extra is None else considered & extra
     gated = torch.where(gate[:, None], packed, torch.zeros_like(packed))
     counts = torch.stack([live.sum(dim=1), considered.sum(dim=1),
                           (present & ~alive).sum(dim=1)],
@@ -114,6 +123,18 @@ def mesh_step_plain(packed: torch.Tensor, allowed: torch.Tensor,
     return gated, counts, lane_sums
 
 
+# the image's operands, the same tensors every round of a stack, checked
+# at their first launch: a hit needs the very same tensors (weak refs)
+_checked: dict = {}
+
+
+def result_layout(p: int, b: int) -> tuple:
+    """The parts of a round's result buffer over a [p, b] image: the
+    gated packed mask uint8[p, b / 8], counts int32[p, 3], lane sums
+    uint32[p, 4]."""
+    return (("u8", (p, b // 8)), ("i32", (p, 3)), ("u32", (p, 4)))
+
+
 def _check(t: Optional[torch.Tensor], name: str, dtype, shape,
            dev: torch.device, align: int) -> None:
     if (t is None or t.dtype != dtype or t.device != dev
@@ -125,46 +146,76 @@ def _check(t: Optional[torch.Tensor], name: str, dtype, shape,
                          f"aligned, got {got}")
 
 
-def mesh_step(packed: torch.Tensor, allowed: torch.Tensor,
-              expire_ts: torch.Tensor, present: torch.Tensor,
-              extra: torch.Tensor, lanes: Optional[torch.Tensor], now: int,
-              with_sum: bool
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The epilogue over a [P, B] image: packed uint8[P, B/8] static
-    mask, allowed uint8[P], expire_ts int32[P, B] (uint32 bits), present
-    and extra bool[P, B], lanes int32[P, B, 4] (uint32 bits; read only
-    with `with_sum`). Returns (gated packed mask uint8[P, B/8], counts
-    int32[P, 3] = live, considered, present-and-expired, lane_sums
-    int32[P, 4] of uint32 bits, zero without `with_sum`). One launch on
-    the current stream on CUDA, the plain version on the CPU."""
+def mesh_step_buffer(packed: torch.Tensor, allowed: torch.Tensor,
+                     expire_ts: torch.Tensor, present: torch.Tensor,
+                     extra: Optional[torch.Tensor],
+                     lanes: Optional[torch.Tensor], now: int,
+                     with_sum: bool) -> torch.Tensor:
+    """The epilogue over a [P, B] image into one result buffer (parts
+    `result_layout(P, B)`): packed uint8[P, B/8] static mask, allowed
+    uint8[P], expire_ts int32[P, B] (uint32 bits), present bool[P, B],
+    extra bool[P, B] or None (all ones), lanes int32[P, B, 4] (uint32
+    bits; read only with `with_sum`; the sums are zero without it). One
+    launch on the current stream on CUDA, the plain version on the
+    CPU."""
     dev = packed.device
-    if dev.type == "cpu":
-        return mesh_step_plain(packed, allowed, expire_ts, present, extra,
-                               lanes, now, with_sum)
-    if dev.type != "cuda":
-        raise ValueError(f"no mesh_step for device {dev}")
     p, nbytes = packed.shape
     b = nbytes * 8
+    layout = result_layout(p, b)
+    if dev.type == "cpu":
+        buf = result_buffer.empty(layout, dev)
+        for view, part in zip(result_buffer.views(buf, layout),
+                              mesh_step_plain(packed, allowed, expire_ts,
+                                              present, extra, lanes, now,
+                                              with_sum)):
+            view.copy_(part)
+        return buf
+    if dev.type != "cuda":
+        raise ValueError(f"no mesh_step for device {dev}")
     _check(packed, "packed", torch.uint8, (p, nbytes), dev, 1)
-    _check(allowed, "allowed", torch.uint8, (p,), dev, 1)
-    _check(expire_ts, "expire_ts", torch.int32, (p, b), dev, 16)
-    _check(present, "present", torch.bool, (p, b), dev, 8)
-    _check(extra, "extra", torch.bool, (p, b), dev, 8)
-    if with_sum:
-        _check(lanes, "lanes", torch.int32, (p, b, 4), dev, 16)
-    out = torch.empty((p, nbytes), dtype=torch.uint8, device=dev)
-    counts = torch.empty((p, 3), dtype=torch.int32, device=dev)
-    lane_sums = torch.empty((p, 4), dtype=torch.int32, device=dev)
+    image = (allowed, expire_ts, present, extra, lanes if with_sum else None)
+    key = tuple(map(id, image)) + (p, b)
+    refs = _checked.get(key)
+    if refs is None or any(r is not None and r() is not t
+                           for r, t in zip(refs, image)):
+        _check(allowed, "allowed", torch.uint8, (p,), dev, 1)
+        _check(expire_ts, "expire_ts", torch.int32, (p, b), dev, 16)
+        _check(present, "present", torch.bool, (p, b), dev, 8)
+        if extra is not None:
+            _check(extra, "extra", torch.bool, (p, b), dev, 8)
+        if with_sum:
+            _check(lanes, "lanes", torch.int32, (p, b, 4), dev, 16)
+        if len(_checked) >= 64:
+            _checked.clear()
+        _checked[key] = tuple(None if t is None else weakref.ref(t)
+                              for t in image)
+    offs, size = result_buffer.offsets(layout)
+    buf = torch.empty(size, dtype=torch.uint8, device=dev)
     if p == 0:
         # nothing to launch, so nothing to count
-        return out, counts, lane_sums
+        return buf
+    base = buf.data_ptr()
     err = _library().pegasus_mesh_step(
         packed.data_ptr(), allowed.data_ptr(), expire_ts.data_ptr(),
-        present.data_ptr(), extra.data_ptr(),
+        present.data_ptr(), 0 if extra is None else extra.data_ptr(),
         lanes.data_ptr() if with_sum else 0, int(now) & 0xFFFFFFFF, p, b,
-        int(with_sum), out.data_ptr(), counts.data_ptr(),
-        lane_sums.data_ptr(), _stream(dev))
+        int(with_sum), base, base + offs[1], base + offs[2], _stream(dev))
     if err != 0:
         raise RuntimeError(f"mesh_step launch failed: cuda error {err}")
     LAUNCHES["mesh_step"] += 1
-    return out, counts, lane_sums
+    return buf
+
+
+def mesh_step(packed: torch.Tensor, allowed: torch.Tensor,
+              expire_ts: torch.Tensor, present: torch.Tensor,
+              extra: Optional[torch.Tensor], lanes: Optional[torch.Tensor],
+              now: int, with_sum: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`mesh_step_buffer`'s three views: (gated packed mask uint8[P,
+    B/8], counts int32[P, 3] = live, considered, present-and-expired,
+    lane_sums int32[P, 4] of uint32 bits)."""
+    p, nbytes = packed.shape
+    return result_buffer.views(
+        mesh_step_buffer(packed, allowed, expire_ts, present, extra, lanes,
+                         now, with_sum),
+        result_layout(p, nbytes * 8))

@@ -62,18 +62,20 @@ def reset_probe() -> None:
 
 
 # Measured on NVIDIA H100 80GB HBM3 at a 700.00 W power limit
-# (chip_smoke.py phase 10, measure_placement):
-H2D_GBPS_EST = 7.085620044473166    # host -> card, pageable 64 MB copy
-D2H_GBPS_EST = 2.1733694870336024   # card -> host, pageable 64 MB copy
-ROUND_FIXED_S_EST = 0.00019972200004758633  # one resident round at
-#                              P = 1, B = 8: its two launches, the wait,
-#                              the results home
-HOST_DISPATCH_S_EST = 0.00011164000000007945  # one table call of the
+# (chip_smoke.py phase 10, measure_placement, after the round came to
+# copy its one result buffer home into page-locked memory):
+H2D_GBPS_EST = 6.051054597366233    # host -> card, pageable 64 MB copy
+D2H_GBPS_EST = 53.97397366591122    # card -> host, 64 MB into page-locked
+#                              memory, as a round copies its results
+ROUND_FIXED_S_EST = 0.00018095799998718576  # one resident round at
+#                              P = 1, B = 8: its two launches, the one
+#                              copy home and the wait
+HOST_DISPATCH_S_EST = 0.00012479499999784593  # one table call of the
 #                              scan kernel (8 resident blocks of 1024)
 #                              with its host cost, masks on the host
-HOST_FILTER_GBPS_EST = 3.8935530639417384   # numpy's TTL compare over a
+HOST_FILTER_GBPS_EST = 2.9404109564443233   # numpy's TTL compare over a
 #                              uint32 expire_ts column of 16 Mi rows
-MESH_EVAL_GBPS_EST = 1950.5777503061188     # a "rules" round's two
+MESH_EVAL_GBPS_EST = 1947.6157076361396     # a "rules" round's two
 #                              kernels (a sortkey filter: the key rows
 #                              are read) over the bytes they move, L2
 #                              flushed (P = 64, B = 16384); the model

@@ -22,7 +22,12 @@ together the JAX package's `_mesh_step`. Count and sum aggregates never
 touch rows; top_k and sample fold the surviving rows on the host in
 block order with the same AggState, so their results equal the host
 arm's. The bulk compactor's filter over the image is one launch of the
-compaction kernel's slot-gate instance (ops/compaction.mesh_compact_step).
+compaction kernel with the slot gate (ops/compaction.mesh_compact_step).
+Each round's results lie in one device buffer that comes home in one
+copy into page-locked memory allocated for that round
+(ops/result_buffer.home), as the JAX package brings a round home in one
+`jax.device_get`: the host views cached per round keep their own
+buffer.
 
 The image lives on the attached servers' own device: the card, or the
 CPU for servers built with device="cpu" (the plain versions then run).
@@ -329,7 +334,7 @@ class _Stack:
 
     __slots__ = ("device", "P", "B", "K", "flat", "ets2d", "present",
                  "pidx", "pidx_np", "pidx_rows", "slots", "index",
-                 "ones_extra", "rows_total", "batch_bytes", "_lanes",
+                 "rows_total", "batch_bytes", "_lanes",
                  "_extra_cache", "_allowed")
 
     def lanes_dev(self) -> torch.Tensor:
@@ -343,12 +348,13 @@ class _Stack:
                 self.device)
         return self._lanes
 
-    def extra_dev(self, vf) -> torch.Tensor:
+    def extra_dev(self, vf) -> Optional[torch.Tensor]:
         """The value-filter mask as a bool[P, B] operand, from the
         servers' cached per-block masks, so the pruned accounting equals
-        the host arm's."""
+        the host arm's; None (all ones, read by no kernel) without a
+        value filter."""
         if vf is None:
-            return self.ones_extra
+            return None
         hit = self._extra_cache.get(vf)
         if hit is not None:
             return hit
@@ -432,7 +438,6 @@ def _build_stack(device: torch.device,
     st.pidx = dev(pidx.view(np.int32))
     st.pidx_np = pidx
     st.pidx_rows = st.pidx.repeat_interleave(b)
-    st.ones_extra = torch.ones((p, b), dtype=torch.bool, device=device)
     # the stacked path's accounting: key bytes + 9 bytes a record of
     # length and expiry columns
     st.batch_bytes = sum(
@@ -607,9 +612,12 @@ class MeshServing:
     def _run_program(self, stack: _Stack, validate: bool, pv: int,
                      filter_key, now: int, extra, with_sum: bool):
         """One whole-table round: the scan kernel's static mask over the
-        image, then the epilogue. Returns (measured_s, (packed uint8[P,
-        B/8], counts int32[P, 3], lane_sums uint32[P, 4])) on the host."""
-        from pegasus_tpu_torch.ops import fused_mesh
+        image, then the epilogue into one result buffer, copied home
+        once. `extra` is the value-filter mask or None (all ones).
+        Returns (measured_s, (packed uint8[P, B/8], counts int32[P, 3],
+        lane_sums uint32[P, 4])) on the host, views of that round's own
+        host buffer."""
+        from pegasus_tpu_torch.ops import fused_mesh, result_buffer
         from pegasus_tpu_torch.ops.fused_scan import scan_table
         from pegasus_tpu_torch.ops.predicates import FilterSpec
         from pegasus_tpu_torch.parallel.partition_mesh import (
@@ -626,11 +634,11 @@ class MeshServing:
         t0 = time.perf_counter()
         static = scan_table([stack.flat], [stack.pidx_rows], hash_f, sort_f,
                             validate, max(pv, 0) & _M32)
-        packed, counts, lane_sums = fused_mesh.mesh_step(
+        buf = fused_mesh.mesh_step_buffer(
             static.view(stack.P, stack.B // 8), allowed, stack.ets2d,
             stack.present, extra, lanes, now, with_sum)
-        out = (packed.cpu().numpy(), counts.cpu().numpy(),
-               lane_sums.cpu().numpy().view(np.uint32))
+        out = result_buffer.views(result_buffer.home(buf),
+                                  fused_mesh.result_layout(stack.P, stack.B))
         return time.perf_counter() - t0, out
 
     def _audit(self, perf_ctxs, partitions: int, predicted_s: float,
@@ -700,7 +708,7 @@ class MeshServing:
                 self.host_waves += 1
                 return None
             measured_s, (packed, _counts, _lanes) = self._run_program(
-                stack, validate, pv, fkey, now=0, extra=stack.ones_extra,
+                stack, validate, pv, fkey, now=0, extra=None,
                 with_sum=False)
 
         # only the wave's slots come home unpacked
@@ -887,7 +895,6 @@ class MeshServing:
         if not self.enabled or not entries:
             return None
         from pegasus_tpu_torch.ops import placement
-        from pegasus_tpu_torch.ops.compaction import mesh_compact_step
         from pegasus_tpu_torch.parallel.partition_mesh import (
             partition_allowed,
         )
@@ -937,18 +944,9 @@ class MeshServing:
             # a slot above the version keeps its rows (pv clamped at 0)
             allowed = stack.allowed_dev(partition_allowed(
                 stack.pidx_np, bool(validate), params[2]))
-            flat = stack.flat
             t0 = time.perf_counter()
-            out = mesh_compact_step(
-                stack.view(flat.keys), stack.view(flat.key_len),
-                stack.view(flat.hashkey_len), stack.ets2d, stack.present,
-                stack.view(flat.hash_lo), stack.pidx, allowed, params[0],
-                params[1], params[2], operations=operations,
-                validate_hash=bool(validate), want_ets=bool(want_ets))
-            drop_all = np.unpackbits(out[0].cpu().numpy(), axis=1,
-                                     count=stack.B).astype(bool)
-            ets_all = (out[1].cpu().numpy().view(np.uint32) if want_ets
-                       else None)
+            drop_all, ets_all = self._compact_round(stack, allowed, params,
+                                                    operations)
             measured_s = time.perf_counter() - t0
             if len(self._compact_cache) > 65536:
                 self._compact_cache.clear()
@@ -968,6 +966,32 @@ class MeshServing:
             self.compact_mask_serves += 1
             self._stash_pending(tres, pidx, lsm, params, want_ets)
             return self._compact_masks_from_cache(params, entries)
+
+    def _compact_round(self, stack: _Stack, allowed: torch.Tensor, params,
+                       operations):
+        """One compaction-filter round over the image under `params`
+        (_compact_params), its one result buffer copied home once:
+        (drop bool[P, B], ets2 uint32[P, B] or None)."""
+        from pegasus_tpu_torch.ops import result_buffer
+        from pegasus_tpu_torch.ops.compaction import (
+            mesh_compact_buffer,
+            mesh_compact_layout,
+        )
+
+        now, default_ttl, pv, validate, _ops, want_ets = params
+        flat = stack.flat
+        buf = mesh_compact_buffer(
+            stack.view(flat.keys), stack.view(flat.key_len),
+            stack.view(flat.hashkey_len), stack.ets2d, stack.present,
+            stack.view(flat.hash_lo), stack.pidx, allowed, now, default_ttl,
+            pv, operations=operations, validate_hash=validate,
+            want_ets=want_ets)
+        packed, *ets = result_buffer.views(
+            result_buffer.home(buf),
+            mesh_compact_layout(stack.P, stack.B, want_ets))
+        # unpackbits gives 0 / 1 bytes: a bool view, not a second array
+        drop = np.unpackbits(packed, axis=1, count=stack.B).view(bool)
+        return drop, (ets[0] if want_ets else None)
 
     # -- observability -----------------------------------------------------
 

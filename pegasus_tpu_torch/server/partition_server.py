@@ -309,6 +309,10 @@ class PartitionServer:
         # of a raw run or an encoded block with malformed rows
         self._mask_routes = {k: self.metrics.counter(name)
                              for k, name in _MASK_ROUTE_METRICS.items()}
+        # resident index memory, bloom against phash bytes, refreshed
+        # whenever the probe structures rebuild (the run set changed)
+        self._index_bloom_bytes = self.metrics.gauge("index_bloom_bytes")
+        self._index_phash_bytes = self.metrics.gauge("index_phash_bytes")
         # slow-read dumps: replica.slow_query_threshold_ms sets the
         # threshold
         self.slow_log = SlowQueryLog()
@@ -1225,7 +1229,7 @@ class PartitionServer:
         PHashMultiProbe, {id(table) -> index column}). With phash probing
         on, indexed tables are left out of the bloom probe: the perfect
         hash answers candidacy and location in one gather. Rebuilt once
-        per store generation."""
+        per store generation; the rebuild sets the index memory gauges."""
         c = self._index_probe_cache
         if c is not None and c[0] is lsm and c[1] == gen \
                 and c[2] == want_phash:
@@ -1234,7 +1238,12 @@ class PartitionServer:
         cols: dict = {}
         indexes = []
         pcols: dict = {}
+        bloom_bytes = phash_bytes = 0
         for t in list(lsm.l0) + list(lsm.l1_runs):
+            if t.bloom is not None:
+                bloom_bytes += t.bloom.bits.nbytes
+            if t.phash is not None:
+                phash_bytes += t.phash.mem_bytes()
             if want_phash and t.phash is not None:
                 pcols[id(t)] = len(indexes)
                 indexes.append(t.phash)
@@ -1243,6 +1252,8 @@ class PartitionServer:
                 filters.append(t.bloom)
         mp = MultiProbe(filters) if filters else None
         pp = PHashMultiProbe(indexes) if indexes else None
+        self._index_bloom_bytes.set(bloom_bytes)
+        self._index_phash_bytes.set(phash_bytes)
         self._index_probe_cache = (lsm, gen, want_phash, mp, cols, pp, pcols)
         return mp, cols, pp, pcols
 

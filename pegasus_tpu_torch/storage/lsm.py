@@ -87,13 +87,16 @@ def survivor_mask(drop: np.ndarray, flags) -> np.ndarray:
 
 
 class LSMStore:
-    def __init__(self, data_dir: str,
-                 block_capacity: int = BLOCK_CAPACITY) -> None:
+    def __init__(self, data_dir: str, block_capacity: int = BLOCK_CAPACITY,
+                 l0_compaction_trigger: int = 4,
+                 l1_run_capacity: int = L1_RUN_CAPACITY) -> None:
         self.data_dir = data_dir
         os.makedirs(data_dir, exist_ok=True)
         self._block_capacity = block_capacity
         # L0 tables that trigger an auto-compaction
-        self._l0_trigger = 4
+        self._l0_trigger = l0_compaction_trigger
+        # records per L1 output run
+        self._l1_run_capacity = l1_run_capacity
         self.memtable = Memtable()
         self.l0: List[SSTable] = []   # newest first
         self.l1_runs: List[SSTable] = []  # key-ordered, non-overlapping
@@ -311,7 +314,7 @@ class LSMStore:
     def compact(self, record_filter=None, meta: Optional[dict] = None,
                 patch_headers: bool = False, publish_lock=None) -> None:
         """Full merge compaction into new L1 runs of at most
-        L1_RUN_CAPACITY records.
+        `l1_run_capacity` records.
 
         `publish_lock=None`: the caller excludes writers for the whole
         merge; memtable + L0 + L1 merge and the overlay resets at
@@ -365,7 +368,7 @@ class LSMStore:
                     v = update_expire_ts(1, v, ne)
                 writer.add(k, v, ne)
                 written_in_run += 1
-                if written_in_run >= L1_RUN_CAPACITY:
+                if written_in_run >= self._l1_run_capacity:
                     finish_pool.submit(writer)
                     writer = None
                     written_in_run = 0
@@ -547,7 +550,7 @@ class LSMStore:
         def roll_writer() -> SSTableWriter:
             nonlocal writer, written_in_run
             if writer is not None and \
-                    written_in_run >= L1_RUN_CAPACITY:
+                    written_in_run >= self._l1_run_capacity:
                 finish_pool.submit(writer)
                 writer = None
                 written_in_run = 0

@@ -102,6 +102,11 @@ class StorageStatus(enum.IntEnum):
     TRY_AGAIN = 13
 
 
+def rocksdb_status(ok: bool) -> int:
+    """OK or NOT_FOUND as a response's status code."""
+    return int(StorageStatus.OK if ok else StorageStatus.NOT_FOUND)
+
+
 class PegasusError(Exception):
     """Framework exception carrying an ErrorCode."""
 

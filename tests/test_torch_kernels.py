@@ -449,22 +449,27 @@ def test_radius_filter_on_card_matches_cpu(card, n):
 
 def test_mesh_step_kernel_matches_plain(card):
     """The resident round's epilogue (csrc/mesh_step.cu) at every (f)
-    shape of chip_smoke.py phase 10, the lanes' sum off and on."""
+    shape of chip_smoke.py phase 10, its four instances (the lanes' sum
+    off and on, a value-filter mask or none)."""
     from chip_smoke import check_mesh_step
     from pegasus_tpu_torch.ops import fused_mesh
 
     before = fused_mesh.LAUNCHES["mesh_step"]
-    assert check_mesh_step(card)["compared"] == 32
-    assert fused_mesh.LAUNCHES["mesh_step"] == before + 32
+    assert check_mesh_step(card)["compared"] == 80
+    assert fused_mesh.LAUNCHES["mesh_step"] == before + 80
 
 
 def test_slot_gate_instance_matches_plain(card):
-    """The compaction kernel's slot-gate instance (mesh_compact_step)
-    against eval_block_plain with the same gate, one launch a call."""
+    """The compaction kernel's slot gate (mesh_compact_step) against
+    eval_block_plain with the same gate, one launch a call: the TTL pass
+    through slot_gate_kernel, config #4's rules through
+    compaction_filter_kernel."""
     from chip_smoke import check_slot_gate
 
     before = dict(fused_compaction.LAUNCHES)
-    assert check_slot_gate(card)["compared"] == 32
-    assert fused_compaction.LAUNCHES["slot_gate"] == before["slot_gate"] + 32
+    assert check_slot_gate(card)["compared"] == 80
+    assert fused_compaction.LAUNCHES["slot_gate"] == before["slot_gate"] + 80
+    assert fused_compaction.LAUNCHES["slot_gate_columns"] == \
+        before["slot_gate_columns"] + 40
     assert fused_compaction.LAUNCHES["compaction"] == \
-        before["compaction"] + 32
+        before["compaction"] + 40

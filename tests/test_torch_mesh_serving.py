@@ -11,7 +11,9 @@ packages on frozen clocks, with both packages' MESH_SERVINGs attached
   unflushed overlay on top; the round really served (wave dispatches);
 - pushdown aggregates: count, sum, top_k and sample over every
   partition equal the host arm's and the JAX package's wire results,
-  with one round per (predicate, `now`) shared by all 8 siblings;
+  with one round per (predicate, `now`) shared by all 8 siblings; a
+  later round at another `now` leaves the first round's cached counts
+  and totals equal to the JAX package's;
 - the incremental refresh: after one partition's flush and compaction
   only that partition restages, and no wave serves a stale image;
 - declines: a paging budget below the resident range and an overlay
@@ -236,6 +238,50 @@ def test_aggregates_mesh_vs_host_single_dispatch(tmp_path, mesh_guard):
         # one cached round)
         assert MESH_SERVING.agg_dispatches == 2 == JMESH.agg_dispatches
         assert MESH_SERVING.status()["mesh_dispatch_count"] == 2
+    finally:
+        close(tables)
+
+
+def test_aggregate_cache_survives_a_later_round(tmp_path, mesh_guard):
+    """Two aggregate rounds at different `now`: each round's results come
+    home in a host buffer of its own, so the first round's cached counts
+    and totals still equal the JAX package's after the second."""
+    clk = mesh_guard
+    tables, clients = build_pair(tmp_path, rows=120)
+    try:
+        # rows that run out between the two rounds
+        for i in range(40):
+            for c in clients:
+                assert c.set(b"hk%02d" % (i % 13), b"t%04d" % i,
+                             b"blue-ttl-%d" % i, ttl_seconds=30) == 0
+        for t in tables:
+            for s in t.partitions.values():
+                s.engine.flush()
+                s.engine.manual_compact()
+        attach_all(tables)
+        kinds = ("count", "sum")
+        first = {kind: agg_wires(tables[1], PKGS[1], kind) for kind in kinds}
+        assert first == {kind: agg_wires(tables[0], PKGS[0], kind)
+                         for kind in kinds}
+        cached = dict(MESH_SERVING._agg_cache)
+        assert len(cached) == 2
+        kept = {k: (v["counts"].copy(), list(v["totals"]))
+                for k, v in cached.items()}
+        clk.t += 60
+        second = {kind: agg_wires(tables[1], PKGS[1], kind)
+                  for kind in kinds}
+        assert second == {kind: agg_wires(tables[0], PKGS[0], kind)
+                          for kind in kinds}
+        assert second["count"] != first["count"], "degenerate fixture"
+        assert MESH_SERVING.agg_dispatches == 4 == JMESH.agg_dispatches
+        # both caches key on (..., now, with_sum) last
+        jax_first = {k[-2:]: v for k, v in JMESH._agg_cache.items()}
+        for k, v in cached.items():
+            np.testing.assert_array_equal(v["counts"], kept[k][0])
+            assert v["totals"] == kept[k][1]
+            j = jax_first[k[-2:]]
+            np.testing.assert_array_equal(v["counts"], np.asarray(j["counts"]))
+            assert v["totals"] == j["totals"]
     finally:
         close(tables)
 

@@ -14,8 +14,12 @@ the JAX package, exact.
   `_mesh_step` on seeded [P, B, K] images, at P in {1, 3, 8} and K in
   {32, 64}, validation off and on with pv < 0, a pv that gates slots
   out and one that keeps all, key filters, a value-filter mask, and the
-  four value lanes' sums: packed mask, counts and lane sums equal;
-- `mesh_step_plain` wraps the lanes' sums mod 2^32 as XLA's uint32 sum.
+  four value lanes' sums: packed mask, counts and lane sums equal; with
+  no value filter, `extra=None` gives what an all-ones mask gives;
+- `mesh_step_plain` wraps the lanes' sums mod 2^32 as XLA's uint32 sum;
+- `mesh_step_buffer`'s one result buffer, cut by `result_layout` on the
+  torch and the numpy side, holds the plain outputs (odd P and B = 8
+  included, where the mask part is padded to 16 bytes).
 """
 
 import numpy as np
@@ -29,7 +33,13 @@ from pegasus_tpu.parallel import make_mesh as j_make_mesh
 from pegasus_tpu.parallel import sharded_scan_step as j_sharded
 from pegasus_tpu.parallel.mesh_resident import _mesh_step, _pattern_operands
 from pegasus_tpu.parallel.partition_mesh import stack_blocks as j_stack
-from pegasus_tpu_torch.ops.fused_mesh import mesh_step, mesh_step_plain
+from pegasus_tpu_torch.ops import result_buffer
+from pegasus_tpu_torch.ops.fused_mesh import (
+    mesh_step,
+    mesh_step_buffer,
+    mesh_step_plain,
+    result_layout,
+)
 from pegasus_tpu_torch.ops.fused_scan import scan_table
 from pegasus_tpu_torch.ops.predicates import (
     FT_MATCH_ANYWHERE,
@@ -217,6 +227,12 @@ def port_round(img, validate, pv, hf, sf, now, with_sum, extra_on):
                             t(lanes, np.int32), now, with_sum)
     for a, c in zip(out, plain):
         assert torch.equal(a, c)
+    if not extra_on:
+        # the all-ones instance, which reads no mask
+        bare = mesh_step(static.view(pc, b // 8), allowed, t(ets, np.int32),
+                         t(present), None, t(lanes, np.int32), now, with_sum)
+        for a, c in zip(bare, out):
+            assert torch.equal(a, c)
     return (out[0].numpy(), out[1].numpy(),
             out[2].numpy().view(np.uint32))
 
@@ -275,3 +291,38 @@ def test_mesh_step_plain_lane_sums_wrap():
     want = (b * 0xFFFFFFFF) & 0xFFFFFFFF
     assert (sums.numpy().view(np.uint32)[0] == want).all()
     assert (sums[1] == 0).all()
+
+
+@pytest.mark.parametrize("pc,b", [(1, 8), (5, 8), (3, 64), (7, 1024)])
+@pytest.mark.parametrize("with_sum", [False, True])
+@pytest.mark.parametrize("extra_on", [False, True])
+def test_result_buffer_views_equal_plain(pc, b, with_sum, extra_on):
+    rng = np.random.default_rng(pc * 1000 + b + 2 * with_sum + extra_on)
+    packed = torch.from_numpy(rng.integers(0, 256, (pc, b // 8),
+                                           dtype=np.uint8))
+    allowed = torch.from_numpy((rng.random(pc) < 0.7).astype(np.uint8))
+    ets = torch.from_numpy(rng.choice(np.array(
+        [0, NOW - 1, NOW, NOW + 1, 0xFFFFFFFF], np.uint32),
+        (pc, b)).view(np.int32))
+    present = torch.from_numpy(rng.random((pc, b)) < 0.9)
+    extra = torch.from_numpy(rng.random((pc, b)) < 0.5) if extra_on \
+        else None
+    lanes = torch.from_numpy(rng.integers(0, 1 << 32, (pc, b, 4),
+                                          dtype=np.uint64).astype(
+        np.uint32).view(np.int32))
+    want = mesh_step_plain(packed, allowed, ets, present, extra, lanes, NOW,
+                           with_sum)
+    buf = mesh_step_buffer(packed, allowed, ets, present, extra, lanes, NOW,
+                           with_sum)
+    layout = result_layout(pc, b)
+    assert buf.dtype == torch.uint8 and buf.dim() == 1
+    assert buf.numel() == result_buffer.nbytes(layout) == \
+        -(-pc * b // 8 // 16) * 16 + -(-12 * pc // 16) * 16 + 16 * pc
+    for got, w in zip(result_buffer.views(buf, layout), want):
+        assert torch.equal(got, w)
+    host = result_buffer.home(buf)
+    mask, counts, sums = result_buffer.views(host, layout)
+    np.testing.assert_array_equal(mask, want[0].numpy())
+    np.testing.assert_array_equal(counts, want[1].numpy())
+    assert sums.dtype == np.uint32
+    np.testing.assert_array_equal(sums, want[2].numpy().view(np.uint32))

@@ -15,7 +15,8 @@ Held equal: `read_coordinator.point_read_multi` responses (get, ttl,
 multi_get with sort keys, narrow and wide, batch_get, misses, gated
 stale-partition reads) over three rounds (the later ones read through
 the location cache, and the third through the row cache, which admits a
-row on its second miss), and the deadline error. The JAX
+row on its second miss), the deadline error, and the partitions' index
+memory gauges (bloom and phash bytes) after a flush. The JAX
 servers run at app ids off the sim clusters', and the JAX drift gauge is
 reset after each test.
 """
@@ -339,6 +340,34 @@ def test_point_read_multi_deadline(tmp_path, store_flags):
                 [normal(r) for r in jout[p]]
     finally:
         node.close()
+
+
+@pytest.mark.parametrize("store_flags", [("dcz2", True)], indirect=True)
+@pytest.mark.parametrize("phash_probe", [True, False])
+def test_index_memory_gauges_match_jax(tmp_path, store_flags, phash_probe):
+    """The partition entity's `index_bloom_bytes` and `index_phash_bytes`
+    gauges equal the JAX server's after a point-read flush over dcz2
+    runs with sidecars, with phash probing on and off."""
+    key = ("pegasus.server", "phash_probe")
+    saved = [(reg, reg.get(*key)) for reg in (JFLAGS, TFLAGS)]
+    for reg in (JFLAGS, TFLAGS):
+        reg.set(*key, phash_probe, force=True)
+    node = Node(str(tmp_path), seed=14, hashkeys=40)
+    try:
+        jout, tout = node.read(node.ops(60))
+        for p in range(P):
+            assert [normal(r) for r in tout[p]] == \
+                [normal(r) for r in jout[p]]
+        names = ("index_bloom_bytes", "index_phash_bytes")
+        got = [[srv.metrics.gauge(n).value() for n in names]
+               for srv in node.port]
+        assert got == [[srv.metrics.gauge(n).value() for n in names]
+                       for srv in node.jax]
+        assert all(b > 0 and h > 0 for b, h in got), got
+    finally:
+        node.close()
+        for reg, value in saved:
+            reg.set(*key, value, force=True)
 
 
 def test_is_point_read_matches_jax():

@@ -403,15 +403,14 @@ def engines(tmp_path, monkeypatch):
         reg.set(s, n, v, force=True)
 
 
-def test_checkpoint_and_restore_match_jax(tmp_path, engines, monkeypatch):
+def test_checkpoint_and_restore_match_jax(tmp_path, engines):
     """A multi-run store's checkpoint carries every run and the manifest,
     byte for byte as the JAX package's, and restores with every run."""
     from pegasus_tpu.base.value_schema import generate_value
-    from pegasus_tpu_torch.storage import lsm as tlsm
 
     (je, te), mods = engines
-    je.lsm._l1_run_capacity = 50
-    monkeypatch.setattr(tlsm, "L1_RUN_CAPACITY", 50)
+    for e in (je, te):
+        e.lsm._l1_run_capacity = 50
     for e, mod in zip((je, te), mods):
         items = [mod.WriteBatchItem(OP_PUT, b"c%04d" % i,
                                     generate_value(1, b"v%d" % i, 0), 0)
