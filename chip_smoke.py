@@ -120,7 +120,30 @@ Phases, each fatal on failure:
    round's host wall split into launches, the copy home and the unpack;
    then ops/placement's cost constants measured on the card
    (measure_placement). The launches of (a)-(d) must include the
-   epilogue, both slot-gate kernels and the scan kernel's static mode.
+   epilogue, both slot-gate kernels and the scan kernel's static mode;
+11. replicated writes: partitions 0..7 of BASELINE config #2 (bench.py
+   :190's layout: user%08d hashkeys x 10 sortkeys, 10% already expired,
+   values field0=%064d; about 15,625 records a partition), each a
+   PacificA group of three replicas (replica/Replica, a PartitionServer
+   on the card each) over one SimLoop / SimNetwork, every replica with
+   its own WriteFlushWindow as plog sink, open around each message it
+   receives. The load goes through the primaries' client_write in
+   mutations of 1000 puts (bench.py:219-222), two staged a window; then
+   every replica is compacted by hand (the compaction kernel must
+   launch), and every replica's L1 blocks must hold the oracle's keys.
+   YCSB-E on the primaries (95% scans with phase 4's filter mix and
+   lengths, zipfian start keys; 5% inserts through the three-replica
+   path), every page against a host oracle, under a CUDA trace that
+   gives the device's busy share. A probe of seeded scans on the old
+   primaries; then a secondary of every group is promoted at ballot 2
+   and answers the same probe with byte-equal pages (wire frames); then
+   group 0's remaining secondary, after 8 more writes, is restarted
+   from a copy of its files (its engine WAL stale, its plog whole),
+   must reach the group's committed decree and answer the probe as its
+   primary does. The scan kernel must launch on the old primaries, the
+   new primaries and the restarted replica. Printed beside the card:
+   writes acknowledged per second, the group-commit window's median
+   size, scans per second on the primaries, the device's busy share.
 
 Phase 3 also holds the compaction-filter kernel bit-exact against its
 plain version
@@ -132,7 +155,7 @@ the kernel) bit-exact against its plain version on the same seeded
 tables with hash_lo dropped, through both entries, K in {32, 64, 256},
 and times it at 2^20 records, K = 32.
 
-Phases 4, 5, 8, 9 and 10 pin the store flags `block_codec = none`,
+Phases 4, 5, 8, 9, 10 and 11 pin the store flags `block_codec = none`,
 `bloom_bits_per_key = 0`, `phash_index = false` (every block reaches the
 kernel); phases 6 and 7 (b, c) pin the defaults, 7 (a) pins `none`
 without sidecars. The line before the last lists the
@@ -143,7 +166,9 @@ below 1,000,000; `--compact-gb G` sets a phase-7 pass's store (default
 of DIR) and prints phase 3's times as one JSON line, nothing else;
 `--resident-times [--tree DIR]` likewise prints phase 10 (f)'s kernel
 times and a round's wall split on a synthetic image of phase 10's
-shape. Phases 5 and 6 always load their 1,000,000 records. A
+shape; `--replicated-only` builds the kernels and runs phase 11 alone
+(its printed numbers, then one JSON line of its launches). Phases 5 and
+6 always load their 1,000,000 records. A
 printed cut keeps the whole run near the time it took before phase 6
 came: the flavour-axis check runs 64 flavours at key width 32 only (16
 at the wider keys).
@@ -5023,6 +5048,427 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
         shutil.rmtree(data_dir, ignore_errors=True)
 
 
+# ---- phase 11: replicated writes through PacificA groups on the card ------
+
+REPL_PARTITIONS = 8            # partitions 0..7 of BASELINE config #2's 64
+REPL_HASHKEYS = 100_000        # config #2's table: x 10 sortkeys
+REPL_EXPIRED = 0.10            # bench.py: 10% of the records expired
+REPL_REPLICAS = 3              # Pegasus's default: a primary, 2 secondaries
+REPL_MUTATION_OPS = 1000       # bench.py:219-222: puts a mutation
+REPL_OPS = 4000                # YCSB-E ops over the 8 primaries
+REPL_PROBE = 800               # scans each set of primaries answers
+REPL_RESTART_WRITES = 8        # small writes the restarted replica misses
+REPL_APP = 12
+
+
+def repl_filters() -> list:
+    """Phase 4's filter mix: 17 in 20 scans unfiltered, then a sortkey
+    POSTFIX, a sortkey ANYWHERE and a PREFIX on both keys."""
+    from pegasus_tpu_torch.ops.predicates import (
+        FT_MATCH_ANYWHERE,
+        FT_MATCH_POSTFIX,
+        FT_MATCH_PREFIX,
+    )
+
+    return [(0, b"", 0, b"")] * 17 + [
+        (0, b"", FT_MATCH_POSTFIX, b"5"),
+        (0, b"", FT_MATCH_ANYWHERE, b"s0"),
+        (FT_MATCH_PREFIX, b"user00", FT_MATCH_PREFIX, b"s0")]
+
+
+class ReplicaGroups:
+    """REPL_PARTITIONS PacificA groups of REPL_REPLICAS replicas each, all
+    over one SimLoop / SimNetwork. Every replica has its own
+    WriteFlushWindow as plog sink, open around each message it receives
+    (as a replica stub opens one a dispatch) and around the client
+    writes a primary takes."""
+
+    def __init__(self, device, data_dir: str, parts) -> None:
+        from pegasus_tpu_torch.replica import ReplicaConfig
+        from pegasus_tpu_torch.runtime import SimLoop, SimNetwork
+
+        self.device = device
+        self.data_dir = data_dir
+        self.loop = SimLoop(seed=13)
+        self.net = SimNetwork(self.loop)
+        self.replicas: dict = {}
+        self.windows: dict = {}
+        self.configs: dict = {}
+        for p in parts:
+            names = [f"p{p}r{j}" for j in range(REPL_REPLICAS)]
+            for name in names:
+                self.open(name, p, os.path.join(data_dir, name))
+            self.configs[p] = ReplicaConfig(1, names[0], names[1:])
+            for name in names:
+                self.replicas[name].assign_config(self.configs[p])
+
+    def open(self, name: str, p: int, path: str):
+        from pegasus_tpu_torch.replica import Replica, WriteFlushWindow
+        from pegasus_tpu_torch.utils.metrics import METRICS
+
+        r = Replica(name, path, self.net, app_id=REPL_APP, pidx=p,
+                    partition_count=PARTITION_COUNT, device=self.device)
+        w = WriteFlushWindow(self.net, name,
+                             METRICS.entity("write", f"smoke-{name}"))
+        r.plog_sink = w
+
+        def dispatch(src, msg_type, payload, r=r, w=w):
+            with w:
+                r.on_message(src, msg_type, payload)
+
+        self.net.register(name, dispatch)
+        self.replicas[name] = r
+        self.windows[name] = w
+        return r
+
+    def primary(self, p: int):
+        return self.replicas[self.configs[p].primary]
+
+    def members(self, p: int) -> list:
+        c = self.configs[p]
+        return [self.replicas[n] for n in [c.primary] + c.secondaries]
+
+    def group_check(self) -> None:
+        for p in self.configs:
+            self.primary(p).broadcast_group_check()
+        self.loop.run_until_idle()
+
+    def write(self, p: int, ops, acks: list) -> None:
+        """One client write through partition p's primary, run until the
+        loop is idle; its responses land in `acks`."""
+        prim = self.primary(p)
+        with self.windows[prim.name]:
+            prim.client_write(ops, acks.append)
+        self.loop.run_until_idle()
+
+    def close(self) -> None:
+        for r in self.replicas.values():
+            r.close()
+
+
+def repl_request(start: bytes, limit: int, f):
+    from pegasus_tpu_torch.server.types import GetScannerRequest
+
+    return GetScannerRequest(
+        start_key=start, batch_size=limit, validate_partition_hash=True,
+        one_page=True, hash_key_filter_type=f[0],
+        hash_key_filter_pattern=f[1], sort_key_filter_type=f[2],
+        sort_key_filter_pattern=f[3])
+
+
+def run_replicated(device, n_hashkeys: int = REPL_HASHKEYS,
+                   n_ops: int = REPL_OPS, n_probe: int = REPL_PROBE,
+                   seed: int = 17, card: str = "") -> dict:
+    """Phase 11: partitions 0..7 of BASELINE config #2 (bench.py:190's
+    layout), each a PacificA group of three replicas whose
+    PartitionServers are on `device`, loaded through the primaries'
+    client_write in mutations of 1000 puts under group-commit windows,
+    compacted, serving YCSB-E on the primaries (every page against a
+    host oracle); then a failover to a secondary of every group with a
+    higher ballot, the same scans on the new primaries (byte-equal
+    pages), and one replica restarted from its plog with a stale engine
+    WAL, which must reach the group's committed decree and answer the
+    same pages. Returns the kernel launches by stage and the numbers."""
+    import torch
+
+    from pegasus_tpu_torch.base.crc import crc64_batch
+    from pegasus_tpu_torch.base.key_schema import generate_key
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.ops import fused_compaction, fused_scan
+    from pegasus_tpu_torch.replica import PartitionStatus, ReplicaConfig
+    from pegasus_tpu_torch.replica import WriteOp
+    from pegasus_tpu_torch.rpc.codec import OP_PUT
+    from pegasus_tpu_torch.rpc.message import encode_message
+    from pegasus_tpu_torch.server.partition_server import LOOKAHEAD
+    from pegasus_tpu_torch.utils.flags import FLAGS
+
+    on_card = device.type == "cuda"
+    parts = range(REPL_PARTITIONS)
+    rng = np.random.default_rng(seed)
+    filters = repl_filters()
+    if n_hashkeys != REPL_HASHKEYS:
+        log(f"replicated: CUT to {n_hashkeys} hashkeys of the table's "
+            f"{REPL_HASHKEYS} (partitions 0..{REPL_PARTITIONS - 1} of "
+            f"{PARTITION_COUNT} kept)")
+    # bench.py:190's layout over the whole table; the groups hold their
+    # partitions' share, about 15,625 records each
+    rows = _user_keys(0, 2 * n_hashkeys)
+    route = (crc64_batch(rows, np.full(len(rows), 12, np.int64))
+             % np.uint64(PARTITION_COUNT)).astype(np.int64)
+    expiring = rng.random((n_hashkeys, len(SORT_KEYS))) < REPL_EXPIRED
+    now = epoch_now()
+    budget = FLAGS.get("pegasus.server", "rocksdb_max_iteration_count")
+    oracles = {p: Oracle(budget, LOOKAHEAD) for p in parts}
+    hashkeys = {p: [] for p in parts}
+    pools = {p: [] for p in parts}   # fresh hashkeys for the inserts
+    ops = {p: [] for p in parts}
+    for h in np.flatnonzero(route < REPL_PARTITIONS):
+        p, hk = int(route[h]), rows[h].tobytes()
+        if h >= n_hashkeys:
+            pools[p].append(hk)
+            continue
+        hashkeys[p].append(hk)
+        for s, sk in enumerate(SORT_KEYS):
+            key, value = generate_key(hk, sk), b"field0=%064d" % (h * 10 + s)
+            dead = bool(expiring[h, s])
+            ops[p].append(WriteOp(OP_PUT, (key, value,
+                                           max(1, now - 100) if dead else 0)))
+            if not dead:
+                oracles[p].put(key, value)
+    n_records = sum(len(v) for v in ops.values())
+    fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+    fused_compaction.LAUNCHES["compaction"] = 0
+    launches: dict = {}
+
+    def take(stage: str) -> None:
+        launches[stage] = {"static": fused_scan.LAUNCHES["static"],
+                           "now": fused_scan.LAUNCHES["now"],
+                           "multi": fused_scan.LAUNCHES["multi"],
+                           "compaction": fused_compaction.LAUNCHES[
+                               "compaction"]}
+        fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+        fused_compaction.LAUNCHES["compaction"] = 0
+
+    data_dir = tempfile.mkdtemp(prefix="pegasus_torch_replicated_")
+    groups = None
+    try:
+        groups = ReplicaGroups(device, data_dir, parts)
+
+        # load: mutations of 1000 puts, two staged a window (the
+        # pipelining depth), every group's round run to its acks
+        acks: list = []
+        chunks = {p: [ops[p][i:i + REPL_MUTATION_OPS]
+                      for i in range(0, len(ops[p]), REPL_MUTATION_OPS)]
+                  for p in parts}
+        t0 = time.perf_counter()
+        while any(chunks.values()):
+            for p in parts:
+                prim = groups.primary(p)
+                with groups.windows[prim.name]:
+                    for _ in range(prim.PIPELINE_DEPTH):
+                        if chunks[p]:
+                            prim.client_write(chunks[p].pop(0), acks.append)
+            groups.loop.run_until_idle()
+        load_s = time.perf_counter() - t0
+        acked = sum(len(a) for a in acks)
+        if acked != n_records or any(x != 0 for a in acks for x in a):
+            fail(f"replicated: {acked} of {n_records} puts acknowledged OK")
+        groups.group_check()
+        mutations = {p: -(-len(ops[p]) // REPL_MUTATION_OPS) for p in parts}
+        for p in parts:
+            for r in groups.members(p):
+                if r.last_committed_decree != mutations[p]:
+                    fail(f"replicated: {r.name} committed decree "
+                         f"{r.last_committed_decree}, the group "
+                         f"{mutations[p]}")
+        window_medians = [
+            groups.windows[groups.primary(p).name]._group_commit_size
+            .quantiles((50.0,))[0] for p in parts]
+        log(f"replicated on {card}: loaded {n_records} records "
+            f"({sum(map(len, hashkeys.values()))} hashkeys x 10, "
+            f"{int(sum(len(ops[p]) for p in parts) - sum(len(o.keys) for o in oracles.values()))} "
+            f"expired) into {REPL_PARTITIONS} groups of {REPL_REPLICAS} "
+            f"replicas in {load_s} s: {acked / load_s} writes acknowledged "
+            f"per second through the three-replica path, "
+            f"{sum(mutations.values())} mutations of up to "
+            f"{REPL_MUTATION_OPS} puts; group-commit window (median "
+            f"mutations staged a window, each primary): {window_medians}, "
+            f"median {float(np.median(window_medians))}")
+        take("load")
+
+        # a manual compaction of every replica: the expired records go
+        t0 = time.perf_counter()
+        for p in parts:
+            for r in groups.members(p):
+                r.server.manual_compact()
+                oracles[p].compacted(r.server.engine.lsm.l1_runs)
+        compact_s = time.perf_counter() - t0
+        take("compaction")
+        log(f"replicated: manual_compact of {len(groups.replicas)} "
+            f"replicas in {compact_s} s -> "
+            f"{sum(len(o.keys) for o in oracles.values())} records a "
+            f"replica set, every replica's L1 blocks as the oracle's; "
+            f"compaction kernel launches "
+            f"{launches['load']['compaction'] + launches['compaction']['compaction']}")
+        if on_card and launches["compaction"]["compaction"] == 0:
+            fail("replicated: the compactions launched no compaction kernel")
+
+        # YCSB-E on every primary: 95% scans, 5% inserts
+        ranks = zipf_ranks(rng, min(map(len, hashkeys.values())), n_ops)
+        orders = {p: rng.permutation(len(hashkeys[p])) for p in parts}
+        part_of = rng.integers(0, REPL_PARTITIONS, n_ops)
+        lens = rng.integers(1, 101, n_ops)
+        fsel = rng.integers(0, len(filters), n_ops)
+        inserts = rng.random(n_ops) < 0.05
+        scan_s, insert_s, full, n_ins = [], 0.0, 0, 0
+        insert_acks: list = []
+        trace = device_trace() if on_card else contextlib.nullcontext()
+        t_traffic = time.perf_counter()
+        with trace as prof:
+            for op in range(n_ops):
+                p = int(part_of[op])
+                if inserts[op]:
+                    key = generate_key(pools[p].pop(0), b"s00")
+                    t = time.perf_counter()
+                    groups.write(p, [WriteOp(OP_PUT, (key, b"inserted", 0))],
+                                 insert_acks)
+                    insert_s += time.perf_counter() - t
+                    oracles[p].put(key, b"inserted")
+                    n_ins += 1
+                    continue
+                start = generate_key(
+                    hashkeys[p][orders[p][ranks[op]]], b"")
+                limit, f = int(lens[op]), filters[fsel[op]]
+                t = time.perf_counter()
+                resp = groups.primary(p).server.on_get_scanner(
+                    repl_request(start, limit, f))
+                scan_s.append(time.perf_counter() - t)
+                full += check_page(resp, oracles[p], start, limit, f)
+            if on_card:
+                torch.cuda.synchronize()
+        traffic_s = time.perf_counter() - t_traffic
+        if insert_acks != [[0]] * n_ins:
+            fail(f"replicated: inserts acknowledged {insert_acks[:5]}...")
+        groups.group_check()
+        line = (f"replicated on {card}: YCSB-E on the primaries: "
+                f"{len(scan_s)} scans, {n_ins} inserts through the "
+                f"three-replica path, {full} full pages, every page equal "
+                f"to the oracle's; {len(scan_s) / (sum(scan_s) + insert_s)} "
+                f"ops/s, {len(scan_s) / sum(scan_s)} scans/s over "
+                f"{sum(scan_s)} s of server time, {percentiles(scan_s)}")
+        if on_card:
+            busy_s, n_spans = device_busy_s(prof)
+            if not n_spans:
+                fail("replicated: the CUDA trace of the traffic holds no "
+                     "device work")
+            line += (f"; device busy {busy_s} s in {n_spans} kernels, "
+                     f"copies and memsets (torch.profiler CUDA trace), "
+                     f"{100 * busy_s / traffic_s}% of the traffic's "
+                     f"{traffic_s} s wall (oracle checks included)")
+        log(line)
+        take("traffic")
+
+        # the probe: the same scans on the old primaries, then the new
+        probe_rng = np.random.default_rng(seed + 1)
+        probe = [(int(probe_rng.integers(0, REPL_PARTITIONS)),
+                  int(probe_rng.integers(1, 101)),
+                  filters[int(probe_rng.integers(0, len(filters)))])
+                 for _ in range(n_probe)]
+        probe_ranks = zipf_ranks(probe_rng, min(map(len, hashkeys.values())),
+                                 n_probe)
+        probe = [(p, generate_key(hashkeys[p][orders[p][int(rk)]], b""),
+                  limit, f) for (p, limit, f), rk in zip(probe, probe_ranks)]
+
+        def probe_pages(server_of, only=None) -> list:
+            out = []
+            for p, start, limit, f in probe:
+                if only is not None and p != only:
+                    continue
+                resp = server_of(p).on_get_scanner(
+                    repl_request(start, limit, f))
+                check_page(resp, oracles[p], start, limit, f)
+                out.append(encode_message("", "", "scan", resp))
+            return out
+
+        t0 = time.perf_counter()
+        old_pages = probe_pages(lambda p: groups.primary(p).server)
+        take("old_primaries")
+        old_names = {p: groups.configs[p].primary for p in parts}
+        for p in parts:
+            c = groups.configs[p]
+            groups.net.partition(c.primary)
+            groups.configs[p] = ReplicaConfig(c.ballot + 1,
+                                              c.secondaries[0],
+                                              c.secondaries[1:])
+            for r in [groups.replicas[c.primary]] + groups.members(p):
+                r.assign_config(groups.configs[p])
+        groups.loop.run_until_idle()
+        for p in parts:
+            prim = groups.primary(p)
+            if (prim.status != PartitionStatus.PRIMARY or prim.ballot != 2
+                    or not prim.ready_to_serve()):
+                fail(f"replicated: {prim.name} not a serving primary "
+                     f"at ballot 2 after the failover")
+        new_pages = probe_pages(lambda p: groups.primary(p).server)
+        take("new_primaries")
+        if new_pages != old_pages:
+            bad = sum(a != b for a, b in zip(old_pages, new_pages))
+            fail(f"replicated: {bad} of {len(old_pages)} pages of the new "
+                 f"primaries differ from the old primaries'")
+        failover_s = time.perf_counter() - t0
+        log(f"replicated: failover {old_names} -> "
+            f"{ {p: groups.configs[p].primary for p in parts} } at ballot "
+            f"2; {len(new_pages)} scans on the old and the new primaries, "
+            f"every page byte-equal (wire frames) and equal to the "
+            f"oracle's, in {failover_s} s")
+
+        # restart: group 0's secondary misses its last engine-WAL frames
+        p0 = 0
+        sec = groups.members(p0)[1]
+        extra_acks: list = []
+        for i in range(REPL_RESTART_WRITES):
+            key = generate_key(pools[p0].pop(0), b"s01")
+            groups.write(p0, [WriteOp(OP_PUT, (key, b"late%d" % i, 0))],
+                         extra_acks)
+            oracles[p0].put(key, b"late%d" % i)
+        groups.group_check()
+        committed = groups.primary(p0).last_committed_decree
+        if (extra_acks != [[0]] * REPL_RESTART_WRITES
+                or sec.last_committed_decree != committed):
+            fail(f"replicated: the late writes reached {sec.name} at "
+                 f"decree {sec.last_committed_decree} of {committed}")
+        crash_dir = os.path.join(data_dir, f"{sec.name}-crash")
+        shutil.copytree(sec.data_dir, crash_dir)   # what a crash leaves
+        sec.close()
+        t0 = time.perf_counter()
+        restarted = groups.open(sec.name, p0, crash_dir)
+        stale = restarted.server.engine.last_committed_decree
+        if stale >= committed:
+            fail(f"replicated: the restarted engine holds decree {stale}: "
+                 f"its WAL on disk is not stale (group at {committed})")
+        restarted.assign_config(groups.configs[p0])
+        groups.group_check()
+        if restarted.last_committed_decree != committed:
+            fail(f"replicated: the restarted {restarted.name} reached "
+                 f"decree {restarted.last_committed_decree} of {committed}")
+        restart_s = time.perf_counter() - t0
+        want = probe_pages(lambda p: groups.primary(p).server, only=p0)
+        take("restart_primary")
+        got = probe_pages(lambda p: restarted.server, only=p0)
+        take("restarted")
+        if got != want:
+            fail(f"replicated: {sum(a != b for a, b in zip(got, want))} of "
+                 f"{len(want)} pages of the restarted replica differ from "
+                 f"its primary's")
+        log(f"replicated: {restarted.name} restarted from its plog with "
+            f"its engine at decree {stale} of the group's {committed}, "
+            f"caught up in {restart_s} s; {len(got)} scans byte-equal to "
+            f"the primary's and the oracle's")
+        log(f"replicated: scan kernel launches by stage {launches}")
+        if on_card:
+            for stage in ("old_primaries", "new_primaries", "restarted"):
+                st = launches[stage]
+                if st["static"] + st["now"] == 0:
+                    fail(f"replicated: the {stage} scans launched no scan "
+                         f"kernel")
+            if launches["traffic"]["static"] + launches["traffic"]["now"] \
+                    == 0:
+                fail("replicated: the YCSB-E traffic launched no scan "
+                     "kernel")
+        scan = {k: sum(st[k] for st in launches.values())
+                for k in ("static", "now", "multi")}
+        return {"launches": launches, "scan": scan,
+                "compaction": sum(st["compaction"]
+                                  for st in launches.values()),
+                "writes_per_s": acked / load_s,
+                "window_median": float(np.median(window_medians)),
+                "scans_per_s": len(scan_s) / sum(scan_s)}
+    finally:
+        if groups is not None:
+            groups.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
 def times_only(torch, tree: str) -> int:
     """Phase 3's times of the kernels of the pegasus_tpu_torch imported
     from `tree`, as one JSON line: to hold two revisions' kernels against
@@ -5071,6 +5517,10 @@ def main(argv=None) -> int:
                         help="build the kernels, print phase 10 (f)'s "
                         "kernel times and a round's wall split on a "
                         "synthetic image as one JSON line and stop")
+    parser.add_argument("--replicated-only", action="store_true",
+                        help="build the kernels, run phase 11 (replicated "
+                        "writes through PacificA groups) alone, print its "
+                        "launches as one JSON line and stop")
     parser.add_argument("--tree", default=None,
                         help="with --times-only or --resident-times: the "
                         "checkout whose "
@@ -5129,6 +5579,14 @@ def main(argv=None) -> int:
         f"native/packer.cpp -> g++ -O3 in {native_s:.2f} s")
     print((build_log + compact_log + mesh_log + native_log).strip(),
           file=sys.stderr, flush=True)
+    if args.replicated_only:
+        t0 = time.perf_counter()
+        with store_flags(NONE_STORE):
+            replicated = run_replicated(device, card=card)
+        torch.cuda.synchronize()
+        log(f"replicated: done in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"replicated": replicated}))
+        return 0
 
     # 3. kernel vs plain, then times
     t0 = time.perf_counter()
@@ -5286,8 +5744,20 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"resident: done in {time.perf_counter() - t0:.1f} s")
 
-    # summary
     log(f"chip_smoke: phases 1-10 in {time.perf_counter() - t_start:.1f} s")
+
+    # 11. replicated writes: PacificA groups of three replicas on the card
+    t0 = time.perf_counter()
+    with store_flags(NONE_STORE):
+        replicated = run_replicated(device, card=card)
+    torch.cuda.synchronize()
+    repl_scan = replicated["scan"]
+    log(f"replicated: done in {time.perf_counter() - t0:.1f} s; scan kernel "
+        f"launches {repl_scan}, compaction kernel launches "
+        f"{replicated['compaction']}")
+
+    # summary
+    log(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s")
     rl = resident["launches"]
     rt = resident["times"]
     t = timings[LARGE_SHAPE]
@@ -5300,7 +5770,8 @@ def main(argv=None) -> int:
                      + batched["static"] + point["static"] + point["now"]
                      + geo["launches"]["static"] + client_scan["static"]
                      + client_scan["now"] + integrity_scan["static"]
-                     + rl["static"] + rl["now"]),
+                     + rl["static"] + rl["now"]
+                     + repl_scan["static"] + repl_scan["now"]),
         "max_abs_err": cmp["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
@@ -5312,13 +5783,16 @@ def main(argv=None) -> int:
                              "client": client_scan["static"]
                              + client_scan["now"],
                              "integrity": integrity_scan["static"],
-                             "resident": rl["static"] + rl["now"]}}, {
+                             "resident": rl["static"] + rl["now"],
+                             "replicated": repl_scan["static"]
+                             + repl_scan["now"]}}, {
         "name": "scan_predicate_multi", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/predicates.py:539",
         "launches": (batched["multi"] + point["multi"]
                      + geo["launches"]["multi"] + client_scan["multi"]
-                     + integrity_scan["multi"] + rl["multi"]),
+                     + integrity_scan["multi"] + rl["multi"]
+                     + repl_scan["multi"]),
         "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
@@ -5336,7 +5810,13 @@ def main(argv=None) -> int:
         "source": "pegasus_tpu_torch/csrc/compaction_filter.cu",
         "replaces": "pegasus_tpu/ops/compaction.py:110",
         "launches": (sum(r["launches"] for r in compact.values())
-                     + client_compact + rl["compaction"]),
+                     + client_compact + rl["compaction"]
+                     + replicated["compaction"]),
+        "launches_by_path": {"compaction": sum(r["launches"]
+                                               for r in compact.values()),
+                             "client": client_compact,
+                             "resident": rl["compaction"],
+                             "replicated": replicated["compaction"]},
         "launches_by_pass": {p: r["launches"] for p, r in compact.items()},
         "launches_client_split": client_compact,
         "launches_resident": rl["compaction"],

@@ -1,0 +1,203 @@
+"""Node-level write flush window: plog group commit + prepare fan-out
+aggregation.
+
+The write-side twin of the read coordinator's flush window. A replica
+stub opens a window around each message dispatch (and the transport's
+batch-drain hands it whole runs of queued client writes); while the
+window is open:
+
+- **plog group commit**: every partition's `MutationLog.append` stages
+  its frame in the log's append buffer instead of flushing per
+  mutation. When the window closes, each dirty log gets ONE flush (and,
+  in `fsync` mode, ONE fsync) covering every mutation staged in the
+  window — the Taurus-style batch-hardening shape (PAPERS.md,
+  arXiv:2506.20010) applied to the private log. Acks and prepare sends
+  registered via `after_durable` run only after that shared
+  flush/fsync, so the appended-before-acked durability contract
+  (mutation_log.py) is unchanged: a crash mid-window loses only
+  mutations nobody was ever acked for, and the torn-tail scan recovers
+  the valid prefix.
+
+- **prepare fan-out aggregation**: consecutive prepares (and prepare
+  acks) destined for the same peer queue here instead of going out as
+  one message per mutation per partition; the window close ships one
+  `prepare_batch` / `prepare_batch_ack` message per (peer, kind)
+  carrying (gpid, payload) items for every partition that prepared in
+  the window — cutting the per-write message count on the secondary
+  path by the window's coalescing factor.
+
+Sync modes (`[pegasus.replica] plog_sync_mode`):
+- "flush": one OS flush per window (the pre-group-commit durability
+  level — survives process crash — amortized across the window);
+- "fsync": one shared fsync per window (power-loss durable, ~1 fsync
+  per window instead of one per mutation);
+- "always": legacy per-append fsync, no deferral (the strictest and
+  slowest mode; windows still aggregate prepares).
+
+Outside a window (replicas driven directly, e.g. unit tests or bench
+loaders) every call falls through to the immediate legacy behavior.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+
+define_flag("pegasus.replica", "plog_sync_mode", "flush",
+            "private-log durability per group-commit window: 'flush' "
+            "(one OS flush per window), 'fsync' (one shared fsync per "
+            "window), 'always' (fsync every append, no deferral)",
+            mutable=True)
+
+# message kinds the window aggregates per destination peer; everything
+# else (group checks, learn traffic, config) keeps solo sends
+_AGGREGATED = {"prepare": "prepare_batch",
+               "prepare_ack": "prepare_batch_ack"}
+
+
+class WriteFlushWindow:
+    """One per node (replica stub). Reentrant: nested dispatches share
+    the outermost window; the flush runs when the last level exits."""
+
+    def __init__(self, net, node_name: str, metrics) -> None:
+        self.net = net
+        self.node = node_name
+        self._depth = 0
+        self._flushing = False
+        # MutationLogs with buffered frames this window, insertion order
+        self._dirty: Dict[int, object] = {}
+        self._staged = 0  # mutations staged this window (metric)
+        self._pending: List[Callable[[], None]] = []
+        # (dst, solo_kind) -> [(gpid, payload)]
+        self._agg: Dict[Tuple[str, str], list] = {}
+        self._group_commit_size = metrics.percentile("group_commit_size")
+        self._fsync_count = metrics.counter("plog_fsync_count")
+        self._prepare_batch_size = metrics.percentile("prepare_batch_size")
+
+    # ---- window lifecycle ---------------------------------------------
+
+    @property
+    def active(self) -> bool:
+        return self._depth > 0 or self._flushing
+
+    def __enter__(self) -> "WriteFlushWindow":
+        self._depth += 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._depth -= 1
+        if self._depth == 0:
+            self._flush()
+
+    # ---- plog group commit --------------------------------------------
+
+    def append(self, log, mu) -> None:
+        """Stage a mutation into `log` under this window's shared
+        flush/fsync; immediate legacy append when no window is open."""
+        mode = FLAGS.get("pegasus.replica", "plog_sync_mode")
+        if not self.active or mode == "always":
+            log.append(mu, sync=(mode in ("always", "fsync")))
+            if mode in ("always", "fsync"):
+                self._fsync_count.increment()
+            return
+        log.append(mu, flush=False)
+        self._dirty[id(log)] = log
+        self._staged += 1
+
+    def after_durable(self, fn: Callable[[], None]) -> None:
+        """Run `fn` once every mutation staged so far is durable (at
+        window close, after the shared flush/fsync); immediately when no
+        window is open (nothing is buffered then)."""
+        if not self.active:
+            fn()
+        else:
+            self._pending.append(fn)
+
+    def wal_flush_deferred(self) -> bool:
+        """True while a window is open: the apply path may leave its
+        engine-WAL frame in the IO buffer instead of flushing per
+        decree. Under replication the engine WAL is redundant with the
+        private log — the plog's GC floor is the SST-flushed decree, so
+        every decree the WAL could recover is also replayed (and
+        recommitted through the reprepare/group-check path) from the
+        plog, which hardened BEFORE any ack left this window. The
+        reference makes the same call by running rocksdb with its WAL
+        disabled under replication; here the frames ride the buffer
+        until it fills or the memtable flush truncates the file."""
+        return self.active
+
+    # ---- prepare fan-out aggregation ----------------------------------
+
+    def queue_replica_msg(self, dst: str, msg_type: str, gpid,
+                          payload) -> bool:
+        """Divert an aggregatable replica message into the window's
+        per-peer batch; False = caller sends solo. Each item captures
+        its own trace context at queue time — a prepare_batch carries
+        many partitions' 2PC legs, each on its OWN trace, so the
+        context must travel per item, not per carrier message."""
+        if not self.active or msg_type not in _AGGREGATED:
+            return False
+        from pegasus_tpu_torch.server.tenancy import current as current_tenant
+        from pegasus_tpu_torch.utils.tracing import current_ctx
+
+        # the ambient QoS tenant travels per item too (replica.client_
+        # write re-binds it around the deferred fan-out), so a receiving
+        # node's per-leg spans answer "whose write was this" even though
+        # the carrier coalesces many tenants' 2PC legs
+        self._agg.setdefault((dst, msg_type), []).append(
+            (gpid, payload, current_ctx(), current_tenant()))
+        return True
+
+    # ---- flush ---------------------------------------------------------
+
+    def _flush(self) -> None:
+        self._flushing = True
+        mode = FLAGS.get("pegasus.replica", "plog_sync_mode")
+        sync = mode == "fsync"
+        try:
+            # loop: after-durable callbacks commit/apply mutations and
+            # drain write queues, which can stage NEW appends and acks
+            # into the same window — they harden in a follow-up pass
+            # before their own callbacks run
+            while self._dirty or self._pending:
+                logs = list(self._dirty.values())
+                self._dirty.clear()
+                staged, self._staged = self._staged, 0
+                for log in logs:
+                    log.commit_window(sync=sync)
+                    if sync:
+                        self._fsync_count.increment()
+                if staged:
+                    self._group_commit_size.set(staged)
+                cbs = self._pending
+                self._pending = []
+                for cb in cbs:
+                    try:
+                        cb()
+                    except Exception:  # noqa: BLE001 - one failing
+                        # write must not strand its window neighbors'
+                        # acks (the solo path confined the blast radius
+                        # to the one write that raised; so does this)
+                        import traceback
+
+                        traceback.print_exc()
+        finally:
+            self._flushing = False
+            # ship aggregated fan-out even if a commit_window raised
+            # above — staged prepares must never sit until an
+            # unrelated later window closes
+            agg, self._agg = self._agg, {}
+            for (dst, kind), items in agg.items():
+                self._prepare_batch_size.set(len(items))
+                if len(items) == 1:
+                    gpid, payload, ctx, _tenant = items[0]
+                    self.net.send(self.node, dst, "replica", {
+                        "gpid": gpid, "type": kind, "payload": payload,
+                        "trace": ctx})
+                else:
+                    # trace: None suppresses ambient stamping — the
+                    # carrier spans MANY traces (one per item ctx); a
+                    # single carrier-level context would be a lie
+                    self.net.send(self.node, dst, _AGGREGATED[kind],
+                                  {"items": items, "trace": None})

@@ -1,0 +1,190 @@
+"""Private mutation log (per-replica WAL of mutations).
+
+Parity: src/replica/mutation_log.h:70,416 — the decree-ordered private
+log: every prepared mutation is appended before it can be acked, the log
+replays on boot to rebuild the prepare list, learning reads ranges back
+out (mutation_log.h:231), and GC drops everything at or below the durable
+(flushed-to-storage) decree (mutation_log.h:213).
+
+Frame format: the shared framed-log codec (storage/framed_log.py —
+[u32 len][u32 crc32][encoded mutation]), same torn-tail recovery
+contract as the storage WAL.
+
+Group commit: `append(mu, flush=False)` stages a frame in the append
+buffer without making it OS-visible; the node-level plog batcher
+(replica/group_commit.py) later calls `commit_window()` ONCE per
+transport flush window — one flush (and at most one fsync) covers every
+mutation staged across all partitions in the window, and acks are
+released only after it returns, so the appended-before-acked contract
+is unchanged. Readers (learning, duplication tailing, GC) call through
+`_ensure_flushed` so a buffered tail is never invisible to them.
+"""
+
+from __future__ import annotations
+
+import os
+
+from pegasus_tpu_torch.storage.vfs import (
+    fsync_dir,
+    fsync_file,
+    open_data_file,
+    repair_truncate,
+)
+import struct
+from typing import Iterable, Iterator, List, Optional, Tuple
+
+from pegasus_tpu_torch.replica.mutation import Mutation
+from pegasus_tpu_torch.storage.framed_log import iter_frames, pack_frame
+
+
+class MutationLog:
+    def __init__(self, path: str) -> None:
+        self.path = path
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        # one pass: find the valid tail AND the max decree (the decree sits
+        # at a fixed offset in the mutation header — no full decode needed)
+        valid_end, self.max_decree = self._scan(path)
+        if valid_end is not None:
+            repair_truncate(path, valid_end)
+        self._f = open_data_file(path, "ab")
+        # frames written but not yet flushed to the OS (group commit);
+        # readers flush before reopening the file
+        self._buffered = False
+        # bumped whenever the file is rewritten (gc): readers holding byte
+        # offsets must restart from 0 when the generation changes
+        self.generation = 0
+
+    @staticmethod
+    def _scan(path: str) -> tuple[Optional[int], int]:
+        """Returns (truncate_to | None-if-clean, max_decree)."""
+        if not os.path.exists(path):
+            return None, 0
+        with open_data_file(path, "rb") as f:
+            data = f.read()
+        max_decree = 0
+        pos = 0
+        for payload, end in iter_frames(data):
+            (decree,) = struct.unpack_from("<Q", payload, 8)
+            max_decree = max(max_decree, decree)
+            pos = end
+        return (pos if pos < len(data) else None), max_decree
+
+    def append(self, mu: Mutation, sync: bool = False,
+               flush: bool = True) -> None:
+        """Append one mutation. `flush=False` stages the frame in the
+        append buffer for a later `commit_window()` (group commit) —
+        the caller owns NOT acking until that commit happens."""
+        self._f.write(pack_frame(mu.encode()))
+        if flush:
+            self._f.flush()
+            if sync:
+                fsync_file(self._f)
+        else:
+            self._buffered = True
+        self.max_decree = max(self.max_decree, mu.decree)
+
+    def append_batch(self, mus: Iterable[Mutation],
+                     sync: bool = False) -> None:
+        """Append many mutations as one buffered write + one flush (and
+        at most one fsync) — the storage WAL's append_batch shape."""
+        frames = []
+        for mu in mus:
+            frames.append(pack_frame(mu.encode()))
+            self.max_decree = max(self.max_decree, mu.decree)
+        if not frames:
+            return
+        self._f.write(b"".join(frames))
+        self._f.flush()
+        self._buffered = False
+        if sync:
+            fsync_file(self._f)
+
+    def commit_window(self, sync: bool = False) -> None:
+        """Make every buffered append durable: one flush, one optional
+        fsync, shared by all frames staged since the last commit."""
+        self._f.flush()
+        self._buffered = False
+        if sync:
+            fsync_file(self._f)
+
+    def _ensure_flushed(self) -> None:
+        """Readers reopen the file by path; a buffered tail must reach
+        the OS first or they would serve a stale prefix."""
+        if self._buffered:
+            self._f.flush()
+            self._buffered = False
+
+    @staticmethod
+    def replay(path: str) -> Iterator[Mutation]:
+        if not os.path.exists(path):
+            return
+        with open_data_file(path, "rb") as f:
+            data = f.read()
+        for payload, _end in iter_frames(data):
+            yield Mutation.decode(payload)
+
+    def read_range(self, start_decree: int,
+                   end_decree: Optional[int] = None) -> List[Mutation]:
+        """Mutations with start_decree <= decree <= end_decree (learning:
+        LT_LOG ships these, replica_learn.cpp:483-508). The log may hold
+        multiple entries per decree (ballot changes); the highest-ballot
+        one wins, matching replay semantics."""
+        self._ensure_flushed()
+        best: dict[int, Mutation] = {}
+        for mu in self.replay(self.path):
+            if mu.decree < start_decree:
+                continue
+            if end_decree is not None and mu.decree > end_decree:
+                continue
+            cur = best.get(mu.decree)
+            if cur is None or mu.ballot >= cur.ballot:
+                best[mu.decree] = mu
+        return [best[d] for d in sorted(best)]
+
+    def read_tail(self, offset: int) -> "List[Tuple[Mutation, int]]":
+        """Incremental read: (mutation, end_offset) pairs for frames
+        starting at byte `offset` (parity: load_from_private_log tails the
+        log instead of re-reading it). Per-frame offsets let a consumer
+        stop mid-batch WITHOUT skipping unprocessed frames — it resumes
+        from the last frame it actually consumed. Callers re-tail from 0
+        when `generation` changes."""
+        self._ensure_flushed()
+        with open_data_file(self.path, "rb") as f:
+            f.seek(offset)
+            data = f.read()
+        return [(Mutation.decode(payload), offset + end)
+                for payload, end in iter_frames(data)]
+
+    def gc(self, durable_decree: int) -> None:
+        """Drop everything <= durable_decree.
+
+        Crash-safe: the kept tail is written to a temp file, fsynced, and
+        os.replace()d over the log (then the directory is fsynced so the
+        rename is durable). Truncating the live file first would lose the
+        retained tail on a crash mid-rewrite — the uncommitted prepare
+        window and the mutations duplication has not yet shipped (the gc
+        floor is held back precisely to preserve those).
+        """
+        self._ensure_flushed()
+        keep = [mu for mu in self.replay(self.path)
+                if mu.decree > durable_decree]
+        tmp = self.path + ".gc.tmp"
+        with open_data_file(tmp, "wb") as f:
+            for mu in keep:
+                f.write(pack_frame(mu.encode()))
+            f.flush()
+            fsync_file(f)
+        # replace first, swap the append handle after: if the replace
+        # raises, self._f still appends to the live (un-gc'd) log instead
+        # of being left closed and wedging every later append
+        os.replace(tmp, self.path)
+        try:
+            fsync_dir(os.path.dirname(self.path))
+        finally:
+            self._f.close()
+            self._f = open_data_file(self.path, "ab")
+            self.generation += 1
+
+    def close(self) -> None:
+        self._ensure_flushed()
+        self._f.close()

@@ -1,0 +1,198 @@
+"""Deterministic discrete-event loop + simulated network.
+
+Parity: the reference's simulator tool (src/runtime/simulator.h:63) with
+its seeded random env (src/runtime/env.sim.h:36) and fault-injectable
+simulated network (src/rpc/network.sim.h:86). Every delay and every
+drop decision comes from one seeded RNG, so a failing cluster schedule
+replays exactly from its seed — the property the reference's simple_kv
+.act harness is built on (SURVEY §4.2).
+"""
+
+from __future__ import annotations
+
+from time import perf_counter as _perf_counter
+
+import heapq
+import itertools
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+
+from pegasus_tpu_torch.rpc.fault import link_rule_lookup
+from pegasus_tpu_torch.rpc.transport import WRITE_REQS
+
+from pegasus_tpu_torch.utils import tracing as _tracing
+from pegasus_tpu_torch.utils.profiler import PROFILER as _PROFILER
+
+class SimLoop:
+    """Virtual-clock event loop. Time only advances between events."""
+
+    def __init__(self, seed: int = 0) -> None:
+        self.rng = np.random.default_rng(seed)
+        self.now = 0.0
+        self._heap: list = []
+        self._seq = itertools.count()
+
+    def schedule(self, delay: float, fn: Callable[[], None]) -> None:
+        heapq.heappush(self._heap,
+                       (self.now + max(0.0, delay), next(self._seq), fn))
+
+    def run_until_idle(self, max_events: int = 1_000_000) -> int:
+        """Drain all events; returns the number processed."""
+        n = 0
+        while self._heap and n < max_events:
+            t, _, fn = heapq.heappop(self._heap)
+            self.now = t
+            fn()
+            n += 1
+        return n
+
+    def run_for(self, duration: float, max_events: int = 1_000_000) -> int:
+        deadline = self.now + duration
+        n = 0
+        while self._heap and n < max_events and self._heap[0][0] <= deadline:
+            t, _, fn = heapq.heappop(self._heap)
+            self.now = t
+            fn()
+            n += 1
+        self.now = max(self.now, deadline)
+        return n
+
+
+class SimNetwork:
+    """Message delivery with seeded delay and per-link fault injection.
+
+    Parity: network.sim + the toollet fault_injector's rpc drop/delay
+    knobs (src/runtime/fault_injector.cpp:62-118), configured per link
+    (src, dst) or globally.
+    """
+
+    def __init__(self, loop: SimLoop, base_delay: float = 0.001,
+                 jitter: float = 0.001) -> None:
+        self.loop = loop
+        self.base_delay = base_delay
+        self.jitter = jitter
+        self._handlers: Dict[str, Callable[[str, str, Any], None]] = {}
+        self._drop_prob: Dict[Optional[Tuple[str, str]], float] = {}
+        self._extra_delay: Dict[Optional[Tuple[str, str]], float] = {}
+        self._dup_prob: Dict[Optional[Tuple[str, str]], float] = {}
+        self._partitioned: set = set()
+        # per-link FIFO: messages on one (src, dst) link never reorder
+        # (parity: rDSN rides TCP; the 2PC protocol assumes ordered
+        # delivery per connection)
+        self._link_clock: Dict[Tuple[str, str], float] = {}
+        self.delivered = 0
+        self.dropped = 0
+
+    def register(self, addr: str,
+                 handler: Callable[[str, str, Any], None]) -> None:
+        """handler(src, msg_type, payload)"""
+        self._handlers[addr] = handler
+
+    def offload(self, fn: Callable[[], None]) -> None:
+        """Run slow IO 'in the background': inline here (determinism is
+        the sim's whole point), a real thread on the TCP transport."""
+        fn()
+
+    def set_drop(self, prob: float, src: Optional[str] = None,
+                 dst: Optional[str] = None) -> None:
+        key = None if src is None and dst is None else (src, dst)
+        self._drop_prob[key] = prob
+
+    def set_delay(self, extra_s: float, src: Optional[str] = None,
+                  dst: Optional[str] = None) -> None:
+        """Add a fixed extra latency to a link (or globally) — the
+        fault_injector's rpc-delay knob. Per-link FIFO order holds."""
+        key = None if src is None and dst is None else (src, dst)
+        if extra_s <= 0:
+            self._extra_delay.pop(key, None)
+        else:
+            self._extra_delay[key] = extra_s
+
+    def set_duplicate(self, prob: float, src: Optional[str] = None,
+                      dst: Optional[str] = None) -> None:
+        """Deliver a link's messages twice with probability `prob` —
+        the redelivery fault the real transport's FaultPlan injects
+        (protocols must tolerate duplicates; TCP alone never makes
+        them, so chaos has to)."""
+        key = None if src is None and dst is None else (src, dst)
+        if prob <= 0:
+            self._dup_prob.pop(key, None)
+        else:
+            self._dup_prob[key] = prob
+
+    def partition(self, addr: str) -> None:
+        """Cut a node off entirely (both directions)."""
+        self._partitioned.add(addr)
+
+    def heal(self, addr: str) -> None:
+        self._partitioned.discard(addr)
+
+    def send(self, src: str, dst: str, msg_type: str, payload: Any) -> None:
+        if isinstance(payload, dict) and "trace" not in payload:
+            # trace context rides the payload envelope — the exact
+            # stamping rule the TCP transport applies, so a sim schedule
+            # exercises the same propagation the real wire does
+            ctx = _tracing.current_ctx()
+            if ctx is not None:
+                payload["trace"] = ctx
+        if src in self._partitioned or dst in self._partitioned:
+            self.dropped += 1
+            return
+        prob = link_rule_lookup(self._drop_prob, src, dst)
+        if prob > 0 and self.loop.rng.random() < prob:
+            self.dropped += 1
+            return
+        # write requests exempt from duplication, like FaultPlan.outbound:
+        # a duplicated atomic write would double-apply (no rid dedup)
+        dup = link_rule_lookup(self._dup_prob, src, dst)
+        copies = 2 if (dup > 0 and msg_type not in WRITE_REQS
+                       and self.loop.rng.random() < dup) else 1
+        for _copy in range(copies):
+            delay = (self.base_delay + self.loop.rng.random() * self.jitter
+                     + link_rule_lookup(self._extra_delay, src, dst))
+            deliver_at = max(self.loop.now + delay,
+                             self._link_clock.get((src, dst), 0.0))
+            self._link_clock[(src, dst)] = deliver_at
+            delay = deliver_at - self.loop.now
+
+            def deliver(delay=delay) -> None:
+                handler = self._handlers.get(dst)
+                if handler is not None and dst not in self._partitioned:
+                    self.delivered += 1
+                    # tracing join point (same rule as the TCP
+                    # dispatcher): a sampled request context opens a
+                    # dispatch span; replies/acks only pin tail-keep
+                    span = None
+                    if isinstance(payload, dict):
+                        t_ctx = payload.get("trace")
+                        if t_ctx is not None:
+                            name = msg_type
+                            if msg_type == "replica":
+                                name = f"replica.{payload.get('type')}"
+                            if _tracing.is_reply_type(name):
+                                _tracing.on_inbound_ctx(dst, t_ctx)
+                            else:
+                                span = _tracing.start_server_span(
+                                    dst, name, t_ctx)
+                                if span is not None:
+                                    span.tags["queue_ms"] = round(
+                                        delay * 1000.0, 3)
+                    try:
+                        with _tracing.activate(span):
+                            if _PROFILER.enabled:
+                                # toollet join point (profiler.cpp:
+                                # 90-198): queue delay is the SIM link
+                                # latency; exec is wall time
+                                t0 = _perf_counter()
+                                handler(src, msg_type, payload)
+                                _PROFILER.observe(
+                                    msg_type, delay * 1000.0,
+                                    (_perf_counter() - t0) * 1000.0)
+                            else:
+                                handler(src, msg_type, payload)
+                    finally:
+                        if span is not None:
+                            span.finish()
+
+            self.loop.schedule(delay, deliver)

@@ -4,9 +4,7 @@ Parity: src/server/capacity_unit_calculator.h:50 — every request bills
 read/write capacity units: 1 CU per started 4KB of key+value bytes
 (min 1 per request), accumulated into per-partition counters.
 
-The port's copy of the JAX package's server/capacity_units.py. Its
-`client_write_units` (one client write's wire ops, billed at the
-primary) needs `rpc.codec` and arrives with the replication slice.
+The port's copy of the JAX package's server/capacity_units.py.
 """
 
 from __future__ import annotations
@@ -20,6 +18,39 @@ def units(size: int) -> int:
     """CU for ONE request of `size` bytes (min 1 — the per-request
     floor the reference bills, capacity_unit_calculator.h:50)."""
     return max(1, (size + CU_SIZE - 1) // CU_SIZE)
+
+
+def client_write_units(raw_ops) -> int:
+    """CU for one client write's wire ops [(op_code, request)], the
+    SAME per-op math replica._apply_mutation bills at apply time. Used
+    by the stub's write handlers to debit the requesting tenant ONCE
+    at the primary (apply runs in later dispatches on every member,
+    where no client tenant is ambient — and billing each member's
+    apply would charge a tenant its own replication factor)."""
+    from pegasus_tpu_torch.rpc.codec import (
+        OP_INCR,
+        OP_MULTI_PUT,
+        OP_MULTI_REMOVE,
+        OP_PUT,
+        OP_REMOVE,
+    )
+
+    cu = 0
+    for op, req in raw_ops:
+        if op == OP_PUT:
+            cu += units(len(req[0]) + len(req[1]))
+        elif op == OP_REMOVE:
+            cu += units(len(req[0]))
+        elif op == OP_MULTI_PUT:
+            cu += units(len(req.hash_key) + sum(
+                len(kv.key) + len(kv.value) for kv in req.kvs))
+        elif op == OP_MULTI_REMOVE:
+            cu += units(len(req.hash_key) + sum(
+                len(sk) for sk in req.sort_keys))
+        elif op == OP_INCR:
+            cu += units(len(req.key))
+        # CAS/CAM/ingest: unbilled at apply too — parity preserved
+    return cu
 
 
 class CapacityUnitCalculator:

@@ -158,15 +158,19 @@ class StorageEngine:
     # ---- write path ---------------------------------------------------
 
     def write_batch(self, items: Sequence[WriteBatchItem], decree: int,
-                    sync: bool = False) -> None:
-        """Apply one decree's mutations atomically (WAL first)."""
+                    sync: bool = False, wal_flush: bool = True) -> None:
+        """Apply one decree's mutations atomically (WAL first).
+        `wal_flush=False` leaves the WAL frame in the IO buffer instead
+        of flushing per decree — only valid under replication, where
+        the private log (hardened by the group-commit window before any
+        ack) covers everything this WAL could recover."""
         if decree <= self.last_committed_decree:
             raise ValueError(
                 f"decree {decree} <= last committed {self.last_committed_decree}")
         self.wal.append_batch(
             decree,
             [WalRecord(i.op, i.key, i.value, i.expire_ts) for i in items],
-            sync=sync)
+            sync=sync, flush=wal_flush)
         for i in items:
             if i.op == OP_DEL:
                 self.lsm.delete(i.key)

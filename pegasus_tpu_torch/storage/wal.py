@@ -72,7 +72,13 @@ class WriteAheadLog:
         return scan_valid_end(data)
 
     def append_batch(self, decree: int, records: List[WalRecord],
-                     sync: bool = False) -> None:
+                     sync: bool = False, flush: bool = True) -> None:
+        """`flush=False` leaves the frame in the IO buffer (the replica
+        apply path under a group-commit window: the ack's durability
+        rides the private log, which hardened first, and every decree
+        this WAL could recover also replays from the plog — the frame
+        reaches the OS when the buffer fills or truncate()/close()
+        flush it; a torn tail is recovered like any other)."""
         parts = [_PAYLOAD_HDR.pack(decree, len(records))]
         for r in records:
             parts.append(_REC_HDR.pack(r.op, len(r.key)))
@@ -81,6 +87,8 @@ class WriteAheadLog:
             parts.append(r.value)
             parts.append(struct.pack("<I", r.expire_ts))
         self._f.write(pack_frame(b"".join(parts)))
+        if not flush:
+            return
         self._f.flush()
         if sync:
             fsync_file(self._f)

@@ -69,7 +69,26 @@ def test_port_modules_are_found():
                  "pegasus_tpu_torch.ops.fused_mesh",
                  "pegasus_tpu_torch.parallel",
                  "pegasus_tpu_torch.parallel.partition_mesh",
-                 "pegasus_tpu_torch.parallel.mesh_resident"):
+                 "pegasus_tpu_torch.parallel.mesh_resident",
+                 # the wire, the simulated runtime and the replica
+                 "pegasus_tpu_torch.utils.backoff",
+                 "pegasus_tpu_torch.utils.thread_check",
+                 "pegasus_tpu_torch.utils.command_manager",
+                 "pegasus_tpu_torch.utils.cpu_isolation",
+                 "pegasus_tpu_torch.meta.meta_storage",
+                 "pegasus_tpu_torch.meta.server_state",
+                 "pegasus_tpu_torch.rpc.codec",
+                 "pegasus_tpu_torch.rpc.message",
+                 "pegasus_tpu_torch.rpc.fault",
+                 "pegasus_tpu_torch.rpc.transport",
+                 "pegasus_tpu_torch.runtime.sim",
+                 "pegasus_tpu_torch.replica.mutation",
+                 "pegasus_tpu_torch.replica.prepare_list",
+                 "pegasus_tpu_torch.replica.mutation_log",
+                 "pegasus_tpu_torch.replica.group_commit",
+                 "pegasus_tpu_torch.replica.fs_manager",
+                 "pegasus_tpu_torch.replica.file_transfer",
+                 "pegasus_tpu_torch.replica.replica"):
         assert want in names
 
 
@@ -258,9 +277,86 @@ def test_observability_and_integrity_run_without_jax(tmp_path):
     assert "clean" in proc.stdout
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+REPLICATION = ("rpc", "runtime", "meta", "replica")
+
+
+def _replication_modules():
+    return [m for m in _port_modules()
+            if m.split(".")[1:2] and m.split(".")[1] in REPLICATION]
+
+
+def test_replication_runs_without_jax(tmp_path):
+    """A three-replica group of the port over SimNetwork, every replica
+    with a group-commit window, on the CPU with JAX blocked: writes
+    commit on every member and a scan answers the same everywhere; a
+    frame of the wire codec round-trips."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from pegasus_tpu_torch.base.key_schema import generate_key\n"
+        "from pegasus_tpu_torch.replica import (Replica, ReplicaConfig, "
+        "WriteFlushWindow, WriteOp)\n"
+        "from pegasus_tpu_torch.rpc.codec import OP_PUT\n"
+        "from pegasus_tpu_torch.rpc.message import decode_message, "
+        "encode_message, read_frames\n"
+        "from pegasus_tpu_torch.runtime import SimLoop, SimNetwork\n"
+        "from pegasus_tpu_torch.server.types import GetScannerRequest\n"
+        "from pegasus_tpu_torch.utils.metrics import METRICS\n"
+        "loop = SimLoop(seed=1)\n"
+        "net = SimNetwork(loop)\n"
+        "reps, wins = {}, {}\n"
+        "for n in ('a', 'b', 'c'):\n"
+        f"    r = Replica(n, {str(tmp_path)!r} + '/' + n, net, "
+        "device='cpu', clock=lambda: 1.7e9 + loop.now)\n"
+        "    w = WriteFlushWindow(net, n, METRICS.entity('write', n))\n"
+        "    r.plog_sink = w\n"
+        "    def dispatch(s, mt, p, r=r, w=w):\n"
+        "        with w:\n"
+        "            r.on_message(s, mt, p)\n"
+        "    net.register(n, dispatch)\n"
+        "    reps[n], wins[n] = r, w\n"
+        "cfg = ReplicaConfig(1, 'a', ['b', 'c'])\n"
+        "for r in reps.values():\n"
+        "    r.assign_config(cfg)\n"
+        "acks = []\n"
+        "for i in range(20):\n"
+        "    with wins['a']:\n"
+        "        reps['a'].client_write([WriteOp(OP_PUT, (generate_key("
+        "b'h%02d' % i, b's'), b'v%d' % i, 0))], acks.append)\n"
+        "    loop.run_until_idle()\n"
+        "reps['a'].broadcast_group_check()\n"
+        "loop.run_until_idle()\n"
+        "assert acks == [[0]] * 20, acks\n"
+        "req = GetScannerRequest(start_key=b'', batch_size=100, "
+        "one_page=True)\n"
+        "frames = {encode_message('a', 'b', 't', r.server.on_get_scanner("
+        "req)) for r in reps.values()}\n"
+        "assert len(frames) == 1\n"
+        "buf = bytearray(frames.pop())\n"
+        "resp = decode_message(read_frames(buf)[0])[3]\n"
+        "assert len(resp.kvs) == 20 and not buf\n"
+        "assert all(r.last_committed_decree == 20 for r in reps.values())\n"
+        "for r in reps.values():\n"
+        "    r.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
+        "             or m.startswith('pegasus_tpu.')\n"
+        "             or m.startswith('jax.') or m == 'jaxlib')\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "replication"])
 def test_imports_without_jax_or_the_jax_package(target):
-    names = _port_modules() if target == "package" else ["chip_smoke"]
+    names = (_port_modules() if target == "package" else
+             _replication_modules() if target == "replication" else
+             ["chip_smoke"])
+    if target == "replication":
+        assert len(names) == 18, names   # 4 packages, 14 modules
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
