@@ -143,7 +143,32 @@ Phases, each fatal on failure:
    primary does. The scan kernel must launch on the old primaries, the
    new primaries and the restarted replica. Printed beside the card:
    writes acknowledged per second, the group-commit window's median
-   size, scans per second on the primaries, the device's busy share.
+   size, scans per second on the primaries, the device's busy share;
+12. the cluster: (a) BASELINE config #2 as bench.py measures it
+   (BenchCluster, bench.py:157-183): one MetaService and one
+   ReplicaStub (replica/stub.py) whose replicas are on the card over one
+   SimLoop / SimNetwork, create_app("bench", 64 partitions, one
+   replica); 1,000,000 records in bench.py:199-222's layout through each
+   primary as client_write messages of 1000 puts; every partition
+   compacted by hand (the compaction kernel must launch); then 20,000
+   YCSB-E operations as bench.py:236 run_scans draws them (95% scans
+   with zipfian partition popularity and start keys, coalesced in
+   batches of 32, each batch one client_scan_multi message from a
+   "client" endpoint; 5% inserts, each a client_write message), every
+   page against a BatchedOracle, under a CUDA trace; the scan kernel's
+   static contract must launch through the stub's read gates. Printed:
+   writes/s of the load, the compaction's seconds, scans/s, p50 and p99
+   per batch, the device's busy share, launches by contract. (b) the
+   meta's cure: four stubs, a table of 8 partitions x 3 replicas
+   (80,000 records through client_write messages, compacted
+   everywhere), a seeded probe of 200 scans through client_scan_multi;
+   the node leading the most partitions is silenced, the failure
+   detector declares it dead and the guardian promotes secondaries and
+   adds learners until every partition has three replicas; the probe on
+   the new primaries must give byte-equal pages (wire frames) and launch
+   the scan kernel; the silenced node's stub, restarted from its
+   directories, recovers its partition count. Printed: simulated and
+   wall seconds to cure, learners added, launches on the new primaries.
 
 Phase 3 also holds the compaction-filter kernel bit-exact against its
 plain version
@@ -155,19 +180,23 @@ the kernel) bit-exact against its plain version on the same seeded
 tables with hash_lo dropped, through both entries, K in {32, 64, 256},
 and times it at 2^20 records, K = 32.
 
-Phases 4, 5, 8, 9, 10 and 11 pin the store flags `block_codec = none`,
+Phases 4, 5, 8, 9, 10, 11 and 12 pin the store flags `block_codec = none`,
 `bloom_bits_per_key = 0`, `phash_index = false` (every block reaches the
 kernel); phases 6 and 7 (b, c) pin the defaults, 7 (a) pins `none`
 without sidecars. The line before the last lists the
 kernels as JSON; the last line is {"ok": true, "device": {...}}.
-`--records N` sets phase 4's load (default 500,000) and prints any cut
+Since phase 12 came, the whole run cuts phase 8 (b) to 200,000 records
+and 10,000 ops and phase 11 to 50,000 hashkeys, 2,000 ops and a probe
+of 400 scans (printed cuts; `--replicated-only` runs phase 11 uncut).
+`--records N` sets phase 4's load (default 250,000) and prints any cut
 below 1,000,000; `--compact-gb G` sets a phase-7 pass's store (default
 1.0). `--times-only [--tree DIR]` builds the kernels of this checkout (or
 of DIR) and prints phase 3's times as one JSON line, nothing else;
 `--resident-times [--tree DIR]` likewise prints phase 10 (f)'s kernel
 times and a round's wall split on a synthetic image of phase 10's
 shape; `--replicated-only` builds the kernels and runs phase 11 alone
-(its printed numbers, then one JSON line of its launches). Phases 5 and
+(its printed numbers, then one JSON line of its launches);
+`--cluster-only` does the same for phase 12. Phases 5 and
 6 always load their 1,000,000 records. A
 printed cut keeps the whole run near the time it took before phase 6
 came: the flavour-axis check runs 64 flavours at key width 32 only (16
@@ -197,8 +226,9 @@ PARTITION_COUNT = 64
 PIDX = 0
 FULL_RECORDS = 1_000_000
 # phase 4's load by default: cut from FULL_RECORDS since phase 5 came,
-# to keep the whole run near 300 s on a slow host
-SLICE_RECORDS = 500_000
+# and again since phase 12 came, to keep the whole run near 600 s on a
+# slow host
+SLICE_RECORDS = 250_000
 SCAN_OPS = 2000    # scans of the first columnar phase
 MIXED_OPS = 2000   # operations of the YCSB-E mix (95% scans, 5% inserts)
 SORT_KEYS = [b"s%02d" % i for i in range(10)]
@@ -3151,6 +3181,9 @@ GEO_RADIUS_M = 500.0
 CLIENT_PARTITIONS = 8
 CLIENT_HASHKEYS = 40_000   # x 10 sortkeys: 400,000 records
 CLIENT_OPS = 20_000
+# phase 8 (b) in the whole run: a printed cut since phase 12 came
+CLIENT_RUN_HASHKEYS = 20_000
+CLIENT_RUN_OPS = 10_000
 CLIENT_SAMPLED = 2_000     # hashkeys whose sortkey_count is checked
 SHORT_TTL_EVERY = 50       # 1 hashkey in 50 loaded with a 2 s TTL
 LONG_TTL_EVERY = 7         # 1 in 7 with a one-day TTL
@@ -5059,6 +5092,11 @@ REPL_OPS = 4000                # YCSB-E ops over the 8 primaries
 REPL_PROBE = 800               # scans each set of primaries answers
 REPL_RESTART_WRITES = 8        # small writes the restarted replica misses
 REPL_APP = 12
+# phase 11 in the whole run (--replicated-only runs it uncut): a printed
+# cut since phase 12 came
+REPL_RUN_HASHKEYS = 50_000
+REPL_RUN_OPS = 2000
+REPL_RUN_PROBE = 400
 
 
 def repl_filters() -> list:
@@ -5146,6 +5184,29 @@ class ReplicaGroups:
             r.close()
 
 
+def launch_counter():
+    """Zero the scan and compaction kernels' launch counts; `take(stage)`
+    records the counts since the last take under `stage` in `launches`
+    and zeroes them again."""
+    from pegasus_tpu_torch.ops import fused_compaction, fused_scan
+
+    fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+    fused_compaction.LAUNCHES["compaction"] = 0
+    launches: dict = {}
+
+    def take(stage: str) -> dict:
+        launches[stage] = {"static": fused_scan.LAUNCHES["static"],
+                           "now": fused_scan.LAUNCHES["now"],
+                           "multi": fused_scan.LAUNCHES["multi"],
+                           "compaction": fused_compaction.LAUNCHES[
+                               "compaction"]}
+        fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
+        fused_compaction.LAUNCHES["compaction"] = 0
+        return launches[stage]
+
+    return launches, take
+
+
 def repl_request(start: bytes, limit: int, f):
     from pegasus_tpu_torch.server.types import GetScannerRequest
 
@@ -5174,7 +5235,6 @@ def run_replicated(device, n_hashkeys: int = REPL_HASHKEYS,
     from pegasus_tpu_torch.base.crc import crc64_batch
     from pegasus_tpu_torch.base.key_schema import generate_key
     from pegasus_tpu_torch.base.value_schema import epoch_now
-    from pegasus_tpu_torch.ops import fused_compaction, fused_scan
     from pegasus_tpu_torch.replica import PartitionStatus, ReplicaConfig
     from pegasus_tpu_torch.replica import WriteOp
     from pegasus_tpu_torch.rpc.codec import OP_PUT
@@ -5216,19 +5276,7 @@ def run_replicated(device, n_hashkeys: int = REPL_HASHKEYS,
             if not dead:
                 oracles[p].put(key, value)
     n_records = sum(len(v) for v in ops.values())
-    fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
-    fused_compaction.LAUNCHES["compaction"] = 0
-    launches: dict = {}
-
-    def take(stage: str) -> None:
-        launches[stage] = {"static": fused_scan.LAUNCHES["static"],
-                           "now": fused_scan.LAUNCHES["now"],
-                           "multi": fused_scan.LAUNCHES["multi"],
-                           "compaction": fused_compaction.LAUNCHES[
-                               "compaction"]}
-        fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
-        fused_compaction.LAUNCHES["compaction"] = 0
-
+    launches, take = launch_counter()
     data_dir = tempfile.mkdtemp(prefix="pegasus_torch_replicated_")
     groups = None
     try:
@@ -5469,6 +5517,531 @@ def run_replicated(device, n_hashkeys: int = REPL_HASHKEYS,
         shutil.rmtree(data_dir, ignore_errors=True)
 
 
+# ---- phase 12: BASELINE config #2 through the meta and the replica stub --
+
+CLUSTER_HASHKEYS = 100_000     # BASELINE config #2: x 10 sortkeys
+CLUSTER_OPS = 20_000           # YCSB-E operations (bench.py run_scans)
+CLUSTER_EXPIRED = 0.10         # bench.py:211: 10% of the records expired
+CLUSTER_MUTATION_OPS = 1000    # bench.py:219-222: puts a mutation
+CLUSTER_APP = "bench"          # bench.py:167-169
+CURE_NODES = 4
+CURE_PARTITIONS = 8
+CURE_REPLICAS = 3
+CURE_HASHKEYS = 8_000          # 80,000 records
+CURE_PROBE = 200               # seeded scans before and after the cure
+CURE_ROUNDS = 40               # beacon rounds the cure may take
+
+
+class StubCluster:
+    """One port MetaService and `n_nodes` port ReplicaStubs (their
+    replicas on `device`) over one SimLoop / SimNetwork, with a "client"
+    endpoint whose replies are kept by rid: tests/test_meta.py's harness,
+    the parts bench.py's BenchCluster runs (bench.py:157-183). Every
+    client call is followed by a beacon round once 3 s of simulated time
+    have passed, so the stubs' leases stay valid."""
+
+    def __init__(self, device, data_dir: str, n_nodes: int,
+                 seed: int = 0) -> None:
+        from pegasus_tpu_torch.meta import MetaService
+        from pegasus_tpu_torch.runtime import SimLoop, SimNetwork
+
+        self.device = device
+        self.data_dir = data_dir
+        self.loop = SimLoop(seed=seed)
+        self.net = SimNetwork(self.loop)
+        self.base = time.time()
+        self.meta = MetaService("meta", os.path.join(data_dir, "meta"),
+                                self.net, lambda: self.loop.now)
+        self.stubs: dict = {}
+        for i in range(n_nodes):
+            self.start(f"node{i}")
+        self.replies: dict = {}
+        self._rid = 0
+        self.net.register("client", lambda _src, _mt, p:
+                          self.replies.__setitem__(p["rid"], p))
+        self._beacon_at = self.loop.now
+        self.beacons(2)
+
+    def clock(self) -> float:
+        return self.base + self.loop.now
+
+    def start(self, name: str):
+        from pegasus_tpu_torch.replica.stub import ReplicaStub
+
+        stub = ReplicaStub(name, os.path.join(self.data_dir, name), self.net,
+                           clock=self.clock, device=self.device)
+        stub.meta_addr = "meta"
+        self.stubs[name] = stub
+        return stub
+
+    def beacons(self, rounds: int = 1, skip=None) -> None:
+        for _ in range(rounds):
+            for name, stub in self.stubs.items():
+                if name != skip:
+                    stub.send_beacon()
+            self.loop.run_for(3.0)
+            self.meta.tick()
+        self.loop.run_until_idle()
+        self._beacon_at = self.loop.now
+
+    def keep_alive(self, skip=None) -> None:
+        if self.loop.now - self._beacon_at >= 3.0:
+            self.beacons(1, skip)
+
+    def send(self, node: str, msg_type: str, payload: dict) -> int:
+        self._rid += 1
+        self.net.send("client", node, msg_type, dict(payload, rid=self._rid))
+        return self._rid
+
+    def call(self, node: str, msg_type: str, payload: dict, skip=None):
+        rid = self.send(node, msg_type, payload)
+        self.loop.run_until_idle()
+        reply = self.replies.pop(rid)
+        self.keep_alive(skip)
+        return reply
+
+    def primary(self, app_id: int, pidx: int) -> str:
+        return self.meta.state.get_partition(app_id, pidx).primary
+
+    def replica(self, node: str, app_id: int, pidx: int):
+        return self.stubs[node].get_replica((app_id, pidx))
+
+    def close(self) -> None:
+        for stub in self.stubs.values():
+            stub.close()
+
+
+def cluster_layout(n_hashkeys: int, partitions: int, rng):
+    """bench.py:199-222's layout over `partitions`: b"user%08d" hashkeys
+    x s00..s09, values field0=%064d, 10% of the records already expired
+    at now - 100; routed by crc64(hashkey) % partitions. Returns the puts
+    a partition ({p: [(OP_PUT, (key, value, expire_ts))]}) and a
+    BatchedOracle a partition holding the live records."""
+    from pegasus_tpu_torch.base.crc import crc64_batch
+    from pegasus_tpu_torch.base.key_schema import generate_key
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.rpc.codec import OP_PUT
+
+    rows = _user_keys(0, n_hashkeys)
+    route = (crc64_batch(rows, np.full(len(rows), 12, np.int64))
+             % np.uint64(partitions)).astype(np.int64)
+    expiring = rng.random((n_hashkeys, len(SORT_KEYS))) < CLUSTER_EXPIRED
+    dead_ts = max(1, epoch_now() - 100)
+    ops = {p: [] for p in range(partitions)}
+    oracles = {p: BatchedOracle() for p in range(partitions)}
+    for h in range(n_hashkeys):
+        p, hk = int(route[h]), rows[h].tobytes()
+        for s, sk in enumerate(SORT_KEYS):
+            key, value = generate_key(hk, sk), b"field0=%064d" % (h * 10 + s)
+            if expiring[h, s]:
+                ops[p].append((OP_PUT, (key, value, dead_ts)))
+            else:
+                ops[p].append((OP_PUT, (key, value, 0)))
+                oracles[p].values[key] = value
+    return ops, oracles
+
+
+def cluster_load(c, app_id: int, ops: dict) -> tuple:
+    """Every partition's puts through its primary as client_write
+    messages of CLUSTER_MUTATION_OPS puts (one mutation each), two in
+    flight a partition; (acknowledged puts, seconds)."""
+    chunks = {p: [lst[i:i + CLUSTER_MUTATION_OPS]
+                  for i in range(0, len(lst), CLUSTER_MUTATION_OPS)]
+              for p, lst in ops.items()}
+    acked = 0
+    t0 = time.perf_counter()
+    while any(chunks.values()):
+        sent = []
+        for p, todo in chunks.items():
+            for _ in range(2):
+                if todo:
+                    batch = todo.pop(0)
+                    sent.append((c.send(c.primary(app_id, p), "client_write",
+                                        {"gpid": (app_id, p), "ops": batch}),
+                                 len(batch)))
+        c.loop.run_until_idle()
+        for rid, n in sent:
+            reply = c.replies.pop(rid)
+            if reply["err"] != 0 or reply["results"] != [0] * n:
+                fail(f"cluster load: client_write answered err "
+                     f"{reply['err']}, results {reply['results'][:4]}...")
+            acked += n
+        c.keep_alive()
+    return acked, time.perf_counter() - t0
+
+
+NO_FILTER = (0, b"", 0, b"")
+
+
+def check_cluster_page(resp, oracle, start: bytes, limit: int,
+                       now: int) -> int:
+    from pegasus_tpu_torch.server.types import SCAN_CONTEXT_ID_COMPLETED
+
+    if resp.error != 0 or resp.context_id != SCAN_CONTEXT_ID_COMPLETED:
+        fail(f"cluster scan: error {resp.error}, context "
+             f"{resp.context_id}")
+    got = [(kv.key, kv.value) for kv in resp.kvs]
+    want = oracle.page(start, limit, NO_FILTER, now)
+    if got != want:
+        fail(f"cluster scan from {start!r} limit {limit}: got {len(got)} "
+             f"records {got[:2]}..., want {len(want)} {want[:2]}...")
+    return len(got)
+
+
+def scan_multi_call(c, app_id: int, items: list, skip=None) -> list:
+    """[(pidx, start, limit)] as one client_scan_multi message to each
+    node leading some of the partitions; the ScanResponses in the order
+    of `items`."""
+    by_node: dict = {}
+    for i, (p, start, limit) in enumerate(items):
+        node = c.primary(app_id, p)
+        by_node.setdefault(node, {}).setdefault(p, []).append(
+            (i, repl_request(start, limit, NO_FILTER)))
+    out = [None] * len(items)
+    for node, groups in by_node.items():
+        reply = c.call(node, "client_scan_multi", {"groups": [
+            ((app_id, p), [r for _i, r in lst]) for p, lst in
+            groups.items()]}, skip)
+        if reply["err"] != 0:
+            fail(f"cluster: client_scan_multi to {node} answered "
+                 f"{reply['err']}")
+        for (p, resps), (p2, lst) in zip(reply["result"], groups.items()):
+            if p != p2 or len(resps) != len(lst):
+                fail(f"cluster: client_scan_multi slots {p}/{p2}")
+            for (i, _r), resp in zip(lst, resps):
+                out[i] = resp
+    return out
+
+
+def run_cluster(device, n_hashkeys: int = CLUSTER_HASHKEYS,
+                n_ops: int = CLUSTER_OPS, seed: int = 23,
+                card: str = "") -> dict:
+    """Phase 12 (a): BASELINE config #2 as bench.py measures it
+    (BenchCluster, build_cluster, run_scans): one MetaService, one
+    ReplicaStub whose replicas are on `device`, create_app("bench", 64
+    partitions, one replica); the records go through each primary as
+    client_write messages of 1000 puts; every partition compacted by
+    hand; then YCSB-E from a "client" endpoint: 95% scans coalesced in
+    batches of 32, each batch one client_scan_multi message, and 5%
+    inserts, each a client_write message; every page against a
+    BatchedOracle. Returns the numbers and the launches by stage."""
+    import torch
+
+    from pegasus_tpu_torch.base.key_schema import (
+        generate_key,
+        key_hash_parts,
+    )
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.rpc.codec import OP_PUT
+
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    if n_hashkeys != CLUSTER_HASHKEYS:
+        log(f"cluster: CUT to {n_hashkeys * 10} records of config #2's "
+            f"{CLUSTER_HASHKEYS * 10}")
+    t0 = time.perf_counter()
+    ops, oracles = cluster_layout(n_hashkeys, PARTITION_COUNT, rng)
+    layout_s = time.perf_counter() - t0
+    launches, take = launch_counter()
+    data_dir = tempfile.mkdtemp(prefix="pegasus_torch_cluster_")
+    c = None
+    try:
+        c = StubCluster(device, data_dir, 1, seed=seed)
+        app_id = c.meta.create_app(CLUSTER_APP,
+                                   partition_count=PARTITION_COUNT,
+                                   replica_count=1)
+        c.loop.run_until_idle()
+        node = c.primary(app_id, 0)
+        acked, load_s = cluster_load(c, app_id, ops)
+        n_records = sum(map(len, ops.values()))
+        if acked != n_records:
+            fail(f"cluster: {acked} of {n_records} puts acknowledged")
+        servers = [c.replica(node, app_id, p).server
+                   for p in range(PARTITION_COUNT)]
+        log(f"cluster on {card}: {n_records} records ({n_hashkeys} "
+            f"hashkeys x 10, "
+            f"{n_records - sum(len(o.values) for o in oracles.values())} "
+            f"expired) loaded through the stub into {PARTITION_COUNT} "
+            f"partitions in {load_s} s: {acked / load_s} writes/s "
+            f"(client_write messages of {CLUSTER_MUTATION_OPS} puts; the "
+            f"layout took {layout_s} s)")
+        take("load")
+        t0 = time.perf_counter()
+        for p, srv in enumerate(servers):
+            srv.manual_compact()
+            oracles[p].compacted(srv.engine.lsm.l1_runs)
+        compact_s = time.perf_counter() - t0
+        st = take("compaction")
+        log(f"cluster: manual_compact of {PARTITION_COUNT} partitions in "
+            f"{compact_s} s -> "
+            f"{sum(len(o.keys) for o in oracles.values())} records, every "
+            f"partition's L1 blocks as the oracle's; compaction kernel "
+            f"launches {st['compaction']}")
+        if on_card and st["compaction"] == 0:
+            fail("cluster: the compactions launched no compaction kernel")
+
+        # bench.py run_scans: zipfian partition popularity and start keys
+        ranks = rng.permutation(PARTITION_COUNT)
+        weights = 1.0 / (1.0 + ranks.astype(float))
+        weights /= weights.sum()
+        zipf_u = rng.random(n_ops) ** 2.0
+        pidx_of = rng.choice(PARTITION_COUNT, size=n_ops, p=weights)
+        insert_draw = rng.random(n_ops)
+        lens = rng.integers(1, 101, size=n_ops)
+        insert_hks = rng.integers(0, 1 << 30, size=n_ops)
+        pending: list = []
+        batch_s: list = []
+        stats = {"scans": 0, "batches": 0, "inserts": 0, "records": 0,
+                 "insert_s": 0.0}
+
+        def flush() -> None:
+            if not pending:
+                return
+            now = epoch_now()
+            t = time.perf_counter()
+            resps = scan_multi_call(c, app_id, pending)
+            batch_s.append(time.perf_counter() - t)
+            for (p, start, limit), resp in zip(pending, resps):
+                stats["records"] += check_cluster_page(
+                    resp, oracles[p], start, limit, now)
+            stats["scans"] += len(pending)
+            stats["batches"] += 1
+            pending.clear()
+
+        gc.collect()
+        gc.freeze()
+        trace = device_trace() if on_card else contextlib.nullcontext()
+        t_traffic = time.perf_counter()
+        with trace as prof:
+            for op in range(n_ops):
+                if insert_draw[op] < 0.05:
+                    flush()
+                    hk = b"user%08d" % int(insert_hks[op])
+                    ph = key_hash_parts(hk)
+                    p = ph % PARTITION_COUNT
+                    key = generate_key(hk, b"s00")
+                    t = time.perf_counter()
+                    reply = c.call(node, "client_write", {
+                        "gpid": (app_id, p), "partition_hash": ph,
+                        "ops": [(OP_PUT, (key, b"inserted", 0))]})
+                    stats["insert_s"] += time.perf_counter() - t
+                    if reply["err"] != 0 or reply["results"] != [0]:
+                        fail(f"cluster insert answered {reply}")
+                    oracles[p].insert(key, b"inserted")
+                    stats["inserts"] += 1
+                    continue
+                start = generate_key(
+                    b"user%08d" % int(zipf_u[op] * n_hashkeys), b"")
+                pending.append((int(pidx_of[op]), start, int(lens[op])))
+                if len(pending) >= SCAN_FLUSH:
+                    flush()
+            flush()
+            if on_card:
+                torch.cuda.synchronize()
+        traffic_s = time.perf_counter() - t_traffic
+        gc.unfreeze()
+        st = take("traffic")
+        scans_per_s = stats["scans"] / sum(batch_s)
+        line = (f"cluster on {card}: YCSB-E through the stub: "
+                f"{stats['scans']} scans in {stats['batches']} "
+                f"client_scan_multi messages, {stats['inserts']} inserts "
+                f"(client_write messages), {stats['records']} records, "
+                f"every page equal to the oracle's; {scans_per_s} scans/s "
+                f"over {sum(batch_s)} s of batch wall, per batch "
+                f"{percentiles(batch_s)}; inserts {stats['insert_s']} s; "
+                f"launches {st}")
+        busy = None
+        if on_card:
+            busy_s, n_spans = device_busy_s(prof)
+            if not n_spans:
+                fail("cluster: the CUDA trace of the traffic holds no "
+                     "device work")
+            busy = busy_s / traffic_s
+            line += (f"; device busy {busy_s} s in {n_spans} kernels, "
+                     f"copies and memsets (torch.profiler CUDA trace), "
+                     f"{100 * busy}% of the traffic's {traffic_s} s wall "
+                     f"(oracle checks included)")
+        log(line)
+        if on_card and st["static"] == 0:
+            fail("cluster: the scans through the stub launched no static "
+                 "scan kernel")
+        a = np.asarray(batch_s) * 1e3
+        return {"launches": launches,
+                "scan": {k: sum(s[k] for s in launches.values())
+                         for k in ("static", "now", "multi")},
+                "compaction": sum(s["compaction"]
+                                  for s in launches.values()),
+                "writes_per_s": acked / load_s, "load_s": load_s,
+                "compact_s": compact_s, "scans_per_s": scans_per_s,
+                "batch_p50_ms": float(np.percentile(a, 50)),
+                "batch_p99_ms": float(np.percentile(a, 99)),
+                "busy_share": busy}
+    finally:
+        if c is not None:
+            c.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def run_cure(device, n_hashkeys: int = CURE_HASHKEYS,
+             n_probe: int = CURE_PROBE, seed: int = 29,
+             card: str = "") -> dict:
+    """Phase 12 (b): the meta's cure. Four stubs on `device`, a table of
+    8 partitions x 3 replicas loaded in config #2's layout through
+    client_write messages and compacted everywhere; a seeded probe of
+    scans through client_scan_multi on the primaries; the node leading
+    the most partitions is silenced, the failure detector declares it
+    dead and the guardian promotes secondaries and adds learners until
+    every partition has three replicas again; the same probe on the new
+    primaries must give byte-equal pages (wire frames); the silenced
+    node's stub, restarted from its directories, recovers its partition
+    count. Returns the numbers and the launches by stage."""
+    from pegasus_tpu_torch.base.key_schema import generate_key
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.replica.replica import PartitionStatus
+    from pegasus_tpu_torch.rpc.message import encode_message
+
+    on_card = device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    ops, oracles = cluster_layout(n_hashkeys, CURE_PARTITIONS, rng)
+    launches, take = launch_counter()
+    data_dir = tempfile.mkdtemp(prefix="pegasus_torch_cure_")
+    c = None
+    try:
+        c = StubCluster(device, data_dir, CURE_NODES, seed=seed)
+        app_id = c.meta.create_app("t", CURE_PARTITIONS, CURE_REPLICAS)
+        c.loop.run_until_idle()
+        acked, load_s = cluster_load(c, app_id, ops)
+        for p in range(CURE_PARTITIONS):
+            c.replica(c.primary(app_id, p), app_id, p) \
+                .broadcast_group_check()
+        c.loop.run_until_idle()
+        for p in range(CURE_PARTITIONS):
+            pc = c.meta.state.get_partition(app_id, p)
+            members = [c.replica(n, app_id, p) for n in pc.members()]
+            for r in members:
+                r.server.manual_compact()
+            oracles[p].compacted(members[0].server.engine.lsm.l1_runs)
+            for r in members[1:]:
+                if (sum(bm.count for run in r.server.engine.lsm.l1_runs
+                        for bm in run.blocks) != len(oracles[p].keys)):
+                    fail(f"cure: {r.name} holds other records than its "
+                         f"primary after the compaction")
+        take("load")
+        log(f"cure: {acked} records through client_write messages into "
+            f"{CURE_PARTITIONS} partitions x {CURE_REPLICAS} replicas on "
+            f"{CURE_NODES} stubs in {load_s} s, every replica compacted")
+
+        probe_ranks = zipf_ranks(rng, n_hashkeys, n_probe)
+        probe = [(int(rng.integers(0, CURE_PARTITIONS)),
+                  generate_key(b"user%08d" % int(rk), b""),
+                  int(rng.integers(1, 101))) for rk in probe_ranks]
+
+        def probe_pages(skip=None) -> list:
+            out = []
+            now = epoch_now()
+            for lo in range(0, len(probe), SCAN_FLUSH):
+                items = probe[lo:lo + SCAN_FLUSH]
+                for (p, start, limit), resp in zip(
+                        items, scan_multi_call(c, app_id, items, skip)):
+                    check_cluster_page(resp, oracles[p], start, limit, now)
+                    out.append(encode_message("", "", "scan", resp))
+            return out
+
+        before = probe_pages()
+        take("probe_before")
+        configs = {p: c.meta.state.get_partition(app_id, p)
+                   for p in range(CURE_PARTITIONS)}
+        leads: dict = {}
+        for pc in configs.values():
+            leads[pc.primary] = leads.get(pc.primary, 0) + 1
+        dead = max(sorted(leads), key=lambda n: leads[n])
+        hosted = sorted(g for g in c.stubs[dead].replicas)
+        c.net.partition(dead)
+        sim0, wall0 = c.loop.now, time.perf_counter()
+        rounds = 0
+        while True:
+            c.beacons(1, skip=dead)
+            rounds += 1
+            now_cfg = [c.meta.state.get_partition(app_id, p)
+                       for p in range(CURE_PARTITIONS)]
+            if (all(dead not in pc.members()
+                    and len(pc.members()) == CURE_REPLICAS
+                    for pc in now_cfg) and not c.meta._pending_learns):
+                break
+            if rounds >= CURE_ROUNDS:
+                fail(f"cure: not cured after {rounds} beacon rounds: "
+                     f"{[pc.to_json() for pc in now_cfg]}")
+        cure_sim_s = c.loop.now - sim0
+        cure_wall_s = time.perf_counter() - wall0
+        learners = sum(len(set(pc.members()) - set(configs[p].members()))
+                       for p, pc in enumerate(now_cfg))
+        promoted = sum(configs[p].primary == dead
+                       for p in range(CURE_PARTITIONS))
+        for p, pc in enumerate(now_cfg):
+            r = c.replica(pc.primary, app_id, p)
+            if r.status != PartitionStatus.PRIMARY or not r.ready_to_serve():
+                fail(f"cure: {pc.primary} is not a serving primary of "
+                     f"partition {p}")
+        take("cure")
+        after = probe_pages(skip=dead)
+        st = take("probe_after")
+        if after != before:
+            bad = sum(a != b for a, b in zip(before, after))
+            fail(f"cure: {bad} of {len(before)} probe pages on the new "
+                 f"primaries differ from the pages before the failure")
+        log(f"cure on {card}: {dead} (leading {leads[dead]} of "
+            f"{CURE_PARTITIONS} partitions) silenced; the meta cured in "
+            f"{cure_sim_s} s of simulated time, {cure_wall_s} s wall, "
+            f"{rounds} beacon rounds: {promoted} secondaries promoted, "
+            f"{learners} learners added, every partition at "
+            f"{CURE_REPLICAS} replicas; {len(after)} probe pages on the "
+            f"new primaries byte-equal (wire frames) to those before and "
+            f"equal to the oracle's; scan kernel launches on the new "
+            f"primaries {st}")
+        if on_card and st["static"] + st["now"] + st["multi"] == 0:
+            fail("cure: the probe on the new primaries launched no scan "
+                 "kernel")
+        c.stubs[dead].close()
+        restarted = c.start(dead)
+        back = sorted(restarted.replicas)
+        counts = {g: r.server.partition_count
+                  for g, r in restarted.replicas.items()}
+        if back != hosted or set(counts.values()) != {CURE_PARTITIONS}:
+            fail(f"cure: the restarted {dead} recovered {back} with counts "
+                 f"{counts}; it hosted {hosted}")
+        log(f"cure: {dead} restarted from its directories with its "
+            f"{len(back)} replicas, each at partition count "
+            f"{CURE_PARTITIONS}")
+        take("restart")
+        return {"launches": launches,
+                "scan": {k: sum(s[k] for s in launches.values())
+                         for k in ("static", "now", "multi")},
+                "compaction": sum(s["compaction"]
+                                  for s in launches.values()),
+                "cure_sim_s": cure_sim_s, "cure_wall_s": cure_wall_s,
+                "learners": learners, "new_primaries": st}
+    finally:
+        if c is not None:
+            c.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def run_phase12(device, card: str) -> tuple:
+    """Phase 12 (a) and (b) under the store flags phase 11 pins."""
+    import torch
+
+    with store_flags(NONE_STORE):
+        t0 = time.perf_counter()
+        cluster = run_cluster(device, card=card)
+        torch.cuda.synchronize()
+        log(f"cluster: (a) in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cure = run_cure(device, card=card)
+        torch.cuda.synchronize()
+        log(f"cluster: (b) in {time.perf_counter() - t0:.1f} s")
+    return cluster, cure
+
+
 def times_only(torch, tree: str) -> int:
     """Phase 3's times of the kernels of the pegasus_tpu_torch imported
     from `tree`, as one JSON line: to hold two revisions' kernels against
@@ -5521,6 +6094,11 @@ def main(argv=None) -> int:
                         help="build the kernels, run phase 11 (replicated "
                         "writes through PacificA groups) alone, print its "
                         "launches as one JSON line and stop")
+    parser.add_argument("--cluster-only", action="store_true",
+                        help="build the kernels, run phase 12 (BASELINE "
+                        "config #2 through the meta and the replica stub, "
+                        "then the meta's cure) alone, print its launches "
+                        "as one JSON line and stop")
     parser.add_argument("--tree", default=None,
                         help="with --times-only or --resident-times: the "
                         "checkout whose "
@@ -5586,6 +6164,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         log(f"replicated: done in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"replicated": replicated}))
+        return 0
+    if args.cluster_only:
+        t0 = time.perf_counter()
+        cluster, cure = run_phase12(device, card)
+        log(f"cluster: phase 12 done in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"cluster": cluster, "cure": cure}))
         return 0
 
     # 3. kernel vs plain, then times
@@ -5708,8 +6292,12 @@ def main(argv=None) -> int:
     log(f"geo: done in {time.perf_counter() - t0:.1f} s; scan kernel "
         f"launches {geo['launches']}")
     t0 = time.perf_counter()
+    log(f"client: CUT to {CLIENT_RUN_HASHKEYS * 10} records and "
+        f"{CLIENT_RUN_OPS} ops (the phase's {CLIENT_HASHKEYS * 10} and "
+        f"{CLIENT_OPS})")
     with store_flags(NONE_STORE):
-        client = run_client_split(device, card=card)
+        client = run_client_split(device, n_hashkeys=CLIENT_RUN_HASHKEYS,
+                                  n_ops=CLIENT_RUN_OPS, card=card)
     torch.cuda.synchronize()
     client_scan = {k: sum(step[k] for step in client["launches"].values())
                    for k in ("static", "now", "multi")}
@@ -5748,16 +6336,34 @@ def main(argv=None) -> int:
 
     # 11. replicated writes: PacificA groups of three replicas on the card
     t0 = time.perf_counter()
+    log(f"replicated: CUT to {REPL_RUN_OPS} YCSB-E ops and a probe of "
+        f"{REPL_RUN_PROBE} scans (the phase's {REPL_OPS} and {REPL_PROBE}; "
+        f"--replicated-only runs it uncut)")
     with store_flags(NONE_STORE):
-        replicated = run_replicated(device, card=card)
+        replicated = run_replicated(device, n_hashkeys=REPL_RUN_HASHKEYS,
+                                    n_ops=REPL_RUN_OPS,
+                                    n_probe=REPL_RUN_PROBE, card=card)
     torch.cuda.synchronize()
     repl_scan = replicated["scan"]
     log(f"replicated: done in {time.perf_counter() - t0:.1f} s; scan kernel "
         f"launches {repl_scan}, compaction kernel launches "
         f"{replicated['compaction']}")
 
-    # summary
     log(f"chip_smoke: phases 1-11 in {time.perf_counter() - t_start:.1f} s")
+
+    # 12. BASELINE config #2 through the meta and the replica stub, then
+    # the meta's cure of a silenced node
+    t0 = time.perf_counter()
+    cluster, cure = run_phase12(device, card)
+    cl_scan = {k: cluster["scan"][k] + cure["scan"][k]
+               for k in ("static", "now", "multi")}
+    cl_compact = cluster["compaction"] + cure["compaction"]
+    log(f"cluster: phase 12 done in {time.perf_counter() - t0:.1f} s; scan "
+        f"kernel launches {cl_scan}, compaction kernel launches "
+        f"{cl_compact}")
+
+    # summary
+    log(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s")
     rl = resident["launches"]
     rt = resident["times"]
     t = timings[LARGE_SHAPE]
@@ -5771,7 +6377,8 @@ def main(argv=None) -> int:
                      + geo["launches"]["static"] + client_scan["static"]
                      + client_scan["now"] + integrity_scan["static"]
                      + rl["static"] + rl["now"]
-                     + repl_scan["static"] + repl_scan["now"]),
+                     + repl_scan["static"] + repl_scan["now"]
+                     + cl_scan["static"] + cl_scan["now"]),
         "max_abs_err": cmp["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
@@ -5785,14 +6392,16 @@ def main(argv=None) -> int:
                              "integrity": integrity_scan["static"],
                              "resident": rl["static"] + rl["now"],
                              "replicated": repl_scan["static"]
-                             + repl_scan["now"]}}, {
+                             + repl_scan["now"],
+                             "cluster": cl_scan["static"]
+                             + cl_scan["now"]}}, {
         "name": "scan_predicate_multi", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/predicates.py:539",
         "launches": (batched["multi"] + point["multi"]
                      + geo["launches"]["multi"] + client_scan["multi"]
                      + integrity_scan["multi"] + rl["multi"]
-                     + repl_scan["multi"]),
+                     + repl_scan["multi"] + cl_scan["multi"]),
         "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
@@ -5811,12 +6420,13 @@ def main(argv=None) -> int:
         "replaces": "pegasus_tpu/ops/compaction.py:110",
         "launches": (sum(r["launches"] for r in compact.values())
                      + client_compact + rl["compaction"]
-                     + replicated["compaction"]),
+                     + replicated["compaction"] + cl_compact),
         "launches_by_path": {"compaction": sum(r["launches"]
                                                for r in compact.values()),
                              "client": client_compact,
                              "resident": rl["compaction"],
-                             "replicated": replicated["compaction"]},
+                             "replicated": replicated["compaction"],
+                             "cluster": cl_compact},
         "launches_by_pass": {p: r["launches"] for p, r in compact.items()},
         "launches_client_split": client_compact,
         "launches_resident": rl["compaction"],

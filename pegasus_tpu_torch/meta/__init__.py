@@ -1,8 +1,6 @@
-"""Meta server: cluster control plane (reference: src/meta/).
-
-The port holds the meta store and the partition configuration so far;
-the failure detector and the meta service come with the stub.
-"""
+"""Meta server: cluster control plane (reference: src/meta/)."""
 
 from pegasus_tpu_torch.meta.meta_storage import MetaStorage
+from pegasus_tpu_torch.meta.failure_detector import FailureDetector
 from pegasus_tpu_torch.meta.server_state import AppState, PartitionConfig, ServerState
+from pegasus_tpu_torch.meta.meta_service import MetaService

@@ -293,6 +293,10 @@ class PartitionServer:
             "replica", f"{app_id}.{pidx}",
             {"table": str(app_id), "partition": str(pidx)})
         self.cu = CapacityUnitCalculator(self.metrics)
+        # nanosecond time source of the range-read time budget: None is
+        # the wall perf_counter_ns; a stub under a simulated loop sets
+        # its virtual clock here
+        self.clock_ns = None
         # expired records a read met and did not serve
         self._abnormal_reads = self.metrics.counter("abnormal_read_count")
         # the batched point-read path's counters, incremented once a
@@ -304,6 +308,14 @@ class PartitionServer:
         self._phash_located = self.metrics.counter("phash_located_count")
         self._row_cache_hits = self.metrics.counter("row_cache_hit")
         self._row_cache_misses = self.metrics.counter("row_cache_miss")
+        # follower-read counters, incremented by the hosting stub's
+        # consistency gate (node-wide twins on the "storage" entity):
+        # reads this secondary answered, reads it bounced
+        # ERR_STALE_REPLICA, and the bounces a lapsed beacon lease caused
+        self._follower_reads = self.metrics.counter("follower_read_count")
+        self._stale_bounces = self.metrics.counter("stale_bounce_count")
+        self._lease_rejects = self.metrics.counter(
+            "read_lease_reject_count")
         # where first-touch static masks of planned blocks were computed:
         # on the host from the encoded form, or on the device for a block
         # of a raw run or an encoded block with malformed rows
@@ -914,7 +926,7 @@ class PartitionServer:
             resp.error = int(StorageStatus.OK)
             return resp
 
-        limiter = RangeReadLimiter()
+        limiter = RangeReadLimiter(clock_ns=self.clock_ns)
         records, exhausted, resume_key = self._batched_scan(
             start_key, stop_key or None, now,
             FilterSpec.none(self.device),
@@ -951,7 +963,8 @@ class PartitionServer:
         records, exhausted, _ = self._batched_scan(
             generate_key(hash_key, b""), stop_key or None, epoch_now(),
             FilterSpec.none(self.device), FilterSpec.none(self.device),
-            validate_hash=False, limiter=RangeReadLimiter(),
+            validate_hash=False,
+            limiter=RangeReadLimiter(clock_ns=self.clock_ns),
             max_records=-1, max_bytes=-1, with_values=False)
         if not exhausted:
             return int(StorageStatus.INCOMPLETE), len(records)
@@ -1997,7 +2010,7 @@ class PartitionServer:
         pd_stats: dict = {}
         now = epoch_now()
         resp = ScanResponse()
-        limiter = RangeReadLimiter()
+        limiter = RangeReadLimiter(clock_ns=self.clock_ns)
         batch_size = min(req.batch_size if req.batch_size > 0 else 1000,
                          SCAN_BATCH_CAP)
         if req.only_return_count:
@@ -2065,7 +2078,7 @@ class PartitionServer:
         columnar; otherwise the merged records fold row by row."""
         now = epoch_now()
         resp = ScanResponse()
-        limiter = RangeReadLimiter()
+        limiter = RangeReadLimiter(clock_ns=self.clock_ns)
         vf = pd.value_filter
         pd_stats: dict = {}
         state = (agg_state if agg_state is not None

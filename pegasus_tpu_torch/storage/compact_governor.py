@@ -14,11 +14,12 @@ storage/compact_governor.py.
 - heavy (env-triggered manual) compactions ask a leased cluster grant;
   no grant ever received, or an expired one, means "may run".
 
-The reference reads its pressure from the RPC dispatch counters
-(deadline expiries + read sheds); the port has no RPC layer yet, so its
-default source reports 0 and callers (and tests) inject their own. The
-JAX package's node metrics are published under its names on the
-("storage", "node") entity (`compaction_bytes_per_s`,
+The default pressure source is the node's RPC dispatch counters
+(`deadline_expired_count` + `read_shed_count` on the ("rpc",
+"dispatch") entity, which the transport counts); callers and tests may
+inject their own. The replica stub's config sync runs a feedback step
+(`poke`) on every report. The JAX package's node metrics are published
+under its names on the ("storage", "node") entity (`compaction_bytes_per_s`,
 `compact_throttle_mbps`, `compact_backoff_count`,
 `compact_throttle_stall_ms`, `compact_defer_count`); each governor also
 keeps its own readings as attributes: `throttle_mbps`, `rate_bps`,
@@ -54,8 +55,9 @@ define_flag("pegasus.storage", "compact_grant_lease_s", 30.0,
 
 
 def _default_pressure() -> int:
-    """Foreground pressure of a node without an RPC layer: none."""
-    return 0
+    ent = METRICS.entity("rpc", "dispatch", {})
+    return (ent.counter("deadline_expired_count").value()
+            + ent.counter("read_shed_count").value())
 
 
 class CompactionGovernor:
@@ -183,6 +185,12 @@ class CompactionGovernor:
         else:
             self.throttle_mbps = cur
         self._g_throttle.set(self.throttle_mbps)
+
+    def poke(self) -> None:
+        """Run a feedback step if the interval elapsed (the timer hook of
+        a node where no compaction is currently paying `acquire`)."""
+        with self._lock:
+            self._feedback_locked(self._clock())
 
     # ---- cluster stagger ------------------------------------------------
 

@@ -1,0 +1,592 @@
+"""Health-rules watchdog over the flight recorder's rings.
+
+Declarative rules — threshold, burn-rate over a window, z-score spike —
+evaluate every recorder tick against any recorded series and emit typed
+``HealthEvent``s (entity, rule, severity, firing/cleared, evidence =
+the offending ring slice) into a bounded per-node journal. Nothing in
+the cluster previously *decided* it was unhealthy; this is the layer
+that turns raw counters into a decision an on-call human (or the
+elasticity controller, later) can act on.
+
+A firing event also auto-pins deeper capture: the PR 9 trace sample
+ratio is temporarily raised (so the forensic spans exist for exactly
+the windows that matter — tail keep then pins the slow ones) and the
+TaskProfiler is enabled for the incident window, its dump snapshotted
+onto the cleared event. Pins are refcounted process-wide so overlapping
+incidents restore the operator's settings exactly once.
+
+Flap damping is built into the state machine: a rule must hold its
+violation `hold` consecutive evaluations to fire and stay clean
+`clear_hold` evaluations to clear; burn-rate additionally requires the
+LATEST sample over threshold, so a single blip can never hold the
+windowed mean up on its own.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+from pegasus_tpu_torch.utils.timeseries import FlightRecorder
+
+define_flag("pegasus.health", "journal_cap", 256,
+            "health events retained per node (drop-oldest)",
+            mutable=True)
+define_flag("pegasus.health", "report_max_events", 32,
+            "max events shipped per config-sync report (overflow is "
+            "counted, never silently lost)", mutable=True)
+define_flag("pegasus.health", "pin_sample_ratio", 0.1,
+            "trace sample ratio while any health rule fires (auto-pin "
+            "deeper capture; restored on clear). Deliberately modest: "
+            "an incident is exactly when the node can least afford a "
+            "heavy observer", mutable=True)
+
+SEV_DEGRADED = "degraded"
+SEV_CRITICAL = "critical"
+_SEV_RANK = {"ok": 0, SEV_DEGRADED: 1, SEV_CRITICAL: 2}
+
+
+def worse(a: str, b: str) -> str:
+    return a if _SEV_RANK.get(a, 0) >= _SEV_RANK.get(b, 0) else b
+
+
+@dataclass
+class HealthRule:
+    """One declarative rule over recorded series.
+
+    kind:
+      - ``threshold``: latest sample > threshold;
+      - ``burn_rate``: mean over the trailing `window_s` > threshold AND
+        the latest sample > threshold (>= `min_points` samples);
+      - ``zscore``: latest sample deviates > `threshold` standard
+        deviations from the mean of the PRIOR samples in the window
+        (>= `min_points` history samples).
+    """
+
+    name: str
+    entity_type: str
+    metric: str
+    kind: str = "threshold"
+    threshold: float = 0.0
+    window_s: float = 30.0
+    min_points: int = 2
+    hold: int = 1
+    clear_hold: int = 2
+    severity: str = SEV_DEGRADED
+    entity_id: Optional[str] = None
+    description: str = ""
+
+
+@dataclass
+class HealthEvent:
+    """Typed watchdog verdict: one rule transition on one entity."""
+
+    node: str
+    rule: str
+    severity: str
+    firing: bool  # True = fired, False = cleared
+    entity: Tuple[str, str]
+    metric: str
+    ts: float
+    value: float
+    reason: str
+    evidence: List[List[float]] = field(default_factory=list)
+    profile: Optional[List[dict]] = None
+
+    def to_dict(self) -> dict:
+        d = {"node": self.node, "rule": self.rule,
+             "severity": self.severity, "firing": self.firing,
+             "entity": list(self.entity), "metric": self.metric,
+             "ts": round(self.ts, 3), "value": round(self.value, 4),
+             "reason": self.reason, "evidence": self.evidence}
+        if self.profile is not None:
+            d["profile"] = self.profile
+        return d
+
+
+def default_rules() -> List[HealthRule]:
+    """The shipped watchdog pack, matched to the counters the previous
+    PRs already maintain. Rates are per-second (counter series are
+    recorded as rates); thresholds are deliberately loose — a rule that
+    cries wolf on a healthy soak is worse than none."""
+    return [
+        HealthRule("read_shed_growth", "rpc", "read_shed_count",
+                   kind="burn_rate", threshold=1.0, window_s=30.0,
+                   min_points=2, severity=SEV_DEGRADED,
+                   description="sustained read shedding (> 1/s): the "
+                   "node is refusing read load to protect itself"),
+        HealthRule("deadline_growth", "rpc", "deadline_expired_count",
+                   kind="burn_rate", threshold=1.0, window_s=30.0,
+                   min_points=2, severity=SEV_DEGRADED,
+                   description="sustained deadline expiry (> 1/s): "
+                   "clients give up before the node answers"),
+        HealthRule("scrub_corruption", "storage", "scrub_corrupt_blocks",
+                   kind="threshold", threshold=0.0,
+                   severity=SEV_CRITICAL,
+                   description="background scrub found at-rest "
+                   "corruption"),
+        HealthRule("replica_quarantine", "storage",
+                   "replica_quarantine_count", kind="threshold",
+                   threshold=0.0, severity=SEV_CRITICAL,
+                   description="a replica failed integrity checks and "
+                   "was quarantined for re-learn"),
+        HealthRule("dup_lag", "duplication", "dup_lag_decrees",
+                   kind="burn_rate", threshold=500.0, window_s=60.0,
+                   min_points=2, severity=SEV_DEGRADED,
+                   description="geo-replication falling behind "
+                   "(> 500 decrees sustained)"),
+        HealthRule("stale_bounce_rate", "storage", "stale_bounce_count",
+                   kind="burn_rate", threshold=1.0, window_s=30.0,
+                   min_points=2, severity=SEV_DEGRADED,
+                   description="sustained follower-read bounces (> 1/s "
+                   "ERR_STALE_REPLICA): secondaries keep declining "
+                   "consistency-levelled reads — lease lapses (check "
+                   "fd_beacon_miss) or replication lag beyond the "
+                   "bound, and every bounce is a wasted round-trip "
+                   "re-flown at the primary"),
+        HealthRule("fd_beacon_miss", "rpc", "beacon_ack_age_s",
+                   kind="threshold", threshold=9.0, hold=2,
+                   severity=SEV_DEGRADED,
+                   description="no failure-detector beacon ack for 3+ "
+                   "intervals on 2 consecutive ticks: meta link (or "
+                   "lease) is in trouble (hold=2: a backoff-stretched "
+                   "schedule step alone must not fire it)"),
+        HealthRule("compaction_stall", "storage",
+                   "compact_write_stall_ms", kind="burn_rate",
+                   threshold=500.0, window_s=60.0, min_points=2,
+                   severity=SEV_DEGRADED,
+                   description="compaction write stage stalled > 0.5s "
+                   "per wall second: background IO is wedged"),
+        HealthRule("cost_model_drift", "workload",
+                   "cost_model_drift_ratio", kind="threshold",
+                   threshold=16.0, hold=2, severity=SEV_DEGRADED,
+                   description="placement cost model mis-calibrated: "
+                   "measured kernel time sustained > 16x the model's "
+                   "prediction (rolling median, compile-warmup "
+                   "discarded, stale classes age out) — device-vs-host "
+                   "routing is deciding on bad estimates "
+                   "(server/workload.DRIFT audits every stacked "
+                   "mask-eval wave)"),
+        HealthRule("tunnel_wedged", "storage", "tunnel_wedged",
+                   kind="threshold", threshold=0.5, hold=2,
+                   severity=SEV_DEGRADED,
+                   description="the mesh dispatch watchdog tripped "
+                   "(consecutive bounded-deadline overruns): serving "
+                   "fell back to the CPU-device mesh or to host "
+                   "kernels — results stay correct but the accelerator "
+                   "leg is out (hold=2: one spurious deadline alone "
+                   "must not fire it)"),
+        HealthRule("tenant_brownout", "tenant", "tenant_cu_ratio",
+                   kind="burn_rate", threshold=2.0, window_s=30.0,
+                   min_points=2, hold=2, clear_hold=2,
+                   severity=SEV_DEGRADED,
+                   description="one tenant's CU consumption sustained "
+                   "> 2x its budget: the aggressor outlier. The stubs "
+                   "react by shedding ONLY this tenant's reads "
+                   "(server/tenancy.py brownout state) — the series is "
+                   "per-tenant, so a compliant tenant can never trip "
+                   "it; clear_hold releases the gate once shedding "
+                   "pulls the ratio back under budget"),
+    ]
+
+
+# ---- auto-pin deeper capture (process-wide, refcounted) ------------------
+
+
+class _CapturePin:
+    """While ANY rule fires anywhere in the process, raise the tracing
+    sample ratio and enable the task profiler; restore both when the
+    last incident clears. Refcounted: overlapping incidents restore
+    the operator's settings exactly once."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._count = 0
+        self._saved_ratio: Optional[float] = None
+        self._set_ratio: Optional[float] = None
+        self._saved_profiler: Optional[bool] = None
+
+    def pin(self) -> None:
+        from pegasus_tpu_torch.utils.profiler import PROFILER
+
+        with self._lock:
+            self._count += 1
+            if self._count > 1:
+                return
+            ratio = FLAGS.get("pegasus.tracing", "sample_ratio")
+            self._saved_ratio = ratio
+            self._set_ratio = None
+            boost = FLAGS.get("pegasus.health", "pin_sample_ratio")
+            if boost > ratio:
+                FLAGS.set("pegasus.tracing", "sample_ratio", boost)
+                self._set_ratio = boost
+            self._saved_profiler = PROFILER.enabled
+            PROFILER.enable()
+
+    def unpin(self) -> None:
+        from pegasus_tpu_torch.utils.profiler import PROFILER
+
+        with self._lock:
+            if self._count == 0:
+                return
+            self._count -= 1
+            if self._count > 0:
+                return
+            if self._set_ratio is not None and FLAGS.get(
+                    "pegasus.tracing", "sample_ratio") == self._set_ratio:
+                # restore ONLY if the ratio is still the one we set: an
+                # operator who re-tuned it mid-incident keeps their value
+                FLAGS.set("pegasus.tracing", "sample_ratio",
+                          self._saved_ratio)
+            if self._saved_profiler is False:
+                PROFILER.disable()
+            self._saved_ratio = None
+            self._set_ratio = None
+            self._saved_profiler = None
+
+    def force_release(self, n: int) -> None:
+        """Drop `n` outstanding pins (an engine closing mid-incident
+        must not leave the process's capture settings raised)."""
+        for _ in range(n):
+            self.unpin()
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+
+CAPTURE = _CapturePin()
+
+
+def reset_capture() -> None:
+    """Test isolation: release every outstanding pin."""
+    CAPTURE.force_release(CAPTURE.count)
+
+
+# ---- the engine ----------------------------------------------------------
+
+
+class HealthEngine:
+    """Per-node watchdog: evaluates rules over the node's recorder each
+    tick, maintains per-(rule, series) firing state with flap damping,
+    journals typed events, and drives the capture pin."""
+
+    def __init__(self, node: str, recorder: FlightRecorder,
+                 rules: Optional[List[HealthRule]] = None,
+                 clock: Optional[Callable[[], float]] = None) -> None:
+        self.node = node
+        self.recorder = recorder
+        self.rules = list(rules) if rules is not None else default_rules()
+        self.clock = clock or recorder.clock
+        # (rule.name, series key) -> {"viol": n, "clean": n,
+        #                             "firing": bool, "since": ts}
+        self._state: Dict[Tuple[str, Tuple[str, str, str]], dict] = {}
+        self.journal: "deque[dict]" = deque()
+        self._unreported: List[dict] = []
+        # events shipped but not yet acked by a config_sync_reply: a
+        # report sent INTO a broken meta link (exactly the incident the
+        # watchdog exists for) must not lose its events — they re-ship
+        # until the reply's health_ack covers their seq
+        self._pending_ack: List[dict] = []
+        self._event_seq = 0
+        self.dropped_reports = 0
+        self.events_total = 0
+
+    # -- evaluation -------------------------------------------------------
+
+    def evaluate(self) -> List[HealthEvent]:
+        """One watchdog pass; returns the TRANSITIONS (fired/cleared)."""
+        now = self.clock()
+        out: List[HealthEvent] = []
+        live_keys = set()
+        for rule in self.rules:
+            for key, ring in self.recorder.match(rule.entity_type,
+                                                 rule.entity_id,
+                                                 rule.metric):
+                live_keys.add((rule.name, key))
+                ev = self._eval_series(rule, key, ring, now)
+                if ev is not None:
+                    out.append(ev)
+        # series that fell out of the window while firing: clear them
+        # (the signal died; holding the alert open pins capture forever)
+        for skey, st in list(self._state.items()):
+            if skey in live_keys or not st["firing"]:
+                if skey not in live_keys and not st["firing"]:
+                    del self._state[skey]
+                continue
+            st["clean"] += 1
+            if st["clean"] >= self._rule(skey[0]).clear_hold:
+                out.append(self._transition(
+                    self._rule(skey[0]), skey[1], now, 0.0,
+                    "series expired from ring", firing=False))
+        for ev in out:
+            self._journal(ev)
+        return out
+
+    def _rule(self, name: str) -> HealthRule:
+        for r in self.rules:
+            if r.name == name:
+                return r
+        raise KeyError(name)
+
+    def _eval_series(self, rule: HealthRule, key, ring,
+                     now: float) -> Optional[HealthEvent]:
+        violated, value, reason = self._check(rule, ring, now)
+        skey = (rule.name, key)
+        st = self._state.get(skey)
+        if st is None:
+            st = self._state[skey] = {"viol": 0, "clean": 0,
+                                      "firing": False, "since": None}
+        if violated:
+            st["viol"] += 1
+            st["clean"] = 0
+            if not st["firing"] and st["viol"] >= rule.hold:
+                return self._transition(rule, key, now, value, reason,
+                                        firing=True)
+        else:
+            st["clean"] += 1
+            st["viol"] = 0
+            if st["firing"] and st["clean"] >= rule.clear_hold:
+                return self._transition(rule, key, now, value,
+                                        "recovered", firing=False)
+        return None
+
+    def _check(self, rule: HealthRule, ring,
+               now: float) -> Tuple[bool, float, str]:
+        latest = ring.latest()
+        if latest is None:
+            return False, 0.0, ""
+        ts, x = latest
+        unit = "/s" if ring.kind == "rate" else ""
+        if rule.kind == "threshold":
+            return (x > rule.threshold, x,
+                    f"{rule.metric}={x:.4g}{unit} > {rule.threshold:g}")
+        window = ring.slice(now - rule.window_s)
+        if rule.kind == "burn_rate":
+            if len(window) < rule.min_points:
+                return False, x, ""
+            mean = sum(v for _t, v in window) / len(window)
+            # the LAST TWO samples must also be hot: "burn" means
+            # consecutive ticks over threshold, so neither a single
+            # blip after a quiet stretch (the idle run-length slide
+            # leaves only one trailing zero to dilute the mean) nor a
+            # spike propping the mean up after it passed can fire
+            hit = (mean > rule.threshold and x > rule.threshold
+                   and window[-2][1] > rule.threshold)
+            return (hit, mean,
+                    f"{rule.metric} mean {mean:.4g}{unit} over "
+                    f"{rule.window_s:g}s > {rule.threshold:g}")
+        if rule.kind == "zscore":
+            history = [v for _t, v in window[:-1]]
+            if len(history) < rule.min_points:
+                return False, x, ""
+            mean = sum(history) / len(history)
+            var = sum((v - mean) ** 2 for v in history) / len(history)
+            std = max(var ** 0.5, 1e-9)
+            z = (x - mean) / std
+            return (z > rule.threshold, z,
+                    f"{rule.metric}={x:.4g}{unit} is {z:.1f}σ above "
+                    f"its {rule.window_s:g}s mean {mean:.4g}")
+        raise ValueError(f"unknown rule kind {rule.kind!r}")
+
+    def _transition(self, rule: HealthRule, key, now: float,
+                    value: float, reason: str,
+                    firing: bool) -> HealthEvent:
+        from pegasus_tpu_torch.utils.profiler import PROFILER
+
+        skey = (rule.name, key)
+        st = self._state[skey]
+        st["firing"] = firing
+        st["since"] = now if firing else None
+        st["viol"] = 0
+        st["clean"] = 0
+        ring = self.recorder._series.get(key)
+        evidence = [[round(t, 3), round(v, 4)]
+                    for t, v in (ring.slice(now - rule.window_s)
+                                 if ring is not None else [])]
+        ev = HealthEvent(
+            node=self.node, rule=rule.name, severity=rule.severity,
+            firing=firing, entity=(key[0], key[1]), metric=key[2],
+            ts=now, value=value, reason=reason, evidence=evidence)
+        if firing:
+            # auto-pin deeper capture: raise the trace sample ratio and
+            # start profiling — the forensic detail exists for exactly
+            # the window that matters (no dump here: pre-incident
+            # profiler state is stale by definition, and a flapping
+            # rule must not pay a dump per transition)
+            CAPTURE.pin()
+        else:
+            # the incident-window profile rides the CLEARED event, then
+            # capture settings restore
+            ev.profile = PROFILER.dump() or None
+            CAPTURE.unpin()
+        if not firing:
+            del self._state[skey]
+        return ev
+
+    def _journal(self, ev: HealthEvent) -> None:
+        d = ev.to_dict()
+        self.events_total += 1
+        self.journal.append(d)
+        cap = FLAGS.get("pegasus.health", "journal_cap")
+        while len(self.journal) > cap:
+            self.journal.popleft()
+        if len(self._unreported) < FLAGS.get("pegasus.health",
+                                             "report_max_events"):
+            # strip the bulky fields from the config-sync copy: meta
+            # needs the verdicts; the evidence stays fetchable on the
+            # node via health.events / timeseries-dump
+            slim = dict(d)
+            slim.pop("profile", None)
+            slim["evidence"] = slim["evidence"][-8:]
+            self._event_seq += 1
+            slim["seq"] = self._event_seq
+            self._unreported.append(slim)
+        else:
+            self.dropped_reports += 1
+
+    # -- read surfaces ----------------------------------------------------
+
+    def firing(self) -> List[dict]:
+        return [{"rule": name, "entity": list(key[:2]),
+                 "metric": key[2],
+                 "severity": self._rule(name).severity,
+                 "since": st["since"]}
+                for (name, key), st in sorted(self._state.items())
+                if st["firing"]]
+
+    def status(self) -> dict:
+        firing = self.firing()
+        sev = "ok"
+        for f in firing:
+            sev = worse(sev, f["severity"])
+        return {"node": self.node, "status": sev, "firing": firing,
+                "events_total": self.events_total,
+                "ring_bytes": self.recorder.nbytes(),
+                "ring_series": len(self.recorder._series)}
+
+    def events(self, limit: int = 64,
+               entity_id: Optional[str] = None) -> List[dict]:
+        out = [d for d in self.journal
+               if entity_id is None or d["entity"][1] == entity_id]
+        return out[-limit:]
+
+    def drain_report(self) -> dict:
+        """The compact health block riding config-sync: digest + the
+        events since the last report (bounded; overflow counted).
+        Events stay in the unacked buffer and RE-SHIP every report
+        until ack_report covers their seq — a report lost on a broken
+        meta link (the incident itself) loses nothing; meta dedupes by
+        seq."""
+        cap = FLAGS.get("pegasus.health", "report_max_events")
+        take = max(0, cap - len(self._pending_ack))
+        self._pending_ack.extend(self._unreported[:take])
+        overflow = len(self._unreported) - take
+        if overflow > 0:
+            self.dropped_reports += overflow
+        self._unreported = []
+        dropped, self.dropped_reports = self.dropped_reports, 0
+        st = self.status()
+        return {"status": st["status"], "firing": st["firing"],
+                "events": list(self._pending_ack), "dropped": dropped,
+                # seq high-water: meta detects a node restart (fresh
+                # engine, seq reset) when this moves BACKWARD and
+                # resets its dedupe cursor — otherwise every event from
+                # the restarted node would be deduped away and falsely
+                # acked until seq caught up
+                "seq_hw": self._event_seq,
+                "events_total": self.events_total,
+                "ring_bytes": st["ring_bytes"]}
+
+    def ack_report(self, seq: int) -> None:
+        """config_sync_reply carried meta's high-water event seq: every
+        shipped event at or below it is safely journaled meta-side."""
+        self._pending_ack = [e for e in self._pending_ack
+                             if e["seq"] > seq]
+
+    def close(self) -> None:
+        """Release this engine's outstanding capture pins (a node going
+        away mid-incident must not leave process capture raised)."""
+        n = sum(1 for st in self._state.values() if st["firing"])
+        CAPTURE.force_release(n)
+        self._state.clear()
+
+
+# ---- incident-timeline rendering -----------------------------------------
+
+_SPARK = " .:-=+*#%@"
+
+
+def _sparkline(points: List[List[float]], width: int = 48) -> str:
+    if not points:
+        return ""
+    t0, t1 = points[0][0], points[-1][0]
+    span = max(t1 - t0, 1e-9)
+    vmax = max(v for _t, v in points)
+    vmin = min(0.0, min(v for _t, v in points))
+    vspan = max(vmax - vmin, 1e-9)
+    cells = [0.0] * width
+    for ts, v in points:
+        i = min(width - 1, int((ts - t0) / span * width))
+        cells[i] = max(cells[i], (v - vmin) / vspan)
+    return "".join(_SPARK[min(len(_SPARK) - 1,
+                              int(c * (len(_SPARK) - 1) + 0.5))]
+                   for c in cells)
+
+
+def render_timeline(bundle: dict, width: int = 48) -> str:
+    """ONE incident report from a timeline bundle:
+
+    ``{"target", "window": [t0, t1], "status", "events": [...],
+       "series": [recorder dump rows], "traces": [slow roots]}``
+
+    Ring slices render as sparklines, health events as a chronological
+    ledger, kept slow traces as a summary list — the operator reads the
+    whole incident top to bottom without another command.
+    """
+    t0, t1 = bundle.get("window", (None, None))
+    lines = [f"== timeline {bundle.get('target', '?')} — "
+             f"status {bundle.get('status', '?')}"
+             + (f", window {t1 - t0:.0f}s" if t0 is not None else "")
+             + " =="]
+    events = bundle.get("events") or []
+    lines.append(f"-- health events ({len(events)}) --")
+    for d in events:
+        mark = "FIRING " if d.get("firing") else "CLEARED"
+        rel = f"t+{d['ts'] - t0:8.1f}s" if t0 is not None \
+            else f"@{d['ts']:.1f}"
+        lines.append(
+            f"  {rel}  {mark} {d['severity']:<8} {d['rule']} "
+            f"[{d['entity'][0]}/{d['entity'][1]}] {d['reason']}")
+    series = bundle.get("series") or []
+    if series:
+        lines.append(f"-- ring slices ({len(series)}) --")
+    for row in series:
+        pts = row.get("points") or []
+        if not pts:
+            continue
+        vmax = max(v for _t, v in pts)
+        unit = "/s" if row.get("kind") == "rate" else ""
+        lines.append(
+            f"  {row['entity']}/{row['id']} {row['metric']} "
+            f"(peak {vmax:.4g}{unit}, {len(pts)} pts)")
+        lines.append(f"  |{_sparkline(pts, width)}|")
+    traces = bundle.get("traces") or []
+    lines.append(f"-- kept slow traces ({len(traces)}) --")
+    for t in traces:
+        lines.append(
+            f"  trace {t.get('trace')}  {t.get('name')} "
+            f"@{t.get('node')}  {t.get('total_ms', 0.0):.3f} ms")
+    return "\n".join(lines)
+
+
+def parse_window(text: str) -> float:
+    """'5m' / '90s' / '2h' / bare seconds -> seconds."""
+    text = str(text).strip()
+    mult = {"s": 1.0, "m": 60.0, "h": 3600.0}.get(text[-1:].lower())
+    if mult is not None:
+        return float(text[:-1]) * mult
+    return float(text)

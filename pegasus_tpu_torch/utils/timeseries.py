@@ -1,0 +1,285 @@
+"""Flight recorder: bounded per-metric time-series rings.
+
+The metrics spine (utils/metrics.py) is point-in-time: by the time an
+operator asks why a node degraded, the counters that would explain it
+have been overwritten. The flight recorder closes that gap the way
+RESYSTANCE (PAPERS.md) treats continuous low-overhead introspection of
+the storage engine as a first-class feature: a fixed-cadence tick
+drains the MetricRegistry into bounded per-series rings of
+``(ts, value)`` points —
+
+- counters (incl. relaxed) become RATES via a per-series cursor kept by
+  this recorder alone;
+- volatile counters are drained through their per-reader cursor
+  (``delta_since``), so the recorder, the collector and `/metrics`
+  scrapes never steal each other's deltas;
+- gauges are sampled as-is;
+- percentile windows are sampled at p50/p99 (two ``<name>.p50/.p99``
+  series).
+
+Retention is a sliding time window (drop-oldest) under a HARD byte cap:
+the recorder can never become the memory incident it is documenting.
+The health-rules engine (utils/health.py) evaluates over these rings,
+and the ``timeseries-dump`` node verb / `shell timeline` render them.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+from pegasus_tpu_torch.utils.metrics import (
+    METRICS,
+    Counter,
+    Gauge,
+    MetricEntity,
+    Percentile,
+    VolatileCounter,
+)
+
+define_flag("pegasus.health", "recorder_enabled", True,
+            "master switch for the per-node flight recorder tick "
+            "(rings + health rules); the bench's off-baseline",
+            mutable=True)
+define_flag("pegasus.health", "recorder_interval_s", 10.0,
+            "minimum seconds between flight-recorder ticks (a caller "
+            "timer firing faster is coalesced; sim schedules compress "
+            "hours of virtual time, so the per-tick walk is paid "
+            "often — keep the cadence coarse enough that recording "
+            "stays invisible)", mutable=True)
+define_flag("pegasus.health", "recorder_window_s", 600.0,
+            "sliding retention window per series (drop-oldest)",
+            mutable=True)
+define_flag("pegasus.health", "recorder_byte_cap", 262144,
+            "hard cap on one recorder's ring memory; overflow evicts "
+            "oldest points first", mutable=True)
+
+# accounting model for the byte cap: one (ts, value) tuple and its ring
+# slot, plus a fixed per-series overhead (key, deque, cursor)
+POINT_BYTES = 16
+SERIES_OVERHEAD = 96
+
+SeriesKey = Tuple[str, str, str]  # (entity_type, entity_id, metric)
+
+
+class SeriesRing:
+    """One metric's bounded (ts, value) history."""
+
+    __slots__ = ("kind", "points")
+
+    def __init__(self, kind: str) -> None:
+        self.kind = kind  # "rate" (per-second) | "value"
+        self.points: "deque[Tuple[float, float]]" = deque()
+
+    def append(self, ts: float, value: float) -> None:
+        self.points.append((ts, value))
+
+    def trim(self, horizon: float) -> int:
+        """Drop points older than `horizon`; returns how many."""
+        n = 0
+        pts = self.points
+        while pts and pts[0][0] < horizon:
+            pts.popleft()
+            n += 1
+        return n
+
+    def slice(self, t0: Optional[float] = None,
+              t1: Optional[float] = None) -> List[Tuple[float, float]]:
+        return [(ts, v) for ts, v in self.points
+                if (t0 is None or ts >= t0) and (t1 is None or ts <= t1)]
+
+    def latest(self) -> Optional[Tuple[float, float]]:
+        return self.points[-1] if self.points else None
+
+
+class FlightRecorder:
+    """One node's recorder over the (process-global) MetricRegistry.
+
+    `owns(entity) -> bool` scopes recording: in a real deployment the
+    process IS the node, but in-process sim clusters share one registry,
+    so each stub passes a predicate selecting its own entities (plus
+    the per-process singletons that are node-local when deployed).
+    """
+
+    def __init__(self, node: str, clock: Callable[[], float] = time.time,
+                 registry=METRICS,
+                 owns: Optional[Callable[[MetricEntity], bool]] = None
+                 ) -> None:
+        self.node = node
+        self.clock = clock
+        self.registry = registry
+        self.owns = owns
+        self.reader_id = f"recorder:{node}"
+        self._series: Dict[SeriesKey, SeriesRing] = {}
+        # counter cursors live here (not on the counter): the recorder
+        # is one reader among many and must never perturb the others
+        self._cursors: Dict[SeriesKey, float] = {}
+        self._last_tick: Optional[float] = None
+        self._total_points = 0
+        self.evicted_points = 0
+
+    # ---- recording -----------------------------------------------------
+
+    def due(self) -> bool:
+        """Whether a tick() now would actually record (side-effect
+        free): callers hang their own per-cadence work — profiler
+        publish, watchdog evaluation — off the same coalescing."""
+        if not FLAGS.get("pegasus.health", "recorder_enabled"):
+            return False
+        return (self._last_tick is None
+                or self.clock() - self._last_tick
+                >= FLAGS.get("pegasus.health", "recorder_interval_s"))
+
+    def tick(self, force: bool = False) -> Optional[int]:
+        """One recording pass; returns points appended, or None when
+        the call was coalesced/disabled (callers gate rule evaluation
+        on an actual pass — an idle pass still appends zero-rates to
+        live series, which is what lets alerts CLEAR). Calls faster
+        than `recorder_interval_s` coalesce so timers can fire faster
+        than the cadence and cluster step loops stay simple."""
+        if not FLAGS.get("pegasus.health", "recorder_enabled"):
+            return None
+        now = self.clock()
+        if (not force and self._last_tick is not None
+                and now - self._last_tick
+                < FLAGS.get("pegasus.health", "recorder_interval_s")):
+            return None
+        dt = now - self._last_tick if self._last_tick is not None else 0.0
+        self._last_tick = now
+        added = 0
+        for ent in self.registry.entities():
+            if self.owns is not None and not self.owns(ent):
+                continue
+            # snapshot the metric dict under the entity's lock
+            with ent._lock:
+                metrics = list(ent._metrics.items())
+            for name, m in metrics:
+                added += self._record_metric(ent, name, m, now, dt)
+        self._trim(now)
+        return added
+
+    def _record_metric(self, ent: MetricEntity, name: str, m: Any,
+                       now: float, dt: float) -> int:
+        key = (ent.entity_type, ent.entity_id, name)
+        if isinstance(m, VolatileCounter):
+            delta = m.delta_since(self.reader_id)
+            if dt <= 0.0:
+                return 0
+            return self._append(key, "rate", now, delta / dt)
+        if isinstance(m, Counter):
+            v = float(m.value())
+            last = self._cursors.get(key)
+            self._cursors[key] = v
+            if last is None or dt <= 0.0:
+                return 0  # first sight: cursor only, rates need a dt
+            return self._append(key, "rate", now, (v - last) / dt)
+        if isinstance(m, Gauge):
+            return self._append(key, "value", now, float(m.value()))
+        if isinstance(m, Percentile):
+            if not m._samples:  # idle window: don't record zeros
+                return 0
+            p50, p99 = m.quantiles((50.0, 99.0))
+            n = self._append((key[0], key[1], name + ".p50"), "value",
+                             now, p50)
+            n += self._append((key[0], key[1], name + ".p99"), "value",
+                              now, p99)
+            return n
+        return 0
+
+    def _append(self, key: SeriesKey, kind: str, now: float,
+                value: float) -> int:
+        ring = self._series.get(key)
+        if ring is None:
+            if value == 0.0:
+                # a series is born at its first signal: thousands of
+                # never-moving counters must not each pin a ring
+                return 0
+            ring = self._series[key] = SeriesRing(kind)
+        pts = ring.points
+        if (kind == "rate" and value == 0.0 and len(pts) >= 2
+                and pts[-1][1] == 0.0 and pts[-2][1] == 0.0):
+            # run-length-compress idle stretches: a counter that is not
+            # moving slides the last zero forward instead of appending
+            # one zero per tick — an hours-long sim lull stays O(1)
+            # points. Hot (nonzero) samples are NEVER compressed: burn
+            # windows need their real cardinality.
+            pts[-1] = (now, 0.0)
+            return 0
+        ring.append(now, value)
+        self._total_points += 1
+        return 1
+
+    def _trim(self, now: float) -> None:
+        horizon = now - FLAGS.get("pegasus.health", "recorder_window_s")
+        dead = []
+        for key, ring in self._series.items():
+            self._total_points -= ring.trim(horizon)
+            if not ring.points:
+                dead.append(key)
+        for key in dead:
+            del self._series[key]
+        # hard byte cap: evict oldest points from the fattest series
+        # first — retention degrades, memory never does
+        cap = FLAGS.get("pegasus.health", "recorder_byte_cap")
+        while self.nbytes() > cap and self._total_points > 0:
+            ring = max(self._series.values(), key=lambda r: len(r.points))
+            drop = max(1, len(ring.points) // 2)
+            for _ in range(drop):
+                ring.points.popleft()
+            self._total_points -= drop
+            self.evicted_points += drop
+
+    # ---- read surfaces -------------------------------------------------
+
+    def nbytes(self) -> int:
+        """Ring-memory estimate (the cost the bench records and the cap
+        enforces)."""
+        return (len(self._series) * SERIES_OVERHEAD
+                + self._total_points * POINT_BYTES)
+
+    def series(self, entity_type: str, entity_id: str,
+               metric: str) -> Optional[SeriesRing]:
+        return self._series.get((entity_type, entity_id, metric))
+
+    def match(self, entity_type: Optional[str] = None,
+              entity_id: Optional[str] = None,
+              metric: Optional[str] = None
+              ) -> List[Tuple[SeriesKey, SeriesRing]]:
+        out = []
+        for key, ring in self._series.items():
+            if entity_type is not None and key[0] != entity_type:
+                continue
+            if entity_id is not None and key[1] != entity_id:
+                continue
+            if metric is not None and key[2] != metric:
+                continue
+            out.append((key, ring))
+        return out
+
+    def dump(self, entity_type: Optional[str] = None,
+             entity_id: Optional[str] = None,
+             metric: Optional[str] = None,
+             window_s: Optional[float] = None) -> List[dict]:
+        """Ring slices as JSON-able rows (the `timeseries-dump` node
+        verb and `shell timeline`'s fan-out target)."""
+        t0 = None
+        if window_s is not None:
+            t0 = self.clock() - window_s
+        out = []
+        for (et, ei, name), ring in sorted(
+                self.match(entity_type, entity_id, metric)):
+            pts = ring.slice(t0)
+            if not pts:
+                continue
+            out.append({"entity": et, "id": ei, "metric": name,
+                        "kind": ring.kind,
+                        "points": [[round(ts, 3), round(v, 4)]
+                                   for ts, v in pts]})
+        return out
+
+    def stats(self) -> dict:
+        return {"node": self.node, "series": len(self._series),
+                "points": self._total_points, "bytes": self.nbytes(),
+                "evicted_points": self.evicted_points}

@@ -88,7 +88,23 @@ def test_port_modules_are_found():
                  "pegasus_tpu_torch.replica.group_commit",
                  "pegasus_tpu_torch.replica.fs_manager",
                  "pegasus_tpu_torch.replica.file_transfer",
-                 "pegasus_tpu_torch.replica.replica"):
+                 "pegasus_tpu_torch.replica.replica",
+                 # meta, health and the stub
+                 "pegasus_tpu_torch.utils.timeseries",
+                 "pegasus_tpu_torch.utils.health",
+                 "pegasus_tpu_torch.security.auth",
+                 "pegasus_tpu_torch.security.negotiation",
+                 "pegasus_tpu_torch.replica.dup_governor",
+                 "pegasus_tpu_torch.meta.failure_detector",
+                 "pegasus_tpu_torch.meta.election",
+                 "pegasus_tpu_torch.meta.balancer",
+                 "pegasus_tpu_torch.meta.cluster_health",
+                 "pegasus_tpu_torch.meta.compaction_scheduler",
+                 "pegasus_tpu_torch.meta.split_service",
+                 "pegasus_tpu_torch.meta.elasticity",
+                 "pegasus_tpu_torch.meta.pending_services",
+                 "pegasus_tpu_torch.meta.meta_service",
+                 "pegasus_tpu_torch.replica.stub"):
         assert want in names
 
 
@@ -350,13 +366,85 @@ def test_replication_runs_without_jax(tmp_path):
     assert "clean" in proc.stdout
 
 
+def test_cluster_runs_without_jax(tmp_path):
+    """A port meta and three port stubs on the CPU over SimNetwork, with
+    JAX blocked: a table of 2 partitions x 3 replicas, a write and a
+    batched scan over the network, a silenced node cured by the meta,
+    and the scan again on the cured primary."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from pegasus_tpu_torch.base.key_schema import generate_key\n"
+        "from pegasus_tpu_torch.meta import MetaService\n"
+        "from pegasus_tpu_torch.replica.stub import ReplicaStub\n"
+        "from pegasus_tpu_torch.rpc.codec import OP_PUT\n"
+        "from pegasus_tpu_torch.runtime import SimLoop, SimNetwork\n"
+        "from pegasus_tpu_torch.server.types import GetScannerRequest\n"
+        f"d = {str(tmp_path)!r}\n"
+        "loop = SimLoop(seed=2)\n"
+        "net = SimNetwork(loop)\n"
+        "meta = MetaService('meta', d + '/meta', net, lambda: loop.now)\n"
+        "stubs = {}\n"
+        "for i in range(4):\n"
+        "    s = ReplicaStub(f'n{i}', f'{d}/n{i}', net, device='cpu',\n"
+        "                    clock=lambda: 1.7e9 + loop.now)\n"
+        "    s.meta_addr = 'meta'\n"
+        "    stubs[s.name] = s\n"
+        "def beacons(rounds, skip=None):\n"
+        "    for _ in range(rounds):\n"
+        "        for n, s in stubs.items():\n"
+        "            if n != skip:\n"
+        "                s.send_beacon()\n"
+        "        loop.run_for(3.0)\n"
+        "        meta.tick()\n"
+        "    loop.run_until_idle()\n"
+        "beacons(2)\n"
+        "app = meta.create_app('t', partition_count=2, replica_count=3)\n"
+        "loop.run_until_idle()\n"
+        "got = []\n"
+        "net.register('c', lambda src, mt, p: got.append(p))\n"
+        "def scan():\n"
+        "    pc = meta.state.get_partition(app, 0)\n"
+        "    net.send('c', pc.primary, 'client_scan_multi', {'rid': 2, \n"
+        "        'groups': [((app, 0), [GetScannerRequest(batch_size=9, \n"
+        "        one_page=True)])]})\n"
+        "    loop.run_until_idle()\n"
+        "    return [(kv.key, kv.value) for kv in got[-1]['result'][0][1][0]"
+        ".kvs]\n"
+        "pc = meta.state.get_partition(app, 0)\n"
+        "net.send('c', pc.primary, 'client_write', {'gpid': (app, 0), \n"
+        "    'rid': 1, 'ops': [(OP_PUT, (generate_key(b'h', b's%d' % i), \n"
+        "    b'v', 0)) for i in range(5)]})\n"
+        "loop.run_until_idle()\n"
+        "assert got[-1]['err'] == 0 and got[-1]['results'] == [0] * 5\n"
+        "before = scan()\n"
+        "assert len(before) == 5\n"
+        "net.partition(pc.primary)\n"
+        "beacons(9, skip=pc.primary)\n"
+        "pc2 = meta.state.get_partition(app, 0)\n"
+        "assert pc2.primary != pc.primary and len(pc2.members()) == 3\n"
+        "assert scan() == before\n"
+        "for s in stubs.values():\n"
+        "    s.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
+        "             or m.startswith('pegasus_tpu.')\n"
+        "             or m.startswith('jax.') or m == 'jaxlib')\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
+
+
 @pytest.mark.parametrize("target", ["package", "chip_smoke", "replication"])
 def test_imports_without_jax_or_the_jax_package(target):
     names = (_port_modules() if target == "package" else
              _replication_modules() if target == "replication" else
              ["chip_smoke"])
     if target == "replication":
-        assert len(names) == 18, names   # 4 packages, 14 modules
+        assert len(names) == 29, names   # 4 packages, 25 modules
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

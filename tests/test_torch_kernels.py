@@ -473,3 +473,45 @@ def test_slot_gate_instance_matches_plain(card):
         before["slot_gate_columns"] + 40
     assert fused_compaction.LAUNCHES["compaction"] == \
         before["compaction"] + 40
+
+
+def test_stub_scan_multi_launches_the_scan_kernel(card, tmp_path):
+    """A port ReplicaStub on the card answers a client_scan_multi over
+    compacted partitions: every page equal to the oracle's, through the
+    scan kernel's static contract."""
+    from chip_smoke import (
+        NONE_STORE,
+        StubCluster,
+        check_cluster_page,
+        cluster_layout,
+        cluster_load,
+        scan_multi_call,
+        store_flags,
+    )
+    from pegasus_tpu_torch.base.key_schema import generate_key
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+
+    with store_flags(NONE_STORE):
+        ops, oracles = cluster_layout(2000, 4, np.random.default_rng(3))
+        c = StubCluster(card, str(tmp_path), 1)
+        try:
+            app_id = c.meta.create_app("t", 4, 1)
+            c.loop.run_until_idle()
+            acked, _s = cluster_load(c, app_id, ops)
+            assert acked == 20000
+            for p in range(4):
+                srv = c.replica(c.primary(app_id, p), app_id, p).server
+                assert srv.device.type == "cuda"
+                srv.manual_compact()
+                oracles[p].compacted(srv.engine.lsm.l1_runs)
+            items = [(p, generate_key(b"user%08d" % (97 * i), b""),
+                      1 + (13 * i) % 100) for i in range(32)
+                     for p in (i % 4,)]
+            before = fused_scan.LAUNCHES["static"]
+            now = epoch_now()
+            for (p, start, limit), resp in zip(
+                    items, scan_multi_call(c, app_id, items)):
+                check_cluster_page(resp, oracles[p], start, limit, now)
+            assert fused_scan.LAUNCHES["static"] > before
+        finally:
+            c.close()

@@ -21,9 +21,12 @@ servers run at app ids off the sim clusters', and the JAX drift gauge is
 reset after each test.
 """
 
+import time
+
 import numpy as np
 import pytest
 
+from pegasus_tpu.base import value_schema as jvs
 from pegasus_tpu.base.key_schema import key_hash_parts
 from pegasus_tpu.base.value_schema import epoch_now
 from pegasus_tpu.server import read_coordinator as jrc
@@ -35,6 +38,7 @@ from pegasus_tpu.server.workload import DRIFT as JDRIFT
 from pegasus_tpu.storage.engine import WriteBatchItem as JItem
 from pegasus_tpu.utils.errors import PegasusError as JPegasusError
 from pegasus_tpu.utils.flags import FLAGS as JFLAGS
+from pegasus_tpu_torch.base import value_schema as tvs
 from pegasus_tpu_torch.base.key_schema import generate_key
 from pegasus_tpu_torch.base.value_schema import generate_value
 from pegasus_tpu_torch.server import read_coordinator as trc
@@ -226,6 +230,19 @@ class Node:
         return jout, tout
 
 
+class FrozenTime:
+    """Stands in for a module's `time`: `time()` is frozen at `t`."""
+
+    def __init__(self, t: float) -> None:
+        self.t = t
+
+    def time(self) -> float:
+        return self.t
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
 def normal(res):
     """A comparable form of one point-read result of either package."""
     if isinstance(res, tuple):
@@ -263,11 +280,18 @@ def test_point_read_multi_matches_jax(tmp_path, store_flags):
                                   ErrorCode.ERR_PARENT_PARTITION_MISUSED)
                               else "missing"] += 1
         assert min(kinds.values()) > 0, kinds
-        # the solo-node form, one partition's ops
+        # the solo-node form, one partition's ops; it reads the wall
+        # clock for `now`, so both packages read the same second (a ttl
+        # answer is expire_ts - now)
         jops = [(o, ja, ph) for o, ja, _ta, ph in ops[0]]
         tops = [(o, ta, ph) for o, _ja, ta, ph in ops[0]]
-        assert [normal(r) for r in node.port[0].on_point_read_batch(tops)] \
-            == [normal(r) for r in node.jax[0].on_point_read_batch(jops)]
+        with pytest.MonkeyPatch.context() as mp:
+            frozen = FrozenTime(time.time())
+            for mod in (jvs, tvs):
+                mp.setattr(mod, "time", frozen)
+            assert [normal(r) for r in
+                    node.port[0].on_point_read_batch(tops)] \
+                == [normal(r) for r in node.jax[0].on_point_read_batch(jops)]
         stats = [s.point_stats for s in node.port]
         located = sum(st["phash_located"] for st in stats)
         pruned = sum(st["phash_pruned"] + st["bloom_pruned"]
