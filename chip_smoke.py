@@ -145,18 +145,20 @@ Phases, each fatal on failure:
    writes acknowledged per second, the group-commit window's median
    size, scans per second on the primaries, the device's busy share;
 12. the cluster: (a) BASELINE config #2 as bench.py measures it
-   (BenchCluster, bench.py:157-183): one MetaService and one
-   ReplicaStub (replica/stub.py) whose replicas are on the card over one
-   SimLoop / SimNetwork, create_app("bench", 64 partitions, one
+   (BenchCluster, bench.py:157-236): a port SimCluster of one node (one
+   MetaService and one ReplicaStub whose replicas are on the card over
+   one SimLoop / SimNetwork), create_table("bench", 64 partitions, one
    replica); 1,000,000 records in bench.py:199-222's layout through each
    primary as client_write messages of 1000 puts; every partition
    compacted by hand (the compaction kernel must launch); then 20,000
-   YCSB-E operations as bench.py:236 run_scans draws them (95% scans
-   with zipfian partition popularity and start keys, coalesced in
-   batches of 32, each batch one client_scan_multi message from a
-   "client" endpoint; 5% inserts, each a client_write message), every
-   page against a BatchedOracle, under a CUDA trace; the scan kernel's
-   static contract must launch through the stub's read gates. Printed:
+   YCSB-E operations as bench.py:236 run_scans draws them, through
+   SimCluster.client("bench"), a ClusterClient (95% scans with zipfian
+   partition popularity and start keys, coalesced in batches of 32,
+   each batch one ClusterClient.scan_multi call, which sends the node
+   one client_scan_multi message; 5% inserts, each a
+   ClusterClient.set), every page against a BatchedOracle, under a CUDA
+   trace; the scan kernel's static contract must launch through the
+   stub's read gates. Printed:
    writes/s of the load, the compaction's seconds, scans/s, p50 and p99
    per batch, the device's busy share, launches by contract. (b) the
    meta's cure: four stubs, a table of 8 partitions x 3 replicas
@@ -168,7 +170,33 @@ Phases, each fatal on failure:
    the new primaries must give byte-equal pages (wire frames) and launch
    the scan kernel; the silenced node's stub, restarted from its
    directories, recovers its partition count. Printed: simulated and
-   wall seconds to cure, learners added, launches on the new primaries.
+   wall seconds to cure, learners added, launches on the new primaries;
+13. the services (meta/{backup,bulk_load,duplication}_service.py over
+   SimClusters of three nodes on the card): (a) BASELINE config #2
+   (1,000,000 records, 10% expired) staged by server/bulk_load's
+   SSTGenerator in a LocalBlockService root and ingested into a table of
+   64 partitions x 3 replicas by the meta's start_bulk_load verb (a
+   rolling OP_INGEST through 2PC; every replica must ingest at one
+   decree), 2,000 YCSB-E scans through ClusterClient.scan_multi in
+   batches of 32 over the ingested L0 runs (the merge path: the scan
+   kernel's `now` contract must launch), every page against an oracle
+   without the expired records, under a CUDA trace; then the 64
+   primaries compacted by hand (the compaction kernel must launch; the
+   survivors must be the oracle's); (b) start_backup of that table to a
+   BlobServer on 127.0.0.1 (a free port) through remote://, restore_app
+   into a new table, 200 seeded probe scans on both tables: byte-equal
+   wire frames, equal to the oracle, the static contract launching on
+   both tables' primaries; (c) a second SimCluster ("b." names, cluster
+   id 2) on the same loop and network, an 8 x 3 table on each side,
+   add_dup, 20,000 writes through the master's ClusterClient (90% set,
+   10% del) until the follower confirmed the master's last committed
+   decree on every partition, both sides' primaries compacted, 400
+   probe scans through both clusters' ClusterClients byte-equal, the
+   static contract launching on the follower's primaries. Printed:
+   ingest seconds and records/s, scans/s and p50 / p99 a batch, the
+   device's busy share, the compaction's seconds, backup and restore
+   seconds, mutations shipped a second, envelopes, seconds from the
+   last write to the follower's confirmation, launches by part.
 
 Phase 3 also holds the compaction-filter kernel bit-exact against its
 plain version
@@ -180,11 +208,13 @@ the kernel) bit-exact against its plain version on the same seeded
 tables with hash_lo dropped, through both entries, K in {32, 64, 256},
 and times it at 2^20 records, K = 32.
 
-Phases 4, 5, 8, 9, 10, 11 and 12 pin the store flags `block_codec = none`,
+Phases 4, 5, 8, 9, 10, 11, 12 and 13 pin the store flags `block_codec = none`,
 `bloom_bits_per_key = 0`, `phash_index = false` (every block reaches the
 kernel); phases 6 and 7 (b, c) pin the defaults, 7 (a) pins `none`
 without sidecars. The line before the last lists the
 kernels as JSON; the last line is {"ok": true, "device": {...}}.
+Since phase 13 came, the whole run cuts it to 250,000 records and
+10,000 duplicated writes (printed cuts; `--ops-only` runs it uncut).
 Since phase 12 came, the whole run cuts phase 8 (b) to 200,000 records
 and 10,000 ops and phase 11 to 50,000 hashkeys, 2,000 ops and a probe
 of 400 scans (printed cuts; `--replicated-only` runs phase 11 uncut).
@@ -196,7 +226,9 @@ of DIR) and prints phase 3's times as one JSON line, nothing else;
 times and a round's wall split on a synthetic image of phase 10's
 shape; `--replicated-only` builds the kernels and runs phase 11 alone
 (its printed numbers, then one JSON line of its launches);
-`--cluster-only` does the same for phase 12. Phases 5 and
+`--cluster-only` does the same for phase 12 and `--ops-only` for phase 13
+(uncut; the whole run cuts phase 13 to 250,000 records and 10,000
+duplicated writes, printed). Phases 5 and
 6 always load their 1,000,000 records. A
 printed cut keeps the whole run near the time it took before phase 6
 came: the flavour-axis check runs 64 flavours at key width 32 only (16
@@ -5713,18 +5745,86 @@ def scan_multi_call(c, app_id: int, items: list, skip=None) -> list:
     return out
 
 
+class SimFront:
+    """A "loader" endpoint on a port SimCluster's network with the
+    surface StubCluster gives cluster_load (send, primary, replica,
+    replies, keep_alive), plus the meta's admin verbs. keep_alive runs
+    the cluster's timer round (beacons, group checks, config sync, the
+    duplication timer) once a beacon interval of simulated time has
+    passed."""
+
+    def __init__(self, cluster, name: str = "loader") -> None:
+        self.cluster = cluster
+        self.loop = cluster.loop
+        self.net = cluster.net
+        self.name = name
+        self.replies: dict = {}
+        self._rid = 0
+        self.net.register(name, lambda _src, _mt, p:
+                          self.replies.__setitem__(p["rid"], p))
+
+    def send(self, node: str, msg_type: str, payload: dict) -> int:
+        self._rid += 1
+        self.net.send(self.name, node, msg_type, dict(payload, rid=self._rid))
+        return self._rid
+
+    def primary(self, app_id: int, pidx: int) -> str:
+        return self.cluster.meta.state.get_partition(app_id, pidx).primary
+
+    def replica(self, node: str, app_id: int, pidx: int):
+        return self.cluster.stubs[node].get_replica((app_id, pidx))
+
+    def keep_alive(self, skip=None) -> None:
+        c = self.cluster
+        if self.loop.now - c._last_step_time >= c.beacon_interval:
+            c.step()
+
+    def admin(self, cmd: str, args: dict):
+        meta = self.cluster.meta
+        rid = self.send(meta.name, "admin", {"cmd": cmd, "args": args})
+        self.loop.run_until_idle()
+        reply = self.replies.pop(rid)
+        if reply["err"] != 0:
+            fail(f"admin {cmd} answered {reply['err']}: {reply['result']}")
+        return reply["result"]
+
+
+def client_scan_batch(client, items: list) -> list:
+    """[(pidx, start, limit)] as one ClusterClient.scan_multi call (the
+    client groups the partitions by node, one client_scan_multi message
+    a node); the ScanResponses in the order of `items`."""
+    groups: dict = {}
+    for p, start, limit in items:
+        groups.setdefault(p, []).append(repl_request(start, limit,
+                                                     NO_FILTER))
+    result = client.scan_multi(groups)
+    taken = {p: 0 for p in groups}
+    out = []
+    for p, _start, _limit in items:
+        resps = result.get(p)
+        if resps is None or len(resps) != len(groups[p]):
+            fail(f"scan_multi: partition {p} answered "
+                 f"{None if resps is None else len(resps)} of "
+                 f"{len(groups[p])} scans")
+        out.append(resps[taken[p]])
+        taken[p] += 1
+    return out
+
+
 def run_cluster(device, n_hashkeys: int = CLUSTER_HASHKEYS,
                 n_ops: int = CLUSTER_OPS, seed: int = 23,
                 card: str = "") -> dict:
     """Phase 12 (a): BASELINE config #2 as bench.py measures it
-    (BenchCluster, build_cluster, run_scans): one MetaService, one
-    ReplicaStub whose replicas are on `device`, create_app("bench", 64
-    partitions, one replica); the records go through each primary as
-    client_write messages of 1000 puts; every partition compacted by
-    hand; then YCSB-E from a "client" endpoint: 95% scans coalesced in
-    batches of 32, each batch one client_scan_multi message, and 5%
-    inserts, each a client_write message; every page against a
-    BatchedOracle. Returns the numbers and the launches by stage."""
+    (BenchCluster, build_cluster, run_scans): a port SimCluster of one
+    node (one MetaService, one ReplicaStub whose replicas are on
+    `device`), create_table("bench", 64 partitions, one replica); the
+    records go through each primary as client_write messages of 1000
+    puts; every partition compacted by hand; then YCSB-E through
+    SimCluster.client("bench"), a ClusterClient: 95% scans coalesced in
+    batches of 32, each batch one ClusterClient.scan_multi call (one
+    client_scan_multi message to the node), and 5% inserts, each a
+    ClusterClient.set; every page against a BatchedOracle. Returns the
+    numbers and the launches by stage."""
     import torch
 
     from pegasus_tpu_torch.base.key_schema import (
@@ -5732,7 +5832,7 @@ def run_cluster(device, n_hashkeys: int = CLUSTER_HASHKEYS,
         key_hash_parts,
     )
     from pegasus_tpu_torch.base.value_schema import epoch_now
-    from pegasus_tpu_torch.rpc.codec import OP_PUT
+    from pegasus_tpu_torch.tools.cluster import SimCluster
 
     on_card = device.type == "cuda"
     rng = np.random.default_rng(seed)
@@ -5744,14 +5844,19 @@ def run_cluster(device, n_hashkeys: int = CLUSTER_HASHKEYS,
     layout_s = time.perf_counter() - t0
     launches, take = launch_counter()
     data_dir = tempfile.mkdtemp(prefix="pegasus_torch_cluster_")
-    c = None
+    sim = None
     try:
-        c = StubCluster(device, data_dir, 1, seed=seed)
-        app_id = c.meta.create_app(CLUSTER_APP,
-                                   partition_count=PARTITION_COUNT,
-                                   replica_count=1)
-        c.loop.run_until_idle()
+        sim = SimCluster(data_dir, n_nodes=1, seed=seed, device=device)
+        app_id = sim.create_table(CLUSTER_APP,
+                                  partition_count=PARTITION_COUNT,
+                                  replica_count=1)
+        client = sim.client(CLUSTER_APP)
+        client.refresh_config()
+        c = SimFront(sim)
         node = c.primary(app_id, 0)
+        log(f"cluster: front end SimCluster(n_nodes=1).client("
+            f"{CLUSTER_APP!r}): ClusterClient.scan_multi for the scans, "
+            f"ClusterClient.set for the inserts")
         acked, load_s = cluster_load(c, app_id, ops)
         n_records = sum(map(len, ops.values()))
         if acked != n_records:
@@ -5799,7 +5904,7 @@ def run_cluster(device, n_hashkeys: int = CLUSTER_HASHKEYS,
                 return
             now = epoch_now()
             t = time.perf_counter()
-            resps = scan_multi_call(c, app_id, pending)
+            resps = client_scan_batch(client, pending)
             batch_s.append(time.perf_counter() - t)
             for (p, start, limit), resp in zip(pending, resps):
                 stats["records"] += check_cluster_page(
@@ -5817,16 +5922,13 @@ def run_cluster(device, n_hashkeys: int = CLUSTER_HASHKEYS,
                 if insert_draw[op] < 0.05:
                     flush()
                     hk = b"user%08d" % int(insert_hks[op])
-                    ph = key_hash_parts(hk)
-                    p = ph % PARTITION_COUNT
+                    p = key_hash_parts(hk) % PARTITION_COUNT
                     key = generate_key(hk, b"s00")
                     t = time.perf_counter()
-                    reply = c.call(node, "client_write", {
-                        "gpid": (app_id, p), "partition_hash": ph,
-                        "ops": [(OP_PUT, (key, b"inserted", 0))]})
+                    err = client.set(hk, b"s00", b"inserted")
                     stats["insert_s"] += time.perf_counter() - t
-                    if reply["err"] != 0 or reply["results"] != [0]:
-                        fail(f"cluster insert answered {reply}")
+                    if err != 0:
+                        fail(f"cluster insert answered {err}")
                     oracles[p].insert(key, b"inserted")
                     stats["inserts"] += 1
                     continue
@@ -5842,10 +5944,11 @@ def run_cluster(device, n_hashkeys: int = CLUSTER_HASHKEYS,
         gc.unfreeze()
         st = take("traffic")
         scans_per_s = stats["scans"] / sum(batch_s)
-        line = (f"cluster on {card}: YCSB-E through the stub: "
-                f"{stats['scans']} scans in {stats['batches']} "
-                f"client_scan_multi messages, {stats['inserts']} inserts "
-                f"(client_write messages), {stats['records']} records, "
+        line = (f"cluster on {card}: YCSB-E through ClusterClient and "
+                f"the stub: {stats['scans']} scans in {stats['batches']} "
+                f"scan_multi calls (client_scan_multi messages), "
+                f"{stats['inserts']} inserts (ClusterClient.set), "
+                f"{stats['records']} records, "
                 f"every page equal to the oracle's; {scans_per_s} scans/s "
                 f"over {sum(batch_s)} s of batch wall, per batch "
                 f"{percentiles(batch_s)}; inserts {stats['insert_s']} s; "
@@ -5877,8 +5980,8 @@ def run_cluster(device, n_hashkeys: int = CLUSTER_HASHKEYS,
                 "batch_p99_ms": float(np.percentile(a, 99)),
                 "busy_share": busy}
     finally:
-        if c is not None:
-            c.close()
+        if sim is not None:
+            sim.close()
         shutil.rmtree(data_dir, ignore_errors=True)
 
 
@@ -6042,6 +6145,530 @@ def run_phase12(device, card: str) -> tuple:
     return cluster, cure
 
 
+BULK_PARTITIONS = 64           # BASELINE config #2's table
+BULK_HASHKEYS = 100_000        # x 10 sortkeys: 1,000,000 records
+BULK_NODES = 3
+BULK_REPLICAS = 3              # Pegasus's default: a primary, 2 secondaries
+BULK_SCANS = 2_000             # YCSB-E scans on the bulk-loaded table
+BULK_APP = "bulk"
+RESTORE_APP = "restored"
+RESTORE_PROBE = 200            # probe scans on the backed-up and restored
+DUP_APP = "dup"
+DUP_PARTITIONS = 8
+DUP_OPS = 20_000               # writes to the master: 90% set, 10% del
+DUP_DEL_SHARE = 0.10
+DUP_HASHKEYS = 4_000           # the master's key space: x 10 sortkeys
+DUP_PROBE = 400                # probe scans on the master and follower
+SERVICE_ROUNDS = 400           # timer rounds a service may take
+# the whole run's cut of phase 13 (printed; --ops-only runs it uncut)
+SERVICES_RUN_HASHKEYS = 25_000
+SERVICES_RUN_DUP_OPS = 10_000
+
+
+def bulk_records(n_hashkeys: int, partitions: int, rng) -> tuple:
+    """bench.py:199-222's layout for SSTGenerator: b"user%08d" hashkeys
+    x s00..s09, values field0=%064d, 10% of the records already expired
+    at now - 100. Returns the (hash_key, sort_key, value, expire_ts)
+    records and a BatchedOracle a partition (routed by
+    key_schema.partition_index) holding the live ones."""
+    from pegasus_tpu_torch.base.crc import crc64_batch
+    from pegasus_tpu_torch.base.key_schema import generate_key
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+
+    rows = _user_keys(0, n_hashkeys)
+    route = (crc64_batch(rows, np.full(len(rows), 12, np.int64))
+             % np.uint64(partitions)).astype(np.int64)
+    expiring = rng.random((n_hashkeys, len(SORT_KEYS))) < CLUSTER_EXPIRED
+    dead_ts = max(1, epoch_now() - 100)
+    records = []
+    oracles = {p: BatchedOracle() for p in range(partitions)}
+    for h in range(n_hashkeys):
+        p, hk = int(route[h]), rows[h].tobytes()
+        for s, sk in enumerate(SORT_KEYS):
+            value = b"field0=%064d" % (h * 10 + s)
+            if expiring[h, s]:
+                records.append((hk, sk, value, dead_ts))
+            else:
+                records.append((hk, sk, value, 0))
+                oracles[p].values[generate_key(hk, sk)] = value
+    return records, oracles
+
+
+def uncompacted(oracles: dict) -> None:
+    """Before a compaction every live record sits in the overlay: an
+    ingested L0 run (or a memtable) above no L1 run, served by the merge
+    path, which skips the expired records and answers each one-page scan
+    with the first live records from its start key (the iteration budget
+    of 1000 records is never reached by a page of at most 100)."""
+    for o in oracles.values():
+        o.keys, o.starts, o.overlay = [], [0], sorted(o.values)
+
+
+def wait_rounds(cluster, done, what: str, rounds: int = SERVICE_ROUNDS,
+                other=None) -> int:
+    """Timer rounds (and `other`'s, paired) until done(); fails after
+    `rounds`. Returns the rounds taken."""
+    for n in range(1, rounds + 1):
+        cluster.step()
+        if other is not None:
+            other.step(advance=False)
+        if done():
+            return n
+    fail(f"{what}: not done after {rounds} timer rounds")
+
+
+def ycsb_scans(rng, n_scans: int, partitions: int, n_hashkeys: int) -> list:
+    """bench.py run_scans' scan draws: zipfian partition popularity and
+    start keys, lengths uniform in 1..100; [(pidx, start, limit)]."""
+    from pegasus_tpu_torch.base.key_schema import generate_key
+
+    ranks = rng.permutation(partitions)
+    weights = 1.0 / (1.0 + ranks.astype(float))
+    weights /= weights.sum()
+    zipf_u = rng.random(n_scans) ** 2.0
+    pidx_of = rng.choice(partitions, size=n_scans, p=weights)
+    lens = rng.integers(1, 101, size=n_scans)
+    return [(int(pidx_of[i]),
+             generate_key(b"user%08d" % int(zipf_u[i] * n_hashkeys), b""),
+             int(lens[i])) for i in range(n_scans)]
+
+
+def probe_frames(client, items: list, oracles=None) -> list:
+    """`items` through client_scan_batch in batches of SCAN_FLUSH; each
+    page checked against `oracles` when given; the pages' wire frames."""
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.rpc.message import encode_message
+
+    out = []
+    for lo in range(0, len(items), SCAN_FLUSH):
+        batch = items[lo:lo + SCAN_FLUSH]
+        now = epoch_now()
+        for (p, start, limit), resp in zip(batch,
+                                           client_scan_batch(client, batch)):
+            if oracles is not None:
+                check_cluster_page(resp, oracles[p], start, limit, now)
+            elif resp.error != 0:
+                fail(f"probe scan: error {resp.error}")
+            out.append(encode_message("", "", "scan", resp))
+    return out
+
+
+def compact_primaries(front, app_id: int, partitions: int, oracles) -> float:
+    """Every primary of the table compacted by hand; its L1 blocks must
+    hold exactly its oracle's records. Returns the seconds."""
+    t0 = time.perf_counter()
+    for p in range(partitions):
+        srv = front.replica(front.primary(app_id, p), app_id, p).server
+        srv.manual_compact()
+        oracles[p].compacted(srv.engine.lsm.l1_runs)
+    return time.perf_counter() - t0
+
+
+def count_messages(net, msg_type: str) -> dict:
+    """Count the messages of `msg_type` sent on `net` from now on."""
+    box = {"n": 0, "bytes": 0}
+    send = net.send
+
+    def counting(src, dst, mt, payload, *a, **kw):
+        if mt == msg_type:
+            box["n"] += 1
+            box["bytes"] += len(payload.get("ops_blob") or b"")
+        return send(src, dst, mt, payload, *a, **kw)
+
+    net.send = counting
+    return box
+
+
+def run_services(device, n_hashkeys: int = BULK_HASHKEYS,
+                 n_scans: int = BULK_SCANS, n_dup_ops: int = DUP_OPS,
+                 seed: int = 31, card: str = "") -> dict:
+    """Phase 13: the services of ROADMAP 6(b)(4) on a port SimCluster of
+    three nodes on `device`. (a) bulk load: BASELINE config #2 (bench.py
+    :199-222's layout, 1,000,000 records, 10% expired) staged by
+    SSTGenerator in a LocalBlockService root, ingested into a table of 64
+    partitions x 3 replicas by the meta's start_bulk_load verb (a rolling
+    OP_INGEST through 2PC, every replica at one decree), then YCSB-E
+    scans through ClusterClient.scan_multi in batches of 32, every page
+    against an oracle without the expired records, then the 64 primaries
+    compacted by hand (the compaction kernel must launch; survivors equal
+    the oracle's). (b) backup to a BlobServer on 127.0.0.1 through
+    remote://, restore_app into a new table, seeded probe scans on both
+    tables with byte-equal wire frames. (c) duplication: a second
+    SimCluster ("b." names, cluster id 2) on the same loop and network,
+    add_dup of an 8 x 3 table, 90% set / 10% del through ClusterClient
+    to the master until the follower confirmed the master's last
+    committed decree on every partition, both sides' primaries compacted,
+    probe scans through both clusters' ClusterClients byte-equal. The
+    scan kernel's static contract must launch on the bulk-loaded, the
+    restored and the follower tables. Returns the numbers and the
+    launches by part."""
+    import torch
+
+    from pegasus_tpu_torch.base.key_schema import generate_key, key_hash_parts
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.server.bulk_load import SSTGenerator
+    from pegasus_tpu_torch.storage.blob_server import BlobServer
+    from pegasus_tpu_torch.storage.block_service import LocalBlockService
+    from pegasus_tpu_torch.tools.cluster import SimCluster
+    from pegasus_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(seed)
+    if n_hashkeys != BULK_HASHKEYS:
+        log(f"services: CUT to {n_hashkeys * 10} records of config #2's "
+            f"{BULK_HASHKEYS * 10}")
+    launches, take = launch_counter()
+    data_dir = tempfile.mkdtemp(prefix="pegasus_torch_services_")
+    a = b = blob = None
+    out: dict = {"launches": launches}
+    try:
+        # ---- (a) bulk load ------------------------------------------
+        t0 = time.perf_counter()
+        records, oracles = bulk_records(n_hashkeys, BULK_PARTITIONS, rng)
+        root = os.path.join(data_dir, "bulk_root")
+        counts = SSTGenerator(LocalBlockService(root), BULK_APP,
+                              BULK_PARTITIONS).generate(records)
+        stage_s = time.perf_counter() - t0
+        n_live = sum(len(o.values) for o in oracles.values())
+        if sum(counts.values()) != len(records):
+            fail(f"bulk: SSTGenerator staged {sum(counts.values())} of "
+                 f"{len(records)} records")
+        del records
+        a = SimCluster(os.path.join(data_dir, "A"), n_nodes=BULK_NODES,
+                       seed=seed, device=device)
+        front = SimFront(a)
+        app_id = a.create_table(BULK_APP, BULK_PARTITIONS, BULK_REPLICAS)
+        a.step()
+        take("create")
+        t0 = time.perf_counter()
+        sim0 = a.loop.now
+        front.admin("start_bulk_load", {"app_name": BULK_APP,
+                                        "root": root})
+        rounds = wait_rounds(a, lambda: front.admin(
+            "bulk_load_status", {"app_name": BULK_APP})["complete"],
+            "bulk load")
+        ingest_s = time.perf_counter() - t0
+        status = front.admin("bulk_load_status", {"app_name": BULK_APP})
+        if status.get("failed"):
+            fail(f"bulk load failed: {status}")
+        decrees = {}
+        for p in range(BULK_PARTITIONS):
+            pc = a.meta.state.get_partition(app_id, p)
+            a.stubs[pc.primary].get_replica((app_id, p)) \
+                .broadcast_group_check()
+        a.loop.run_until_idle()
+        for p in range(BULK_PARTITIONS):
+            pc = a.meta.state.get_partition(app_id, p)
+            seen = set()
+            for node in pc.members():
+                r = front.replica(node, app_id, p)
+                l0 = r.server.engine.lsm.l0
+                if len(l0) != 1 or l0[0].total_count != counts.get(p, 0):
+                    fail(f"bulk: {node} partition {p} holds "
+                         f"{[t.total_count for t in l0]} ingested records, "
+                         f"staged {counts.get(p, 0)}")
+                seen.add((l0[0].meta["last_flushed_decree"],
+                          r.last_committed_decree))
+            if len(seen) != 1 or len(pc.members()) != BULK_REPLICAS:
+                fail(f"bulk: partition {p}'s replicas ingested at "
+                     f"{sorted(seen)}")
+            decrees[p] = seen.pop()[0]
+        st = take("ingest")
+        log(f"bulk on {card}: {sum(counts.values())} records ({n_hashkeys} "
+            f"hashkeys x 10, {sum(counts.values()) - n_live} expired) "
+            f"staged by SSTGenerator in {stage_s} s; start_bulk_load "
+            f"ingested them into {BULK_PARTITIONS} partitions x "
+            f"{BULK_REPLICAS} replicas in {ingest_s} s wall "
+            f"({a.loop.now - sim0} s simulated, {rounds} timer rounds): "
+            f"{sum(counts.values()) / ingest_s} records/s; every replica "
+            f"of a partition ingested at one decree "
+            f"(decrees {min(decrees.values())}..{max(decrees.values())}); "
+            f"launches {st}")
+        client = a.client(BULK_APP)
+        client.refresh_config()
+        uncompacted(oracles)
+        items = ycsb_scans(rng, n_scans, BULK_PARTITIONS, n_hashkeys)
+        batch_s = []
+        n_records = 0
+        gc.collect()
+        gc.freeze()
+        trace = device_trace() if on_card else contextlib.nullcontext()
+        t_traffic = time.perf_counter()
+        with trace as prof:
+            for lo in range(0, len(items), SCAN_FLUSH):
+                batch = items[lo:lo + SCAN_FLUSH]
+                now = epoch_now()
+                t = time.perf_counter()
+                resps = client_scan_batch(client, batch)
+                batch_s.append(time.perf_counter() - t)
+                for (p, start, limit), resp in zip(batch, resps):
+                    n_records += check_cluster_page(resp, oracles[p], start,
+                                                    limit, now)
+            sync()
+        traffic_s = time.perf_counter() - t_traffic
+        gc.unfreeze()
+        st = take("bulk_scans")
+        scans_per_s = len(items) / sum(batch_s)
+        bl = np.asarray(batch_s) * 1e3
+        line = (f"bulk on {card}: {len(items)} YCSB-E scans through "
+                f"ClusterClient.scan_multi in {len(batch_s)} batches of "
+                f"{SCAN_FLUSH} on the bulk-loaded table (its ingested L0 "
+                f"runs, served by the merge path: the scan kernel's `now` "
+                f"contract), {n_records} "
+                f"records, every page equal to the oracle's (expired "
+                f"records never served); {scans_per_s} scans/s over "
+                f"{sum(batch_s)} s of batch wall, per batch "
+                f"{percentiles(batch_s)}; launches {st}")
+        busy = None
+        if on_card:
+            busy_s, n_spans = device_busy_s(prof)
+            if not n_spans:
+                fail("bulk: the CUDA trace of the scans holds no device "
+                     "work")
+            busy = busy_s / traffic_s
+            line += (f"; device busy {busy_s} s in {n_spans} kernels, "
+                     f"copies and memsets, {100 * busy}% of the scans' "
+                     f"{traffic_s} s wall (oracle checks included)")
+        log(line)
+        if on_card and st["static"] + st["now"] == 0:
+            fail("bulk: the scans of the bulk-loaded table launched no "
+                 "scan kernel")
+        compact_s = compact_primaries(front, app_id, BULK_PARTITIONS,
+                                      oracles)
+        sync()
+        st = take("bulk_compaction")
+        log(f"bulk: manual_compact of the {BULK_PARTITIONS} primaries in "
+            f"{compact_s} s -> {sum(len(o.keys) for o in oracles.values())} "
+            f"records, every primary's L1 blocks as the oracle's (the "
+            f"expired dropped); compaction kernel launches "
+            f"{st['compaction']}")
+        if on_card and st["compaction"] == 0:
+            fail("bulk: the compaction launched no compaction kernel")
+        out["bulk"] = {"records": sum(counts.values()), "live": n_live,
+                       "stage_s": stage_s, "ingest_s": ingest_s,
+                       "ingest_records_per_s": sum(counts.values())
+                       / ingest_s,
+                       "scans_per_s": scans_per_s,
+                       "batch_p50_ms": float(np.percentile(bl, 50)),
+                       "batch_p99_ms": float(np.percentile(bl, 99)),
+                       "compact_s": compact_s, "busy_share": busy}
+
+        # ---- (b) backup to remote://, restore into a new table ------
+        blob = BlobServer(os.path.join(data_dir, "blobs"), host="127.0.0.1",
+                          port=0)
+        broot = f"{blob.url}/backups"
+        t0 = time.perf_counter()
+        backup_id = front.admin("start_backup", {"app_name": BULK_APP,
+                                                 "root": broot})
+        wait_rounds(a, lambda: front.admin(
+            "backup_status", {"backup_id": backup_id})["complete"],
+            "backup")
+        backup_s = time.perf_counter() - t0
+        take("backup")
+        t0 = time.perf_counter()
+        rid = front.admin("restore_app", {
+            "new_name": RESTORE_APP, "root": broot,
+            "backup_id": backup_id, "replica_count": BULK_REPLICAS})
+
+        def restored() -> bool:
+            if any(g[0] == rid for g in a.meta.pending_restores):
+                return False
+            for p in range(BULK_PARTITIONS):
+                pc = a.meta.state.get_partition(rid, p)
+                r = (front.replica(pc.primary, rid, p) if pc.primary
+                     else None)
+                if r is None or r.restoring or not r.ready_to_serve():
+                    return False
+            return True
+
+        wait_rounds(a, restored, "restore")
+        restore_s = time.perf_counter() - t0
+        take("restore")
+        log(f"backup on {card}: start_backup of {BULK_APP!r} to a "
+            f"BlobServer on 127.0.0.1:{blob.port} through remote:// in "
+            f"{backup_s} s; restore_app into {RESTORE_APP!r} (app "
+            f"{rid}) in {restore_s} s")
+        probe = ycsb_scans(rng, RESTORE_PROBE, BULK_PARTITIONS, n_hashkeys)
+        rclient = a.client(RESTORE_APP)
+        rclient.refresh_config()
+        src_frames = probe_frames(client, probe, oracles)
+        sync()
+        st = take("backup_probe_source")
+        if on_card and st["static"] == 0:
+            fail("bulk: the probe of the compacted bulk-loaded table "
+                 "launched no static scan kernel")
+        dst_frames = probe_frames(rclient, probe, oracles)
+        sync()
+        st = take("backup_probe_restored")
+        if dst_frames != src_frames:
+            bad = sum(x != y for x, y in zip(src_frames, dst_frames))
+            fail(f"restore: {bad} of {len(src_frames)} probe pages of the "
+                 f"restored table differ from the source's")
+        log(f"restore: {len(probe)} probe scans on {BULK_APP!r} and "
+            f"{RESTORE_APP!r} through ClusterClient.scan_multi give "
+            f"byte-equal pages (wire frames), equal to the oracle's; "
+            f"launches on the bulk-loaded (compacted) primaries "
+            f"{launches['backup_probe_source']}, on the restored "
+            f"primaries {st}")
+        if on_card and st["static"] == 0:
+            fail("restore: the probe of the restored table launched no "
+                 "static scan kernel")
+        blob.close()
+        blob = None
+        out["backup"] = {"backup_s": backup_s, "restore_s": restore_s}
+
+        # ---- (c) duplication to a second cluster --------------------
+        b = SimCluster(os.path.join(data_dir, "B"), n_nodes=BULK_NODES,
+                       seed=seed, name_prefix="b.", loop=a.loop, net=a.net,
+                       cluster_id=2, device=device)
+        front_b = SimFront(b, name="b.loader")
+        a_app = a.create_table(DUP_APP, DUP_PARTITIONS, BULK_REPLICAS)
+        b_app = b.create_table(DUP_APP, DUP_PARTITIONS, BULK_REPLICAS)
+        for _ in range(2):
+            a.step()
+            b.step(advance=False)
+        envelopes = count_messages(a.net, "dup_apply_batch")
+        confirmed0 = sum(
+            ent.get("metrics", {}).get("dup_confirmed_mutations",
+                                       {}).get("value", 0)
+            for ent in METRICS.snapshot("duplication"))
+        t_dup = time.perf_counter()
+        dupid = front.admin("add_dup", {"app_name": DUP_APP,
+                                        "follower_meta": b.metas[0].name,
+                                        "follower_app": DUP_APP})
+        ca = a.client(DUP_APP)
+        ca.refresh_config()
+        dup_oracles = {p: BatchedOracle() for p in range(DUP_PARTITIONS)}
+        hks = rng.integers(0, DUP_HASHKEYS, size=n_dup_ops)
+        sks = rng.integers(0, len(SORT_KEYS), size=n_dup_ops)
+        dels = rng.random(n_dup_ops) < DUP_DEL_SHARE
+        n_set = n_del = 0
+        for i in range(n_dup_ops):
+            hk = b"user%08d" % int(hks[i])
+            sk = SORT_KEYS[int(sks[i])]
+            o = dup_oracles[key_hash_parts(hk) % DUP_PARTITIONS]
+            key = generate_key(hk, sk)
+            if dels[i]:
+                err = ca.delete(hk, sk)
+                o.values.pop(key, None)
+                n_del += 1
+            else:
+                value = b"field0=%064d" % i
+                err = ca.set(hk, sk, value)
+                o.values[key] = value
+                n_set += 1
+            if err != 0:
+                fail(f"dup: write {i} to the master answered {err}")
+            if a.loop.now - b._last_step_time >= b.beacon_interval:
+                b.step(advance=False)
+        write_s = time.perf_counter() - t_dup
+        t_last, sim_last = time.perf_counter(), a.loop.now
+
+        def sessions() -> dict:
+            got = {}
+            for stub in a.stubs.values():
+                for (gpid, d), sess in stub._dup_sessions.items():
+                    if gpid[0] == a_app and d == dupid:
+                        got[gpid[1]] = sess
+            return got
+
+        def confirmed() -> bool:
+            sess = sessions()
+            for p in range(DUP_PARTITIONS):
+                pc = a.meta.state.get_partition(a_app, p)
+                r = front.replica(pc.primary, a_app, p)
+                if (p not in sess or sess[p].confirmed_decree
+                        < r.last_committed_decree):
+                    return False
+            return True
+
+        rounds = wait_rounds(a, confirmed, "duplication", other=b)
+        confirm_s = time.perf_counter() - t_last
+        confirm_sim_s = a.loop.now - sim_last
+        dup_s = time.perf_counter() - t_dup
+        shipped = sum(
+            ent.get("metrics", {}).get("dup_confirmed_mutations",
+                                       {}).get("value", 0)
+            for ent in METRICS.snapshot("duplication")) - confirmed0
+        take("dup_writes")
+        a_cmp = compact_primaries(front, a_app, DUP_PARTITIONS, dup_oracles)
+        b_oracles = {p: BatchedOracle() for p in range(DUP_PARTITIONS)}
+        for p, o in dup_oracles.items():
+            b_oracles[p].values = dict(o.values)
+        b_cmp = compact_primaries(front_b, b_app, DUP_PARTITIONS, b_oracles)
+        sync()
+        st_cmp = take("dup_compaction")
+        cb = b.client(DUP_APP)
+        cb.refresh_config()
+        probe = ycsb_scans(rng, DUP_PROBE, DUP_PARTITIONS, DUP_HASHKEYS)
+        a_frames = probe_frames(ca, probe, dup_oracles)
+        take("dup_probe_master")
+        b_frames = probe_frames(cb, probe, b_oracles)
+        sync()
+        st = take("dup_probe_follower")
+        if a_frames != b_frames:
+            bad = sum(x != y for x, y in zip(a_frames, b_frames))
+            fail(f"dup: {bad} of {len(a_frames)} probe pages of the "
+                 f"follower differ from the master's")
+        log(f"dup on {card}: add_dup of {DUP_APP!r} ({DUP_PARTITIONS} x "
+            f"{BULK_REPLICAS} on each side) to a second SimCluster "
+            f"(b. names, cluster id 2) on the same loop and network; "
+            f"{n_set} sets and {n_del} dels through ClusterClient in "
+            f"{write_s} s; the follower confirmed the master's last "
+            f"committed decree on every partition {confirm_s} s wall "
+            f"({confirm_sim_s} s simulated, {rounds} timer rounds) after "
+            f"the last write; {shipped} mutations shipped in "
+            f"{envelopes['n']} dup_apply_batch envelopes "
+            f"({envelopes['bytes']} payload bytes), "
+            f"{shipped / dup_s} mutations/s over the {dup_s} s from "
+            f"add_dup to the confirmation; both sides' primaries compacted "
+            f"({a_cmp} s, {b_cmp} s; compaction launches "
+            f"{st_cmp['compaction']}); {len(probe)} probe scans through "
+            f"both clusters' ClusterClients byte-equal (wire frames) and "
+            f"equal to the oracle's; launches on the follower's primaries "
+            f"{st}")
+        if on_card and st["static"] == 0:
+            fail("dup: the probe of the follower table launched no static "
+                 "scan kernel")
+        out["dup"] = {"sets": n_set, "dels": n_del, "write_s": write_s,
+                      "shipped": shipped, "envelopes": envelopes["n"],
+                      "envelope_bytes": envelopes["bytes"],
+                      "mutations_per_s": shipped / dup_s,
+                      "confirm_s": confirm_s,
+                      "confirm_sim_s": confirm_sim_s}
+        out["scan"] = {k: sum(s[k] for s in launches.values())
+                       for k in ("static", "now", "multi")}
+        out["compaction"] = sum(s["compaction"] for s in launches.values())
+        return out
+    finally:
+        if blob is not None:
+            blob.close()
+        for c in (b, a):
+            if c is not None:
+                c.close()
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def run_phase13(device, card: str, cut: bool) -> dict:
+    """Phase 13 under the store flags phases 4-12 pin: every block
+    reaches the kernel. `cut`: the whole run's printed cut."""
+    import torch
+
+    n_hashkeys, n_dup_ops = BULK_HASHKEYS, DUP_OPS
+    if cut:
+        n_hashkeys, n_dup_ops = SERVICES_RUN_HASHKEYS, SERVICES_RUN_DUP_OPS
+        log(f"services: CUT to {n_dup_ops} duplicated writes (the "
+            f"phase's {DUP_OPS}); --ops-only runs the phase uncut")
+    with store_flags(NONE_STORE):
+        t0 = time.perf_counter()
+        services = run_services(device, n_hashkeys=n_hashkeys,
+                                n_dup_ops=n_dup_ops, card=card)
+        torch.cuda.synchronize()
+        log(f"services: (a)-(c) in {time.perf_counter() - t0:.1f} s")
+    return services
+
+
 def times_only(torch, tree: str) -> int:
     """Phase 3's times of the kernels of the pegasus_tpu_torch imported
     from `tree`, as one JSON line: to hold two revisions' kernels against
@@ -6099,6 +6726,11 @@ def main(argv=None) -> int:
                         "config #2 through the meta and the replica stub, "
                         "then the meta's cure) alone, print its launches "
                         "as one JSON line and stop")
+    parser.add_argument("--ops-only", action="store_true",
+                        help="build the kernels, run phase 13 (bulk load, "
+                        "backup and restore, duplication on SimClusters) "
+                        "alone, print its launches as one JSON line and "
+                        "stop")
     parser.add_argument("--tree", default=None,
                         help="with --times-only or --resident-times: the "
                         "checkout whose "
@@ -6170,6 +6802,12 @@ def main(argv=None) -> int:
         cluster, cure = run_phase12(device, card)
         log(f"cluster: phase 12 done in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"cluster": cluster, "cure": cure}))
+        return 0
+    if args.ops_only:
+        t0 = time.perf_counter()
+        services = run_phase13(device, card, cut=False)
+        log(f"services: phase 13 done in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"services": services}))
         return 0
 
     # 3. kernel vs plain, then times
@@ -6362,8 +7000,19 @@ def main(argv=None) -> int:
         f"kernel launches {cl_scan}, compaction kernel launches "
         f"{cl_compact}")
 
-    # summary
     log(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s")
+
+    # 13. bulk load, backup and restore, duplication through the meta's
+    # services on SimClusters
+    t0 = time.perf_counter()
+    services = run_phase13(device, card, cut=True)
+    sv_scan = services["scan"]
+    log(f"services: phase 13 done in {time.perf_counter() - t0:.1f} s; "
+        f"scan kernel launches {sv_scan}, compaction kernel launches "
+        f"{services['compaction']}")
+
+    # summary
+    log(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s")
     rl = resident["launches"]
     rt = resident["times"]
     t = timings[LARGE_SHAPE]
@@ -6378,7 +7027,8 @@ def main(argv=None) -> int:
                      + client_scan["now"] + integrity_scan["static"]
                      + rl["static"] + rl["now"]
                      + repl_scan["static"] + repl_scan["now"]
-                     + cl_scan["static"] + cl_scan["now"]),
+                     + cl_scan["static"] + cl_scan["now"]
+                     + sv_scan["static"] + sv_scan["now"]),
         "max_abs_err": cmp["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
@@ -6394,14 +7044,17 @@ def main(argv=None) -> int:
                              "replicated": repl_scan["static"]
                              + repl_scan["now"],
                              "cluster": cl_scan["static"]
-                             + cl_scan["now"]}}, {
+                             + cl_scan["now"],
+                             "services": sv_scan["static"]
+                             + sv_scan["now"]}}, {
         "name": "scan_predicate_multi", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/predicates.py:539",
         "launches": (batched["multi"] + point["multi"]
                      + geo["launches"]["multi"] + client_scan["multi"]
                      + integrity_scan["multi"] + rl["multi"]
-                     + repl_scan["multi"] + cl_scan["multi"]),
+                     + repl_scan["multi"] + cl_scan["multi"]
+                     + sv_scan["multi"]),
         "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
@@ -6420,13 +7073,15 @@ def main(argv=None) -> int:
         "replaces": "pegasus_tpu/ops/compaction.py:110",
         "launches": (sum(r["launches"] for r in compact.values())
                      + client_compact + rl["compaction"]
-                     + replicated["compaction"] + cl_compact),
+                     + replicated["compaction"] + cl_compact
+                     + services["compaction"]),
         "launches_by_path": {"compaction": sum(r["launches"]
                                                for r in compact.values()),
                              "client": client_compact,
                              "resident": rl["compaction"],
                              "replicated": replicated["compaction"],
-                             "cluster": cl_compact},
+                             "cluster": cl_compact,
+                             "services": services["compaction"]},
         "launches_by_pass": {p: r["launches"] for p, r in compact.items()},
         "launches_client_split": client_compact,
         "launches_resident": rl["compaction"],

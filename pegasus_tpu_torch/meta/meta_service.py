@@ -85,11 +85,9 @@ class MetaService:
         # empty state). Persisted so a meta restart keeps driving them.
         self.pending_restores: Dict[Gpid, dict] = {}
         self._load_pending_restores()
-        # backup, bulk load and duplication are ROADMAP slice 6(b)(4):
-        # stand-ins that load and tick empty state and refuse the rest
-        from pegasus_tpu_torch.meta.pending_services import (
-            MetaBackupService,
-            MetaBulkLoadService,
+        from pegasus_tpu_torch.meta.backup_service import MetaBackupService
+        from pegasus_tpu_torch.meta.bulk_load_service import MetaBulkLoadService
+        from pegasus_tpu_torch.meta.duplication_service import (
             MetaDuplicationService,
         )
 

@@ -5,7 +5,6 @@ from pegasus_tpu_torch.replica.prepare_list import PrepareList
 from pegasus_tpu_torch.replica.mutation_log import MutationLog
 from pegasus_tpu_torch.replica.group_commit import WriteFlushWindow
 from pegasus_tpu_torch.replica.replica import (
-    IngestNotPortedError,
     PartitionStatus,
     Replica,
     ReplicaBusyError,

@@ -1,0 +1,583 @@
+"""Cluster duplication: ship a partition's committed mutations to a
+follower cluster's table over the network, through the follower's 2PC.
+
+Parity: the replica-side duplication pipeline (replica_duplicator.h:79,
+duplication_pipeline.h:42-76) with pegasus_mutation_duplicator.h:56 as
+the shipping backend — here the backend is the wire: shipped writes are
+OP_DUP_PUT / OP_DUP_REMOVE mutations sent to the follower partition's
+primary, which replicates them to the follower's members and resolves
+conflicts via the carried source timetags.
+
+WAN shape (Taurus, PAPERS.md: log shipping must be batched and
+flow-controlled to survive real links): each tick loads a WINDOW of
+committed mutations (`[pegasus.dup] ship_batch_mutations` /
+`ship_batch_bytes`, budget-capped by the node's DupGovernor) and ships
+each follower partition ONE `dup_apply_batch` envelope whose ops payload
+is zstd-compressed with the block-codec machinery. The follower applies
+an envelope's ops in decree order as one 2PC mutation and acks at the
+batch's max decree; the ack carries the follower's foreground-pressure
+counters back for the governor's AIMD backoff. Setting
+ship_batch_mutations <= 1 degrades to the original solo-mutation
+client_write shipping (the bench baseline).
+
+Confirmation discipline (the part the in-process TableShipper doesn't
+need): `confirmed_decree` advances ONLY after every follower partition
+acks its envelope — a crash between ship and ack re-ships the same
+window, which is safe because dup application is idempotent (same
+timetag loses the `>` comparison the second time).
+"""
+
+from __future__ import annotations
+
+import itertools
+import struct
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+from pegasus_tpu_torch.base.key_schema import generate_key, key_hash
+from pegasus_tpu_torch.base.value_schema import (
+    PEGASUS_EPOCH_BEGIN,
+    expire_ts_from_ttl,
+    generate_timetag,
+)
+from pegasus_tpu_torch.replica.mutation import ATOMIC_OPS, Mutation
+from pegasus_tpu_torch.rpc.codec import (
+    OP_DUP_PUT,
+    OP_DUP_REMOVE,
+    OP_MULTI_PUT,
+    OP_MULTI_REMOVE,
+    OP_PUT,
+    OP_REMOVE,
+    encode_write,
+)
+from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
+from pegasus_tpu_torch.utils.metrics import METRICS
+
+define_flag("pegasus.dup", "ship_batch_mutations", 32,
+            "committed mutations one dup tick loads into a ship window "
+            "(<=1 degrades to the legacy solo-mutation client_write "
+            "shipping — one uncompressed mutation per round trip)",
+            mutable=True)
+define_flag("pegasus.dup", "ship_batch_bytes", 1 << 20,
+            "log-byte cap on one ship window (the window always carries "
+            "at least one mutation — forward-progress floor)",
+            mutable=True)
+
+_RIDS = itertools.count(1_000_000)
+_LEN = struct.Struct("<I")
+
+# fail_mode "skip": rejections of the same decree tolerated before the
+# mutation is abandoned (each retry is a full re-resolve + re-ship round)
+_FAIL_SKIP_RETRIES = 3
+
+# structured rate-limited failure logging (the transport's hygiene): a
+# wedged follower must produce one countable line per interval per
+# site, never silence — and operator-sanctioned loss (fail_mode=skip
+# abandoning a decree) must be loudly visible
+from pegasus_tpu_torch.rpc.transport import _RateLimitedLog  # noqa: E402
+
+_DUP_LOG = _RateLimitedLog()
+
+
+class _DupError(RuntimeError):
+    """Structured carrier for _DUP_LOG (it logs exception type + msg)."""
+
+
+class ClusterDuplicator:
+    """One partition's dup session on its primary's node.
+
+    Driven by the stub: `tick()` from the dup timer; `on_write_reply` /
+    `on_follower_config` from inbound messages. At most one WINDOW is in
+    flight at a time (ordering: the follower must apply mutations in
+    decree order for timetag floors to behave like the reference's
+    single-channel shipping).
+    """
+
+    def __init__(self, stub, gpid: Tuple[int, int], dupid: int,
+                 follower_meta: str, follower_app: str,
+                 confirmed_decree: int = 0,
+                 source_cluster_id: int = 1,
+                 on_progress: Optional[Callable[[int, int], None]] = None,
+                 fail_mode: str = "slow") -> None:
+        self.stub = stub
+        self.gpid = gpid
+        self.dupid = dupid
+        self.follower_meta = follower_meta
+        self.follower_app = follower_app
+        self.confirmed_decree = confirmed_decree
+        self.source_cluster_id = source_cluster_id
+        self.on_progress = on_progress
+        # "slow": retry a rejected mutation forever (default, lossless);
+        # "skip": after _FAIL_SKIP_RETRIES rejections of the SAME decree,
+        # confirm past it (parity: duplication fail_mode FAIL_SKIP —
+        # operator-sanctioned loss to un-wedge a stuck pipeline)
+        self.fail_mode = fail_mode
+        self._fail_decree: Optional[int] = None
+        self._fail_count = 0
+        self._fconfig: Optional[dict] = None  # follower app config
+        # a FEW recent ask rids stay live: a re-ask must not discard a
+        # SLOW (not lost) reply to an earlier ask — the same
+        # retained-rid discipline the write path uses
+        self._config_rids: "deque[int]" = deque(maxlen=4)
+        self._config_ticks = 0  # ticks since the newest config ask
+        # in-flight window: max decree + outstanding envelope rids. rid
+        # → follower pidx, so a LATE ack from a superseded ship attempt
+        # of the same window still completes that pidx (acks slower than
+        # the re-drive cadence must not be discarded — that livelocks).
+        self._inflight_decree: Optional[int] = None
+        self._inflight_count = 0  # mutations in the in-flight window
+        self._outstanding: Dict[int, int] = {}
+        self._pending_pidx: set = set()
+        self._redrive_decree: Optional[int] = None
+        self._inflight_ticks = 0
+        self._retry_limit = self.RETRY_TICKS
+        # a REJECTED window retries on the next timer tick, never in
+        # the same event cascade: the ack-triggered tick consumes this
+        self._reject_cooldown = 0
+        self._log_offset = 0
+        self._log_generation: Optional[int] = None
+        # per-envelope dup.ship spans (finish at ack), parented to the
+        # source write's 2PC span ctx so `shell trace <id>` renders the
+        # write crossing clusters as ONE stitched tree
+        self._inflight_spans: Dict[int, object] = {}
+        self.last_error: Optional[str] = None
+        self._lag_ms = 0.0
+        # per-dup observability on the "duplication" entity (reported up
+        # config-sync so meta exposes cluster-wide dup health)
+        ent = METRICS.entity(
+            "duplication", f"{stub.name}.{gpid[0]}.{gpid[1]}.dup{dupid}",
+            {"node": stub.name, "app_id": str(gpid[0]),
+             "pidx": str(gpid[1]), "dupid": str(dupid)})
+        self._g_lag_decrees = ent.gauge("dup_lag_decrees")
+        self._g_lag_ms = ent.gauge("dup_lag_ms")
+        self._c_shipped_bytes = ent.counter("dup_shipped_bytes")
+        self._c_raw_bytes = ent.counter("dup_shipped_raw_bytes")
+        self._c_confirmed = ent.counter("dup_confirmed_mutations")
+        self._c_errors = ent.counter("dup_ship_error_count")
+        self._c_rejects = ent.counter("dup_reject_count")
+        self._c_skips = ent.counter("dup_skip_count")
+        replica = stub.get_replica(gpid)
+        if replica is not None:
+            self._log_generation = replica.log.generation
+            replica.duplicators.append(self)
+
+    # ---- follower config -----------------------------------------------
+
+    def _request_follower_config(self) -> None:
+        rid = next(_RIDS)
+        self._config_rids.append(rid)
+        self.stub.net.send(self.stub.name, self.follower_meta,
+                           "query_config",
+                           {"app_name": self.follower_app, "rid": rid})
+
+    def on_follower_config(self, payload: dict) -> bool:
+        rid = payload.get("rid")
+        if rid not in self._config_rids:
+            return False
+        if payload["err"] == 0:
+            self._config_rids.clear()
+            self._fconfig = {
+                "app_id": payload["app_id"],
+                "partition_count": payload["partition_count"],
+                "configs": payload["configs"],
+            }
+        else:
+            # an error reply settles only ITS ask: a newer in-flight
+            # ask's (possibly successful) reply must stay acceptable
+            self._config_rids.remove(rid)
+        return True
+
+    # ---- shipping ------------------------------------------------------
+
+    RETRY_TICKS = 3  # in-flight ship attempts re-drive after this many
+
+    def tick(self) -> None:
+        """Load → ship the next window of committed mutations."""
+        from pegasus_tpu_torch.replica.replica import PartitionStatus
+
+        replica = self.stub.get_replica(self.gpid)
+        if replica is None or replica.status != PartitionStatus.PRIMARY:
+            return  # dup runs on the primary only (meta re-homes us)
+        last_committed = replica.last_committed_decree
+        self._g_lag_decrees.set(
+            max(0, last_committed - self.confirmed_decree))
+        if self._reject_cooldown:
+            # a rejection retries on the NEXT timer tick, not inside
+            # the same delivery cascade — an unhealthy follower (lease-
+            # lapsed, mid-failover) would otherwise feed a tight
+            # ship→reject→re-resolve→re-ship storm that starves the
+            # very timer rounds (beacons, cures) that heal it
+            self._reject_cooldown -= 1
+            return
+        if self._inflight_decree is not None:
+            # waiting on follower acks — but a LOST shipped envelope (or
+            # a lost ack) must not wedge the pipeline forever: after a
+            # few ticks, re-resolve and re-ship the same window.
+            # Re-shipping is safe — dup ops are idempotent on the
+            # follower (timetag conflict resolution discards the stale
+            # double-apply). The old rids stay registered (see
+            # _ship_window) and the re-drive interval backs off
+            # exponentially, so a follower whose RTT exceeds the base
+            # cadence converges instead of livelocking.
+            self._inflight_ticks += 1
+            if self._inflight_ticks < self._retry_limit:
+                return
+            # modest backoff cap: retained rids (below) already let a
+            # slow follower converge via LATE acks, so the backoff only
+            # reduces re-ship traffic — a large cap would instead gut
+            # convergence under LINK LOSS, where re-drives are the only
+            # recovery (seed-sweep regression on case-608)
+            self._retry_limit = min(self._retry_limit * 2, 12)
+            self._fconfig = None
+            self._redrive_decree = self._inflight_decree
+            self._inflight_decree = None
+            self._inflight_ticks = 0
+        if self._fconfig is None:
+            # the config ask (or its reply) can be LOST: re-issue with a
+            # fresh rid after a few ticks, or a single dropped message
+            # wedges the whole pipeline forever (seed-sweep finding —
+            # the canonical schedule never dropped this message)
+            if not self._config_rids:
+                self._request_follower_config()
+                self._config_ticks = 0
+            else:
+                self._config_ticks += 1
+                if self._config_ticks >= self.RETRY_TICKS:
+                    self._request_follower_config()
+                    self._config_ticks = 0
+            return
+        log = replica.log
+        if log.generation != self._log_generation:
+            self._log_offset = 0
+            self._log_generation = log.generation
+        cap_n = int(FLAGS.get("pegasus.dup", "ship_batch_mutations"))
+        solo_wire = cap_n <= 1
+        cap_n = max(1, cap_n)
+        if self._fail_count:
+            # fail_mode=skip is counting rejections: shrink to solo
+            # windows so retries (and an eventual abandon) isolate the
+            # poison DECREE instead of skipping a whole window
+            cap_n = 1
+        cap_b = int(FLAGS.get("pegasus.dup", "ship_batch_bytes"))
+        governor = getattr(self.stub, "dup_governor", None)
+        if governor is not None:
+            budget = governor.window_budget()
+            if budget is not None:
+                cap_b = min(cap_b, budget)
+        window: List[Tuple[Mutation, int]] = []
+        est = 0
+        prev_end = self._log_offset
+        for mu, frame_end in log.read_tail(self._log_offset):
+            if mu.decree > last_committed:
+                break
+            if mu.decree <= self.confirmed_decree:
+                self._log_offset = frame_end
+                prev_end = frame_end
+                continue
+            if (self._redrive_decree is not None
+                    and mu.decree > self._redrive_decree):
+                # a re-drive re-ships EXACTLY the superseded window (not
+                # a freshly-grown one), so the retained rids' late acks
+                # still match what is in flight
+                break
+            window.append((mu, frame_end))
+            est += frame_end - prev_end
+            prev_end = frame_end
+            if len(window) >= cap_n or est >= cap_b:
+                break  # floor: the first mutation always gets in
+        if not window:
+            # nothing below the (possibly stale) re-drive cap: drop it
+            # so the next tick can load fresh decrees — a retained cap
+            # above `confirmed` would otherwise wedge loading forever
+            self._redrive_decree = None
+            self._lag_ms = 0.0
+            self._g_lag_ms.set(0.0)
+            return
+        clock = self.stub.clock
+        now_ms = (clock() if clock is not None else 0.0) * 1000.0
+        self._lag_ms = max(0.0, now_ms - window[0][0].timestamp_us / 1e3) \
+            if now_ms else 0.0
+        self._g_lag_ms.set(round(self._lag_ms, 1))
+        self._ship_window(window, solo_wire)
+
+    def _finish_spans(self) -> None:
+        for span in self._inflight_spans.values():
+            span.finish()
+        self._inflight_spans.clear()
+
+    def _abort_ship(self, pidx: int) -> None:
+        """Mid-loop abort (follower partition unowned): drop the config
+        and retry later. The rids/pidxs staged by THIS aborted attempt
+        are cleared — a late ack for one of them must not reset
+        `_retry_limit`/`_inflight_ticks` for a window that is no longer
+        in flight (regression: tests/test_cross_cluster_dup.py)."""
+        self._fconfig = None
+        self._inflight_decree = None
+        self._inflight_count = 0
+        self._outstanding = {}
+        self._pending_pidx = set()
+        self._finish_spans()
+        self._c_errors.increment()
+        self.last_error = f"follower partition {pidx} unowned"
+
+    def _ship_window(self, window: List[Tuple[Mutation, int]],
+                     solo_wire: bool) -> None:
+        from pegasus_tpu_torch.storage.block_codec import deflate_payload
+        from pegasus_tpu_torch.utils import tracing
+
+        count = self._fconfig["partition_count"]
+        by_pidx: Dict[int, List[tuple]] = {}
+        replica = self.stub.get_replica(self.gpid)
+        dup_ctxs = getattr(replica, "dup_trace_ctxs", None) \
+            if replica is not None else None
+        ctx0 = None
+        for mu, _fe in window:
+            mu_now = max(0, mu.timestamp_us // 1_000_000
+                         - PEGASUS_EPOCH_BEGIN)
+            for i, wo in enumerate(mu.ops):
+                timetag = generate_timetag(mu.timestamp_us + i,
+                                           self.source_cluster_id, False)
+                for key, dup_op, req in self._dup_ops(wo, timetag,
+                                                      mu_now):
+                    by_pidx.setdefault(key_hash(key) % count, []).append(
+                        (dup_op, req))
+            if ctx0 is None and dup_ctxs:
+                # the first traced mutation's 2PC ctx parents the ship
+                # spans: one stitched tree across clusters
+                ctx0 = dup_ctxs.get(mu.decree)
+        max_decree = window[-1][0].decree
+        frame_end = window[-1][1]
+        if not by_pidx:
+            # nothing shippable (e.g. empty mutations): confirm, move on
+            self._redrive_decree = None
+            self._advance(max_decree, frame_end)
+            return
+        self._inflight_decree = max_decree
+        self._inflight_frame_end = frame_end
+        self._inflight_count = len(window)
+        if max_decree != self._redrive_decree:
+            self._finish_spans()
+            self._outstanding = {}  # new window: prior rids are dead
+        self._redrive_decree = None
+        self._pending_pidx = set(by_pidx)
+        self._inflight_ticks = 0
+        auth = None
+        if getattr(self.stub, "auth_secret", None):
+            from pegasus_tpu_torch.security.auth import (
+                NODE_USER,
+                make_credentials,
+            )
+
+            auth = make_credentials(NODE_USER, self.stub.auth_secret)
+        governor = getattr(self.stub, "dup_governor", None)
+        app_id = self._fconfig["app_id"]
+        for pidx, ops in by_pidx.items():
+            primary = self._fconfig["configs"][pidx]["primary"]
+            if not primary:
+                self._abort_ship(pidx)
+                return
+            rid = next(_RIDS)
+            self._outstanding[rid] = pidx
+            span = None
+            if ctx0 is not None:
+                span = tracing.ring_for(self.stub.name).start(
+                    f"dup.ship.{app_id}.{pidx}", parent_ctx=ctx0)
+                self._inflight_spans[rid] = span
+            # deliberately NO deadline on duplication-shipped writes:
+            # this is replication-class traffic (the log-GC floor waits
+            # on it), so it must never be fast-failed as abandoned —
+            # same exemption the dispatcher's overload shedding applies
+            if solo_wire:
+                payload = {"gpid": (app_id, pidx), "rid": rid,
+                           "ops": ops, "auth": auth}
+                if span is not None:
+                    payload["trace"] = span.ctx()
+                wire = sum(len(encode_write(o, r)) for o, r in ops)
+                self._c_shipped_bytes.increment(wire)
+                self._c_raw_bytes.increment(wire)
+                if governor is not None:
+                    governor.note_shipped(wire)
+                self.stub.net.send(self.stub.name, primary,
+                                   "client_write", payload)
+                continue
+            parts = []
+            for dup_op, req in ops:
+                eb = encode_write(dup_op, req)
+                parts.append(_LEN.pack(len(eb)))
+                parts.append(eb)
+            blob = b"".join(parts)
+            mode, stored = deflate_payload(blob)
+            self._c_shipped_bytes.increment(len(stored))
+            self._c_raw_bytes.increment(len(blob))
+            if governor is not None:
+                governor.note_shipped(len(stored))
+            self.stub.net.send(self.stub.name, primary,
+                               "dup_apply_batch", {
+                                   "gpid": (app_id, pidx), "rid": rid,
+                                   "dupid": self.dupid,
+                                   "ops_blob": stored,
+                                   "blob_mode": mode,
+                                   "raw_len": len(blob),
+                                   "n_ops": len(ops),
+                                   "max_decree": max_decree,
+                                   "auth": auth,
+                                   # explicit ctx (or None — never let
+                                   # ambient stamping mis-tag a batch)
+                                   "trace": (span.ctx()
+                                             if span is not None
+                                             else None)})
+
+    @staticmethod
+    def _timetag_cluster(timetag: int) -> int:
+        return (timetag >> 1) & 0x7F
+
+    def _dup_ops(self, wo, timetag: int, mu_now: int):
+        """Translate one logged write op into (key, dup_op, request)s."""
+        if wo.op in (OP_DUP_PUT, OP_DUP_REMOVE):
+            # a dup-tagged op is either (a) an idempotent-translated
+            # LOCAL atomic (timetag minted with OUR cluster id) — ship
+            # verbatim — or (b) a write RECEIVED from another cluster's
+            # duplication: re-shipping those would echo master-master
+            # writes back and forth forever (the reference's
+            # origin-cluster filter)
+            if (self._timetag_cluster(wo.request[-1])
+                    == self.source_cluster_id):
+                yield wo.request[0], wo.op, wo.request
+            return
+        if wo.op in ATOMIC_OPS:
+            # unreachable on tables that enabled duplication BEFORE the
+            # write (client_write idempotent-translates); mutations
+            # logged before dup-add may still carry raw atomic ops —
+            # those cannot ship safely (re-execution) and are skipped,
+            # matching the reference's requirement that idempotence be
+            # enabled before adding a duplication
+            return
+        if wo.op == OP_PUT:
+            key, user_data, expire_ts = wo.request
+            yield key, OP_DUP_PUT, (key, user_data, expire_ts, timetag)
+        elif wo.op == OP_REMOVE:
+            (key,) = wo.request
+            yield key, OP_DUP_REMOVE, (key, timetag)
+        elif wo.op == OP_MULTI_PUT:
+            expire_ts = expire_ts_from_ttl(wo.request.expire_ts_seconds,
+                                           now=mu_now)
+            for kv in wo.request.kvs:
+                key = generate_key(wo.request.hash_key, kv.key)
+                yield key, OP_DUP_PUT, (key, kv.value, expire_ts, timetag)
+        elif wo.op == OP_MULTI_REMOVE:
+            for sk in wo.request.sort_keys:
+                key = generate_key(wo.request.hash_key, sk)
+                yield key, OP_DUP_REMOVE, (key, timetag)
+
+    def on_write_reply(self, payload: dict) -> bool:
+        rid = payload.get("rid")
+        if rid not in self._outstanding:
+            return False
+        span = self._inflight_spans.pop(rid, None)
+        if span is not None:
+            span.finish()
+        governor = getattr(self.stub, "dup_governor", None)
+        if governor is not None:
+            # follower foreground pressure rides the batch ack: the
+            # governor backs catch-up off before the follower sheds
+            governor.on_follower_pressure(payload.get("node", "?"),
+                                          payload.get("pressure"))
+        if payload["err"] != 0:
+            decree = self._inflight_decree
+            self._c_rejects.increment()
+            self._c_errors.increment()
+            self.last_error = (f"follower rejected err={payload['err']} "
+                               f"decree={decree}")
+            _DUP_LOG.log(f"dup.reject.{self.gpid[0]}.{self.gpid[1]}",
+                         _DupError(self.last_error))
+            if self.fail_mode == "skip" and decree is not None:
+                if self._fail_decree == decree:
+                    self._fail_count += 1
+                else:
+                    self._fail_decree, self._fail_count = decree, 1
+                if (self._fail_count >= _FAIL_SKIP_RETRIES
+                        and self._inflight_count <= 1):
+                    # operator chose loss over a wedged pipeline:
+                    # confirm past the poison mutation and move on —
+                    # LOUDLY (sanctioned loss must still be visible)
+                    self._c_skips.increment()
+                    _DUP_LOG.log(
+                        f"dup.skip.{self.gpid[0]}.{self.gpid[1]}",
+                        _DupError(f"fail_mode=skip abandoned decree "
+                                  f"{decree} after {self._fail_count} "
+                                  f"rejections (dupid {self.dupid})"))
+                    self._advance(decree, self._inflight_frame_end)
+                    self._fail_decree, self._fail_count = None, 0
+                    self._inflight_decree = None
+                    self._inflight_count = 0
+                    self._outstanding = {}
+                    self._pending_pidx = set()
+                    self._finish_spans()
+                    return True
+            # follower rejected (failover/stale config): re-resolve and
+            # re-ship the whole window — idempotent on the follower —
+            # from the next TIMER tick (paced, see _reject_cooldown)
+            self._fconfig = None
+            self._inflight_decree = None
+            self._outstanding = {}
+            self._pending_pidx = set()
+            self._finish_spans()
+            self._reject_cooldown = 1
+            return True
+        pidx = self._outstanding.pop(rid)
+        self._pending_pidx.discard(pidx)
+        # an ack is PROGRESS: the link works — stop backing off AND
+        # restart the re-drive clock (without resetting the tick count a
+        # shrunken limit would fire a spurious re-drive next tick)
+        self._retry_limit = self.RETRY_TICKS
+        self._inflight_ticks = 0
+        if not self._pending_pidx and self._inflight_decree is not None:
+            self._advance(self._inflight_decree, self._inflight_frame_end)
+            self._inflight_decree = None
+            self._inflight_count = 0
+            self._outstanding = {}
+            # the rejected decree shipped after all: clear the skip
+            # bookkeeping, or one TRANSIENT rejection would pin the
+            # window to solo (cap_n=1) for the session's whole lifetime
+            self._fail_decree, self._fail_count = None, 0
+        return True
+
+    def _advance(self, decree: int, frame_end: int) -> None:
+        self._c_confirmed.increment(max(0, decree - self.confirmed_decree))
+        self.confirmed_decree = decree
+        self._log_offset = frame_end
+        if self.on_progress is not None:
+            self.on_progress(self.dupid, decree)
+
+    # ---- observability (config-sync report / dup.stats verb) -----------
+
+    def stats(self) -> dict:
+        replica = self.stub.get_replica(self.gpid)
+        last_committed = (replica.last_committed_decree
+                          if replica is not None else 0)
+        return {
+            "gpid": list(self.gpid),
+            "dupid": self.dupid,
+            # whether THIS replica has the drill fence applied when the
+            # report was built: the drain check needs positive evidence
+            # the fence reached the replica — a report merely ARRIVING
+            # after the fence decision could have been built before the
+            # env landed, while a not-yet-fenced replica kept acking
+            "fenced": bool(replica is not None
+                           and replica.server.app_envs.get("dup.fence")),
+            "follower_meta": self.follower_meta,
+            "follower_app": self.follower_app,
+            "fail_mode": self.fail_mode,
+            "confirmed": self.confirmed_decree,
+            "last_committed": last_committed,
+            "lag_decrees": max(0, last_committed - self.confirmed_decree),
+            "lag_ms": round(self._lag_ms, 1),
+            "inflight_decree": self._inflight_decree,
+            "shipped_bytes": self._c_shipped_bytes.value(),
+            "shipped_raw_bytes": self._c_raw_bytes.value(),
+            "confirmed_mutations": self._c_confirmed.value(),
+            "error_count": self._c_errors.value(),
+            "reject_count": self._c_rejects.value(),
+            "skip_count": self._c_skips.value(),
+            "last_error": self.last_error,
+        }

@@ -99,12 +99,6 @@ class PartitionStatus(enum.IntEnum):
     POTENTIAL_SECONDARY = 4
 
 
-class IngestNotPortedError(NotImplementedError):
-    """An OP_INGEST mutation reached a replica of the port, which has no
-    bulk load yet (it needs `server/bulk_load` and
-    `storage/block_service`, ROADMAP slice 6(b)(4))."""
-
-
 @dataclass
 class ReplicaConfig:
     """Parity: partition_configuration (idl/dsn.layer2.thrift:34-46)."""
@@ -398,12 +392,6 @@ class Replica:
             raise RuntimeError(f"{self.name}: not primary")
         if any(wo.op in ATOMIC_OPS for wo in ops) and len(ops) > 1:
             raise ValueError("atomic ops cannot batch with other writes")
-        if any(wo.op == OP_INGEST for wo in ops):
-            # refused before a decree is assigned: the group never logs
-            # a mutation that no member could apply
-            raise IngestNotPortedError(
-                f"{self.name}: OP_INGEST needs bulk load and the block "
-                f"service (ROADMAP slice 6(b)(4), not ported)")
         if self.write_metrics is not None:
             if self._queue_depth_metric is None:
                 self._queue_depth_metric = self.write_metrics.percentile(
@@ -988,15 +976,55 @@ class Replica:
         return out_ops, [resp]
 
     def _apply_ingest(self, request, decree: int) -> int:
-        """Download this partition's staged SST and ingest it at `decree`.
+        """Download this partition's staged SST and ingest it at `decree`."""
+        import json as _json
+        import tempfile
 
-        Bulk-load ingestion needs `server/bulk_load` and
-        `storage/block_service`, which the port does not have yet: the
-        mutation raises instead of advancing the decree without its
-        data."""
-        raise IngestNotPortedError(
-            f"{self.name}: OP_INGEST at decree {decree} needs bulk load "
-            f"and the block service (ROADMAP slice 6(b)(4), not ported)")
+        from pegasus_tpu_torch.server.bulk_load import (
+            BULK_LOAD_FILE,
+            BULK_LOAD_INFO,
+        )
+        from pegasus_tpu_torch.storage.block_service import block_service_for
+        from pegasus_tpu_torch.utils.errors import StorageStatus
+
+        root, src_app, load_id = request
+        if self.has_ingested(load_id):
+            # replayed or duplicated ingest mutation: decree advances,
+            # data does not re-apply
+            self.server.write_service.apply_items([], decree)
+            return int(StorageStatus.OK)
+        bs = block_service_for(root)
+        info = _json.loads(bs.read_file(f"{src_app}/{BULK_LOAD_INFO}"))
+        if info["partition_count"] != self.server.partition_count:
+            # still stamp the decree: the mutation is committed groupwide
+            # and the watermark must advance identically on every member
+            self.server.write_service.apply_items([], decree)
+            return int(StorageStatus.INVALID_ARGUMENT)
+        remote = f"{src_app}/{self.server.pidx}/{BULK_LOAD_FILE}"
+        if not bs.exists(remote):
+            with self.server._write_lock:
+                self.server.write_service.apply_items([], decree)
+            return int(StorageStatus.OK)  # nothing staged for this pidx
+        try:
+            with tempfile.TemporaryDirectory(prefix="pegingest") as tmp:
+                local = os.path.join(tmp, "ingest.sst")
+                # the (possibly slow) block-service download runs
+                # UNLOCKED; only the engine mutation itself needs the
+                # single-writer exclusion (same split as bulk_load.py)
+                bs.download(remote, local)
+                with self.server._write_lock:
+                    self.server.engine.ingest_sst_file(local, decree)
+            self._record_ingested(load_id)
+        except (OSError, ValueError):
+            # staged files must stay immutable+present for the whole load
+            # (same contract as the reference). If they vanish mid-apply,
+            # STILL stamp the decree — a committed mutation must advance
+            # the watermark identically on every member — and surface the
+            # failure so meta aborts the load.
+            with self.server._write_lock:
+                self.server.write_service.apply_items([], decree)
+            return int(StorageStatus.IO_ERROR)
+        return int(StorageStatus.OK)
 
     # ---- learning (parity: replica_learn.cpp) -------------------------
 

@@ -10,11 +10,7 @@ All inter-node traffic is enveloped as ("replica", {gpid, type, payload})
 so one network address serves every partition on the node.
 
 The port's stub serves its replicas on the card (`device=None`) unless
-the caller names the CPU. Backup, restore, bulk-load ingestion and
-duplication need ROADMAP slice 6(b)(4): their messages raise
-`meta.pending_services.ServiceNotPortedError` (OP_INGEST
-`replica.IngestNotPortedError`) past the reference's own gates and
-before any state changes.
+the caller names the CPU.
 """
 
 from __future__ import annotations
@@ -22,9 +18,7 @@ from __future__ import annotations
 import os
 from typing import Callable, Dict, Optional, Tuple
 
-from pegasus_tpu_torch.meta.pending_services import not_ported
 from pegasus_tpu_torch.replica.replica import (
-    IngestNotPortedError,
     PartitionStatus,
     Replica,
     ReplicaBusyError,
@@ -2000,6 +1994,8 @@ class ReplicaStub:
 
     def _on_backup_partition(self, src: str, payload: dict) -> None:
         from pegasus_tpu_torch.replica.replica import PartitionStatus
+        from pegasus_tpu_torch.server.backup import BackupEngine
+        from pegasus_tpu_torch.storage.block_service import block_service_for
 
         gpid = tuple(payload["gpid"])
         r = self.replicas.get(gpid)
@@ -2010,10 +2006,47 @@ class ReplicaStub:
         key = (gpid, payload["backup_id"])
         if key in self._backup_inflight:
             return  # meta re-sends until done; one upload is enough
-        raise not_ported("backing a partition up to the block service")
+        self._backup_inflight.add(key)
+        # checkpoint HERE (needs engine serialization with applies);
+        # the slow upload runs off the dispatcher so beacons/prepares
+        # keep flowing during a large backup
+        import shutil
+        import tempfile
+
+        ckpt_dir = tempfile.mkdtemp(prefix="pegbk")
+        try:
+            decree = r.server.checkpoint(ckpt_dir)
+        except Exception:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            self._backup_inflight.discard(key)
+            raise
+
+        def upload() -> None:
+            from pegasus_tpu_torch.utils.fail_point import fail_point
+
+            try:
+                if fail_point(f"{self.name}::backup_upload") is not None:
+                    # upload to the block service failed: report nothing;
+                    # the meta backup tick re-commands this partition
+                    # until an upload completes
+                    return
+                engine = BackupEngine(block_service_for(payload["root"]),
+                                      payload["policy"])
+                engine.upload_checkpoint(payload["backup_id"], gpid[0],
+                                         gpid[1], ckpt_dir, decree)
+                self.net.send(self.name, src, "backup_partition_done", {
+                    "gpid": gpid, "backup_id": payload["backup_id"],
+                    "decree": decree})
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+                self._backup_inflight.discard(key)
+
+        self.net.offload(upload)
 
     def _on_restore_partition(self, src: str, payload: dict) -> None:
         from pegasus_tpu_torch.replica.replica import PartitionStatus
+        from pegasus_tpu_torch.server.backup import BackupEngine
+        from pegasus_tpu_torch.storage.block_service import block_service_for
 
         gpid = tuple(payload["gpid"])
         r = self.replicas.get(gpid)
@@ -2026,13 +2059,27 @@ class ReplicaStub:
             self.net.send(self.name, src, "restore_partition_done",
                           {"gpid": gpid})
             return
-        raise not_ported("restoring a partition from the block service")
+        engine = BackupEngine(block_service_for(payload["root"]),
+                              payload["policy"])
+        app_dir = r.server.engine.data_dir
+        r.server.engine.close()
+        new_engine = engine.restore_partition(
+            payload["backup_id"], payload["src_app_id"], gpid[1], app_dir,
+            device=r.server.device)
+        r.server.install_engine(new_engine)
+        r.prepare_list.reset(new_engine.last_committed_decree)
+        r.restoring = False
+        self.net.send(self.name, src, "restore_partition_done",
+                      {"gpid": gpid})
 
     def _on_trigger_ingest(self, src: str, payload: dict) -> None:
         """Meta commands an ingestion: the primary replicates an
         OP_INGEST mutation through 2PC so every member ingests at the
         same decree (parity: bulk-load ingestion, replica_2pc.cpp:211)."""
+        from pegasus_tpu_torch.replica.mutation import WriteOp
         from pegasus_tpu_torch.replica.replica import PartitionStatus
+        from pegasus_tpu_torch.rpc.codec import OP_INGEST
+
         from pegasus_tpu_torch.utils.fail_point import fail_point
 
         gpid = tuple(payload["gpid"])
@@ -2055,9 +2102,21 @@ class ReplicaStub:
             return
         if key in self._ingest_inflight:
             return  # download/2PC still running; meta's tick re-sends
-        raise IngestNotPortedError(
-            f"{self.name}: trigger_ingest needs bulk load and the block "
-            f"service (ROADMAP slice 6(b)(4), not ported)")
+
+        def done(results) -> None:
+            self._ingest_inflight.discard(key)
+            err = results[0] if results else 0
+            self.net.send(self.name, src, "ingest_done", {
+                "gpid": gpid, "err": err})
+
+        self._ingest_inflight.add(key)
+        try:
+            r.client_write(
+                [WriteOp(OP_INGEST,
+                         (payload["root"], payload["src_app"], load_id))],
+                done)
+        except (RuntimeError, ValueError):
+            self._ingest_inflight.discard(key)
 
     def _on_client_scan_multi(self, src: str, payload: dict) -> None:
         """Cross-partition batched scans: one message covers every
@@ -2379,7 +2438,10 @@ class ReplicaStub:
         catch-up off before this node starts shedding its own clients.
         No deadline and no dup fence apply — replication-class traffic
         (the source's log-GC floor waits on it)."""
+        from pegasus_tpu_torch.replica.mutation import WriteOp
         from pegasus_tpu_torch.replica.replica import PartitionStatus
+        from pegasus_tpu_torch.rpc.codec import decode_write
+        from pegasus_tpu_torch.storage.block_codec import inflate_payload
         from pegasus_tpu_torch.utils.errors import ErrorCode
         from pegasus_tpu_torch.utils.fail_point import fail_point
         from pegasus_tpu_torch.utils.metrics import METRICS
@@ -2418,9 +2480,48 @@ class ReplicaStub:
                 or not self.lease_valid()):
             reply(ErrorCode.ERR_INVALID_STATE)
             return
-        raise not_ported("applying a duplication envelope")
+        import struct as _struct
+
+        try:
+            raw = inflate_payload(payload["blob_mode"],
+                                  payload["ops_blob"],
+                                  payload["raw_len"])
+            ops = []
+            pos = 0
+            for _ in range(payload["n_ops"]):
+                (length,) = _struct.unpack_from("<I", raw, pos)
+                pos += 4
+                op, req, end = decode_write(raw, pos)
+                if end != pos + length:
+                    raise ValueError("dup envelope op length mismatch")
+                ops.append(WriteOp(op, req))
+                pos = end
+        except (ValueError, KeyError, RuntimeError,
+                _struct.error) as e:
+            from pegasus_tpu_torch.rpc.transport import _RateLimitedLog
+
+            if not hasattr(self, "_dup_decode_log"):
+                self._dup_decode_log = _RateLimitedLog()
+            self._dup_decode_log.log(f"dup.decode.{gpid}", e)
+            reply(ErrorCode.ERR_INVALID_PARAMETERS)
+            return
+
+        def done(_results) -> None:
+            reply(ErrorCode.ERR_OK)
+
+        try:
+            r.client_write(ops, done)
+        except ReplicaBusyError:
+            reply(ErrorCode.ERR_BUSY)
+        except (StorageCorruptionError, OSError) as e:
+            reply(self._on_storage_error(gpid, e))
+        except (RuntimeError, ValueError):
+            reply(ErrorCode.ERR_INVALID_STATE)
 
     def _on_dup_add(self, src: str, payload: dict) -> None:
+        from pegasus_tpu_torch.replica.duplication_cluster import (
+            ClusterDuplicator,
+        )
         from pegasus_tpu_torch.replica.replica import PartitionStatus
 
         gpid = tuple(payload["gpid"])
@@ -2433,7 +2534,22 @@ class ReplicaStub:
             self._dup_sessions[key].fail_mode = payload.get("fail_mode",
                                                             "slow")
             return
-        raise not_ported("shipping a duplication")
+
+        def progress(dup_id: int, confirmed: int) -> None:
+            if self.meta_addr is not None:
+                self.net.send(self.name, self.meta_addr,
+                              "duplication_sync", {
+                                  "gpid": gpid, "dupid": dup_id,
+                                  "confirmed": confirmed})
+
+        self._dup_sessions[key] = ClusterDuplicator(
+            self, gpid, dupid, payload["follower_meta"],
+            payload["follower_app"],
+            confirmed_decree=payload.get("confirmed", 0),
+            source_cluster_id=payload.get("source_cluster_id")
+            or self.cluster_id,
+            on_progress=progress,
+            fail_mode=payload.get("fail_mode", "slow"))
 
     def dup_tick(self) -> None:
         """Timer: drive every dup session (parity: duplication_sync_timer).

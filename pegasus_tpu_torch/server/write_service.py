@@ -22,6 +22,7 @@ from pegasus_tpu_torch.base.value_schema import (
     check_if_ts_expired,
     epoch_now,
     expire_ts_from_ttl,
+    extract_timetag,
     extract_user_data,
     generate_timetag,
     generate_value,
@@ -309,6 +310,53 @@ class WriteService:
                     OP_PUT, key, self._make_value(m.value, ets, timestamp_us),
                     ets))
         return resp, items
+
+    # -- duplicated writes (parity: the duplicate-apply variants in
+    # pegasus_write_service_impl + value timetag conflict resolution,
+    # base/pegasus_value_schema.h:175-209) ------------------------------
+
+    def _existing_timetag(self, key: bytes) -> int:
+        hit = self.engine.get(key)
+        if hit is None:
+            return 0
+        value, _ = hit
+        if self.data_version < 1 or len(value) < 12:
+            return 0
+        return extract_timetag(self.data_version, value)
+
+    def translate_duplicate_put(self, key: bytes, user_data: bytes,
+                                expire_ts: int, timetag: int,
+                                floor_tag: int = 0):
+        """(applied, items) for a shipped write: applies iff its timetag
+        wins (larger timestamp, then cluster id — master-master conflict
+        resolution). `floor_tag` lets a caller batching several dup ops in
+        one mutation account for an earlier write to the same key that is
+        not in the engine yet."""
+        if timetag <= max(self._existing_timetag(key), floor_tag):
+            return False, []
+        value = generate_value(self.data_version, user_data, expire_ts,
+                               timetag)
+        return True, [WriteBatchItem(OP_PUT, key, value, expire_ts)]
+
+    def translate_duplicate_remove(self, key: bytes, timetag: int,
+                                   floor_tag: int = 0):
+        if timetag <= max(self._existing_timetag(key), floor_tag):
+            return False, []
+        return True, [WriteBatchItem(OP_DEL, key)]
+
+    def duplicate_put(self, key: bytes, user_data: bytes, expire_ts: int,
+                      timetag: int, decree: int) -> bool:
+        """translate_duplicate_put + apply (the in-process shipper path);
+        the decree advances even on a lost conflict."""
+        applied, items = self.translate_duplicate_put(key, user_data,
+                                                      expire_ts, timetag)
+        self.apply_items(items, decree)
+        return applied
+
+    def duplicate_remove(self, key: bytes, timetag: int, decree: int) -> bool:
+        applied, items = self.translate_duplicate_remove(key, timetag)
+        self.apply_items(items, decree)
+        return applied
 
     # -- apply phase ----------------------------------------------------
 

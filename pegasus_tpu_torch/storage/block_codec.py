@@ -622,3 +622,37 @@ class EncodedBlock:
         n = self.n
         return (n * (self.key_width + 64) + 13 * n
                 + self.raw_heap_len + 512)
+
+
+# ---- wire-payload compression (shared with cross-cluster duplication) ----
+#
+# The same zstd-1/zlib-1 machinery the block value heap uses, exposed for
+# RPC payload blobs: duplication ships batched mutation envelopes across
+# the WAN and must not pay per-envelope codec plumbing of its own. The
+# compressibility probe gates exactly like the heap path — an
+# incompressible envelope ships raw and never taxes the follower with a
+# pointless decompress.
+
+PAYLOAD_RAW = _HEAP_RAW
+PAYLOAD_ZLIB = _HEAP_ZLIB
+PAYLOAD_ZSTD = _HEAP_ZSTD
+
+
+def deflate_payload(data: bytes) -> Tuple[int, bytes]:
+    """(mode, stored bytes) for a wire payload blob."""
+    return _maybe_deflate(data)
+
+
+def inflate_payload(mode: int, stored, raw_len: int) -> bytes:
+    """Inverse of deflate_payload; both compressors decode forever."""
+    if mode == _HEAP_RAW:
+        return bytes(stored)
+    if mode == _HEAP_ZLIB:
+        out = zlib.decompress(bytes(stored))
+    elif mode == _HEAP_ZSTD:
+        out = _Zstd.decompress(stored, raw_len)
+    else:
+        raise ValueError(f"unknown payload compression mode {mode}")
+    if len(out) != raw_len:
+        raise ValueError("payload length mismatch after inflate")
+    return out

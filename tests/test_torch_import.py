@@ -12,6 +12,24 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the modules of slices 6(b)(4) and 6(b)(5)
+SERVICE_MODULES = (
+    "pegasus_tpu_torch.storage.block_service",
+    "pegasus_tpu_torch.storage.blob_server",
+    "pegasus_tpu_torch.server.backup",
+    "pegasus_tpu_torch.server.bulk_load",
+    "pegasus_tpu_torch.server.duplication",
+    "pegasus_tpu_torch.replica.duplication_cluster",
+    "pegasus_tpu_torch.meta.backup_service",
+    "pegasus_tpu_torch.meta.bulk_load_service",
+    "pegasus_tpu_torch.meta.duplication_service",
+    "pegasus_tpu_torch.client.cluster_client",
+    "pegasus_tpu_torch.tools.cluster",
+    "pegasus_tpu_torch.tools.kill_test",
+    "pegasus_tpu_torch.runtime.act",
+)
+
+
 def _port_modules():
     import pegasus_tpu_torch
 
@@ -102,9 +120,10 @@ def test_port_modules_are_found():
                  "pegasus_tpu_torch.meta.compaction_scheduler",
                  "pegasus_tpu_torch.meta.split_service",
                  "pegasus_tpu_torch.meta.elasticity",
-                 "pegasus_tpu_torch.meta.pending_services",
                  "pegasus_tpu_torch.meta.meta_service",
-                 "pegasus_tpu_torch.replica.stub"):
+                 "pegasus_tpu_torch.replica.stub",
+                 # backup, bulk load, duplication; SimCluster
+                 *SERVICE_MODULES):
         assert want in names
 
 
@@ -438,13 +457,19 @@ def test_cluster_runs_without_jax(tmp_path):
     assert "clean" in proc.stdout
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke", "replication"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "replication",
+                                    "services"])
 def test_imports_without_jax_or_the_jax_package(target):
     names = (_port_modules() if target == "package" else
              _replication_modules() if target == "replication" else
+             list(SERVICE_MODULES) if target == "services" else
              ["chip_smoke"])
     if target == "replication":
-        assert len(names) == 29, names   # 4 packages, 25 modules
+        assert len(names) == 33, names   # 4 packages, 29 modules
+    if target == "services":
+        assert len(names) == 13
+        assert "pegasus_tpu_torch.meta.pending_services" not in \
+            _port_modules()
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -460,6 +485,95 @@ def test_imports_without_jax_or_the_jax_package(target):
                           text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "clean" in proc.stdout
+
+
+def test_services_run_without_jax(tmp_path):
+    """A port SimCluster on the CPU with JAX blocked: a bulk load staged
+    by SSTGenerator and ingested by the meta's verb, reads and a batched
+    scan through ClusterClient, a backup and a restore into a new table,
+    a duplication to a second cluster on the same loop, the kill test's
+    DataVerifier, and one .act case on the port's ActRunner."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import random\n"
+        "from pegasus_tpu_torch.runtime.act import ActRunner\n"
+        "from pegasus_tpu_torch.server.bulk_load import SSTGenerator\n"
+        "from pegasus_tpu_torch.server.types import GetScannerRequest\n"
+        "from pegasus_tpu_torch.storage.block_service import "
+        "LocalBlockService\n"
+        "from pegasus_tpu_torch.tools.cluster import SimCluster\n"
+        "from pegasus_tpu_torch.tools.kill_test import DataVerifier\n"
+        f"d = {str(tmp_path)!r}\n"
+        "a = SimCluster(d + '/A', n_nodes=3, device='cpu')\n"
+        "b = SimCluster(d + '/B', n_nodes=3, name_prefix='b-', loop=a.loop,\n"
+        "               net=a.net, cluster_id=2, device='cpu')\n"
+        "a.create_table('t', partition_count=2, replica_count=3)\n"
+        "SSTGenerator(LocalBlockService(d + '/stage'), 't', 2).generate(\n"
+        "    [(b'k%02d' % i, b's', b'v%d' % i, 0) for i in range(30)])\n"
+        "a.meta.bulk_load.start_bulk_load('t', d + '/stage')\n"
+        "for _ in range(10):\n"
+        "    a.step()\n"
+        "assert a.meta.bulk_load.bulk_load_status('t')['complete']\n"
+        "c = a.client('t')\n"
+        "assert c.get(b'k07', b's') == (0, b'v7')\n"
+        "out = c.scan_multi({0: [GetScannerRequest(batch_size=100, "
+        "one_page=True)], 1: [GetScannerRequest(batch_size=100, "
+        "one_page=True)]})\n"
+        "assert sum(len(r[0].kvs) for r in out.values()) == 30\n"
+        "bid = a.meta.backup.start_backup('t', d + '/bk')\n"
+        "for _ in range(5):\n"
+        "    a.step()\n"
+        "assert a.meta.backup.backup_status(bid)['complete']\n"
+        "a.meta.backup.create_app_from_backup('r', d + '/bk', 'manual', "
+        "bid)\n"
+        "for _ in range(5):\n"
+        "    a.step()\n"
+        "assert a.client('r').get(b'k11', b's') == (0, b'v11')\n"
+        "b.create_table('t', partition_count=2, replica_count=3)\n"
+        "a.meta.duplication.add_duplication('t', 'b-meta', 't')\n"
+        "v = DataVerifier(c, random.Random(1))\n"
+        "for _ in range(20):\n"
+        "    v.step()\n"
+        "assert not v.violations and v.write_ok == 20\n"
+        "for _ in range(6):\n"
+        "    a.step()\n"
+        "    b.step(advance=False)\n"
+        "assert b.client('t').get(b'kt000020', b's') == (0, b'v20')\n"
+        "a.close(); b.close()\n"
+        "r = ActRunner(d + '/act', n_nodes=4, seed=7, device='cpu')\n"
+        f"r.run_file({os.path.join(REPO, 'tests', 'cases', 'case-604-bulkload-failover.act')!r})\n"
+        "r.close()\n"
+        "bad = sorted(m for m in sys.modules if m == 'pegasus_tpu'\n"
+        "             or m.startswith('pegasus_tpu.')\n"
+        "             or m.startswith('jax.') or m == 'jaxlib')\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
+
+
+def test_sim_cluster_serves_on_the_card_by_default(tmp_path, monkeypatch):
+    """`SimCluster(device=None)` hands the card to every stub: without
+    CUDA it raises before any node starts; ActRunner likewise."""
+    import torch
+
+    from pegasus_tpu_torch.runtime.act import ActRunner
+    from pegasus_tpu_torch.tools.cluster import SimCluster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SimCluster(str(tmp_path / "c"), n_nodes=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ActRunner(str(tmp_path / "a"), n_nodes=1)
+    c = SimCluster(str(tmp_path / "cpu"), n_nodes=1, device="cpu")
+    try:
+        assert {s.device.type for s in c.stubs.values()} == {"cpu"}
+    finally:
+        c.close()
 
 
 def _run_smoke(cwd):

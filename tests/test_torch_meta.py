@@ -9,10 +9,13 @@ the CPU, and against the JAX package's, exact.
   and batched scans over the network; a silenced node and the meta's
   cure, drop and recall, a meta restart); at every step the partition configs, the meta storage and
   every reply's wire bytes are equal;
-- the stand-ins of the backup, bulk-load and duplication services and
-  the stub's paths that need them: each raises a typed error and leaves
-  no state behind; an empty-state meta ticks the same storage as the
-  JAX meta's;
+- the backup, bulk-load and duplication services against the JAX
+  package's: a meta store in which a JAX meta's service left state at
+  each of its 7 storage keys loads in the port to the same state; each
+  of 7 admin verbs gives the JAX meta's reply, storage and block-service
+  tree; each of the stub's 5 service messages leaves the same replica
+  state, decrees and replies; an empty-state meta ticks the same
+  storage as the JAX meta's;
 - the stub serves on the card unless told otherwise.
 
 Both packages' metas have their storage seeded with a dropped table at
@@ -50,8 +53,6 @@ from pegasus_tpu_torch.base import value_schema as tvs
 from pegasus_tpu_torch.base.key_schema import generate_key, key_hash_parts
 from pegasus_tpu_torch.meta import MetaService
 from pegasus_tpu_torch.meta.failure_detector import worker_lease_valid
-from pegasus_tpu_torch.meta.pending_services import ServiceNotPortedError
-from pegasus_tpu_torch.replica import IngestNotPortedError
 from pegasus_tpu_torch.replica.mutation import WriteOp
 from pegasus_tpu_torch.replica.replica import PartitionStatus
 from pegasus_tpu_torch.replica.stub import ReplicaStub
@@ -662,13 +663,12 @@ def test_cluster_matches_jax(tmp_path, frozen, seed):
         assert got and all(err == 0 for _mt, err, _w in got), name
 
 
-# ---- the stand-ins of slice 6(b)(4) and the stub's paths that need them ----
+# ---- the backup, bulk-load and duplication services against the JAX ones ---
 
 
 def test_empty_meta_ticks_the_same_storage(tmp_path):
     """A meta with no table ticks its services (backup, bulk load and
-    duplication stand-ins included) and writes the storage the JAX
-    meta writes."""
+    duplication included) and writes the storage the JAX meta writes."""
     out = []
     for pkg in (JAX, PORT):
         loop = pkg.Loop(seed=1)
@@ -689,80 +689,278 @@ def test_empty_meta_ticks_the_same_storage(tmp_path):
     assert out[0] == out[1]
 
 
+@pytest.fixture
+def frozen_backup_ids(monkeypatch):
+    """Both backup services' `time`, and both packages' value clocks,
+    frozen: backup ids and timetags agree."""
+    from pegasus_tpu.meta import backup_service as jbk
+    from pegasus_tpu_torch.meta import backup_service as tbk
+
+    clk = Clock(T0)
+    for mod in (jvs, tvs, jws, tws, jbk, tbk):
+        monkeypatch.setattr(mod, "time", clk)
+    return clk
+
+
+def _stage_bulk(root, app_name: str, partitions: int) -> None:
+    """A JAX-staged bulk load of `partitions` for `app_name` at `root`."""
+    from pegasus_tpu.server.bulk_load import SSTGenerator
+    from pegasus_tpu.storage.block_service import LocalBlockService
+
+    SSTGenerator(LocalBlockService(str(root)), app_name,
+                 partitions).generate(
+        [(b"b%03d" % i, b"s", b"bulk%d" % i, 0) for i in range(60)])
+
+
+def _tree(root) -> dict:
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def _write_service_state(c, key: str, root) -> None:
+    """Drive the JAX meta's service until `key` holds state."""
+    app_id = c.meta.create_app("t", partition_count=2, replica_count=2)
+    c.loop.run_until_idle()
+    c.write(app_id, 0, b"hk", b"sk", b"v")
+    if key == "/backup/policies":
+        c.meta.backup.add_policy("p", ["t"], str(root), 600, 2)
+    elif key == "/backup/inflight":
+        c.net.partition(c.meta.state.get_partition(app_id, 1).primary)
+        c.meta.backup.start_backup("t", str(root), backup_id=77)
+        c.loop.run_until_idle()
+    elif key == "/backup/completed":
+        c.meta.backup.start_backup("t", str(root), backup_id=78)
+        c.run_beacons(2)
+    elif key == "/bulk_load/inflight":
+        _stage_bulk(root, "t", 2)
+        c.meta.bulk_load.start_bulk_load("t", str(root))
+        c.meta.bulk_load.pause_bulk_load("t")
+    elif key == "/bulk_load/failed":
+        _stage_bulk(root, "t", 2)
+        c.meta.bulk_load.start_bulk_load("t", str(root))
+        c.meta.bulk_load.cancel_bulk_load("t")
+    elif key == "/duplication/dups":
+        c.meta.duplication.add_duplication("t", "m2", "t")
+    elif key == "/duplication/failover":
+        c.meta.duplication.add_duplication("t", "m2", "t")
+        c.meta.duplication.start_failover("t")
+    assert c.meta.storage.get(key), key
+
+
+def _service_state(meta) -> dict:
+    bk, bl, dup = meta.backup, meta.bulk_load, meta.duplication
+    return json.loads(json.dumps({
+        "policies": bk._policies, "inflight": bk._inflight,
+        "completed": bk._completed, "loads": bl._loads,
+        "failed": bl._failed, "dups": dup._dups,
+        "failover": dup._failover, "next_dupid": dup._next_dupid,
+        "pending_restores": sorted(map(list, meta.pending_restores))},
+        sort_keys=True, default=str))
+
+
 @pytest.mark.parametrize("key", [
     "/backup/policies", "/backup/inflight", "/backup/completed",
     "/bulk_load/inflight", "/bulk_load/failed", "/duplication/dups",
     "/duplication/failover"])
-def test_stand_ins_refuse_stored_state(tmp_path, key):
-    """A meta store written by a cluster that ran one of the services:
-    the stand-in reads the same key and refuses to start."""
-    d = tmp_path / "meta"
-    seed_meta_storage(str(d))
-    tree = json.loads((d / "meta.json").read_text())
-    tree[key] = {"1": {"anything": True}}
-    (d / "meta.json").write_text(json.dumps(tree))
-    loop = SimLoop(seed=0)
-    with pytest.raises(ServiceNotPortedError, match=r"6\(b\)\(4\)"):
-        MetaService("meta", str(d), SimNetwork(loop), lambda: loop.now)
+def test_service_state_written_by_jax_loads_in_port(tmp_path,
+                                                    frozen_backup_ids, key):
+    """A meta store in which the JAX meta's service left state at `key`
+    loads in a port meta (and in a fresh JAX meta) to the same service
+    state, and a leader tick of each writes the same storage."""
+    c = ClusterHarness(tmp_path, n_nodes=3, pkg=JAX)
+    try:
+        _write_service_state(c, key, tmp_path / "root")
+    finally:
+        c.close()
+    saved = (tmp_path / "meta" / "meta.json").read_text()
+    out = []
+    for pkg in (JAX, PORT):
+        (tmp_path / "meta" / "meta.json").write_text(saved)
+        loop = pkg.Loop(seed=4)
+        meta = pkg.Meta("meta", str(tmp_path / "meta"), pkg.Net(loop),
+                        lambda: loop.now)
+        state = _service_state(meta)
+        meta.tick()
+        loop.run_until_idle()
+        out.append((state, json.dumps(meta.storage._tree, sort_keys=True)))
+    assert out[0] == out[1]
+    assert any(out[1][0][k] for k in ("policies", "inflight", "completed",
+                                      "loads", "failed", "dups",
+                                      "failover"))
 
 
-@pytest.mark.parametrize("cmd,args", [
-    ("start_backup", {"app_name": "t", "root": "/nowhere"}),
+SERVICE_VERBS = [
+    ("start_backup", {"app_name": "t", "root": "<root>"}),
     ("add_backup_policy", {"name": "p", "app_names": ["t"],
-                           "root": "/nowhere"}),
-    ("restore_app", {"new_name": "r", "root": "/nowhere",
-                     "backup_id": 1}),
-    ("start_bulk_load", {"app_name": "t", "root": "/nowhere"}),
+                           "root": "<root>"}),
+    ("restore_app", {"new_name": "r", "root": "<root>", "backup_id": 91}),
+    ("start_bulk_load", {"app_name": "t", "root": "<root>"}),
     ("bulk_load_status", {"app_name": "t"}),
     ("add_dup", {"app_name": "t", "follower_meta": "m2",
                  "follower_app": "t"}),
     ("list_dups", {}),
-])
-def test_service_verbs_raise_and_leave_no_state(cluster, cmd, args):
-    cluster.meta.create_app("t", partition_count=2, replica_count=2)
-    cluster.loop.run_until_idle()
-    before = _storage(cluster)
-    cluster.net.register("client", lambda *a: None)
-    cluster.net.send("client", "meta", "admin",
-                     {"rid": 1, "cmd": cmd, "args": args})
-    with pytest.raises(ServiceNotPortedError, match=r"6\(b\)\(4\)"):
-        cluster.loop.run_until_idle()
-    assert _storage(cluster) == before
+]
 
 
-@pytest.mark.parametrize("msg_type,payload", [
+def _verb_run(pkg, path, cmd, args) -> tuple:
+    root = path / "root"
+    c = ClusterHarness(path, n_nodes=3, pkg=pkg)
+    try:
+        app_id = c.meta.create_app("t", partition_count=2, replica_count=2)
+        c.loop.run_until_idle()
+        for i in range(6):
+            c.write(app_id, i % 2, b"hk%d" % i, b"sk", b"v%d" % i)
+        if cmd == "restore_app":
+            c.meta.backup.start_backup("t", str(root), backup_id=91)
+            c.run_beacons(2)
+        if cmd in ("start_bulk_load", "bulk_load_status"):
+            _stage_bulk(root, "t", 2)
+        if cmd == "bulk_load_status":
+            c.meta.bulk_load.start_bulk_load("t", str(root))
+        if cmd == "list_dups":
+            c.meta.duplication.add_duplication("t", "m2", "t")
+        replies = _client(c)
+        args = json.loads(json.dumps(args).replace("<root>", str(root)))
+        c.net.send("client", "meta", "admin",
+                   {"rid": 1, "cmd": cmd, "args": args})
+        c.loop.run_until_idle()
+        c.run_beacons(3)
+        reads = [c.read_everywhere(app_id, i % 2, b"hk%d" % i, b"sk")
+                 for i in range(6)]
+        if cmd == "restore_app":
+            rid = c.meta.state.find_app("r").app_id
+            reads.append([c.primary_replica(rid, i % 2).server.on_get(
+                generate_key(b"hk%d" % i, b"sk")) for i in range(6)])
+        text = json.dumps([replies, _storage(c), reads], default=repr)
+        return text.replace(str(path), "<path>"), _tree(root)
+    finally:
+        c.close()
+
+
+@pytest.mark.parametrize("cmd,args", SERVICE_VERBS,
+                         ids=[v[0] for v in SERVICE_VERBS])
+def test_service_verbs_match_jax(tmp_path, frozen_backup_ids, cmd, args):
+    """Each admin verb of the three services, over the network, on a JAX
+    cluster and a port cluster: the same reply, meta storage, block
+    service tree and reads."""
+    j = _verb_run(JAX, tmp_path / "jax", cmd, args)
+    t = _verb_run(PORT, tmp_path / "port", cmd, args)
+    assert j[0] == t[0]
+    assert j[1] == t[1]
+    assert '"err": 0' in t[0]
+
+
+def _dup_envelope(pkg, app_id: int) -> dict:
+    """A dup_apply_batch payload of two shipped puts and a remove, as the
+    package's ClusterDuplicator builds it."""
+    import struct
+
+    from pegasus_tpu_torch.base.value_schema import generate_timetag
+
+    if pkg is JAX:
+        from pegasus_tpu.rpc.codec import (
+            OP_DUP_PUT,
+            OP_DUP_REMOVE,
+            encode_write,
+        )
+        from pegasus_tpu.storage.block_codec import deflate_payload
+    else:
+        from pegasus_tpu_torch.rpc.codec import (
+            OP_DUP_PUT,
+            OP_DUP_REMOVE,
+            encode_write,
+        )
+        from pegasus_tpu_torch.storage.block_codec import deflate_payload
+    tag = generate_timetag(int(T0 * 1e6) + 5_000_000, 2, False)
+    ops = [(OP_DUP_PUT, (generate_key(b"hk", b"dup%d" % i), b"d" * 40,
+                         0, tag + i)) for i in range(2)]
+    ops.append((OP_DUP_REMOVE, (generate_key(b"hk", b"sk"), tag + 2)))
+    blob = b"".join(struct.pack("<I", len(e)) + e
+                    for e in (encode_write(o, r) for o, r in ops))
+    mode, stored = deflate_payload(blob)
+    return {"rid": 1, "dupid": 1, "blob_mode": mode, "ops_blob": stored,
+            "raw_len": len(blob), "n_ops": len(ops), "max_decree": 3}
+
+
+STUB_MESSAGES = [
     ("backup_partition", {"backup_id": 1, "policy": "manual",
-                          "root": "/nowhere"}),
+                          "root": "<root>"}),
     ("restore_partition", {"backup_id": 1, "policy": "manual",
-                           "root": "/nowhere", "src_app_id": 1}),
-    ("trigger_ingest", {"root": "/nowhere", "src_app": "t", "load_id": 3}),
+                           "root": "<root>"}),
+    ("trigger_ingest", {"root": "<root>", "src_app": "t", "load_id": 3}),
     ("dup_add", {"dupid": 1, "follower_meta": "m2", "follower_app": "t"}),
-    ("dup_apply_batch", {"rid": 1, "blob_mode": 0, "ops_blob": b"",
-                         "raw_len": 0, "n_ops": 0, "max_decree": 1}),
-])
-def test_stub_service_paths_raise_before_state_changes(cluster, msg_type,
-                                                       payload):
-    app_id = cluster.meta.create_app("t", partition_count=1,
-                                     replica_count=2)
-    cluster.loop.run_until_idle()
-    cluster.write(app_id, 0, b"hk", b"sk", b"v")
-    pc = cluster.meta.state.get_partition(app_id, 0)
-    stub = cluster.stubs[pc.primary]
-    r = stub.get_replica((app_id, 0))
-    if msg_type == "restore_partition":
-        r.restoring = True
-    decree = r.last_committed_decree
-    want = (IngestNotPortedError if msg_type == "trigger_ingest"
-            else ServiceNotPortedError)
-    cluster.net.register("client", lambda *a: None)
-    cluster.net.send("client", pc.primary, msg_type,
-                     dict(payload, gpid=(app_id, 0)))
-    with pytest.raises(want, match=r"6\(b\)\(4\)"):
-        cluster.loop.run_until_idle()
-    assert r.last_committed_decree == decree
-    assert r.last_prepared_decree() == decree
-    assert not stub._backup_inflight and not stub._ingest_inflight
-    assert not stub._dup_sessions and not r.duplicators
+    ("dup_apply_batch", None),
+]
+
+
+def _stub_run(pkg, path, msg_type, payload) -> tuple:
+    root = path / "root"
+    c = ClusterHarness(path, n_nodes=3, pkg=pkg)
+    try:
+        app_id = c.meta.create_app("t", partition_count=1, replica_count=2)
+        c.loop.run_until_idle()
+        for i in range(4):
+            c.write(app_id, 0, b"hk", b"sk%d" % i, b"v%d" % i)
+        c.write(app_id, 0, b"hk", b"sk", b"v")
+        pc = c.meta.state.get_partition(app_id, 0)
+        stub = c.stubs[pc.primary]
+        r = stub.get_replica((app_id, 0))
+        replies = _client(c)
+        if msg_type == "restore_partition":
+            # a backup of this very partition, then the restore into it
+            c.net.send("client", pc.primary, "backup_partition", {
+                "gpid": (app_id, 0), "backup_id": 1, "policy": "manual",
+                "root": str(root)})
+            c.loop.run_until_idle()
+            c.write(app_id, 0, b"hk", b"late", b"after-backup")
+            r.restoring = True
+            payload = dict(payload, src_app_id=app_id)
+        if msg_type == "trigger_ingest":
+            _stage_bulk(root, "t", 1)
+        if payload is None:
+            payload = _dup_envelope(pkg, app_id)
+        payload = json.loads(json.dumps(
+            payload, default=lambda b: b.hex()).replace("<root>", str(root))) \
+            if msg_type != "dup_apply_batch" else payload
+        c.net.send("client", pc.primary, msg_type,
+                   dict(payload, gpid=(app_id, 0)))
+        c.loop.run_until_idle()
+        c.run_beacons(2)
+        state = {
+            "committed": [c.stubs[n].get_replica((app_id, 0))
+                          .last_committed_decree for n in pc.members()],
+            "restoring": getattr(r, "restoring", None),
+            "sessions": sorted(map(repr, stub._dup_sessions)),
+            "inflight": (sorted(stub._backup_inflight),
+                         sorted(stub._ingest_inflight)),
+            "reads": [r.server.on_get(generate_key(b"hk", sk)) for sk in
+                      (b"sk", b"sk0", b"sk3", b"late", b"dup0", b"dup1",
+                       b"b000")],
+            "bulk": [r.server.on_get(generate_key(b"b%03d" % i, b"s"))
+                     for i in range(0, 60, 7)],
+        }
+        text = json.dumps([replies, state], default=repr)
+        return text.replace(str(path), "<path>"), _tree(root)
+    finally:
+        c.close()
+
+
+@pytest.mark.parametrize("msg_type,payload", STUB_MESSAGES,
+                         ids=[m[0] for m in STUB_MESSAGES])
+def test_stub_service_messages_match_jax(tmp_path, frozen_backup_ids,
+                                         msg_type, payload):
+    """Each of the stub's backup, restore, ingest and duplication
+    messages on a JAX cluster and a port cluster: the same replies,
+    decrees on every member, sessions, reads and block-service tree."""
+    j = _stub_run(JAX, tmp_path / "jax", msg_type, payload)
+    t = _stub_run(PORT, tmp_path / "port", msg_type, payload)
+    assert j[0] == t[0]
+    assert j[1] == t[1]
 
 
 # ---- the port's own contracts ---------------------------------------------

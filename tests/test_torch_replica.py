@@ -5,15 +5,16 @@
   tests/test_write_coordinator.py, run against the port's replica with
   `device="cpu"`;
 - `Replica` serves on the card unless told otherwise, and raises
-  without CUDA; an OP_INGEST mutation raises a typed error that names
-  the slice bulk load waits for;
+  without CUDA;
 - a differential run: the same seeded writes through a JAX three-replica
   group and a port group, over the same SimLoop seed with delayed,
   duplicated and dropped messages, with and without a group-commit
   window: decrees, acks, plog bytes, engine-WAL bytes, SST digests after
   a flush and a compaction, and every replica's scan responses (as wire
   bytes) equal, also after a failover and after learners caught up by
-  log and by checkpoint.
+  log and by checkpoint; and OP_INGEST (bulk load) through the same
+  groups, replayed, after a delete, with its staged file gone and as a
+  logged mutation applied at a secondary.
 
 Both packages' wall clocks are frozen by replacing the `time` of their
 value-schema and write-service modules; each replica's clock is the
@@ -47,7 +48,6 @@ from pegasus_tpu.utils.flags import FLAGS as JFLAGS
 from pegasus_tpu_torch.base import value_schema as tvs
 from pegasus_tpu_torch.base.key_schema import generate_key
 from pegasus_tpu_torch.replica import (
-    IngestNotPortedError,
     Mutation,
     MutationLog,
     PartitionStatus,
@@ -676,31 +676,6 @@ def test_replica_serves_on_the_card_by_default(tmp_path, monkeypatch):
     r.close()
 
 
-def test_ingest_raises_typed_error_naming_the_slice(tmp_path):
-    """OP_INGEST needs bulk load: the primary refuses it before a decree
-    is assigned, and a logged ingest mutation raises at apply instead of
-    advancing the decree without its data."""
-    c = Cluster(tmp_path, names=("r1", "r2"))
-    try:
-        c.reconfigure("r1", ["r2"])
-        c.write([put_op("u", "s", b"v")])
-        ingest = WriteOp(OP_INGEST, ("/nowhere", "app", 7))
-        with pytest.raises(IngestNotPortedError, match=r"6\(b\)\(4\)"):
-            c.primary.client_write([ingest])
-        assert c.primary.last_prepared_decree() == 1
-        # a mutation that carries one (a log written by the JAX package)
-        r2 = c.replicas["r2"]
-        decree = r2.last_committed_decree + 1
-        mu = Mutation(ballot=c.ballot, decree=decree,
-                      last_committed=decree - 1,
-                      timestamp_us=1_000_000, ops=[ingest])
-        with pytest.raises(IngestNotPortedError, match="bulk load"):
-            r2._apply_mutation(mu)
-        assert r2.server.engine.last_committed_decree == decree - 1
-    finally:
-        c.close()
-
-
 @pytest.mark.parametrize("mode", ["flush", "fsync"])
 def test_wal_flush_under_window_matches_jax(tmp_path, mode):
     """One replica alone under a group-commit window applies with
@@ -1060,3 +1035,72 @@ def test_replica_group_matches_jax(tmp_path, monkeypatch, windows):
     assert len(scans) == 1 and set(tstate) == {"r2", "r3", "r4", "r5"}
     decrees = {v[0] for v in tstate.values()}
     assert len(decrees) == 1 and decrees.pop() > 50
+
+
+def _ingest_drive(pkg, root, stage):
+    """A group's OP_INGESTs through the primary's 2PC, then one logged
+    at a secondary: what each step leaves."""
+    from pegasus_tpu.server.bulk_load import BULK_LOAD_FILE
+
+    g = Group(pkg, root, windows=False)
+    rec = []
+    try:
+        for i, ops in enumerate(_seeded_ops(pkg, 3, 12, b"b")):
+            rec.append(("write", i, g.write(ops)))
+        ingest = pkg.WriteOp(OP_INGEST, (str(stage), "app", 7))
+        rec.append(("ingest", g.write([ingest]), g.state()))
+        # a replayed load: re-acked, the decree stamped, nothing re-read
+        rec.append(("again", g.write([ingest]), g.state()))
+        g.write([pkg.WriteOp(OP_REMOVE, (k(b"bl003", b"s"),))])
+        g.write([pkg.WriteOp(OP_INGEST, (str(stage), "app", 7))])
+        g.check()
+        rec.append(("no-resurrection", g.state()))
+        # a load whose staged file vanished still stamps the decree
+        os.remove(os.path.join(str(stage), "gone", "0", BULK_LOAD_FILE))
+        rec.append(("vanished", g.write([pkg.WriteOp(
+            OP_INGEST, (str(stage), "gone", 8))]), g.state()))
+        # a logged OP_INGEST applied at a secondary (a log replayed)
+        r2 = g.replicas["r2"]
+        decree = r2.last_committed_decree + 1
+        mu_cls = type(r2.log.read_range(1)[0])
+        mu = mu_cls(ballot=g.ballot, decree=decree, last_committed=decree - 1,
+                    timestamp_us=1_000_000,
+                    ops=[pkg.WriteOp(OP_INGEST, (str(stage), "app", 9))])
+        r2._apply_mutation(mu)
+        rec.append(("logged", r2.server.engine.last_committed_decree,
+                    r2.has_ingested(9), g.state()["r2"]))
+        return rec
+    finally:
+        g.close()
+
+
+def test_logged_ingest_matches_jax(tmp_path, monkeypatch):
+    """OP_INGEST through a JAX three-replica group and a port group: the
+    staged SST is ingested at one decree on every member (the memtable
+    flushed first); a replayed load re-acks without re-ingesting, so a
+    key deleted after the load stays deleted; a load whose staged file
+    vanished still stamps its decree; a logged ingest mutation applied
+    at a secondary ingests there. Decrees, acks, plog and WAL bytes and
+    every replica's scan (wire bytes) equal at each step."""
+    from pegasus_tpu.server.bulk_load import SSTGenerator
+    from pegasus_tpu.storage.block_service import LocalBlockService
+
+    clk = Clock(T0)
+    for mod in (jvs, tvs, jws, tws):
+        monkeypatch.setattr(mod, "time", clk)
+    stage = tmp_path / "stage"
+    for app in ("app", "gone"):
+        SSTGenerator(LocalBlockService(str(stage)), app, 1).generate(
+            [(b"bl%03d" % i, b"s", b"ingested-%d" % i, 0)
+             for i in range(50)])
+    jrec = _ingest_drive(JAX, tmp_path / "jax", stage)
+    SSTGenerator(LocalBlockService(str(stage)), "gone", 1).generate(
+        [(b"bl%03d" % i, b"s", b"ingested-%d" % i, 0) for i in range(50)])
+    trec = _ingest_drive(PORT, tmp_path / "port", stage)
+    assert len(jrec) == len(trec)
+    for a, b in zip(jrec, trec):
+        assert a == b, a[0]
+    steps = {r[0]: r for r in trec}
+    state = steps["no-resurrection"][1]["r1"]
+    assert b"bl003" not in state[-1] and b"bl004" in state[-1]
+    assert steps["logged"][2] is True
