@@ -60,7 +60,7 @@ Phases, each fatal on failure:
    records expired) at `block_codec = none` (a), the same at dcz2 with
    sidecars (b), and config #4 (user rules: hashkey PREFIX, hashkey
    ANYWHERE with sortkey PREFIX, 5% expired) at dcz2 (c), each over a
-   fresh 1.0 GB store (a printed cut of the configuration's 10 GB) of 8
+   fresh 0.5 GB store (a printed cut of the configuration's 10 GB) of 8
    partitions in bench.py's compaction layout plus an untimed warm one,
    all 8 compacted at once through StorageEngine(device="cuda")
    .manual_compact on a thread pool, GB/s = store bytes before / wall
@@ -196,7 +196,32 @@ Phases, each fatal on failure:
    ingest seconds and records/s, scans/s and p50 / p99 a batch, the
    device's busy share, the compaction's seconds, backup and restore
    seconds, mutations shipped a second, envelopes, seconds from the
-   last write to the follower's confirmation, launches by part.
+   last write to the follower's confirmation, launches by part;
+14. config #2 served by node processes over TCP (server/node_main.py,
+   tools/onebox_cluster.py): (a) 1 meta and 3 replica processes, the
+   replicas on the card (each boot line must name it), the store flags
+   pinned through cluster.json; (b) table "bench" of 64 partitions x 3
+   replicas created and bulk-loaded (1,000,000 records in
+   bench.py:190-222's layout, 10% expired, staged by SSTGenerator) by the
+   shell's wire mode in a process of its own, which must leave CUDA
+   uninitialized, then the shell's manual_compact (the env trigger; the
+   meta staggers it node by node) until every replica counted a
+   compaction; (c) 20,000 YCSB-E operations through
+   onebox_cluster.connect (a ClusterClient over TcpTransport: scans in
+   scan_multi batches of 32, 5% inserts), every page against an
+   oracle; the replicas' mask_route_device_raw_count must rise; (d) the
+   C++ wire client's 200 gets and hashkey scans and
+   AsyncPegasusClient.gather_get equal to the ClusterClient and the
+   oracle, every node's GET /metrics and /config; (e) 3 writes a
+   partition acknowledged, then kill -9 of the replica process leading
+   the most primaries, writes from the kill on until the cure and 100 of
+   them acknowledged (every acknowledged write read back), a 200-scan probe
+   byte-equal before and after, the new primaries' device masks; (f)
+   stop, no node process left. Launches are read from the replica
+   processes (their `kernel.launches` verb). Printed: boot, staging,
+   ingest and compaction seconds, records/s, scans/s and p50 / p99 a
+   batch, device-route counts a node, the C++ client's ops/s, seconds
+   to cure, the phase's wall.
 
 Phase 3 also holds the compaction-filter kernel bit-exact against its
 plain version
@@ -208,27 +233,29 @@ the kernel) bit-exact against its plain version on the same seeded
 tables with hash_lo dropped, through both entries, K in {32, 64, 256},
 and times it at 2^20 records, K = 32.
 
-Phases 4, 5, 8, 9, 10, 11, 12 and 13 pin the store flags `block_codec = none`,
+Phases 4, 5, 8, 9, 10, 11, 12, 13 and 14 pin the store flags `block_codec = none`,
 `bloom_bits_per_key = 0`, `phash_index = false` (every block reaches the
 kernel); phases 6 and 7 (b, c) pin the defaults, 7 (a) pins `none`
 without sidecars. The line before the last lists the
 kernels as JSON; the last line is {"ok": true, "device": {...}}.
-Since phase 13 came, the whole run cuts it to 250,000 records and
-10,000 duplicated writes (printed cuts; `--ops-only` runs it uncut).
+Since phase 14 came, the whole run cuts it to 100,000 records and 2,000
+ops, phase 13 to 150,000 records and 5,000 duplicated writes (250,000
+and 10,000 since phase 13 came), phase 12 (a) to 500,000 records and
+10,000 ops and phase 4 to 100,000 records (printed cuts; `--onebox-only`,
+`--ops-only` and `--cluster-only` run their phases uncut).
 Since phase 12 came, the whole run cuts phase 8 (b) to 200,000 records
 and 10,000 ops and phase 11 to 50,000 hashkeys, 2,000 ops and a probe
 of 400 scans (printed cuts; `--replicated-only` runs phase 11 uncut).
-`--records N` sets phase 4's load (default 250,000) and prints any cut
+`--records N` sets phase 4's load (default 100,000) and prints any cut
 below 1,000,000; `--compact-gb G` sets a phase-7 pass's store (default
-1.0). `--times-only [--tree DIR]` builds the kernels of this checkout (or
+0.5 since phase 14 came, 1.0 before). `--times-only [--tree DIR]` builds the kernels of this checkout (or
 of DIR) and prints phase 3's times as one JSON line, nothing else;
 `--resident-times [--tree DIR]` likewise prints phase 10 (f)'s kernel
 times and a round's wall split on a synthetic image of phase 10's
 shape; `--replicated-only` builds the kernels and runs phase 11 alone
 (its printed numbers, then one JSON line of its launches);
-`--cluster-only` does the same for phase 12 and `--ops-only` for phase 13
-(uncut; the whole run cuts phase 13 to 250,000 records and 10,000
-duplicated writes, printed). Phases 5 and
+`--cluster-only` does the same for phase 12, `--ops-only` for phase 13
+and `--onebox-only` for phase 14 (uncut). Phases 5 and
 6 always load their 1,000,000 records. A
 printed cut keeps the whole run near the time it took before phase 6
 came: the flavour-axis check runs 64 flavours at key width 32 only (16
@@ -243,6 +270,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -258,9 +286,9 @@ PARTITION_COUNT = 64
 PIDX = 0
 FULL_RECORDS = 1_000_000
 # phase 4's load by default: cut from FULL_RECORDS since phase 5 came,
-# and again since phase 12 came, to keep the whole run near 600 s on a
-# slow host
-SLICE_RECORDS = 250_000
+# and again since phases 12 and 14 came, to keep the whole run under
+# 660 s on a slow host
+SLICE_RECORDS = 100_000
 SCAN_OPS = 2000    # scans of the first columnar phase
 MIXED_OPS = 2000   # operations of the YCSB-E mix (95% scans, 5% inserts)
 SORT_KEYS = [b"s%02d" % i for i in range(10)]
@@ -2908,7 +2936,9 @@ def run_point_batch(device, n_records: int = POINT_RECORDS,
 
 # ---- phase 7: BASELINE configs #3 and #4, bulk manual compaction ---------
 
-COMPACT_GB = 1.0        # a pass's store: bench.py's PEGBENCH_COMPACT_GB
+# a pass's store (bench.py's PEGBENCH_COMPACT_GB): 1.0 GB until phase 14
+# came, cut to keep the whole run under 660 s
+COMPACT_GB = 0.5
 COMPACT_FULL_GB = 10.0  # BASELINE config #3's table
 COMPACT_PARTS = 8       # partitions compacted at once, plus one warm one
 COMPACT_VALUE = 100     # bytes a value
@@ -5556,6 +5586,10 @@ CLUSTER_OPS = 20_000           # YCSB-E operations (bench.py run_scans)
 CLUSTER_EXPIRED = 0.10         # bench.py:211: 10% of the records expired
 CLUSTER_MUTATION_OPS = 1000    # bench.py:219-222: puts a mutation
 CLUSTER_APP = "bench"          # bench.py:167-169
+# the whole run's cut of phase 12 (a) (printed; --cluster-only runs it
+# uncut)
+CLUSTER_RUN_HASHKEYS = 50_000
+CLUSTER_RUN_OPS = 10_000
 CURE_NODES = 4
 CURE_PARTITIONS = 8
 CURE_REPLICAS = 3
@@ -6129,13 +6163,20 @@ def run_cure(device, n_hashkeys: int = CURE_HASHKEYS,
         shutil.rmtree(data_dir, ignore_errors=True)
 
 
-def run_phase12(device, card: str) -> tuple:
-    """Phase 12 (a) and (b) under the store flags phase 11 pins."""
+def run_phase12(device, card: str, cut: bool = False) -> tuple:
+    """Phase 12 (a) and (b) under the store flags phase 11 pins. `cut`:
+    the whole run's printed cut of (a)."""
     import torch
 
+    n_hashkeys, n_ops = CLUSTER_HASHKEYS, CLUSTER_OPS
+    if cut:
+        n_hashkeys, n_ops = CLUSTER_RUN_HASHKEYS, CLUSTER_RUN_OPS
+        log(f"cluster: (a) CUT to {n_ops} ops (the phase's {CLUSTER_OPS}); "
+            f"--cluster-only runs the phase uncut")
     with store_flags(NONE_STORE):
         t0 = time.perf_counter()
-        cluster = run_cluster(device, card=card)
+        cluster = run_cluster(device, n_hashkeys=n_hashkeys, n_ops=n_ops,
+                              card=card)
         torch.cuda.synchronize()
         log(f"cluster: (a) in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -6161,8 +6202,8 @@ DUP_HASHKEYS = 4_000           # the master's key space: x 10 sortkeys
 DUP_PROBE = 400                # probe scans on the master and follower
 SERVICE_ROUNDS = 400           # timer rounds a service may take
 # the whole run's cut of phase 13 (printed; --ops-only runs it uncut)
-SERVICES_RUN_HASHKEYS = 25_000
-SERVICES_RUN_DUP_OPS = 10_000
+SERVICES_RUN_HASHKEYS = 15_000
+SERVICES_RUN_DUP_OPS = 5_000
 
 
 def bulk_records(n_hashkeys: int, partitions: int, rng) -> tuple:
@@ -6231,6 +6272,22 @@ def ycsb_scans(rng, n_scans: int, partitions: int, n_hashkeys: int) -> list:
     return [(int(pidx_of[i]),
              generate_key(b"user%08d" % int(zipf_u[i] * n_hashkeys), b""),
              int(lens[i])) for i in range(n_scans)]
+
+
+def kill_batch(partitions: int) -> list:
+    """ONEBOX_KILL_WRITES hashkeys of each partition, `kill%05d` from 0 up
+    (sorting before every user%08d key), in order."""
+    from pegasus_tpu_torch.base.key_schema import key_hash_parts
+
+    need, out, i = [ONEBOX_KILL_WRITES] * partitions, [], 0
+    while any(need):
+        hk = b"kill%05d" % i
+        p = key_hash_parts(hk) % partitions
+        if need[p]:
+            need[p] -= 1
+            out.append(hk)
+        i += 1
+    return out
 
 
 def probe_frames(client, items: list, oracles=None) -> list:
@@ -6669,6 +6726,657 @@ def run_phase13(device, card: str, cut: bool) -> dict:
     return services
 
 
+ONEBOX_NODES = 3               # replica processes, beside one meta process
+ONEBOX_PARTITIONS = 64         # BASELINE config #2's table
+ONEBOX_REPLICAS = 3            # Pegasus's default: a primary, 2 secondaries
+ONEBOX_HASHKEYS = 100_000      # x 10 sortkeys: 1,000,000 records
+ONEBOX_OPS = 20_000            # YCSB-E operations (bench.py run_scans)
+ONEBOX_APP = "bench"
+ONEBOX_CLIENT_OPS = 200        # seeded gets and scans of the other clients
+ONEBOX_PROBE = 200             # probe scans before the kill and after
+ONEBOX_DEADLINE_S = 180.0      # what a wait (boot, load, cure) may take
+ONEBOX_OUTAGE_TIMEOUT_MS = 2000  # a write's deadline while a node is down
+ONEBOX_KILL_WRITES = 3         # a partition's writes acked before the kill
+ONEBOX_OUTAGE_ACKS = 100       # writes since the kill that must be acked
+# the whole run's cut of phase 14 (printed; --onebox-only runs it uncut)
+ONEBOX_RUN_HASHKEYS = 10_000
+ONEBOX_RUN_OPS = 2_000
+
+# the shell in a process of its own, one `shell.main(["--cluster", d,
+# *argv])` an argv: the wire mode is a client and must not initialize
+# CUDA, which the last line reports
+_SHELL_CALLS = (
+    "import json, sys\n"
+    "import torch\n"
+    "from pegasus_tpu_torch.tools import shell\n"
+    "d, calls = sys.argv[1], json.loads(sys.argv[2])\n"
+    "rcs = [shell.main(['--cluster', d, *argv]) for argv in calls]\n"
+    "print(json.dumps({'rcs': rcs, "
+    "'cuda_initialized': torch.cuda.is_initialized()}))\n")
+
+
+def shell_wire(tree: str, d: str, calls: list) -> str:
+    """The shell's wire mode on onebox `d`, each argv of `calls` in turn,
+    in a process of its own; fails unless every call answers 0 and CUDA
+    stayed uninitialized there. Returns what the verbs printed."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _SHELL_CALLS, d, json.dumps(calls)],
+        cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
+        capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"shell {calls}: exit {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    res = json.loads(lines[-1])
+    if any(res["rcs"]):
+        fail(f"shell {calls} answered {res['rcs']}: {proc.stdout[-2000:]}"
+             f"{proc.stderr[-2000:]}")
+    if res["cuda_initialized"]:
+        fail(f"shell {calls}: the wire mode initialized CUDA")
+    return "\n".join(lines[:-1])
+
+
+def wait_until(done, what: str, timeout: float = ONEBOX_DEADLINE_S,
+               poll: float = 0.25, explain=None) -> float:
+    """Polls done() (a PegasusError counts as not yet) until it holds;
+    fails after `timeout` seconds, with what explain() returns. Returns
+    the seconds waited."""
+    from pegasus_tpu_torch.utils.errors import PegasusError
+
+    t0 = time.perf_counter()
+    while True:
+        try:
+            if done():
+                return time.perf_counter() - t0
+        except PegasusError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+            fail(f"onebox: {what} not done after {timeout} s"
+                 + (f": {explain()}" if explain is not None else ""))
+        time.sleep(poll)
+
+
+def node_counters(admin, nodes, entity_type: str, metric: str) -> dict:
+    """{(node, entity id): value} of one counter on every node's
+    entities of `entity_type`, read through the `metrics` verb."""
+    out = {}
+    for n in nodes:
+        for ent in admin.remote_command(n, "metrics", [entity_type]):
+            m = ent.get("metrics", {}).get(metric)
+            if m is not None:
+                out[(n, ent["id"])] = m["value"]
+    return out
+
+
+def node_launches(admin, nodes) -> dict:
+    """The kernel launches of the replica processes since the last read
+    (each node's `kernel.launches reset`), summed as launch_counter's
+    stages count them."""
+    tot = {"static": 0, "now": 0, "multi": 0, "compaction": 0}
+    for n in nodes:
+        got = admin.remote_command(n, "kernel.launches", ["reset"])
+        for k in ("static", "now", "multi"):
+            tot[k] += got["fused_scan"][k]
+        tot["compaction"] += got["fused_compaction"]["compaction"]
+    return tot
+
+
+def busiest_stacks(http_port: int, n: int = 6) -> list:
+    """A node's most sampled Python stacks over 2 s that are not waiting
+    (its HTTP server's /pprof/profile), for a failure's report."""
+    import urllib.request
+
+    url = f"http://127.0.0.1:{http_port}/pprof/profile?seconds=2"
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            stacks = json.load(r)["stacks"]
+    except OSError as e:
+        return [f"no profile: {e}"]
+    idle = ("wait", "select", "accept", "_read_loop", "sleep")
+    return [(s["count"], s["stack"][-400:]) for s in stacks
+            if not s["stack"].endswith(idle)][:n]
+
+
+def primaries(client) -> dict:
+    client.refresh_config()
+    return {p: pc["primary"] for p, pc in enumerate(client._configs)}
+
+
+def gpid_of(engine_dir: str) -> str:
+    """The partition of an engine entity: its data directory is
+    <data_root>/<node>/<app>.<pidx>/app."""
+    return os.path.basename(os.path.dirname(engine_dir.rstrip("/")))
+
+
+def reap(pids: list, timeout: float = 30.0) -> list:
+    """Wait for every child pid to exit and reap it; returns the pids
+    still running after `timeout`, killed (SIGKILL)."""
+    import signal
+
+    left, t0 = list(pids), time.perf_counter()
+    while left and time.perf_counter() - t0 < timeout:
+        for pid in list(left):
+            try:
+                done, _status = os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                done = pid  # reaped elsewhere (or not our child)
+                if os.path.exists(f"/proc/{pid}"):
+                    done = 0
+            if done:
+                left.remove(pid)
+        time.sleep(0.1)
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    return left
+
+
+def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
+               n_ops: int = ONEBOX_OPS, seed: int = 37,
+               card: str = "") -> dict:
+    """Phase 14: BASELINE config #2 served by node processes over TCP
+    (tools/onebox_cluster.py, server/node_main.py). (a) 1 meta and 3
+    replica processes, the replicas on the card `device`, every node's
+    store flags pinned to
+    NONE_STORE through cluster.json; (b) table "bench" of 64 partitions
+    x 3 replicas created through the shell's wire mode, config #2
+    (bench.py:190-222's layout, 10% expired) staged by SSTGenerator in a
+    LocalBlockService root and ingested by the shell's start_bulk_load,
+    then the shell's manual_compact (the env trigger), until every
+    replica's engine counted a compaction; (c) YCSB-E through
+    onebox_cluster.connect, a ClusterClient over TcpTransport (95% scans
+    in scan_multi batches of 32, 5% inserts through set), every page
+    against an oracle; the replicas' mask_route_device_raw_count must
+    rise; (d) the C++ wire client (200 gets, 200 hashkey scans) equal to
+    the ClusterClient and the oracle, AsyncPegasusClient.gather_get
+    equal, every node's GET /metrics and /config (block_codec none);
+    (e) a seeded batch of writes acknowledged just before a kill -9 of
+    the replica process leading the most primaries (ONEBOX_KILL_WRITES
+    a partition, so every partition's share sits in the victim's plog
+    and memtable), writes from the kill on until the meta's cure and
+    ONEBOX_OUTAGE_ACKS of them acknowledged, every acknowledged write
+    read back, a seeded probe of
+    200 scans taken before the kill byte-equal after it (wire frames),
+    the new primaries' mask_route_device_raw_count rising; (f) stop, no
+    node process left. Kernel launches are read from the replica
+    processes (`kernel.launches`). Returns the numbers and the launches
+    by stage."""
+    import asyncio
+    import urllib.request
+
+    import torch
+
+    from pegasus_tpu_torch.base.key_schema import (
+        generate_key,
+        key_hash_parts,
+    )
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.client.aio import AsyncPegasusClient
+    from pegasus_tpu_torch.native import wire_client
+    from pegasus_tpu_torch.server.bulk_load import SSTGenerator
+    from pegasus_tpu_torch.storage.block_service import LocalBlockService
+    from pegasus_tpu_torch.tools import onebox_cluster as ob
+    from pegasus_tpu_torch.utils.errors import PegasusError
+
+    partitions = ONEBOX_PARTITIONS
+    rng = np.random.default_rng(seed)
+    tree = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(ob.__file__))))
+    if n_hashkeys != ONEBOX_HASHKEYS or n_ops != ONEBOX_OPS:
+        log(f"onebox: CUT to {n_hashkeys * 10} records and {n_ops} ops "
+            f"(config #2's {ONEBOX_HASHKEYS * 10} and the phase's "
+            f"{ONEBOX_OPS}; --onebox-only runs the phase uncut)")
+    d = tempfile.mkdtemp(prefix="pegasus_torch_onebox_")
+    launches: dict = {}
+    out: dict = {"launches": launches}
+    pids: list = []
+    closers: list = []
+    http: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        # ---- (a) the node processes --------------------------------------
+        t0 = time.perf_counter()
+        cfg = ob.start(d, n_replica=ONEBOX_NODES, flags=NONE_STORE)
+        with open(os.path.join(d, "pids.json")) as f:
+            pid_of = json.load(f)
+        pids = list(pid_of.values())
+        admin = ob.OneboxAdmin(d)
+        closers.append(admin.close)
+        nodes = [n for n, c in cfg["nodes"].items() if c["role"] == "replica"]
+        wait_until(lambda: len(admin.call("list_nodes", timeout=6))
+                   == ONEBOX_NODES, "the replica nodes' registration")
+        boot_s = time.perf_counter() - t0
+        served_on = {}
+        for n in cfg["nodes"]:
+            with open(os.path.join(d, "logs", f"{n}.log")) as f:
+                text = f.read()
+            m = re.search(r"serving on \S+ http=(\d+)(?: device=(.*))?",
+                          text)
+            if m is None:
+                fail(f"onebox: {n} printed no boot line: {text[-2000:]}")
+            http[n] = int(m.group(1))
+            if n in nodes:
+                served_on[n] = m.group(2)
+        want = f"{device} ({torch.cuda.get_device_name(device)})"
+        for n, dev in served_on.items():
+            if dev != want:
+                fail(f"onebox: {n} serves on {dev!r}, not {want!r}")
+        log(f"onebox on {card}: 1 meta + {ONEBOX_NODES} replica processes "
+            f"(python -m pegasus_tpu_torch.server.node_main, store flags "
+            f"{ {k[1]: v for k, v in NONE_STORE.items()} } through "
+            f"cluster.json) up and registered in {boot_s} s; replicas "
+            f"serve on {sorted(set(served_on.values()))}")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        log(f"onebox: nvidia-smi compute apps (informative; node pids "
+            f"{pid_of}): {smi.stdout.strip() or '(none listed)'}")
+
+        # ---- (b) the load --------------------------------------------------
+        t0 = time.perf_counter()
+        records, oracles = bulk_records(n_hashkeys, partitions, rng)
+        root = os.path.join(d, "bulk_root")
+        counts = SSTGenerator(LocalBlockService(root), ONEBOX_APP,
+                              partitions).generate(records)
+        stage_s = time.perf_counter() - t0
+        n_records = len(records)
+        del records
+        if sum(counts.values()) != n_records:
+            fail(f"onebox: SSTGenerator staged {sum(counts.values())} of "
+                 f"{n_records} records")
+        t0 = time.perf_counter()
+        shell_wire(tree, d, [["create_app", ONEBOX_APP, "-p",
+                              str(partitions)]])
+        client = ob.connect(ONEBOX_APP, d, client_name="chip-smoke")
+        closers.append(client.net.close)
+        client.refresh_config()
+        app_id = client.app_id
+
+        def serving() -> dict:
+            """{(node, pidx): (status, ballot, committed, prepared)} of
+            the table's replicas, through each node's replica.info."""
+            out = {}
+            for n in nodes:
+                for r in admin.remote_command(n, "replica.info"):
+                    if r["gpid"][0] == app_id:
+                        out[(n, r["gpid"][1])] = (
+                            r["status"], r["ballot"], r["last_committed"],
+                            r["last_prepared"])
+            return out
+
+        def opened() -> bool:
+            client.refresh_config()
+            got = serving()
+            return all(
+                got.get((pc["primary"], p), ("",))[0] == "PRIMARY"
+                and all(got.get((n, p), ("",))[0] == "SECONDARY"
+                        for n in pc["secondaries"])
+                for p, pc in enumerate(client._configs))
+
+        # an ingest's 2PC needs every member in its role: start the load
+        # once all are
+        wait_until(opened, "the table's replicas opening", poll=0.5,
+                   explain=lambda: sorted(serving().items())[:12])
+        open_s = time.perf_counter() - t0
+        shell_wire(tree, d, [["start_bulk_load", ONEBOX_APP, "--bucket",
+                              root]])
+
+        def loaded() -> bool:
+            st = admin.call("bulk_load_status", app_name=ONEBOX_APP)
+            if st.get("failed"):
+                fail(f"onebox: bulk load failed: {st}")
+            return st["complete"]
+
+        def load_state() -> str:
+            try:
+                st = admin.call("bulk_load_status", app_name=ONEBOX_APP)
+            except PegasusError as e:
+                return f"the meta answers no bulk_load_status ({e})"
+            got = serving()
+            flying = {k: v for k, v in got.items()
+                      if k[1] in st.get("inflight", [])}
+            return (f"{st}; the replicas in flight (status, ballot, "
+                    f"committed, prepared): {flying}")
+
+        wait_until(loaded, "the bulk load", explain=load_state)
+        ingest_s = time.perf_counter() - t0
+        launches["ingest"] = node_launches(admin, nodes)
+        log(f"onebox on {card}: load route start_bulk_load (the shell's "
+            f"wire mode) of an SSTGenerator-staged LocalBlockService root: "
+            f"{n_records} records ({n_hashkeys} hashkeys x 10, "
+            f"{n_records - sum(len(o.values) for o in oracles.values())} "
+            f"expired) staged in {stage_s} s, ingested into "
+            f"{partitions} partitions x {ONEBOX_REPLICAS} replicas in "
+            f"{ingest_s} s: {n_records / ingest_s} records/s "
+            f"({n_records / (stage_s + ingest_s)} with the staging; the "
+            f"ingest's seconds count from create_app, whose "
+            f"{partitions * ONEBOX_REPLICAS} replicas opened in {open_s} "
+            f"s); launches {launches['ingest']}")
+        client.refresh_config()
+        before = node_counters(admin, nodes, "engine", "compaction_count")
+        t_compact = time.perf_counter()
+        shell_wire(tree, d, [["manual_compact", ONEBOX_APP]])
+
+        def compacted(members) -> bool:
+            now = node_counters(admin, nodes, "engine", "compaction_count")
+            done = {(n, gpid_of(e)) for (n, e), v in now.items()
+                    if v > before.get((n, e), 0)}
+            return all((n, f"{app_id}.{p}") in done
+                       for p, pc in enumerate(client._configs)
+                       for n in members(pc))
+
+        wait_until(lambda: compacted(lambda pc: [pc["primary"]]),
+                   "the primaries' manual compaction", poll=0.5)
+        compact_s = time.perf_counter() - t_compact
+        for o in oracles.values():
+            # every replica's store is one compacted L1 run without the
+            # expired records: a one-page scan serves the first records
+            # from its start key (the block layout cannot change a page)
+            o.keys = sorted(o.values)
+            o.starts = [0, len(o.keys)]
+            o.overlay = []
+        log(f"onebox on {card}: manual_compact {ONEBOX_APP} (the shell's "
+            f"wire mode: the manual_compact.once.trigger_time env) done on "
+            f"the {partitions} primaries in {compact_s} s")
+
+        # ---- (c) YCSB-E over TCP -------------------------------------------
+        launches["compaction_primaries"] = node_launches(admin, nodes)
+        raw0 = node_counters(admin, nodes, "replica",
+                             "mask_route_device_raw_count")
+        items = ycsb_scans(rng, n_ops, partitions, n_hashkeys)
+        insert_draw = rng.random(n_ops)
+        insert_hks = rng.integers(0, 1 << 30, size=n_ops)
+        pending: list = []
+        batch_s: list = []
+        stats = {"scans": 0, "batches": 0, "inserts": 0, "records": 0,
+                 "insert_s": 0.0}
+
+        def flush() -> None:
+            if not pending:
+                return
+            now = epoch_now()
+            t = time.perf_counter()
+            resps = client_scan_batch(client, pending)
+            batch_s.append(time.perf_counter() - t)
+            for (p, start, limit), resp in zip(pending, resps):
+                stats["records"] += check_cluster_page(
+                    resp, oracles[p], start, limit, now)
+            stats["scans"] += len(pending)
+            stats["batches"] += 1
+            pending.clear()
+
+        t_traffic = time.perf_counter()
+        for op in range(n_ops):
+            if insert_draw[op] < 0.05:
+                flush()
+                hk = b"user%08d" % int(insert_hks[op])
+                t = time.perf_counter()
+                err = client.set(hk, b"s00", b"inserted")
+                stats["insert_s"] += time.perf_counter() - t
+                if err != 0:
+                    fail(f"onebox insert answered {err}")
+                oracles[key_hash_parts(hk) % partitions].insert(
+                    generate_key(hk, b"s00"), b"inserted")
+                stats["inserts"] += 1
+                continue
+            pending.append(items[op])
+            if len(pending) >= SCAN_FLUSH:
+                flush()
+        flush()
+        traffic_s = time.perf_counter() - t_traffic
+        launches["traffic"] = node_launches(admin, nodes)
+        raw1 = node_counters(admin, nodes, "replica",
+                             "mask_route_device_raw_count")
+        raw_by_node = {n: sum(v - raw0.get(k, 0) for k, v in raw1.items()
+                              if k[0] == n) for n in nodes}
+        scans_per_s = stats["scans"] / sum(batch_s)
+        bl = np.asarray(batch_s) * 1e3
+        log(f"onebox on {card}: YCSB-E over TCP through "
+            f"onebox_cluster.connect (ClusterClient, TcpTransport): "
+            f"{stats['scans']} scans in {stats['batches']} scan_multi "
+            f"calls, {stats['inserts']} inserts (set), {stats['records']} "
+            f"records, every page equal to the oracle's; {scans_per_s} "
+            f"scans/s over {sum(batch_s)} s of batch wall, per batch "
+            f"p50 {np.percentile(bl, 50)} ms, p99 {np.percentile(bl, 99)} "
+            f"ms; inserts {stats['insert_s']} s; traffic {traffic_s} s "
+            f"wall; mask_route_device_raw_count rose by {raw_by_node} "
+            f"(per node); launches {launches['traffic']}")
+        if sum(raw_by_node.values()) <= 0:
+            fail("onebox: no replica computed a block's mask on the device "
+                 "(mask_route_device_raw_count did not rise)")
+        if launches["traffic"]["static"] == 0:
+            fail("onebox: the scans launched no static scan kernel in the "
+                 "replica processes")
+
+        # ---- (d) the other clients -----------------------------------------
+        book = {n: (c["host"], c["port"]) for n, c in cfg["nodes"].items()}
+        metas = [n for n, c in cfg["nodes"].items() if c["role"] == "meta"]
+        nc = wire_client.NativeClient("chip-smoke-cpp", book, metas,
+                                      ONEBOX_APP)
+        closers.append(nc.close)
+        if not nc.refresh() or nc.partition_count != partitions:
+            fail(f"onebox: the C++ client's config: {nc.last_error()}")
+        hs = rng.integers(0, n_hashkeys, size=ONEBOX_CLIENT_OPS)
+        ss = rng.integers(0, len(SORT_KEYS), size=ONEBOX_CLIENT_OPS)
+        keys = [(b"user%08d" % int(h), SORT_KEYS[int(s)])
+                for h, s in zip(hs, ss)]
+        t0 = time.perf_counter()
+        native_gets = [nc.get(hk, sk) for hk, sk in keys]
+        native_scans = [list(nc.scan(hk)) for hk, _sk in keys]
+        native_s = time.perf_counter() - t0
+        cluster_gets = [client.get(hk, sk) for hk, sk in keys]
+        cluster_scans = [[(sk, v) for _hk, sk, v in client.get_scanner(hk)]
+                         for hk, _sk in keys]
+        for i, (hk, sk) in enumerate(keys):
+            o = oracles[key_hash_parts(hk) % partitions].values
+            v = o.get(generate_key(hk, sk))
+            want_get = (0, v) if v is not None else 1
+            got = native_gets[i] if v is not None else native_gets[i][0]
+            if got != want_get or (cluster_gets[i] if v is not None else
+                                   cluster_gets[i][0]) != want_get:
+                fail(f"onebox get {hk!r}/{sk!r}: C++ {native_gets[i]}, "
+                     f"ClusterClient {cluster_gets[i]}, oracle {v!r}")
+            want_scan = [(s, o[generate_key(hk, s)]) for s in SORT_KEYS
+                         if generate_key(hk, s) in o]
+            if native_scans[i] != want_scan or cluster_scans[i] != want_scan:
+                fail(f"onebox scan {hk!r}: C++ {len(native_scans[i])} rows, "
+                     f"ClusterClient {len(cluster_scans[i])}, oracle "
+                     f"{len(want_scan)}")
+        aio_client = ob.connect(ONEBOX_APP, d, client_name="chip-smoke-aio")
+        closers.append(aio_client.net.close)
+        ac = AsyncPegasusClient(aio_client)
+        closers.append(ac.close)
+        aio_gets = asyncio.run(ac.gather_get(keys))
+        if list(aio_gets) != cluster_gets:
+            fail("onebox: AsyncPegasusClient.gather_get differs from the "
+                 "ClusterClient's gets")
+        for n, port in http.items():
+            base = f"http://127.0.0.1:{port}"
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+                if not isinstance(json.load(r), list):
+                    fail(f"onebox: {n} GET /metrics is not a list")
+            with urllib.request.urlopen(base + "/config", timeout=30) as r:
+                codec = json.load(r)["pegasus.storage"]["block_codec"]
+            if codec != "none":
+                fail(f"onebox: {n} GET /config shows block_codec {codec}")
+        found = sum(1 for g in native_gets if g[0] == 0)
+        log(f"onebox on {card}: the C++ wire client (native/"
+            f"wire_client.cpp, built into _build/) answered "
+            f"{len(keys)} gets ({found} found) and {len(keys)} hashkey "
+            f"scans ({sum(map(len, native_scans))} rows) equal to the "
+            f"ClusterClient's and the oracle's: "
+            f"{2 * len(keys) / native_s} ops/s; "
+            f"AsyncPegasusClient.gather_get answered the same {len(keys)} "
+            f"gets; GET /metrics and /config answered on all "
+            f"{len(http)} nodes (block_codec none); the shell's "
+            f"--cluster calls left CUDA uninitialized in their process")
+
+        # ---- (e) a node's death -----------------------------------------------
+        # the secondaries compacted meanwhile (or now): a promoted one
+        # serves the same compacted run
+        wait_until(lambda: compacted(lambda pc: [pc["primary"],
+                                                 *pc["secondaries"]]),
+                   "the secondaries' manual compaction", poll=0.5)
+        all_compact_s = time.perf_counter() - t_compact
+        launches["compaction"] = node_launches(admin, nodes)
+        n_compact = sum(s["compaction"] for s in launches.values())
+        log(f"onebox on {card}: every one of the "
+            f"{partitions * ONEBOX_REPLICAS} replicas compacted "
+            f"{all_compact_s} s after manual_compact; launches since the "
+            f"traffic (the clients' reads, the last compactions) "
+            f"{launches['compaction']}; compaction kernel launches so far "
+            f"{n_compact}")
+        if n_compact == 0:
+            fail("onebox: the compactions launched no compaction kernel")
+        prim = primaries(client)
+        led = {n: sum(1 for v in prim.values() if v == n) for n in nodes}
+        victim = max(nodes, key=lambda n: (led[n], n))
+        probe = ycsb_scans(rng, ONEBOX_PROBE, partitions, n_hashkeys)
+        frames = probe_frames(client, probe, oracles)
+        launches["probe"] = node_launches(admin, nodes)
+        survivors = [n for n in nodes if n != victim]
+        writer = ob.connect(ONEBOX_APP, d, client_name="chip-smoke-outage",
+                            op_timeout_ms=ONEBOX_OUTAGE_TIMEOUT_MS)
+        closers.append(writer.net.close)
+
+        def cured() -> bool:
+            client.refresh_config()
+            return all(pc["primary"] and victim not in
+                       [pc["primary"], *pc["secondaries"]]
+                       for pc in client._configs)
+
+        # a seeded batch acknowledged just before the kill: the victim
+        # serves a replica of every partition, so each partition's share
+        # sits in its plog and memtable when it dies
+        acked: dict = {}
+        for hk in kill_batch(partitions):
+            value = b"pre-kill-%s" % hk
+            err = client.set(hk, b"s", value)
+            if err != 0:
+                fail(f"onebox: the write of {hk!r} before the kill "
+                     f"answered {err}")
+            acked[hk] = value
+        n_pre = len(acked)
+        ob.kill_node(victim, d)
+        t_kill = time.perf_counter()
+        sent, n_outage, cure_s = 0, 0, None
+        # every partition counts the victim among its members, so no
+        # write commits before the cure: write on past it until
+        # ONEBOX_OUTAGE_ACKS of the writes since the kill are acknowledged
+        while cure_s is None or n_outage < ONEBOX_OUTAGE_ACKS:
+            hk = b"out%05d" % sent   # sorts before every user%08d key
+            value = b"outage-%d" % sent
+            try:
+                if writer.set(hk, b"s", value) == 0:
+                    acked[hk] = value
+                    n_outage += 1
+            except PegasusError:
+                pass
+            sent += 1
+            if cure_s is None and (sent % 10 == 0
+                                   or time.perf_counter() - t_kill > 1.0):
+                if cured():
+                    cure_s = time.perf_counter() - t_kill
+                    sent_by_cure, acked_by_cure = sent, n_outage
+                    # the writer's routes still name the victim, and a
+                    # write sent there waits out its deadline
+                    writer.refresh_config()
+            if time.perf_counter() - t_kill > ONEBOX_DEADLINE_S:
+                fail(f"onebox: {n_outage} of {sent} writes since the kill "
+                     f"of {victim} acknowledged, cured: {cure_s is not None}, "
+                     f"after {ONEBOX_DEADLINE_S} s")
+        lost = [hk for hk, v in acked.items()
+                if client.get(hk, b"s") != (0, v)]
+        if lost:
+            fail(f"onebox: {len(lost)} of {len(acked)} acknowledged writes "
+                 f"lost after the kill: {lost[:5]}")
+        moved = {p for p, n in prim.items() if n == victim}
+        new_prim = primaries(client)
+        raw0 = node_counters(admin, survivors, "replica",
+                             "mask_route_device_raw_count")
+        after = probe_frames(client, probe, oracles)
+        launches["cure"] = node_launches(admin, survivors)
+        raw1 = node_counters(admin, survivors, "replica",
+                             "mask_route_device_raw_count")
+        if after != frames:
+            bad = sum(x != y for x, y in zip(frames, after))
+            fail(f"onebox: {bad} of {len(frames)} probe pages differ after "
+                 f"the cure")
+        probed = {p for p, _s, _l in probe} & moved
+        rose = sum(raw1.get((new_prim[p], f"{app_id}.{p}"), 0)
+                   - raw0.get((new_prim[p], f"{app_id}.{p}"), 0)
+                   for p in probed)
+        log(f"onebox on {card}: kill -9 of {victim} (primary of "
+            f"{led[victim]} partitions; onebox_cluster.kill_node) after "
+            f"{n_pre} writes acknowledged ({ONEBOX_KILL_WRITES} a "
+            f"partition); {sent_by_cure} writes sent before the cure, "
+            f"{acked_by_cure} acknowledged; {sent} sent in all until "
+            f"{n_outage} were acknowledged; all {len(acked)} acknowledged "
+            f"writes read back; cured (no partition names {victim}, every "
+            f"partition has a primary) {cure_s} s after the kill; the "
+            f"{len(probe)}-scan probe byte-equal before and after (wire "
+            f"frames); mask_route_device_raw_count of the new "
+            f"primaries of the {len(probed)} probed moved partitions rose "
+            f"by {rose}; launches on the survivors {launches['cure']}")
+        if not probed or rose <= 0:
+            fail("onebox: the new primaries computed no mask on the device")
+        if launches["cure"]["static"] == 0:
+            fail("onebox: the probe on the new primaries launched no static "
+                 "scan kernel")
+        out.update({
+            "boot_s": boot_s, "stage_s": stage_s, "ingest_s": ingest_s,
+            "records_per_s": n_records / ingest_s, "compact_s": compact_s,
+            "scans_per_s": scans_per_s,
+            "batch_p50_ms": float(np.percentile(bl, 50)),
+            "batch_p99_ms": float(np.percentile(bl, 99)),
+            "device_raw": raw_by_node,
+            "native_ops_per_s": 2 * len(keys) / native_s,
+            "cure_s": cure_s, "pre_kill_acked": n_pre,
+            "outage_sent": sent, "outage_acked": n_outage})
+        out["scan"] = {k: sum(s[k] for s in launches.values())
+                       for k in ("static", "now", "multi")}
+        out["compaction"] = sum(s["compaction"] for s in launches.values())
+        return out
+    finally:
+        if sys.exc_info()[0] is not None:
+            for n, port in http.items():
+                print(f"onebox: {n}'s busiest stacks: "
+                      f"{busiest_stacks(port)}", file=sys.stderr,
+                      flush=True)
+            for n in sorted(os.listdir(os.path.join(d, "logs"))):
+                with open(os.path.join(d, "logs", n), "rb") as f:
+                    tail = f.read()[-3000:].decode(errors="replace")
+                print(f"onebox: the tail of {n}:\n{tail}", file=sys.stderr,
+                      flush=True)
+        for close in reversed(closers):
+            try:
+                close()
+            except Exception:  # noqa: BLE001 - stopping regardless
+                pass
+        ob.stop(d)
+        left = reap(pids)
+        shutil.rmtree(d, ignore_errors=True)
+        log(f"onebox: stopped; {len(pids)} node processes, "
+            f"{len(left)} had to be killed; phase wall "
+            f"{time.perf_counter() - t_phase} s")
+        if left:
+            fail(f"onebox: node processes {left} outlived stop")
+
+
+def run_phase14(device, card: str, cut: bool) -> dict:
+    """Phase 14 under the store flags phases 4-13 pin, set in the node
+    processes through cluster.json. `cut`: the whole run's printed
+    cut."""
+    n_hashkeys, n_ops = ONEBOX_HASHKEYS, ONEBOX_OPS
+    if cut:
+        n_hashkeys, n_ops = ONEBOX_RUN_HASHKEYS, ONEBOX_RUN_OPS
+    return run_onebox(device, n_hashkeys=n_hashkeys, n_ops=n_ops, card=card)
+
+
 def times_only(torch, tree: str) -> int:
     """Phase 3's times of the kernels of the pegasus_tpu_torch imported
     from `tree`, as one JSON line: to hold two revisions' kernels against
@@ -6731,6 +7439,11 @@ def main(argv=None) -> int:
                         "backup and restore, duplication on SimClusters) "
                         "alone, print its launches as one JSON line and "
                         "stop")
+    parser.add_argument("--onebox-only", action="store_true",
+                        help="build the kernels, run phase 14 (BASELINE "
+                        "config #2 served by node processes over TCP) "
+                        "alone and uncut, print its launches as one JSON "
+                        "line and stop")
     parser.add_argument("--tree", default=None,
                         help="with --times-only or --resident-times: the "
                         "checkout whose "
@@ -6772,21 +7485,31 @@ def main(argv=None) -> int:
 
     from pegasus_tpu_torch import native
 
+    from pegasus_tpu_torch.native import wire_client
     from pegasus_tpu_torch.ops import fused_mesh
 
-    with ThreadPoolExecutor(4) as pool:
+    def wire_build() -> float:
+        t = time.perf_counter()
+        wire_client.load()
+        return time.perf_counter() - t
+
+    with ThreadPoolExecutor(5) as pool:
         cuda_build = pool.submit(fused_scan.build, force=True)
         compact_build = pool.submit(fused_compaction.build, force=True)
         mesh_build = pool.submit(fused_mesh.build, force=True)
         native_build = pool.submit(native.build, force=True)
+        wire_future = pool.submit(wire_build)
         build_s, build_log = cuda_build.result()
         compact_s, compact_log = compact_build.result()
         mesh_s, mesh_log = mesh_build.result()
         native_s, native_log = native_build.result()
+        wire_s = wire_future.result()
     log(f"build: csrc/scan_predicate.cu -> sm_90a in {build_s:.2f} s; "
         f"csrc/compaction_filter.cu -> sm_90a in {compact_s:.2f} s; "
         f"csrc/mesh_step.cu -> sm_90a in {mesh_s:.2f} s; "
-        f"native/packer.cpp -> g++ -O3 in {native_s:.2f} s")
+        f"native/packer.cpp -> g++ -O3 in {native_s:.2f} s; "
+        f"native/wire_client.cpp -> g++ -O2 (when missing or stale) in "
+        f"{wire_s:.2f} s")
     print((build_log + compact_log + mesh_log + native_log).strip(),
           file=sys.stderr, flush=True)
     if args.replicated_only:
@@ -6808,6 +7531,12 @@ def main(argv=None) -> int:
         services = run_phase13(device, card, cut=False)
         log(f"services: phase 13 done in {time.perf_counter() - t0:.1f} s")
         log(json.dumps({"services": services}))
+        return 0
+    if args.onebox_only:
+        t0 = time.perf_counter()
+        onebox = run_phase14(device, card, cut=False)
+        log(f"onebox: phase 14 done in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"onebox": onebox}))
         return 0
 
     # 3. kernel vs plain, then times
@@ -6992,7 +7721,7 @@ def main(argv=None) -> int:
     # 12. BASELINE config #2 through the meta and the replica stub, then
     # the meta's cure of a silenced node
     t0 = time.perf_counter()
-    cluster, cure = run_phase12(device, card)
+    cluster, cure = run_phase12(device, card, cut=True)
     cl_scan = {k: cluster["scan"][k] + cure["scan"][k]
                for k in ("static", "now", "multi")}
     cl_compact = cluster["compaction"] + cure["compaction"]
@@ -7011,8 +7740,18 @@ def main(argv=None) -> int:
         f"scan kernel launches {sv_scan}, compaction kernel launches "
         f"{services['compaction']}")
 
-    # summary
     log(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s")
+
+    # 14. BASELINE config #2 served by node processes over TCP
+    t0 = time.perf_counter()
+    onebox = run_phase14(device, card, cut=True)
+    ob_scan = onebox["scan"]
+    log(f"onebox: phase 14 done in {time.perf_counter() - t0:.1f} s; scan "
+        f"kernel launches {ob_scan}, compaction kernel launches "
+        f"{onebox['compaction']} (read from the replica processes)")
+
+    # summary
+    log(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s")
     rl = resident["launches"]
     rt = resident["times"]
     t = timings[LARGE_SHAPE]
@@ -7028,7 +7767,8 @@ def main(argv=None) -> int:
                      + rl["static"] + rl["now"]
                      + repl_scan["static"] + repl_scan["now"]
                      + cl_scan["static"] + cl_scan["now"]
-                     + sv_scan["static"] + sv_scan["now"]),
+                     + sv_scan["static"] + sv_scan["now"]
+                     + ob_scan["static"] + ob_scan["now"]),
         "max_abs_err": cmp["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
@@ -7046,7 +7786,9 @@ def main(argv=None) -> int:
                              "cluster": cl_scan["static"]
                              + cl_scan["now"],
                              "services": sv_scan["static"]
-                             + sv_scan["now"]}}, {
+                             + sv_scan["now"],
+                             "onebox": ob_scan["static"]
+                             + ob_scan["now"]}}, {
         "name": "scan_predicate_multi", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/scan_predicate.cu",
         "replaces": "pegasus_tpu/ops/predicates.py:539",
@@ -7054,7 +7796,7 @@ def main(argv=None) -> int:
                      + geo["launches"]["multi"] + client_scan["multi"]
                      + integrity_scan["multi"] + rl["multi"]
                      + repl_scan["multi"] + cl_scan["multi"]
-                     + sv_scan["multi"]),
+                     + sv_scan["multi"] + ob_scan["multi"]),
         "max_abs_err": cmp_multi["max_abs_err"], "ms": tm["ms"],
         "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
         "bound_by": tm["bound_by"], "library_ms": None,
@@ -7074,14 +7816,15 @@ def main(argv=None) -> int:
         "launches": (sum(r["launches"] for r in compact.values())
                      + client_compact + rl["compaction"]
                      + replicated["compaction"] + cl_compact
-                     + services["compaction"]),
+                     + services["compaction"] + onebox["compaction"]),
         "launches_by_path": {"compaction": sum(r["launches"]
                                                for r in compact.values()),
                              "client": client_compact,
                              "resident": rl["compaction"],
                              "replicated": replicated["compaction"],
                              "cluster": cl_compact,
-                             "services": services["compaction"]},
+                             "services": services["compaction"],
+                             "onebox": onebox["compaction"]},
         "launches_by_pass": {p: r["launches"] for p, r in compact.items()},
         "launches_client_split": client_compact,
         "launches_resident": rl["compaction"],

@@ -170,17 +170,20 @@ def _page_coords(kvs, codec, value_of, n_rows):
 
 
 class GeoClient:
-    """`raw` and `index` are any client exposing the PegasusClient API.
-    The distance filter runs on the device of the index client's servers
-    (`index_client.device`): the card, or the host only when the index
-    table was opened with `device="cpu"`."""
+    """`raw` and `index` are any client exposing the PegasusClient API
+    (in-process or cluster). The distance filter runs on `device`; None
+    is the device of an in-process index table's servers
+    (`index_client.device`) and, for a wire client, the card."""
 
     def __init__(self, raw_client, index_client,
                  codec: Optional[LatLngCodec] = None,
-                 index_level: int = 12, max_level: int = 16) -> None:
+                 index_level: int = 12, max_level: int = 16,
+                 device=None) -> None:
         self.raw = raw_client
         self.index = index_client
-        self.device = resolve_device(index_client.device)
+        if device is None:
+            device = getattr(index_client, "device", None)
+        self.device = resolve_device(device)
         self.codec = codec or LatLngCodec()
         self.index_level = index_level
         self.max_level = max_level
@@ -330,7 +333,10 @@ class GeoClient:
         for overflowing cells."""
         specs = [(cell[:self.index_level].encode(),
                   cell[self.index_level:].encode()) for cell in cells]
-        pcount = self.index.partition_count
+        pcount = getattr(self.index, "partition_count", None)
+        if not pcount:
+            self.index.refresh_config()
+            pcount = self.index.partition_count
         groups: dict = {}
         for hk, sub in specs:
             req = make_hashkey_scan_request(

@@ -176,8 +176,14 @@ class MetaBulkLoadService:
             del self._loads[gpid[0]]
             self._save()
             return
-        if gpid[1] in info["inflight"]:
-            info["inflight"].remove(gpid[1])
+        if gpid[1] not in info["inflight"]:
+            # a re-ack (the tick and every drive re-send trigger_ingest,
+            # and an ingested primary re-acks each): nothing changed.
+            # Driving again here would re-send a trigger to every
+            # partition in flight for each duplicate, and the re-acks of
+            # those multiply while the meta lags behind its inbox.
+            return
+        info["inflight"].remove(gpid[1])
         if not info["pending"] and not info["inflight"]:
             del self._loads[gpid[0]]
             self._save()

@@ -7,7 +7,7 @@ GEO* commands ride a GeoClient over a dedicated index table.
 
 Thread-per-connection TCP server (the proxy is stateless; each command
 is one client call). Works over any object exposing the PegasusClient
-API, such as the in-process Table client.
+API — the in-process Table client or the wire ClusterClient.
 """
 
 from __future__ import annotations
@@ -297,3 +297,38 @@ class RedisProxy:
         except OSError:
             pass
 
+
+def main() -> None:
+    """python -m pegasus_tpu_torch.redis_proxy.proxy --cluster DIR --table T
+    [--port P] [--geo-index TABLE [--device cpu]]"""
+    import argparse
+    import time
+
+    from pegasus_tpu_torch.tools import onebox_cluster as ob
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cluster", required=True)
+    ap.add_argument("--table", required=True)
+    ap.add_argument("--port", type=int, default=6379)
+    ap.add_argument("--geo-index", default=None,
+                    help="geo index table name enabling GEO* verbs")
+    ap.add_argument("--device", default=None,
+                    help="where the GEO verbs' distance filter runs: the "
+                         "card (default) or cpu")
+    args = ap.parse_args()
+    client = ob.connect(args.table, args.cluster)
+    geo = None
+    if args.geo_index:
+        from pegasus_tpu_torch.geo import GeoClient
+
+        geo = GeoClient(client, ob.connect(args.geo_index, args.cluster),
+                        device=args.device)
+    proxy = RedisProxy(client, port=args.port, geo=geo).start()
+    print(f"redis proxy serving {args.table} on port {proxy.port}",
+          flush=True)
+    while True:
+        time.sleep(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -137,6 +137,10 @@ class RowCache:
             self._miss.increment(misses)
         return out
 
+    def get(self, gid, store_uid: int, generation: int, key: bytes
+            ) -> Optional[Tuple[bytes, int]]:
+        return self.get_many(gid, store_uid, generation, [key]).get(key)
+
     # ---- admit --------------------------------------------------------
 
     def note_and_check_many(self, gid, keys, fast=()) -> list:
@@ -161,6 +165,10 @@ class RowCache:
             while len(touch) > _TOUCH_CAP:
                 touch.popitem(last=False)
         return granted
+
+    def note_and_check(self, gid, key: bytes, fast: bool = False) -> bool:
+        return bool(self.note_and_check_many(
+            gid, [key], fast={key} if fast else ()))
 
     def admit_many(self, gid, store_uid: int, generation: int, items,
                    epoch: Optional[int] = None) -> None:
@@ -197,6 +205,12 @@ class RowCache:
                 evicted += nb
         if evicted:
             self._evicted.increment(evicted)
+
+    def admit(self, gid, store_uid: int, generation: int, key: bytes,
+              value: bytes, expire_ts: int,
+              epoch: Optional[int] = None) -> None:
+        self.admit_many(gid, store_uid, generation,
+                        [(key, value, expire_ts)], epoch=epoch)
 
     # ---- invalidate ---------------------------------------------------
 
@@ -244,6 +258,19 @@ class RowCache:
                         self._bytes -= ent[2]
             for t in [t for t in self._touch if t[0] == gid]:
                 del self._touch[t]
+
+    # ---- observability ------------------------------------------------
+
+    def stats(self) -> dict:
+        with self._lock:
+            per_gid: dict = {}
+            for (gid, _su, _gen, _key), (_v, _e, nb) in \
+                    self._entries.items():
+                g = per_gid.setdefault(str(gid), {"entries": 0, "bytes": 0})
+                g["entries"] += 1
+                g["bytes"] += nb
+            return {"entries": len(self._entries), "bytes": self._bytes,
+                    "capacity": self.capacity, "per_gid": per_gid}
 
 
 

@@ -236,5 +236,20 @@ class CompactionGovernor:
             "bytes_per_s": int(self.rate_bps),
         }
 
+    def status(self) -> dict:
+        g = self._grant
+        return {
+            "throttle_mbps": round(self.throttle_mbps, 1),
+            "bytes_per_s": int(self.rate_bps),
+            "heavy_running": self.heavy_running,
+            "heavy_waiting": bool(self._heavy_waiting),
+            "grant": (None if g is None else {
+                "granted": g[0],
+                "lease_remaining_s": round(g[1] - self._clock(), 1),
+            }),
+            "backoff_count": self._c_backoff.value(),
+            "defer_count": self._c_defer.value(),
+        }
+
 
 GOVERNOR = CompactionGovernor()

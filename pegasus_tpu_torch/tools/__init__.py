@@ -1,4 +1,4 @@
-"""Operational tools (reference: `pegasus_tpu/tools/`): the simulated
-cluster (`cluster.SimCluster`) and the kill test's data verifier
-(`kill_test.DataVerifier`). The onebox cluster and the shell are slice
-6(c) of the port."""
+"""Operational tools: onebox cluster, interactive shell (reference:
+src/shell/, run.sh onebox, admin-cli/)."""
+
+from pegasus_tpu_torch.tools.onebox import Onebox

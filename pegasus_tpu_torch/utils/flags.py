@@ -83,6 +83,12 @@ class FlagRegistry:
                         )
                     flag.value = value
 
+    def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        out: Dict[str, Dict[str, Any]] = {}
+        for (section, name), flag in sorted(self._flags.items()):
+            out.setdefault(section, {})[name] = flag.value
+        return out
+
 
 def _coerce(value: Any, typ: type) -> Any:
     if isinstance(value, typ):

@@ -279,3 +279,48 @@ def test_clock_is_frozen_in_both_packages(frozen):
     frozen.t += 10
     assert jvs.epoch_now() == tvs.epoch_now()
     assert abs(time.time() - T0) > 1
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_duplicate_ingest_ack_is_dropped(tmp_path, pkg):
+    """A re-ack of a partition no longer in flight (an ingested primary
+    answers every re-sent trigger_ingest) leaves the port's bulk load as
+    it was and sends nothing; the JAX meta drives its window again and
+    re-sends a trigger to every partition in flight, which is what lets
+    re-acks multiply on a meta that lags behind its inbox (ROADMAP §3).
+    Both loads still complete."""
+    from pegasus_tpu.tools.cluster import SimCluster as JCluster
+    from pegasus_tpu_torch.tools.cluster import SimCluster as TCluster
+
+    Cluster, bulk, kw = ((JCluster, jbulk, {}) if pkg == "jax" else
+                         (TCluster, tbulk, {"device": "cpu"}))
+    bs = (jbs if pkg == "jax" else tbs).LocalBlockService(
+        str(tmp_path / "stage"))
+    c = Cluster(str(tmp_path / "c"), n_nodes=3, **kw)
+    try:
+        app_id = c.create_table("t", partition_count=4, replica_count=3)
+        bulk.SSTGenerator(bs, "t", 4).generate(
+            [(b"k%02d" % i, b"s", b"v%d" % i, 0) for i in range(40)])
+        svc = c.meta.bulk_load
+        svc.start_bulk_load("t", str(tmp_path / "stage"))
+        assert svc._loads[app_id]["inflight"] == [0, 1]
+        sent = []
+        send = c.meta.net.send
+        c.meta.net.send = lambda src, dst, mt, p, *a, **k: (
+            sent.append(mt), send(src, dst, mt, p, *a, **k))
+        before = json.dumps(svc._loads, sort_keys=True)
+        svc.on_ingest_done({"gpid": (app_id, 3), "err": 0})
+        c.meta.net.send = send
+        if pkg == "port":
+            assert sent == []
+            assert json.dumps(svc._loads, sort_keys=True) == before
+        else:
+            assert sent == ["trigger_ingest", "trigger_ingest"]
+        for _ in range(20):
+            c.step()
+            if svc.bulk_load_status("t")["complete"]:
+                break
+        assert svc.bulk_load_status("t")["complete"]
+        assert c.client("t").get(b"k07", b"s") == (0, b"v7")
+    finally:
+        c.close()

@@ -30,6 +30,25 @@ SERVICE_MODULES = (
 )
 
 
+# the modules of slice 6(c)
+PROCESS_MODULES = (
+    "pegasus_tpu_torch.http",
+    "pegasus_tpu_torch.http.http_server",
+    "pegasus_tpu_torch.server.node_main",
+    "pegasus_tpu_torch.tools.onebox_cluster",
+    "pegasus_tpu_torch.tools.onebox",
+    "pegasus_tpu_torch.tools.shell",
+    "pegasus_tpu_torch.tools.pressure_test",
+    "pegasus_tpu_torch.tools.rolling_update",
+    "pegasus_tpu_torch.tools.scale_test",
+    "pegasus_tpu_torch.tools.collector",
+    "pegasus_tpu_torch.tools.metrics_lint",
+    "pegasus_tpu_torch.tools.bench_report",
+    "pegasus_tpu_torch.native.wire_client",
+    "pegasus_tpu_torch.client.aio",
+)
+
+
 def _port_modules():
     import pegasus_tpu_torch
 
@@ -123,7 +142,10 @@ def test_port_modules_are_found():
                  "pegasus_tpu_torch.meta.meta_service",
                  "pegasus_tpu_torch.replica.stub",
                  # backup, bulk load, duplication; SimCluster
-                 *SERVICE_MODULES):
+                 *SERVICE_MODULES,
+                 # the node process, the onebox, the clients and tools
+                 *PROCESS_MODULES,
+                 "pegasus_tpu_torch.redis_proxy.__main__"):
         assert want in names
 
 
@@ -458,12 +480,15 @@ def test_cluster_runs_without_jax(tmp_path):
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke", "replication",
-                                    "services"])
+                                    "services", "processes"])
 def test_imports_without_jax_or_the_jax_package(target):
     names = (_port_modules() if target == "package" else
              _replication_modules() if target == "replication" else
              list(SERVICE_MODULES) if target == "services" else
+             list(PROCESS_MODULES) if target == "processes" else
              ["chip_smoke"])
+    # importing the proxy's __main__ would start serving
+    names = [n for n in names if not n.endswith("__main__")]
     if target == "replication":
         assert len(names) == 33, names   # 4 packages, 29 modules
     if target == "services":
@@ -594,3 +619,84 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     proc = _run_smoke(str(tmp_path))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# a node process with `jax` and the JAX package blocked
+_BLOCKED_NODE = (
+    "import runpy, sys\n"
+    "sys.modules['jax'] = None\n"
+    "sys.modules['pegasus_tpu'] = None\n"
+    "sys.argv = ['node_main'] + sys.argv[1:]\n"
+    "runpy.run_module('pegasus_tpu_torch.server.node_main', "
+    "run_name='__main__')\n")
+
+
+def test_node_process_boots_without_jax(tmp_path):
+    """`python -m pegasus_tpu_torch.server.node_main`, the meta and a
+    replica, each in a process where importing `jax` or anything of
+    `pegasus_tpu` fails: both boot, the replica registers with the meta
+    and names its device."""
+    import json
+    import socket
+
+    from pegasus_tpu_torch.tools.onebox_cluster import OneboxAdmin
+    from pegasus_tpu_torch.utils.errors import PegasusError
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    d = str(tmp_path)
+    os.makedirs(os.path.join(d, "logs"))
+    cfg = {"data_root": os.path.join(d, "data"), "device": "cpu",
+           "nodes": {"meta": {"host": "127.0.0.1", "port": free_port(),
+                              "role": "meta"},
+                     "node0": {"host": "127.0.0.1", "port": free_port(),
+                               "role": "replica"}}}
+    path = os.path.join(d, "cluster.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BLOCKED_NODE, "--config", path,
+         "--name", name], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name in cfg["nodes"]]
+    admin = None
+    try:
+        admin = OneboxAdmin(d)
+        nodes = []
+        for _ in range(120):
+            try:
+                nodes = admin.call("list_nodes", timeout=2)
+            except PegasusError:
+                nodes = []
+            if nodes or any(p.poll() is not None for p in procs):
+                break
+        assert nodes == ["node0"], [p.poll() for p in procs]
+    finally:
+        if admin is not None:
+            admin.close()
+        for p in procs:
+            p.terminate()
+        outs = [p.communicate(timeout=30)[0] for p in procs]
+    assert "device=cpu" in outs[1], outs
+    assert "Traceback" not in "".join(outs), outs
+
+
+def test_onebox_refuses_to_serve_without_a_card(tmp_path, monkeypatch):
+    """A replica process asked for the card (no `device` in the cluster
+    config) where there is none exits during boot; `start` raises with
+    the tail of its log and stops the nodes it started. The card is
+    hidden from the node processes, which inherit this environment, so
+    that the refusal shows on a host with a card too."""
+    from pegasus_tpu_torch.tools import onebox_cluster as ob
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    d = str(tmp_path / "ob")
+    try:
+        with pytest.raises(RuntimeError, match="no device to serve on"):
+            ob.start(d, n_replica=1)
+        assert ob.status(d) == {}   # stopped: no pids left to track
+    finally:
+        ob.stop(d)

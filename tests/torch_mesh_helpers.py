@@ -5,10 +5,11 @@
   zeroed in place, flags set in both registries, and `mesh_guard`, which
   resets and restores both packages' MESH_SERVING, flags, DRIFT and
   METRICS around a test.
-- The cluster files (test_torch_{backup_bulk_load,duplication,cluster,
-  act}.py): `load_spec` runs a test file of the JAX package's on the
-  port, and `restore_process_state` puts back what a cluster test
-  leaves in either package's process-wide registries.
+- The cluster and onebox files (test_torch_{backup_bulk_load,
+  duplication,cluster,act,process_onebox,...}.py): `load_spec` runs a test
+  file of the JAX package's on the port, and `restore_process_state`
+  puts back what a cluster test leaves in either package's process-wide
+  registries.
 """
 
 import ast
@@ -108,26 +109,51 @@ TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 # the port's classes and methods that serve on the card unless told
 # otherwise: a spec run calls each of them with device="cpu"
 CPU_CALLS = ("SimCluster", "ActRunner", "Table", "PartitionServer",
-             "StorageEngine", "ReplicaStub", "Replica", "restore_partition")
+             "StorageEngine", "ReplicaStub", "Replica", "restore_partition",
+             "Onebox", "GeoClient", "run_scale_test", "run_wan_test")
+# module names under which the tests call onebox_cluster.start
+ONEBOX_MODULES = ("ob", "onebox_cluster")
+
+
+def _with_cpu_device(items: list) -> list:
+    """An argv (the elements of a call or a list) with "--device", "cpu"
+    after its "--root" DIR pair: the shell's in-process onebox then
+    serves on the CPU."""
+    consts = [getattr(e, "value", None) for e in items]
+    if "--root" not in consts or "--device" in consts:
+        return items
+    at = consts.index("--root") + 2
+    return items[:at] + [ast.Constant("--device"),
+                         ast.Constant("cpu")] + items[at:]
 
 
 class _OnCpu(ast.NodeTransformer):
+    def visit_List(self, node):
+        self.generic_visit(node)
+        node.elts = _with_cpu_device(node.elts)
+        return node
+
     def visit_Call(self, node):
         self.generic_visit(node)
         f = node.func
         name = (f.id if isinstance(f, ast.Name) else
                 f.attr if isinstance(f, ast.Attribute) else None)
-        if name in CPU_CALLS and not any(k.arg == "device"
-                                         for k in node.keywords):
+        onebox_start = (name == "start" and isinstance(f, ast.Attribute)
+                        and isinstance(f.value, ast.Name)
+                        and f.value.id in ONEBOX_MODULES)
+        if (name in CPU_CALLS or onebox_start) and not any(
+                k.arg == "device" for k in node.keywords):
             node.keywords.append(ast.keyword(
                 arg="device", value=ast.Constant("cpu")))
+        node.args = _with_cpu_device(node.args)
         return node
 
 
 def spec_code(ref_file: str):
     """tests/`ref_file` compiled with every import of the JAX package
-    rewritten to the port's, and every call in CPU_CALLS asking for the
-    CPU."""
+    (and every module named in a command line) rewritten to the port's;
+    every call in CPU_CALLS, every `ob.start` / `onebox_cluster.start`
+    and every shell argv with "--root" asks for the CPU."""
     with open(os.path.join(TESTS_DIR, ref_file)) as f:
         src = f.read()
     src = re.sub(r"\bpegasus_tpu\b(?!_torch)", "pegasus_tpu_torch", src)
