@@ -203,13 +203,16 @@ Phases, each fatal on failure:
    pinned through cluster.json; (b) table "bench" of 64 partitions x 3
    replicas created and bulk-loaded (1,000,000 records in
    bench.py:190-222's layout, 10% expired, staged by SSTGenerator) by the
-   shell's wire mode in a process of its own, which must leave CUDA
-   uninitialized, then the shell's manual_compact (the env trigger; the
-   meta staggers it node by node) until every replica counted a
-   compaction; (c) 20,000 YCSB-E operations through
-   onebox_cluster.connect (a ClusterClient over TcpTransport: scans in
-   scan_multi batches of 32, 5% inserts), every page against an
-   oracle; the replicas' mask_route_device_raw_count must rise; (d) the
+   shell's wire mode in one process of its own, started before the
+   nodes, which must leave CUDA uninitialized (bulk_load_status sampled
+   once a second), then the shell's manual_compact (the env trigger; the
+   meta staggers it node by node, its grant lease shortened to 9 s)
+   until every replica counted a compaction; each node's boot seconds
+   printed, no node log may hold a traceback; (c) 20,000 YCSB-E
+   operations through onebox_cluster.connect (a ClusterClient over
+   TcpTransport: scans in scan_multi batches of 32, 5% inserts), every
+   page against an oracle; the replicas' mask_route_device_raw_count
+   must rise; (d) the
    C++ wire client's 200 gets and hashkey scans and
    AsyncPegasusClient.gather_get equal to the ClusterClient and the
    oracle, every node's GET /metrics and /config; (e) 3 writes a
@@ -275,6 +278,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2603,6 +2607,7 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
 POINT_PARTITIONS = 4           # onebox: one table of 4 partitions
 POINT_RECORDS = 1_000_000      # BASELINE config #1
 POINT_OPS = 20_000             # YCSB-C gets; misses and scans scale off it
+POINT_RUN_RECORDS = 500_000    # the whole run's cut of phase 6 (printed)
 GET_FLUSH = 32                 # gets a read-coordinator flush coalesces
 #                                (bench.py PEGBENCH_GET_BATCH)
 DEEP_L0 = 4                    # overlay flushes (bench.py deepen_l0)
@@ -2701,6 +2706,9 @@ def run_point_batch(device, n_records: int = POINT_RECORDS,
     heap = "zstd" if _Zstd.lib() is not None else "zlib"
     rng = np.random.default_rng(seed)
     n_hashkeys = max(1, n_records // 10)
+    if n_records < POINT_RECORDS:
+        log(f"point: CUT to {n_records} records of config #1's "
+            f"{POINT_RECORDS}")
     oracles = {p: BatchedOracle() for p in range(P)}
     data_dir = tempfile.mkdtemp(prefix="pegasus_torch_point_")
     servers = []
@@ -6738,42 +6746,81 @@ ONEBOX_DEADLINE_S = 180.0      # what a wait (boot, load, cure) may take
 ONEBOX_OUTAGE_TIMEOUT_MS = 2000  # a write's deadline while a node is down
 ONEBOX_KILL_WRITES = 3         # a partition's writes acked before the kill
 ONEBOX_OUTAGE_ACKS = 100       # writes since the kill that must be acked
+# the meta's compaction stagger keeps a node's grant at least a third of
+# its lease after granting it (the default 30 s: 10 s a node, however
+# short its compaction); 9 s keeps that third above one config-sync
+# round (2.5 s), the delivery race the hold covers
+ONEBOX_GRANT_LEASE_S = 9.0
+ONEBOX_FLAGS = {**NONE_STORE, ("pegasus.meta", "compaction_grant_lease_s"):
+                ONEBOX_GRANT_LEASE_S}
 # the whole run's cut of phase 14 (printed; --onebox-only runs it uncut)
 ONEBOX_RUN_HASHKEYS = 10_000
 ONEBOX_RUN_OPS = 2_000
 
-# the shell in a process of its own, one `shell.main(["--cluster", d,
-# *argv])` an argv: the wire mode is a client and must not initialize
-# CUDA, which the last line reports
-_SHELL_CALLS = (
+# the shell's wire mode in a process of its own, which must not initialize
+# CUDA: it reads one JSON [directory, argv] a line, runs
+# `shell.main(["--cluster", directory, *argv])` and ends what the verb
+# printed with one _SHELL_DONE line
+_SHELL_DONE = "\x00shell-done "
+_SHELL_LOOP = (
     "import json, sys\n"
     "import torch\n"
     "from pegasus_tpu_torch.tools import shell\n"
-    "d, calls = sys.argv[1], json.loads(sys.argv[2])\n"
-    "rcs = [shell.main(['--cluster', d, *argv]) for argv in calls]\n"
-    "print(json.dumps({'rcs': rcs, "
-    "'cuda_initialized': torch.cuda.is_initialized()}))\n")
+    "for line in sys.stdin:\n"
+    "    d, argv = json.loads(line)\n"
+    "    rc = shell.main(['--cluster', d, *argv])\n"
+    f"    print({_SHELL_DONE!r} + json.dumps({{'rc': rc, "
+    "'cuda_initialized': torch.cuda.is_initialized()}), flush=True)\n")
 
 
-def shell_wire(tree: str, d: str, calls: list) -> str:
-    """The shell's wire mode on onebox `d`, each argv of `calls` in turn,
-    in a process of its own; fails unless every call answers 0 and CUDA
-    stayed uninitialized there. Returns what the verbs printed."""
-    proc = subprocess.run(
-        [sys.executable, "-c", _SHELL_CALLS, d, json.dumps(calls)],
-        cwd=tree, env=dict(os.environ, PYTHONPATH=tree),
-        capture_output=True, text=True, timeout=300)
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        fail(f"shell {calls}: exit {proc.returncode}: "
-             f"{proc.stderr[-2000:]}")
-    res = json.loads(lines[-1])
-    if any(res["rcs"]):
-        fail(f"shell {calls} answered {res['rcs']}: {proc.stdout[-2000:]}"
-             f"{proc.stderr[-2000:]}")
-    if res["cuda_initialized"]:
-        fail(f"shell {calls}: the wire mode initialized CUDA")
-    return "\n".join(lines[:-1])
+class ShellWire:
+    """The shell's wire mode on onebox `d`: one process for every call,
+    started before the nodes so that its imports overlap their boot.
+    Each call fails unless the verb answers 0 and CUDA stayed
+    uninitialized in that process."""
+
+    def __init__(self, tree: str, d: str) -> None:
+        self.d = d
+        self._err = tempfile.TemporaryFile()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _SHELL_LOOP], cwd=tree,
+            env=dict(os.environ, PYTHONPATH=tree), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self._err, text=True)
+
+    def call(self, argv: list, timeout: float = 300) -> str:
+        """Runs one verb; returns what it printed."""
+        self.proc.stdin.write(json.dumps([self.d, argv]) + "\n")
+        self.proc.stdin.flush()
+        kill = threading.Timer(timeout, self.proc.kill)
+        kill.start()
+        try:
+            out = []
+            for line in self.proc.stdout:
+                if _SHELL_DONE in line:
+                    head, _, tail = line.partition(_SHELL_DONE)
+                    out.append(head)
+                    res = json.loads(tail)
+                    if res["rc"]:
+                        fail(f"shell {argv} answered {res['rc']}: "
+                             f"{''.join(out)[-2000:]}")
+                    if res["cuda_initialized"]:
+                        fail(f"shell {argv}: the wire mode initialized CUDA")
+                    return "".join(out)
+                out.append(line)
+        finally:
+            kill.cancel()
+        self._err.seek(0)
+        fail(f"shell {argv}: exit {self.proc.wait()}: "
+             f"{self._err.read()[-2000:].decode(errors='replace')}")
+
+    def close(self) -> None:
+        self.proc.stdin.close()
+        try:
+            self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self._err.close()
 
 
 def wait_until(done, what: str, timeout: float = ONEBOX_DEADLINE_S,
@@ -6880,11 +6927,13 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
     """Phase 14: BASELINE config #2 served by node processes over TCP
     (tools/onebox_cluster.py, server/node_main.py). (a) 1 meta and 3
     replica processes, the replicas on the card `device`, every node's
-    store flags pinned to
-    NONE_STORE through cluster.json; (b) table "bench" of 64 partitions
+    store flags pinned to NONE_STORE and the meta's grant lease set to
+    ONEBOX_GRANT_LEASE_S through cluster.json, each node's boot seconds
+    read from its log; (b) table "bench" of 64 partitions
     x 3 replicas created through the shell's wire mode, config #2
     (bench.py:190-222's layout, 10% expired) staged by SSTGenerator in a
-    LocalBlockService root and ingested by the shell's start_bulk_load,
+    LocalBlockService root and ingested by the shell's start_bulk_load
+    (bulk_load_status sampled once a second),
     then the shell's manual_compact (the env trigger), until every
     replica's engine counted a compaction; (c) YCSB-E through
     onebox_cluster.connect, a ClusterClient over TcpTransport (95% scans
@@ -6901,9 +6950,9 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
     read back, a seeded probe of
     200 scans taken before the kill byte-equal after it (wire frames),
     the new primaries' mask_route_device_raw_count rising; (f) stop, no
-    node process left. Kernel launches are read from the replica
-    processes (`kernel.launches`). Returns the numbers and the launches
-    by stage."""
+    node process left, no node log holding a traceback. Kernel launches
+    are read from the replica processes (`kernel.launches`). Returns the
+    numbers and the launches by stage."""
     import asyncio
     import urllib.request
 
@@ -6939,7 +6988,9 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
     try:
         # ---- (a) the node processes --------------------------------------
         t0 = time.perf_counter()
-        cfg = ob.start(d, n_replica=ONEBOX_NODES, flags=NONE_STORE)
+        shell = ShellWire(tree, d)
+        closers.append(shell.close)
+        cfg = ob.start(d, n_replica=ONEBOX_NODES, flags=ONEBOX_FLAGS)
         with open(os.path.join(d, "pids.json")) as f:
             pid_of = json.load(f)
         pids = list(pid_of.values())
@@ -6950,23 +7001,32 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
                    == ONEBOX_NODES, "the replica nodes' registration")
         boot_s = time.perf_counter() - t0
         served_on = {}
+        node_boot_s = {}
         for n in cfg["nodes"]:
             with open(os.path.join(d, "logs", f"{n}.log")) as f:
                 text = f.read()
             m = re.search(r"serving on \S+ http=(\d+)(?: device=(.*))?",
                           text)
-            if m is None:
+            b = re.search(r"booted in (\S+) s \((\S+) s before the port",
+                          text)
+            if m is None or b is None:
                 fail(f"onebox: {n} printed no boot line: {text[-2000:]}")
             http[n] = int(m.group(1))
+            node_boot_s[n] = (float(b.group(1)), float(b.group(2)))
             if n in nodes:
                 served_on[n] = m.group(2)
+        log(f"onebox on {card}: each node's boot, from its module's "
+            f"import to serving (of it, the role's imports and the "
+            f"message registry before its port opened): "
+            + ", ".join(f"{n} {t} s ({pre} s)"
+                        for n, (t, pre) in node_boot_s.items()))
         want = f"{device} ({torch.cuda.get_device_name(device)})"
         for n, dev in served_on.items():
             if dev != want:
                 fail(f"onebox: {n} serves on {dev!r}, not {want!r}")
         log(f"onebox on {card}: 1 meta + {ONEBOX_NODES} replica processes "
-            f"(python -m pegasus_tpu_torch.server.node_main, store flags "
-            f"{ {k[1]: v for k, v in NONE_STORE.items()} } through "
+            f"(python -m pegasus_tpu_torch.server.node_main, flags "
+            f"{ {k[1]: v for k, v in ONEBOX_FLAGS.items()} } through "
             f"cluster.json) up and registered in {boot_s} s; replicas "
             f"serve on {sorted(set(served_on.values()))}")
         smi = subprocess.run(
@@ -6989,8 +7049,7 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
             fail(f"onebox: SSTGenerator staged {sum(counts.values())} of "
                  f"{n_records} records")
         t0 = time.perf_counter()
-        shell_wire(tree, d, [["create_app", ONEBOX_APP, "-p",
-                              str(partitions)]])
+        shell.call(["create_app", ONEBOX_APP, "-p", str(partitions)])
         client = ob.connect(ONEBOX_APP, d, client_name="chip-smoke")
         closers.append(client.net.close)
         client.refresh_config()
@@ -7022,8 +7081,32 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
         wait_until(opened, "the table's replicas opening", poll=0.5,
                    explain=lambda: sorted(serving().items())[:12])
         open_s = time.perf_counter() - t0
-        shell_wire(tree, d, [["start_bulk_load", ONEBOX_APP, "--bucket",
-                              root]])
+        # bulk_load_status once a second from the shell's call on, by an
+        # admin client of its own: the load may end before the shell's
+        # process does. A sample is (s since the call, partitions pending,
+        # in flight, complete); before the meta takes the call it reads
+        # complete, with no load.
+        progress: list = []
+        sampled = threading.Event()
+        sampler_admin = ob.OneboxAdmin(d, name="chip-smoke-sampler")
+        closers.append(sampler_admin.close)
+
+        def sample() -> None:
+            while not sampled.is_set():
+                t = time.perf_counter() - t_load
+                try:
+                    st = sampler_admin.call("bulk_load_status",
+                                            app_name=ONEBOX_APP, timeout=6)
+                    progress.append((round(t, 3), len(st["pending"]),
+                                     len(st["inflight"]), st["complete"]))
+                except PegasusError as e:
+                    progress.append((round(t, 3), repr(e)))
+                sampled.wait(len(progress) - (time.perf_counter() - t_load))
+
+        t_load = time.perf_counter()
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        shell.call(["start_bulk_load", ONEBOX_APP, "--bucket", root])
 
         def loaded() -> bool:
             st = admin.call("bulk_load_status", app_name=ONEBOX_APP)
@@ -7044,7 +7127,14 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
 
         wait_until(loaded, "the bulk load", explain=load_state)
         ingest_s = time.perf_counter() - t0
+        load_s = time.perf_counter() - t_load
+        sampled.set()
+        sampler.join(timeout=30)
         launches["ingest"] = node_launches(admin, nodes)
+        log(f"onebox on {card}: bulk_load_status once a second (s since "
+            f"the shell's start_bulk_load call, partitions pending, in "
+            f"flight, complete): {progress}; complete after {load_s} s: "
+            f"{n_records / load_s} records/s from that call")
         log(f"onebox on {card}: load route start_bulk_load (the shell's "
             f"wire mode) of an SSTGenerator-staged LocalBlockService root: "
             f"{n_records} records ({n_hashkeys} hashkeys x 10, "
@@ -7059,7 +7149,7 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
         client.refresh_config()
         before = node_counters(admin, nodes, "engine", "compaction_count")
         t_compact = time.perf_counter()
-        shell_wire(tree, d, [["manual_compact", ONEBOX_APP]])
+        shell.call(["manual_compact", ONEBOX_APP])
 
         def compacted(members) -> bool:
             now = node_counters(admin, nodes, "engine", "compaction_count")
@@ -7213,7 +7303,8 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
             f"AsyncPegasusClient.gather_get answered the same {len(keys)} "
             f"gets; GET /metrics and /config answered on all "
             f"{len(http)} nodes (block_codec none); the shell's "
-            f"--cluster calls left CUDA uninitialized in their process")
+            f"--cluster calls left CUDA uninitialized in their process "
+            f"(one, started before the nodes)")
 
         # ---- (e) a node's death -----------------------------------------------
         # the secondaries compacted meanwhile (or now): a promoted one
@@ -7328,7 +7419,9 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
             fail("onebox: the probe on the new primaries launched no static "
                  "scan kernel")
         out.update({
-            "boot_s": boot_s, "stage_s": stage_s, "ingest_s": ingest_s,
+            "boot_s": boot_s, "node_boot_s": node_boot_s,
+            "stage_s": stage_s, "ingest_s": ingest_s, "load_s": load_s,
+            "load_progress": progress,
             "records_per_s": n_records / ingest_s, "compact_s": compact_s,
             "scans_per_s": scans_per_s,
             "batch_p50_ms": float(np.percentile(bl, 50)),
@@ -7359,12 +7452,21 @@ def run_onebox(device, n_hashkeys: int = ONEBOX_HASHKEYS,
                 pass
         ob.stop(d)
         left = reap(pids)
+        tracebacks = {}
+        for n in sorted(os.listdir(os.path.join(d, "logs"))):
+            with open(os.path.join(d, "logs", n), "rb") as f:
+                text = f.read().decode(errors="replace")
+            if "Traceback" in text:
+                tracebacks[n] = text[text.index("Traceback"):][:3000]
         shutil.rmtree(d, ignore_errors=True)
         log(f"onebox: stopped; {len(pids)} node processes, "
-            f"{len(left)} had to be killed; phase wall "
+            f"{len(left)} had to be killed; node logs holding a traceback: "
+            f"{sorted(tracebacks) or 'none'}; phase wall "
             f"{time.perf_counter() - t_phase} s")
         if left:
             fail(f"onebox: node processes {left} outlived stop")
+        if tracebacks and sys.exc_info()[0] is None:
+            fail(f"onebox: tracebacks in the node logs: {tracebacks}")
 
 
 def run_phase14(device, card: str, cut: bool) -> dict:
@@ -7631,7 +7733,8 @@ def main(argv=None) -> int:
 
     # 6. the point-get path at the default store flags
     t0 = time.perf_counter()
-    point = run_point_batch(device, card=card)["launches"]
+    point = run_point_batch(device, n_records=POINT_RUN_RECORDS,
+                            card=card)["launches"]
     torch.cuda.synchronize()
     log(f"point: done in {time.perf_counter() - t0:.1f} s; kernel "
         f"launches {point}")

@@ -365,3 +365,17 @@ def finalize(spec: PushdownSpec, wire: Dict[str, Any]):
     if spec.aggregate == "sample":
         return [(key, v) for _pri, key, v in wire["items"]]
     raise ValueError(f"not an aggregate spec: {spec.aggregate!r}")
+
+
+def aggregate_rows(spec: PushdownSpec,
+                   rows: Iterable[Tuple[bytes, bytes]]):
+    """Client-side fallback: the whole spec (value filter and aggregate)
+    over materialized (key, user_value) rows, as a client evaluates it
+    when the server ignored the pushdown spec."""
+    vf = spec.value_filter
+    st = AggState(spec)
+    for key, value in rows:
+        if vf is not None and not host_match_filter(value, vf[0], vf[1]):
+            continue
+        st.fold_row(key, value)
+    return finalize(spec, st.to_wire())

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import threading
 from typing import Any, Callable, Dict, Tuple
 
 from pegasus_tpu_torch.base.crc import crc32
@@ -44,6 +45,11 @@ _HDR = struct.Struct("<4sII")
 
 _REGISTRY: Dict[str, type] = {}
 _FIELDS: Dict[str, Tuple[str, ...]] = {}
+# the default types are registered once, under the lock, and only then
+# is _FILLED set: a thread that finds it unset waits for the lock, so
+# none ever codes a frame against a partial registry
+_FILL_LOCK = threading.Lock()
+_FILLED = False
 
 
 def register_message_type(cls: type) -> type:
@@ -67,6 +73,19 @@ def _register_defaults() -> None:
                 t.ScanRequest, t.ScanResponse, t.ScanPage, PushdownSpec,
                 PartitionConfig):
         register_message_type(cls)
+
+
+def fill_registry() -> None:
+    """Register the default message types, once per process. A node
+    calls it before its port opens, so that no reader thread imports
+    the modules that define them."""
+    global _FILLED
+    if _FILLED:
+        return
+    with _FILL_LOCK:
+        if not _FILLED:
+            _register_defaults()
+            _FILLED = True
 
 
 # ---- value codec -------------------------------------------------------
@@ -211,8 +230,7 @@ class _Dec:
 
 
 def encode_message(src: str, dst: str, msg_type: str, payload: Any) -> bytes:
-    if not _REGISTRY:
-        _register_defaults()
+    fill_registry()
     out: list = []
     _enc_value(out, src)
     _enc_value(out, dst)
@@ -225,8 +243,7 @@ def encode_message(src: str, dst: str, msg_type: str, payload: Any) -> bytes:
 def decode_message(frame_body: bytes) -> Tuple[str, str, str, Any]:
     """Decodes a body (header already consumed/validated by the reader).
     Returns (src, dst, msg_type, payload)."""
-    if not _REGISTRY:
-        _register_defaults()
+    fill_registry()
     d = _Dec(frame_body)
     src = d.value()
     dst = d.value()

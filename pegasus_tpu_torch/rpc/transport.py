@@ -33,7 +33,12 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from pegasus_tpu_torch.rpc.message import decode_message, encode_message, read_frames
+from pegasus_tpu_torch.rpc.message import (
+    decode_message,
+    encode_message,
+    fill_registry,
+    read_frames,
+)
 from pegasus_tpu_torch.utils import tracing
 from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
 
@@ -113,6 +118,8 @@ class TcpTransport:
         analogue can replace it later). Peers NOT in the book (clients)
         are reachable once they have dialed us — replies use the learned
         inbound route."""
+        # before any reader thread starts: decoding never imports
+        fill_registry()
         self.address_book = dict(address_book)
         self.lock = threading.RLock()  # node-wide handler serialization
         self._handlers: Dict[str, Callable[[str, str, Any], None]] = {}

@@ -23,16 +23,38 @@ for the plain torch path: the process then hides the card from itself
 before torch first touches CUDA. The meta role needs no card and always
 hides it. `"flags"` are set (`FLAGS.set`) before any store opens, as a
 config file would set them. Neither key changes an answer.
+
+A node imports its role's modules and fills the message registry before
+its port opens (`preload`), so a peer's first frame never makes a reader
+thread import a package that the main thread is importing too. A boot
+that raises prints its traceback and exits with 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import signal
 import sys
 import time
+import traceback
+
+_STARTED = time.perf_counter()
+
+# what each role's boot imports, and what the transport's own threads
+# import at their first message (server/tenancy, utils/profiler)
+ROLE_MODULES = {
+    "meta": ("pegasus_tpu_torch.meta.meta_service",
+             "pegasus_tpu_torch.http.http_server"),
+    "replica": ("pegasus_tpu_torch.replica.stub",
+                "pegasus_tpu_torch.replica.replica",
+                "pegasus_tpu_torch.server.scan_coordinator",
+                "pegasus_tpu_torch.http.http_server"),
+}
+TRANSPORT_MODULES = ("pegasus_tpu_torch.server.tenancy",
+                     "pegasus_tpu_torch.utils.profiler")
 
 
 def load_config(path: str) -> dict:
@@ -47,8 +69,9 @@ def address_book(cfg: dict) -> dict:
 
 def apply_flags(cfg: dict) -> None:
     """The config's {section: {name: value}} flags, set over the
-    defaults. The modules that define the store and server flags are
-    imported first."""
+    defaults. The modules that define the store, server and meta flags
+    are imported first."""
+    import pegasus_tpu_torch.meta.compaction_scheduler  # noqa: F401
     import pegasus_tpu_torch.replica.stub  # noqa: F401 - defines flags
     from pegasus_tpu_torch.utils.flags import FLAGS
 
@@ -71,6 +94,24 @@ def serving_device(cfg: dict):
     if dev.type == "cuda":
         return dev, f"{dev} ({torch.cuda.get_device_name(dev)})"
     return dev, str(dev)
+
+
+def preload(role: str) -> None:
+    """Import the role's modules and fill the message registry. Called
+    before the port opens: no inbound frame reaches a process that is
+    still importing."""
+    for module in ROLE_MODULES.get(role, ()) + TRANSPORT_MODULES:
+        importlib.import_module(module)
+    from pegasus_tpu_torch.rpc.message import fill_registry
+
+    fill_registry()
+
+
+def print_boot(name: str, preload_s: float) -> None:
+    """The boot's seconds, from the module's import to the role's
+    serving, on the line before the boot line."""
+    print(f"[{name}] booted in {time.perf_counter() - _STARTED} s "
+          f"({preload_s} s before the port opened)", flush=True)
 
 
 def kernel_launches(args) -> dict:
@@ -101,6 +142,8 @@ def run_node(cfg: dict, name: str) -> None:
     if role == "replica":
         # before the port opens: a node that cannot serve never looks up
         device, device_name = serving_device(cfg)
+    preload(role)
+    preload_s = time.perf_counter() - _STARTED
     from pegasus_tpu_torch.rpc.transport import TcpTransport
 
     data_root = cfg["data_root"]
@@ -147,6 +190,7 @@ def run_node(cfg: dict, name: str) -> None:
         http_server = MetricsHttpServer(
             port=node_cfg.get("http_port", 0), commands=svc.commands,
             routes=svc.http_routes()).start()
+        print_boot(name, preload_s)
         print(f"[{name}] meta serving on {node_cfg['host']}:"
               f"{node_cfg['port']} http={http_server.port}", flush=True)
     elif role == "replica":
@@ -197,6 +241,7 @@ def run_node(cfg: dict, name: str) -> None:
         http_server = MetricsHttpServer(
             port=node_cfg.get("http_port", 0),
             commands=stub.commands).start()
+        print_boot(name, preload_s)
         print(f"[{name}] replica serving on {node_cfg['host']}:"
               f"{node_cfg['port']} http={http_server.port} "
               f"device={device_name}", flush=True)
@@ -219,7 +264,15 @@ def main() -> None:
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
-    run_node(load_config(args.config), args.name)
+    try:
+        run_node(load_config(args.config), args.name)
+    except Exception:  # noqa: BLE001 - a failed boot must end the process
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        # the transport's and the timers' threads must not keep a dead
+        # node's port open
+        os._exit(1)
 
 
 if __name__ == "__main__":

@@ -20,18 +20,32 @@ class Memtable:
         self._data: dict[bytes, Tuple[Optional[bytes], int]] = {}
         self._sorted_keys: list[bytes] = []
         self._dirty = False
+        self._bytes = 0
 
     def __len__(self) -> int:
         return len(self._data)
 
+    @property
+    def approximate_bytes(self) -> int:
+        return self._bytes
+
     def put(self, key: bytes, value: bytes, expire_ts: int = 0) -> None:
-        if key not in self._data:
+        old = self._data.get(key)
+        if old is None:
             self._dirty = True
+            self._bytes += len(key)
+        else:
+            self._bytes -= len(old[0] or b"")
         self._data[key] = (value, expire_ts)
+        self._bytes += len(value)
 
     def delete(self, key: bytes) -> None:
-        if key not in self._data:
+        old = self._data.get(key)
+        if old is None:
             self._dirty = True
+            self._bytes += len(key)
+        else:
+            self._bytes -= len(old[0] or b"")
         self._data[key] = (TOMBSTONE, 0)
 
     def get(self, key: bytes) -> Optional[Tuple[Optional[bytes], int]]:

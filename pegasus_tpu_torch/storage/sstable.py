@@ -95,11 +95,19 @@ define_flag("pegasus.storage", "block_cache_bytes", 33_554_432,
             mutable=True)
 
 
+def block_crc_enabled() -> bool:
+    return bool(FLAGS.get("pegasus.storage", "block_crc"))
+
+
 def block_codec() -> str:
     codec = str(FLAGS.get("pegasus.storage", "block_codec"))
     if codec != CODEC_NONE and codec not in KNOWN_CODECS:
         raise ValueError(f"unknown block_codec {codec!r}")
     return codec
+
+
+def block_cache_budget() -> int:
+    return int(FLAGS.get("pegasus.storage", "block_cache_bytes"))
 
 
 # node-wide storage observability (the rocksdb block-cache and filter
@@ -252,7 +260,7 @@ class SSTableWriter:
         self.bloom_enabled = self._bloom_bits_per_key > 0
         self.phash_enabled = phash_build_enabled()
         self.sidecar_hashes = self.bloom_enabled or self.phash_enabled
-        self._block_crc = bool(FLAGS.get("pegasus.storage", "block_crc"))
+        self._block_crc = block_crc_enabled()
         self.codec = block_codec()
         # the block format version this writer emits; the file may still
         # carry older versions its codec accepts
@@ -729,7 +737,7 @@ class SSTable:
             pc.bytes_decoded += (nbytes if self.codec is not None
                                  else bm.size)
         budget = (self._cache_budget if self._cache_budget is not None
-                  else int(FLAGS.get("pegasus.storage", "block_cache_bytes")))
+                  else block_cache_budget())
         evicted = 0
         with self._cache_lock:
             prev = self._cache.get(idx)

@@ -117,10 +117,12 @@ def start(directory: str = DEFAULT_DIR, n_replica: int = 3,
 
     pids = {}
     procs = {}
+    log_starts = {}
     for name in nodes:
         if nodes[name]["role"] == "external":
             continue  # book-only remote peer (another cluster's node)
         log = open(os.path.join(paths["logs"], f"{name}.log"), "ab")
+        log_starts[name] = log.tell()
         p = subprocess.Popen(
             [sys.executable, "-m", "pegasus_tpu_torch.server.node_main",
              "--config", paths["config"], "--name", name],
@@ -131,10 +133,11 @@ def start(directory: str = DEFAULT_DIR, n_replica: int = 3,
     with open(paths["pids"], "w") as f:
         json.dump(pids, f)
 
-    # liveness: every node's port accepts within the deadline; a boot
-    # that fails stops the nodes already started
+    # liveness: every node prints its boot line within the deadline; a
+    # boot that fails stops the nodes already started
     try:
-        _wait_alive(nodes, procs, paths["logs"], time.monotonic() + 30)
+        _wait_alive(nodes, procs, paths["logs"], log_starts,
+                    time.monotonic() + 30)
     except BaseException:
         stop(directory)
         raise
@@ -142,24 +145,33 @@ def start(directory: str = DEFAULT_DIR, n_replica: int = 3,
 
 
 def _wait_alive(nodes: dict, procs: dict, log_dir: str,
-                deadline: float) -> None:
+                log_starts: dict, deadline: float) -> None:
+    """Every node printed its boot line since this start: its port is
+    open and its role registered its handlers. A node that exits first
+    raises with its log's tail: its port may have opened before its
+    boot failed."""
     for name, n in nodes.items():
         if n["role"] == "external":
             continue
         while True:
-            try:
-                socket.create_connection((n["host"], n["port"]),
-                                         timeout=1.0).close()
+            if procs[name].poll() is not None:
+                raise RuntimeError(
+                    f"{name} exited with {procs[name].returncode} "
+                    f"during boot:\n{_log_tail(log_dir, name)}")
+            if _booted(log_dir, name, n["role"], log_starts[name]):
                 break
-            except OSError:
-                if procs[name].poll() is not None:
-                    raise RuntimeError(
-                        f"{name} exited with {procs[name].returncode} "
-                        f"during boot:\n{_log_tail(log_dir, name)}"
-                    ) from None
-                if time.monotonic() > deadline:
-                    raise RuntimeError(f"{name} did not come up")
-                time.sleep(0.2)
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"{name} did not come up:\n{_log_tail(log_dir, name)}")
+            time.sleep(0.2)
+
+
+def _booted(log_dir: str, name: str, role: str, start: int) -> bool:
+    """The node's boot line (server/node_main.py) is in its log past
+    `start`."""
+    with open(os.path.join(log_dir, f"{name}.log"), "rb") as f:
+        f.seek(start)
+        return f"[{name}] {role} serving on ".encode() in f.read()
 
 
 def _flag_sections(flags: dict) -> dict:

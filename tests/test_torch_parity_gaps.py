@@ -10,7 +10,12 @@
   package's SST bytes, file names and manifest (its wall-clock
   `manual_compact_finish_time` left out) and the same reads, with the
   store flags at `none` and at dcz2 with sidecars; the auto-compaction
-  trigger follows the knob in both.
+  trigger follows the knob in both;
+- `ops/pushdown.aggregate_rows` over seeded rows for every aggregate and
+  value-filter type a `PushdownSpec` takes, `Memtable.approximate_bytes`
+  after a seeded mix of puts, overwrites and deletes, and
+  `sstable.block_crc_enabled` / `block_cache_budget` under their flags'
+  settings: equal to the JAX package's.
 """
 
 import json
@@ -21,12 +26,18 @@ import pytest
 
 from pegasus_tpu.base import key_schema as jks
 from pegasus_tpu.base import value_schema as jvs
+from pegasus_tpu.ops import pushdown as jpd
 from pegasus_tpu.storage import lsm as jlsm
+from pegasus_tpu.storage import memtable as jmt
+from pegasus_tpu.storage import sstable as jsst
 from pegasus_tpu.utils import errors as jerrors
 from pegasus_tpu.utils.flags import FLAGS as JFLAGS
 from pegasus_tpu_torch.base import key_schema as tks
 from pegasus_tpu_torch.base import value_schema as tvs
+from pegasus_tpu_torch.ops import pushdown as tpd
 from pegasus_tpu_torch.storage import lsm as tlsm
+from pegasus_tpu_torch.storage import memtable as tmt
+from pegasus_tpu_torch.storage import sstable as tsst
 from pegasus_tpu_torch.utils import errors as terrors
 from pegasus_tpu_torch.utils.flags import FLAGS as TFLAGS
 
@@ -146,3 +157,73 @@ def test_l0_compaction_trigger_matches_jax(tmp_path, trigger):
         assert wants[0] == wants[1] == (i + 1 >= trigger)
     for s in stores:
         s.close()
+
+
+def _rows(rng, n):
+    """Seeded (key, user_value) rows; values of 0-12 bytes over a small
+    alphabet so the value filters both keep and drop rows."""
+    out = []
+    for i in range(n):
+        key = b"h%03d" % int(rng.integers(0, 40)) + b"\x00s%04d" % i
+        value = bytes(rng.choice(list(b"abc\x00\xff"),
+                                 size=int(rng.integers(0, 13))))
+        out.append((key, value))
+    return out
+
+
+@pytest.mark.parametrize("aggregate", ["count", "sum", "top_k", "sample"])
+@pytest.mark.parametrize("filter_type", [0, 1, 2, 3],
+                         ids=["none", "anywhere", "prefix", "postfix"])
+def test_aggregate_rows_matches_jax(aggregate, filter_type):
+    rng = np.random.default_rng(100 + 10 * filter_type + len(aggregate))
+    rows = _rows(rng, 400)
+    for pattern in (b"", b"a", b"ab", b"\x00c"):
+        for k in (1, 7):
+            spec = dict(value_filter_type=filter_type,
+                        value_filter_pattern=pattern, aggregate=aggregate,
+                        k=k if aggregate in ("top_k", "sample") else 0,
+                        seed=int(rng.integers(0, 1 << 31)))
+            want = jpd.aggregate_rows(jpd.PushdownSpec(**spec), rows)
+            got = tpd.aggregate_rows(tpd.PushdownSpec(**spec), rows)
+            assert got == want, (spec, got, want)
+    with pytest.raises(ValueError):
+        tpd.aggregate_rows(tpd.PushdownSpec(), rows)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_memtable_approximate_bytes_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    jm, tm = jmt.Memtable(), tmt.Memtable()
+    assert tm.approximate_bytes == jm.approximate_bytes == 0
+    for _ in range(600):
+        key = b"k%03d" % int(rng.integers(0, 120))
+        if rng.random() < 0.25:
+            jm.delete(key)
+            tm.delete(key)
+        else:
+            value = bytes(int(rng.integers(0, 256))
+                          for _ in range(int(rng.integers(0, 20))))
+            ets = int(rng.integers(0, 1 << 31))
+            jm.put(key, value, ets)
+            tm.put(key, value, ets)
+        assert tm.approximate_bytes == jm.approximate_bytes
+    assert list(tm.items_sorted()) == list(jm.items_sorted())
+
+
+@pytest.mark.parametrize("crc,budget", [(True, 33_554_432), (False, 1),
+                                        (True, 4096), (False, 0)])
+def test_block_flag_readers_match_jax(crc, budget):
+    names = (("pegasus.storage", "block_crc"),
+             ("pegasus.storage", "block_cache_bytes"))
+    saved = [(f, f.get(*n)) for f in (JFLAGS, TFLAGS) for n in names]
+    try:
+        for f in (JFLAGS, TFLAGS):
+            f.set("pegasus.storage", "block_crc", crc, force=True)
+            f.set("pegasus.storage", "block_cache_bytes", budget,
+                  force=True)
+        assert tsst.block_crc_enabled() is jsst.block_crc_enabled() is crc
+        assert tsst.block_cache_budget() == jsst.block_cache_budget() \
+            == budget
+    finally:
+        for (f, value), n in zip(saved, names * 2):
+            f.set(*n, value, force=True)
