@@ -120,7 +120,18 @@ Phases, each fatal on failure:
    round's host wall split into launches, the copy home and the unpack;
    then ops/placement's cost constants measured on the card
    (measure_placement). The launches of (a)-(d) must include the
-   epilogue, both slot-gate kernels and the scan kernel's static mode;
+   epilogue, both slot-gate kernels and the scan kernel's static mode.
+   (g), before (f), the mesh leg: the image sharded over every card of
+   the host (dp their count; on a one-card host four logical shards on
+   it, printed): every round and compaction round (a)-(d) ran replayed
+   on the one-shard image and on the sharded one, bit-equal; the
+   sharded image attached and driven through MESH_SERVING (waves,
+   count and sum, each compaction's masks; every count from 0, the
+   launches printed a card and read as the kernels line's
+   `resident_mesh` path), equal to the one-shard image's answers; a
+   refresh after one partition's flush restaging only its shard; a wave
+   round's host wall one-shard against sharded; sharded_scan_step on a
+   (dp, sp) = (2, 2) mesh against the one-device step;
 11. replicated writes: partitions 0..7 of BASELINE config #2 (bench.py
    :190's layout: user%08d hashkeys x 10 sortkeys, 10% already expired,
    values field0=%064d; about 15,625 records a partition), each a
@@ -253,6 +264,8 @@ of 400 scans (printed cuts; `--replicated-only` runs phase 11 uncut).
 below 1,000,000; `--compact-gb G` sets a phase-7 pass's store (default
 0.5 since phase 14 came, 1.0 before). `--times-only [--tree DIR]` builds the kernels of this checkout (or
 of DIR) and prints phase 3's times as one JSON line, nothing else;
+`--resident-only` builds the kernels and runs phase 10 alone with its
+mesh leg (on a host of several cards, over all of them);
 `--resident-times [--tree DIR]` likewise prints phase 10 (f)'s kernel
 times and a round's wall split on a synthetic image of phase 10's
 shape; `--replicated-only` builds the kernels and runs phase 11 alone
@@ -4197,6 +4210,44 @@ def drain_multi(servers, now: int) -> dict:
     return out
 
 
+def lone_shard(stack):
+    """The tensors of a one-shard image: its one shard (a checkout from
+    before the sharded image: the stack itself)."""
+    return stack.shards[0] if hasattr(stack, "shards") else stack
+
+
+def one_shard_stack(device, slabs):
+    """mesh_resident._build_stack of `slabs` on `device` alone (a
+    checkout from before the sharded image takes the device)."""
+    from pegasus_tpu_torch.parallel import mesh_resident
+
+    if not hasattr(mesh_resident, "_Shard"):
+        return mesh_resident._build_stack(device, slabs)
+    from pegasus_tpu_torch.parallel import make_mesh
+
+    return mesh_resident._build_stack(make_mesh(devices=[device]), slabs)
+
+
+def run_round(stack, validate: bool, pv: int, fkey, now: int, mask,
+              with_sum: bool):
+    """MeshServing._run_program with `mask` (bool[P, B] on the card, or
+    None) as the value-filter mask: since the sharded image a round takes
+    the value filter, whose mask each shard caches, so each shard is
+    handed its tile of `mask` under a key of its own (a checkout from
+    before takes the mask)."""
+    from pegasus_tpu_torch.parallel.mesh_resident import MESH_SERVING
+
+    if mask is None or not hasattr(stack, "shards"):
+        return MESH_SERVING._run_program(stack, validate, pv, fkey, now,
+                                         mask, with_sum)
+    vf = ("chip_smoke mask", id(mask))
+    for sh in stack.shards:
+        sh._extra_cache[vf] = mask[sh.slot0:sh.slot0 + sh.P,
+                                   sh.row0:sh.row0 + sh.B].contiguous()
+    return MESH_SERVING._run_program(stack, validate, pv, fkey, now, vf,
+                                     with_sum)
+
+
 def measure_placement(device, win: dict, stack) -> dict:
     """ops/placement's cost constants, measured on this card:
     H2D_GBPS_EST (a pageable copy of 64 MB to the card, median of 5),
@@ -4221,11 +4272,7 @@ def measure_placement(device, win: dict, stack) -> dict:
     from pegasus_tpu_torch.ops import fused_mesh
     from pegasus_tpu_torch.ops.fused_scan import scan_table
     from pegasus_tpu_torch.ops.predicates import FT_MATCH_POSTFIX, FilterSpec
-    from pegasus_tpu_torch.parallel.mesh_resident import (
-        MESH_SERVING,
-        _build_stack,
-        _Slab,
-    )
+    from pegasus_tpu_torch.parallel.mesh_resident import MESH_SERVING, _Slab
 
     def median(fn, n):
         times = []
@@ -4265,12 +4312,13 @@ def measure_placement(device, win: dict, stack) -> dict:
     tiny.expire_ts = np.zeros(8, np.uint32)
     tiny.valid = np.ones(8, bool)
     tiny.hash_lo = np.zeros(8, np.uint32)
-    tiny_stack = _build_stack(device, [(0, tiny)])
+    tiny_stack = one_shard_stack(device, [(0, tiny)])
     fkey = (0, b"", 0, b"")
     round_s = median(lambda: MESH_SERVING._run_program(
         tiny_stack, False, -1, fkey, 0, None, False), 50)
     tiny_split = round_split(device, tiny_stack, n=50)["wave"]
 
+    stack = lone_shard(stack)
     allowed = torch.ones(stack.P, dtype=torch.uint8, device=device)
     flush, _read_flush = _flusher(device)
     rows, k = stack.P * stack.B, stack.flat.keys.shape[1]
@@ -4456,6 +4504,7 @@ def time_resident_kernels(device, stack) -> dict:
 
     flush, read_flush = _flusher(device)
     new = hasattr(fused_mesh, "mesh_step_buffer")
+    stack = lone_shard(stack)
     p, b = stack.P, stack.B
     rows = p * b
     none = FilterSpec.none(device)
@@ -4563,9 +4612,9 @@ def round_split(device, stack, n: int = 30) -> dict:
     from pegasus_tpu_torch.ops import fused_mesh
     from pegasus_tpu_torch.ops.fused_scan import scan_table
     from pegasus_tpu_torch.ops.predicates import FilterSpec
-    from pegasus_tpu_torch.parallel.mesh_resident import MESH_SERVING
 
     new = hasattr(fused_mesh, "mesh_step_buffer")
+    image, stack = stack, lone_shard(stack)
     p, b = stack.P, stack.B
     pv = RESIDENT_PARTITIONS - 1
     none = FilterSpec.none(device)
@@ -4612,9 +4661,8 @@ def round_split(device, stack, n: int = 30) -> dict:
             t3 = time.perf_counter()
             splits.append((t1 - t0, t2 - t1, t3 - t2, t3 - t0))
         med = [sorted(col)[n // 2] for col in zip(*splits)]
-        walls = sorted(MESH_SERVING._run_program(
-            stack, True, pv, fkey, 0, extra, with_sum)[0]
-            for _ in range(n))
+        walls = sorted(run_round(image, True, pv, fkey, 0, extra,
+                                 with_sum)[0] for _ in range(n))
         out[kind] = {"launch_s": med[0], "copy_s": med[1],
                      "unpack_s": med[2], "total_s": med[3],
                      "run_program_s": walls[n // 2]}
@@ -4647,16 +4695,17 @@ def round_device_ops(stack, rounds_n: int = 40) -> dict:
 
     from pegasus_tpu_torch.parallel.mesh_resident import MESH_SERVING
 
-    device = stack.device
+    device = lone_shard(stack).device
     pv = RESIDENT_PARTITIONS - 1
     fkey = (0, b"", 0, b"")
     mask = torch.ones((stack.P, stack.B), dtype=torch.bool, device=device)
-    allowed = torch.ones(stack.P, dtype=torch.uint8, device=device)
+    allowed = (np.ones(stack.P, bool) if hasattr(stack, "shards")
+               else torch.ones(stack.P, dtype=torch.uint8, device=device))
     params = MESH_SERVING._compact_params(5000, 0, pv, True, (), True)
     rounds = {
         "wave": ("mesh_step_kernel", lambda: MESH_SERVING._run_program(
             stack, True, pv, fkey, 0, None, False)),
-        "sum": ("mesh_step_kernel", lambda: MESH_SERVING._run_program(
+        "sum": ("mesh_step_kernel", lambda: run_round(
             stack, True, pv, fkey, 0, mask, True)),
         "compaction": ("slot_gate_kernel",
                        lambda: MESH_SERVING._compact_round(
@@ -4691,7 +4740,7 @@ def synthetic_stack(device, p: int = RESIDENT_PARTITIONS, n: int = 15_625,
     columns (fixture keys, 10% expired, hash_lo owned by the slot, random
     value lanes), built by mesh_resident._build_stack: phase 10's image
     shape without its load, for --resident-times."""
-    from pegasus_tpu_torch.parallel.mesh_resident import _build_stack, _Slab
+    from pegasus_tpu_torch.parallel.mesh_resident import _Slab
 
     rng = np.random.default_rng(seed)
     slabs = []
@@ -4709,7 +4758,7 @@ def synthetic_stack(device, p: int = RESIDENT_PARTITIONS, n: int = 15_625,
             np.uint32)
         slab.lanes = rng.integers(0, 1 << 16, (n, 4)).astype(np.uint32)
         slabs.append((part, slab))
-    return _build_stack(device, slabs)
+    return one_shard_stack(device, slabs)
 
 
 def resident_times(torch, tree: str) -> int:
@@ -4764,8 +4813,354 @@ def resident_waves(blocks, pv: int, fkey) -> tuple:
     return masks, secs
 
 
+MESH_LOGICAL_SHARDS = 4   # the leg's shards on a one-card host
+MESH_WALL_ROUNDS = 30     # rounds a round's host-wall median takes
+MESH_LEG_BUDGET_S = 30.0  # what the leg may take of the whole run
+
+
+@contextlib.contextmanager
+def recorded_rounds(serving):
+    """Record the parameters of every round `serving` runs inside the
+    block (not the image): {"program": {(validate, pv, filter key, now,
+    value filter, with_sum)}, "compact": {(params, ops key):
+    (params, operations)}}."""
+    from pegasus_tpu_torch.ops.fused_compaction import ops_key
+
+    rec = {"program": {}, "compact": {}}
+    run, compact = serving._run_program, serving._compact_round
+
+    def run_rec(stack, validate, pv, fkey, now, vf, with_sum):
+        rec["program"][(bool(validate), int(pv), tuple(fkey), int(now), vf,
+                        bool(with_sum))] = None
+        return run(stack, validate, pv, fkey, now, vf, with_sum)
+
+    def compact_rec(stack, allowed, params, operations):
+        rec["compact"][(params, ops_key(operations))] = (params, operations)
+        return compact(stack, allowed, params, operations)
+
+    serving._run_program, serving._compact_round = run_rec, compact_rec
+    try:
+        yield rec
+    finally:
+        del serving._run_program, serving._compact_round
+
+
+def leg_mesh(device):
+    """(mesh, cards) of phase 10's mesh leg: every card of the host with
+    dp their count; on a one-card host (or the CPU rehearsal) four
+    logical shards on the one device."""
+    import torch
+
+    from pegasus_tpu_torch.parallel import make_mesh
+
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if cards > 1:
+        return make_mesh(), cards
+    return make_mesh(devices=[device] * MESH_LOGICAL_SHARDS), 1
+
+
+def device_launches() -> dict:
+    """{kernel: {card index: launches}} of the hand-written kernels,
+    from their wrappers' DEVICE_LAUNCHES."""
+    from pegasus_tpu_torch.ops import fused_compaction, fused_mesh, fused_scan
+
+    out = {}
+    for m in (fused_scan, fused_mesh, fused_compaction):
+        for (kind, index), n in sorted(m.DEVICE_LAUNCHES.items(),
+                                       key=lambda kv: (kv[0][0],
+                                                       kv[0][1] or 0)):
+            out.setdefault(kind, {})[str(index)] = n
+    return out
+
+
+def zero_launches() -> None:
+    from pegasus_tpu_torch.ops import fused_compaction, fused_mesh, fused_scan
+
+    for m in (fused_scan, fused_mesh, fused_compaction):
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+        m.DEVICE_LAUNCHES.clear()
+
+
+def run_mesh_leg(device, servers, one, recorded: dict, pv: int, flavours,
+                 card: str) -> dict:
+    """Phase 10 (g): the resident image sharded over a mesh (every card
+    of the host, dp their count; four logical shards on a one-card host)
+    against the one-shard image `one`, bit for bit:
+    (1) every round (a)-(d) ran (`recorded`: its waves, aggregates and
+    bulk compactions' parameters) replayed on `one` and on the same
+    slabs staged over the mesh: packed masks, counts, lane sums, drop
+    masks and rewritten TTLs equal; (2) the mesh attached to
+    MESH_SERVING and driven through its entry points, every count from
+    0: each partition's wave through stacked_block_eval (gate pinned
+    open), the count and sum aggregates over every partition, and each
+    recorded compaction's try_compact_masks for partition 0, each equal
+    to the one-shard image's answers; launches a card printed; (3) a
+    refresh after partition 0's flush restages one shard of the mesh;
+    (4) a wave round's host wall, one-shard against sharded (median of
+    MESH_WALL_ROUNDS); (5) sharded_scan_step on a (dp, sp) = (2, 2)
+    mesh against the one-device step."""
+    import torch
+
+    from pegasus_tpu_torch.base.key_schema import key_hash_parts
+    from pegasus_tpu_torch.base.value_schema import epoch_now
+    from pegasus_tpu_torch.ops.predicates import (
+        FT_MATCH_ANYWHERE,
+        FT_MATCH_POSTFIX,
+        FilterSpec,
+    )
+    from pegasus_tpu_torch.ops.pushdown import PushdownSpec
+    from pegasus_tpu_torch.parallel import make_mesh, sharded_scan_step
+    from pegasus_tpu_torch.parallel.mesh_resident import (
+        MESH_SERVING,
+        _build_stack,
+    )
+    from pegasus_tpu_torch.parallel.partition_mesh import StackedBlocks
+    from pegasus_tpu_torch.server.types import (
+        SCAN_CONTEXT_ID_COMPLETED,
+        GetScannerRequest,
+        KeyValue,
+        MultiPutRequest,
+    )
+    from pegasus_tpu_torch.utils.flags import FLAGS
+
+    t_leg = time.perf_counter()
+    pmesh, cards = leg_mesh(device)
+    n_shards = len(pmesh.devices)
+    where = "card" if device.type == "cuda" else "host"
+    if cards == 1:
+        log(f"mesh: {n_shards} shards on 1 {where} (no cross-card launch "
+            f"or copy ran)")
+    else:
+        log(f"mesh: {n_shards} shards on {cards} cards (dp = {pmesh.dp}, "
+            f"sp = {pmesh.sp})")
+    out = {"shards": n_shards, "cards": cards, "dp": pmesh.dp,
+           "sp": pmesh.sp}
+
+    def equal(want, got, what: str) -> None:
+        p = one.P
+        if want is None or got is None:
+            if (want is None) != (got is None):
+                fail(f"resident (g) {what}: one arm has no result")
+            return
+        if not np.array_equal(np.asarray(want)[:p], np.asarray(got)[:p]) \
+                or np.asarray(got)[p:].any():
+            fail(f"resident (g) {what}: the sharded image differs from "
+                 f"the one-shard image")
+
+    # (1) the phase's rounds, replayed on both images
+    t0 = time.perf_counter()
+    sharded = _build_stack(pmesh, one.slots)
+    out["stage_s"] = time.perf_counter() - t0
+    if len(sharded.shards) != n_shards:
+        fail(f"resident (g): {len(sharded.shards)} shards on a mesh of "
+             f"{n_shards}")
+    for key in recorded["program"]:
+        want = MESH_SERVING._run_program(one, *key)[1]
+        got = MESH_SERVING._run_program(sharded, *key)[1]
+        for name, w, g in zip(("packed mask", "counts", "lane sums"), want,
+                              got):
+            equal(w, g, f"round {key[:4]} {name}")
+    for params, ops in recorded["compact"].values():
+        from pegasus_tpu_torch.parallel.partition_mesh import (
+            partition_allowed,
+        )
+
+        drops = [MESH_SERVING._compact_round(
+            st, partition_allowed(st.pidx_np, params[3], params[2]), params,
+            ops) for st in (one, sharded)]
+        equal(drops[0][0], drops[1][0], f"compaction {params} drop mask")
+        equal(drops[0][1], drops[1][1], f"compaction {params} ets2")
+    out["replayed"] = {"rounds": len(recorded["program"]),
+                       "compactions": len(recorded["compact"])}
+    log(f"resident (g) {len(recorded['program'])} rounds and "
+        f"{len(recorded['compact'])} compaction rounds of (a)-(d) replayed "
+        f"on the one-shard image and on the image over the mesh (P="
+        f"{sharded.P}, B={sharded.B}, {n_shards} shards of "
+        f"{sharded.shards[0].P} slots x {sharded.shards[0].B} rows, staged "
+        f"in {out['stage_s']} s): packed masks, counts, lane sums, drop "
+        f"masks and TTLs bit-equal")
+
+    # (2) the entry points over each image
+    blocks = {s.pidx: partition_blocks(s) for s in servers}
+
+    def drive() -> dict:
+        res = {}
+        MESH_SERVING.ensure_current()
+        for fkey in flavours:
+            clear_masks(servers)
+            w0 = MESH_SERVING.wave_dispatches
+            with gate_open("mesh_wave_pays"):
+                res[("wave", str(fkey))] = resident_waves(blocks, pv,
+                                                          fkey)[0]
+            if MESH_SERVING.wave_dispatches - w0 != len(servers):
+                fail("resident (g): a wave declined the image")
+        # as (b): no paging budget, so every partition's whole range is
+        # one page the resident round may answer
+        budget = FLAGS.get("pegasus.server", "rocksdb_max_iteration_count")
+        FLAGS.set("pegasus.server", "rocksdb_max_iteration_count", 0,
+                  force=True)
+        with frozen_epoch():
+            for kind in ("count", "sum"):
+                MESH_SERVING._agg_cache.clear()
+                a0 = MESH_SERVING.agg_dispatches
+                for s in servers:
+                    resp = s.on_get_scanner(GetScannerRequest(
+                        pushdown=PushdownSpec(
+                            value_filter_type=FT_MATCH_ANYWHERE,
+                            value_filter_pattern=RESIDENT_VALUE_FILTER,
+                            aggregate=kind)))
+                    while resp.context_id != SCAN_CONTEXT_ID_COMPLETED:
+                        resp = s.on_scan(resp.context_id)
+                    res[(kind, s.pidx)] = resp.agg
+                if MESH_SERVING.agg_dispatches - a0 != 1:
+                    fail(f"resident (g): {kind} took "
+                         f"{MESH_SERVING.agg_dispatches - a0} rounds")
+        FLAGS.set("pegasus.server", "rocksdb_max_iteration_count", budget,
+                  force=True)
+        s0 = servers[0]
+        lsm = s0.engine.lsm
+        entries = lsm.bulk_compact_entries()
+        for params, ops in recorded["compact"].values():
+            MESH_SERVING._compact_cache.clear()
+            c0 = MESH_SERVING.compact_dispatches
+            with gate_open("mesh_compact_pays"):
+                got = MESH_SERVING.try_compact_masks(
+                    lsm, entries, params[0], params[1], s0.pidx, params[2],
+                    params[3], ops, want_ets=params[5])
+            if got is None or MESH_SERVING.compact_dispatches - c0 != 1:
+                fail("resident (g): a compaction declined the image")
+            res[("compact", params)] = {
+                (run.path, i): m for (run, i), m in got.items()}
+        return res
+
+    serving_mesh = MESH_SERVING._pmesh
+    MESH_SERVING.use_mesh(pmesh)
+    MESH_SERVING.ensure_current()
+    zero_launches()
+    got = drive()
+    launches = device_launches()
+    out["launches"] = {"static": sum(launches.get("static", {}).values()),
+                       "mesh_step": sum(launches.get("mesh_step",
+                                                     {}).values()),
+                       "compaction": sum(launches.get("compaction",
+                                                      {}).values()),
+                       "slot_gate": sum(launches.get("slot_gate",
+                                                     {}).values()),
+                       "slot_gate_columns": sum(launches.get(
+                           "slot_gate_columns", {}).values())}
+    out["launches_by_card"] = launches
+    MESH_SERVING.use_mesh(make_mesh(devices=[device]))
+    want = drive()
+    if want.keys() != got.keys():
+        fail("resident (g): the drives' answers differ in shape")
+    for k in want:
+        w, g = want[k], got[k]
+        if k[0] == "wave":
+            same = w.keys() == g.keys() and all(
+                np.array_equal(w[c], g[c]) for c in w)
+        elif k[0] == "compact":
+            same = w.keys() == g.keys() and all(
+                np.array_equal(w[c][0], g[c][0])
+                and (w[c][1] is None) == (g[c][1] is None)
+                and (w[c][1] is None or np.array_equal(w[c][1], g[c][1]))
+                for c in w)
+        else:
+            same = w == g
+        if not same:
+            fail(f"resident (g) {k[0]}: the image over the mesh answered "
+                 f"otherwise than the one-shard image")
+    if device.type == "cuda":
+        for k in ("static", "mesh_step", "slot_gate"):
+            if not out["launches"][k]:
+                fail(f"resident (g): no {k} launch over the mesh")
+    log(f"resident (g) the image over the mesh through MESH_SERVING "
+        f"({len(flavours)} x {len(servers)} partition waves, count and "
+        f"sum over {len(servers)} partitions, "
+        f"{len(recorded['compact'])} compactions' masks): every answer "
+        f"equal to the one-shard image's; launches {out['launches']}, "
+        f"by card {json.dumps(launches)}")
+
+    # (3) a refresh after one partition's flush, over the mesh
+    MESH_SERVING.use_mesh(pmesh)
+    MESH_SERVING.ensure_current()
+    stages1, reuses1 = MESH_SERVING.shard_stages, MESH_SERVING.shard_reuses
+    s0 = servers[0]
+    hk = next(iter(s0.engine.lsm.iterate()))[0][2:14]
+    if s0.on_multi_put(MultiPutRequest(hk, [KeyValue(b"mesh-leg",
+                                                     b"field0=mesh")], 0),
+                       partition_hash=key_hash_parts(hk)) != 0:
+        fail("resident (g): the refresh's write was refused")
+    s0.engine.flush()
+    MESH_SERVING.ensure_current()
+    restaged = MESH_SERVING.shard_stages - stages1
+    kept = MESH_SERVING.shard_reuses - reuses1
+    fresh = MESH_SERVING._tables[RESIDENT_APP].stack
+    if (fresh.P, fresh.B) == (sharded.P, sharded.B) and \
+            restaged != pmesh.sp:
+        fail(f"resident (g): a flush of one partition restaged {restaged} "
+             f"shards, not the {pmesh.sp} holding its slot")
+    check = _build_stack(make_mesh(devices=[device]), fresh.slots)
+    key = next(iter(recorded["program"]))
+    for name, w, g in zip(("packed mask", "counts", "lane sums"),
+                          MESH_SERVING._run_program(check, *key)[1],
+                          MESH_SERVING._run_program(fresh, *key)[1]):
+        equal(w, g, f"refreshed round {name}")
+    out["refresh"] = {"restaged": restaged, "kept": kept}
+    log(f"resident (g) partition 0 flushed: the refresh restaged "
+        f"{restaged} of {n_shards} shards and kept {kept}; the refreshed "
+        f"image's round equal to a one-shard image of the same slabs")
+
+    # (4) a wave round's host wall, one-shard against sharded
+    wave = (True, pv, (0, b"", 0, b""), 0, None, False)
+    walls = {}
+    for name, st in (("one_shard", check), ("sharded", fresh),
+                     ("sharded_again", fresh), ("one_shard_again", check)):
+        walls[name] = sorted(MESH_SERVING._run_program(st, *wave)[0]
+                             for _ in range(MESH_WALL_ROUNDS))[
+            MESH_WALL_ROUNDS // 2]
+    out["round_wall_s"] = walls
+    log(f"resident (g) a wave round's host wall on {card} (median of "
+        f"{MESH_WALL_ROUNDS}; one-shard, sharded, sharded, one-shard): "
+        f"{walls['one_shard'] * 1e6} / {walls['sharded'] * 1e6} / "
+        f"{walls['sharded_again'] * 1e6} / "
+        f"{walls['one_shard_again'] * 1e6} us")
+
+    # (5) the dryrun's (dp, sp) = (2, 2) shape over the image
+    sh = lone_shard(check)
+    flat = sh.flat
+    stacked = StackedBlocks(sh.view(flat.keys), sh.view(flat.key_len),
+                            sh.view(flat.hashkey_len), sh.ets2d,
+                            sh.view(flat.valid), sh.pidx)
+    sort = FilterSpec.make(FT_MATCH_POSTFIX, b"3", device)
+    n_dev = cards if cards > 1 else 1
+    grid = make_mesh(dp=2, devices=[torch.device(device.type, i % n_dev)
+                                    if device.type == "cuda" else device
+                                    for i in range(4)])
+    if (grid.dp, grid.sp) != (2, 2):
+        fail(f"resident (g): the step's mesh is {grid.dp} x {grid.sp}")
+    now = epoch_now()
+    want_step = sharded_scan_step(make_mesh(devices=[device]), stacked, now,
+                                  sort, pv, True)
+    got_step = sharded_scan_step(grid, stacked, now, sort, pv, True)
+    for g, w in zip(got_step, want_step):
+        if not torch.equal(g.cpu(), w.cpu()):
+            fail("resident (g): sharded_scan_step on the (2, 2) mesh "
+                 "differs from the one-device step")
+    out["step_2x2"] = {"kept": int(got_step[1]),
+                       "expired": int(got_step[2])}
+    log(f"resident (g) sharded_scan_step on a (dp, sp) = (2, 2) mesh over "
+        f"the image: equal to the one-device step; kept "
+        f"{int(got_step[1])}, expired {int(got_step[2])}")
+    MESH_SERVING.use_mesh(serving_mesh)
+    out["leg_s"] = time.perf_counter() - t_leg
+    log(f"resident (g) the mesh leg in {out['leg_s']:.1f} s (its budget "
+        f"{MESH_LEG_BUDGET_S} s)")
+    return out
+
+
 def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
-                 seed: int = 10) -> dict:
+                 seed: int = 10, card: str = "") -> dict:
     """Phase 10: BASELINE config #2's whole table in the resident image on
     the card (parallel/mesh_resident.py), every answer held against the
     host arm (the image switched off by `[pegasus.mesh] serving_enabled`)
@@ -4805,6 +5200,7 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
     out = {}
     data_dir = tempfile.mkdtemp(prefix="pegasus_torch_resident_")
     servers, twins = [], []
+    rounds_cm = contextlib.ExitStack()
     iter_budget = FLAGS.get("pegasus.server", "rocksdb_max_iteration_count")
     try:
         servers, live, dead, load_s, compact_s = resident_load(
@@ -4832,6 +5228,9 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
             f"{load_s:.1f} s, compacted in {compact_s:.1f} s; "
             f"{min(rows_of)}..{max(rows_of)} rows a partition")
         MESH_SERVING.reset()
+        # (a)-(f) hold the one-shard image on the servers' own device;
+        # (g) shards it over every card of the host
+        MESH_SERVING.use_mesh(make_mesh(devices=[device]))
         t0 = time.perf_counter()
         for s in servers:
             MESH_SERVING.attach(s)
@@ -4853,11 +5252,10 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
         blocks = {s.pidx: partition_blocks(s) for s in servers}
         flavours = (None, (FT_NO_FILTER, b"", FT_MATCH_POSTFIX, b"3"))
 
-        # the main path's run: every count from 0
-        for launches in (fused_scan.LAUNCHES, fused_mesh.LAUNCHES,
-                         fused_compaction.LAUNCHES):
-            for k in launches:
-                launches[k] = 0
+        # the main path's run: every count from 0; the parameters of
+        # every round (a)-(d) run are kept for the mesh leg (g)
+        zero_launches()
+        recorded = rounds_cm.enter_context(recorded_rounds(MESH_SERVING))
 
         # (a) waves: every partition's blocks detached, then attached
         # with the gate pinned open: bit-identical masks
@@ -5071,7 +5469,9 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
                                "slot_gate"],
                            "slot_gate_columns": fused_compaction.LAUNCHES[
                                "slot_gate_columns"]}
-        log(f"resident: launches of (a)-(d) {out['launches']}")
+        rounds_cm.close()
+        log(f"resident: launches of (a)-(d) {out['launches']}, by card "
+            f"{json.dumps(device_launches())}")
         on_card = device.type == "cuda"
         for k in ("mesh_step", "slot_gate", "slot_gate_columns", "static"):
             if on_card and not out["launches"][k]:
@@ -5079,11 +5479,11 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
 
         # (e) sharded_scan_step over the image against its plain version
         stack = MESH_SERVING._tables[RESIDENT_APP].stack
-        flat = stack.flat
-        stacked = StackedBlocks(stack.view(flat.keys),
-                                stack.view(flat.key_len),
-                                stack.view(flat.hashkey_len), stack.ets2d,
-                                stack.view(flat.valid), stack.pidx)
+        sh = lone_shard(stack)
+        flat = sh.flat
+        stacked = StackedBlocks(sh.view(flat.keys), sh.view(flat.key_len),
+                                sh.view(flat.hashkey_len), sh.ets2d,
+                                sh.view(flat.valid), sh.pidx)
         sort = FilterSpec.make(FT_MATCH_POSTFIX, b"3", device)
         now = epoch_now()
         got = sharded_scan_step(make_mesh(devices=[device]), stacked, now,
@@ -5099,6 +5499,10 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
         log(f"resident (e) sharded_scan_step over the image (validating, "
             f"key-hash instance): equal to the plain version; kept "
             f"{int(got[1])}, expired {int(got[2])}")
+
+        # (g) the image sharded over a mesh, against the one-shard image
+        out["mesh"] = run_mesh_leg(device, servers, stack, recorded, pv,
+                                   flavours, card)
 
         if not on_card:
             return out
@@ -5142,6 +5546,7 @@ def run_resident(device, win=None, n_hashkeys: int = RESIDENT_HASHKEYS,
             f"{json.dumps(out['placement'])}")
         return out
     finally:
+        rounds_cm.close()
         FLAGS.set("pegasus.mesh", "serving_enabled", True, force=True)
         FLAGS.set("pegasus.server", "rocksdb_max_iteration_count",
                   iter_budget, force=True)
@@ -7527,6 +7932,12 @@ def main(argv=None) -> int:
                         help="build the kernels, print phase 10 (f)'s "
                         "kernel times and a round's wall split on a "
                         "synthetic image as one JSON line and stop")
+    parser.add_argument("--resident-only", action="store_true",
+                        help="build the kernels, run phase 10 (BASELINE "
+                        "config #2's resident image, its mesh leg over "
+                        "every card of the host) alone, print its "
+                        "launches and the mesh leg as one JSON line and "
+                        "stop")
     parser.add_argument("--replicated-only", action="store_true",
                         help="build the kernels, run phase 11 (replicated "
                         "writes through PacificA groups) alone, print its "
@@ -7614,6 +8025,15 @@ def main(argv=None) -> int:
         f"{wire_s:.2f} s")
     print((build_log + compact_log + mesh_log + native_log).strip(),
           file=sys.stderr, flush=True)
+    if args.resident_only:
+        t0 = time.perf_counter()
+        with store_flags(NONE_STORE):
+            resident = run_resident(device, time_window(device), card=card)
+        torch.cuda.synchronize()
+        log(f"resident: phase 10 done in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"resident": {"launches": resident["launches"],
+                                     "mesh": resident["mesh"]}}))
+        return 0
     if args.replicated_only:
         t0 = time.perf_counter()
         with store_flags(NONE_STORE):
@@ -7798,7 +8218,7 @@ def main(argv=None) -> int:
     # 10. the resident image: BASELINE config #2's whole table on the card
     t0 = time.perf_counter()
     with store_flags(NONE_STORE):
-        resident = run_resident(device, win)
+        resident = run_resident(device, win, card=card)
     torch.cuda.synchronize()
     log(f"resident: done in {time.perf_counter() - t0:.1f} s")
 
@@ -7856,6 +8276,7 @@ def main(argv=None) -> int:
     # summary
     log(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s")
     rl = resident["launches"]
+    rm = resident["mesh"]["launches"]
     rt = resident["times"]
     t = timings[LARGE_SHAPE]
     tm = timings_multi[MULTI_LARGE_SHAPE]
@@ -7867,7 +8288,7 @@ def main(argv=None) -> int:
                      + batched["static"] + point["static"] + point["now"]
                      + geo["launches"]["static"] + client_scan["static"]
                      + client_scan["now"] + integrity_scan["static"]
-                     + rl["static"] + rl["now"]
+                     + rl["static"] + rl["now"] + rm["static"]
                      + repl_scan["static"] + repl_scan["now"]
                      + cl_scan["static"] + cl_scan["now"]
                      + sv_scan["static"] + sv_scan["now"]
@@ -7884,6 +8305,7 @@ def main(argv=None) -> int:
                              + client_scan["now"],
                              "integrity": integrity_scan["static"],
                              "resident": rl["static"] + rl["now"],
+                             "resident_mesh": rm["static"],
                              "replicated": repl_scan["static"]
                              + repl_scan["now"],
                              "cluster": cl_scan["static"]
@@ -7917,13 +8339,14 @@ def main(argv=None) -> int:
         "source": "pegasus_tpu_torch/csrc/compaction_filter.cu",
         "replaces": "pegasus_tpu/ops/compaction.py:110",
         "launches": (sum(r["launches"] for r in compact.values())
-                     + client_compact + rl["compaction"]
+                     + client_compact + rl["compaction"] + rm["compaction"]
                      + replicated["compaction"] + cl_compact
                      + services["compaction"] + onebox["compaction"]),
         "launches_by_path": {"compaction": sum(r["launches"]
                                                for r in compact.values()),
                              "client": client_compact,
                              "resident": rl["compaction"],
+                             "resident_mesh": rm["compaction"],
                              "replicated": replicated["compaction"],
                              "cluster": cl_compact,
                              "services": services["compaction"],
@@ -7939,7 +8362,11 @@ def main(argv=None) -> int:
         "name": "mesh_step", "route": "cuda",
         "source": "pegasus_tpu_torch/csrc/mesh_step.cu",
         "replaces": "pegasus_tpu/parallel/mesh_resident.py:119",
-        "launches": rl["mesh_step"],
+        "launches": rl["mesh_step"] + rm["mesh_step"],
+        "launches_by_path": {"resident": rl["mesh_step"],
+                             "resident_mesh": rm["mesh_step"]},
+        "launches_by_card": {
+            "resident_mesh": resident["mesh"]["launches_by_card"]},
         "max_abs_err": resident["check_mesh_step"]["max_abs_err"],
         "ms": rt["wave"]["ms"], "plain_ms": rt["wave"]["plain_ms"],
         "bound_ms": rt["wave"]["bound_ms"],
@@ -7952,8 +8379,12 @@ def main(argv=None) -> int:
         "source": "pegasus_tpu_torch/csrc/compaction_filter.cu",
         "kernel": rt["slot_gate"]["kernel"],
         "replaces": "pegasus_tpu/ops/compaction.py:178",
-        "launches": rl["slot_gate_columns"],
-        "launches_gated_rules": rl["slot_gate"] - rl["slot_gate_columns"],
+        "launches": rl["slot_gate_columns"] + rm["slot_gate_columns"],
+        "launches_by_path": {"resident": rl["slot_gate_columns"],
+                             "resident_mesh": rm["slot_gate_columns"]},
+        "launches_gated_rules": (rl["slot_gate"] - rl["slot_gate_columns"]
+                                 + rm["slot_gate"]
+                                 - rm["slot_gate_columns"]),
         "max_abs_err": resident["check_slot_gate"]["max_abs_err"],
         "ms": rt["slot_gate"]["ms"], "plain_ms": rt["slot_gate"]["plain_ms"],
         "bound_ms": rt["slot_gate"]["bound_ms"],

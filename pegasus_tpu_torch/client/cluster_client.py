@@ -14,14 +14,16 @@ ERR_INVALID_STATE-class errors and on reply timeouts.
 
 The transport is pluggable: a `pump()` callable drives message delivery
 while the client waits for a reply (the deterministic SimNetwork needs
-its loop driven; a real socket transport pumps by blocking on the
-socket).
+its loop driven). A socket transport delivers on threads of its own, so
+its client is built with `reply_wait_s` instead: a wait blocks on an
+event that the reply's arrival sets, at most `reply_wait_s` at a time.
 """
 
 from __future__ import annotations
 
 import itertools
 import re
+import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -153,14 +155,23 @@ class ClusterClient:
     """
 
     def __init__(self, net, name: str, meta_addr, app_name: str,
-                 pump: Callable[[], None],
+                 pump: Optional[Callable[[], None]],
                  max_retries: int = 6, pump_rounds: int = 50,
                  auth=None, op_timeout_ms: Optional[float] = None,
                  clock: Optional[Callable[[], float]] = None,
                  sleep: Optional[Callable[[float], None]] = None,
                  backoff_seed: Optional[int] = None,
-                 tenant: Optional[str] = None) -> None:
-        """`auth`: (user, token) credentials from
+                 tenant: Optional[str] = None,
+                 reply_wait_s: Optional[float] = None) -> None:
+        """`reply_wait_s` (with `pump` None): the client of a transport
+        that delivers on its own threads (TcpTransport). A wait for a
+        reply then blocks on an event that `_on_message` sets when it
+        stores a reply, at most `reply_wait_s` a round, and gives up
+        after `pump_rounds` rounds' worth of time: the budget a pump of
+        `time.sleep(reply_wait_s)` gives, without sleeping out the
+        round in which the reply lands.
+
+        `auth`: (user, token) credentials from
         security.make_credentials — required when the cluster enforces
         authentication.
 
@@ -191,7 +202,11 @@ class ClusterClient:
                            else list(meta_addr))
         self._meta_i = 0
         self.app_name = app_name
+        if (pump is None) == (reply_wait_s is None):
+            raise ValueError("give a pump or reply_wait_s, not both")
         self._pump = pump
+        self._reply_wait_s = reply_wait_s
+        self._reply_landed = threading.Event()
         self._max_retries = max_retries
         self._pump_rounds = pump_rounds
         self._rids = itertools.count(1)
@@ -241,6 +256,7 @@ class ClusterClient:
             # partition heals) would otherwise accumulate forever
             if rid in self._pending:
                 self._replies[rid] = payload
+                self._reply_landed.set()
 
     def _traced(self, name: str, fn, *args):
         """Run one client op under a sampled root span (or plain when
@@ -283,6 +299,8 @@ class ClusterClient:
 
     def _await(self, rid: int,
                deadline: Optional[float] = None) -> Optional[dict]:
+        if self._pump is None:
+            return self._await_landed(rid, deadline)
         try:
             for _ in range(self._pump_rounds):
                 if rid in self._replies:
@@ -290,6 +308,27 @@ class ClusterClient:
                 if deadline is not None and self._clock() > deadline:
                     break  # the op's deadline lapsed; stop pumping
                 self._pump()
+            return self._replies.pop(rid, None)
+        finally:
+            self._pending.discard(rid)
+
+    def _await_landed(self, rid: int,
+                      deadline: Optional[float]) -> Optional[dict]:
+        """`_await` on a transport that delivers by itself: wake when a
+        reply is stored (this one or another pending request's), give up
+        after pump_rounds x reply_wait_s of wall time. A set that lands
+        between a wake and the clear is not lost: the loop looks at the
+        stored replies before every wait."""
+        wait_s = self._reply_wait_s
+        end = time.monotonic() + self._pump_rounds * wait_s
+        try:
+            while rid not in self._replies:
+                left = end - time.monotonic()
+                if left <= 0 or (deadline is not None
+                                 and self._clock() > deadline):
+                    break
+                self._reply_landed.wait(min(wait_s, left))
+                self._reply_landed.clear()
             return self._replies.pop(rid, None)
         finally:
             self._pending.discard(rid)

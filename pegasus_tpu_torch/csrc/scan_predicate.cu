@@ -209,13 +209,23 @@ __device__ __forceinline__ int tile_block(const BlockDesc* blocks,
   return bi;
 }
 
-// Opt a kernel in to kSmemOptIn bytes of dynamic shared memory, once.
+// The devices whose opt-in flags a process keeps.
+constexpr int kMaxDevices = 64;
+
+// Opt a kernel in to kSmemOptIn bytes of dynamic shared memory, once a
+// device: a function attribute holds for the calling thread's current
+// device only, so done[d] records device d's opt-in.
 template <typename Kernel>
 cudaError_t opt_in_smem(Kernel kernel, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
-  if (err == cudaSuccess) *done = true;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemOptIn);
+  if (err == cudaSuccess) done[dev] = true;
   return err;
 }
 
@@ -610,8 +620,8 @@ extern "C" int pegasus_scan_table(const TableArgs* a,
   const auto kernel =
       hash_keys ? scan_table_kernel<true> : scan_table_kernel<false>;
   if (smem > kSmemDefault) {
-    static bool opted[2] = {false, false};
-    const cudaError_t err = opt_in_smem(kernel, &opted[hash_keys]);
+    static bool opted[2][kMaxDevices] = {};
+    const cudaError_t err = opt_in_smem(kernel, opted[hash_keys]);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(a->stream)>>>(
@@ -690,8 +700,8 @@ extern "C" int pegasus_scan_table_multi(const MultiArgs* a,
       : which == 1 ? scan_table_multi_kernel<kSortWindow>
                    : scan_table_multi_kernel<kAnyPair>;
   if (smem > kSmemDefault) {
-    static bool opted[4] = {false, false, false, false};
-    const cudaError_t err = opt_in_smem(kernel, &opted[which]);
+    static bool opted[4][kMaxDevices] = {};
+    const cudaError_t err = opt_in_smem(kernel, opted[which]);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   kernel<<<tiles, kTile, smem, static_cast<cudaStream_t>(a->stream)>>>(

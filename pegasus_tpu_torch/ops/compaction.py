@@ -253,8 +253,9 @@ def mesh_compact_buffer(keys, key_len, hashkey_len, expire_ts, present,
                         partition_version: int, *, operations=None,
                         validate_hash: bool = False,
                         want_ets: bool = True) -> torch.Tensor:
-    """The bulk filter over a table's resident [P, B] image
-    (parallel/mesh_resident.py) in one launch, into one result buffer
+    """The bulk filter over a table's resident [P, B] image, or one
+    shard's tile of it (parallel/mesh_resident.py), in one launch on the
+    tensors' device, into one result buffer
     (parts `mesh_compact_layout(P, B, want_ets)`): eval_block's order
     (default-TTL rewrite -> user rules -> expiry + stale-split) over the
     image flattened to P * B rows with each slot's pidx read once a

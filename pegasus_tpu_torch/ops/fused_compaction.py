@@ -41,6 +41,7 @@ import struct
 import subprocess
 import threading
 import time
+from collections import Counter
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -62,6 +63,8 @@ MAX_RULES = 64
 # slot_gate_kernel; a launch made by a wrapper adds here, nothing else
 # does
 LAUNCHES = {"compaction": 0, "slot_gate": 0, "slot_gate_columns": 0}
+# the same launches by (kind, card index)
+DEVICE_LAUNCHES: Counter = Counter()
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "compaction_filter.cu")
@@ -253,19 +256,24 @@ def slot_gate_filter(expire_ts: torch.Tensor, valid: torch.Tensor,
     if ets is not None:
         _check(ets, "ets", torch.int32, (b,), dev)
         _check_aligned(ets, "ets", 16)
-    err = _library().pegasus_slot_gate_filter(
-        expire_ts.data_ptr(), valid.data_ptr(), hash_lo.data_ptr(),
-        pidx.data_ptr(), slot_allowed.data_ptr(), b,
-        slot_rows.bit_length() - 1, int(now) & _M32,
-        int(default_ttl) & _M32, int(partition_version) & _M32,
-        drop.data_ptr(), 0 if ets is None else ets.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = _library()
+    # <<<>>> launches on the calling thread's current device
+    with torch.cuda.device(dev):
+        err = lib.pegasus_slot_gate_filter(
+            expire_ts.data_ptr(), valid.data_ptr(), hash_lo.data_ptr(),
+            pidx.data_ptr(), slot_allowed.data_ptr(), b,
+            slot_rows.bit_length() - 1, int(now) & _M32,
+            int(default_ttl) & _M32, int(partition_version) & _M32,
+            drop.data_ptr(), 0 if ets is None else ets.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"slot_gate_filter launch failed: cuda error "
                            f"{err}")
     with _count_lock:
         LAUNCHES["slot_gate"] += 1
         LAUNCHES["slot_gate_columns"] += 1
+        DEVICE_LAUNCHES["slot_gate", dev.index] += 1
+        DEVICE_LAUNCHES["slot_gate_columns", dev.index] += 1
 
 
 def compaction_filter(keys: Optional[torch.Tensor],
@@ -365,24 +373,30 @@ def compaction_filter(keys: Optional[torch.Tensor],
              | (_F_NEED_KEYS if need_keys or hash_keys else 0)
              | (_F_HASH_KEYS if hash_keys else 0)
              | (_F_SLOT_GATE if slot_allowed is not None else 0))
-    err = _library().pegasus_compaction_filter(
-        *((0, 0) if keys is None else (keys.data_ptr(), key_len.data_ptr())),
-        expire_ts.data_ptr(), valid.data_ptr(),
-        hash_lo.data_ptr() if validate_hash and not hash_keys else 0,
-        pidx_col, pidx_scalar, b, k, ops, n_ops, rules, n_rules,
-        pats.data_ptr(), int(now) & _M32, int(default_ttl) & _M32,
-        int(partition_version) & _M32, flags, drop.data_ptr(),
-        ets.data_ptr() if want_ets else 0,
-        torch.cuda.current_stream(dev).cuda_stream,
-        crc_tables(dev).data_ptr() if hash_keys else 0,
-        slot_allowed.data_ptr() if slot_allowed is not None else 0,
-        slot_shift)
+    args = (*((0, 0) if keys is None
+              else (keys.data_ptr(), key_len.data_ptr())),
+            expire_ts.data_ptr(), valid.data_ptr(),
+            hash_lo.data_ptr() if validate_hash and not hash_keys else 0,
+            pidx_col, pidx_scalar, b, k, ops, n_ops, rules, n_rules,
+            pats.data_ptr(), int(now) & _M32, int(default_ttl) & _M32,
+            int(partition_version) & _M32, flags, drop.data_ptr(),
+            ets.data_ptr() if want_ets else 0,
+            torch.cuda.current_stream(dev).cuda_stream,
+            crc_tables(dev).data_ptr() if hash_keys else 0,
+            slot_allowed.data_ptr() if slot_allowed is not None else 0,
+            slot_shift)
+    lib = _library()
+    # <<<>>> launches on the calling thread's current device
+    with torch.cuda.device(dev):
+        err = lib.pegasus_compaction_filter(*args)
     if err != 0:
         raise RuntimeError(f"compaction_filter launch failed: cuda error "
                            f"{err}")
     with _count_lock:
         LAUNCHES["compaction"] += 1
+        DEVICE_LAUNCHES["compaction", dev.index] += 1
         if slot_allowed is not None:
             LAUNCHES["slot_gate"] += 1
+            DEVICE_LAUNCHES["slot_gate", dev.index] += 1
     return (drop if pack else drop.view(torch.bool)), \
         (ets if want_ets else None)

@@ -14,8 +14,10 @@ on every resident dispatch.
 The results come as one uint8 buffer (`mesh_step_buffer`, laid out by
 `result_layout`): the gated packed mask, the counts and the lane sums,
 each part 16-byte aligned (at B >= 128 exactly P * B / 8 + 28 * P
-bytes). A round copies that buffer home once (ops/result_buffer.home);
-`mesh_step` returns its three views. `extra=None` is the all-ones value
+bytes). Over a sharded image the launch runs a shard at a time on the
+shard's [P, B] tile, and a round copies every shard's buffer home once,
+after the last launch (ops/result_buffer.home_all); `mesh_step` returns
+its three views. `extra=None` is the all-ones value
 filter, a kernel instance that reads no mask.
 
 On CUDA tensors the kernel is launched (or the wrapper raises); on CPU
@@ -33,6 +35,7 @@ import subprocess
 import threading
 import time
 import weakref
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
@@ -44,6 +47,8 @@ from pegasus_tpu_torch.ops.record_block import u32
 
 # kernel launches; a launch made by the wrapper adds one, nothing else does
 LAUNCHES = {"mesh_step": 0}
+# the same launches by (kernel, card index)
+DEVICE_LAUNCHES: Counter = Counter()
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "mesh_step.cu")
@@ -195,14 +200,19 @@ def mesh_step_buffer(packed: torch.Tensor, allowed: torch.Tensor,
         # nothing to launch, so nothing to count
         return buf
     base = buf.data_ptr()
-    err = _library().pegasus_mesh_step(
-        packed.data_ptr(), allowed.data_ptr(), expire_ts.data_ptr(),
-        present.data_ptr(), 0 if extra is None else extra.data_ptr(),
-        lanes.data_ptr() if with_sum else 0, int(now) & 0xFFFFFFFF, p, b,
-        int(with_sum), base, base + offs[1], base + offs[2], _stream(dev))
+    lib = _library()
+    # cudaLaunchKernelEx launches on the calling thread's current device
+    with torch.cuda.device(dev):
+        err = lib.pegasus_mesh_step(
+            packed.data_ptr(), allowed.data_ptr(), expire_ts.data_ptr(),
+            present.data_ptr(), 0 if extra is None else extra.data_ptr(),
+            lanes.data_ptr() if with_sum else 0, int(now) & 0xFFFFFFFF, p,
+            b, int(with_sum), base, base + offs[1], base + offs[2],
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"mesh_step launch failed: cuda error {err}")
     LAUNCHES["mesh_step"] += 1
+    DEVICE_LAUNCHES["mesh_step", dev.index] += 1
     return buf
 
 

@@ -38,7 +38,7 @@ import subprocess
 import threading
 import time
 import weakref
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -75,6 +75,8 @@ MAX_FLAVORS = 4096
 # key-hash instance; a launch made by the wrapper adds here, nothing else
 # does
 LAUNCHES = {"static": 0, "now": 0, "multi": 0, "keyhash": 0}
+# the same launches by (mode, card index)
+DEVICE_LAUNCHES: Counter = Counter()
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "scan_predicate.cu")
@@ -337,12 +339,18 @@ def _launch_table(blocks: Sequence[RecordBlock], pidxs: Sequence,
         int(validate_hash), hash_filter.filter_type,
         _pattern_len(hash_filter), sort_filter.filter_type,
         _pattern_len(sort_filter), int(now is not None))
-    err = _library().pegasus_scan_table(args, descs)
+    lib = _library()
+    # <<<>>> launches on the calling thread's current device
+    with torch.cuda.device(dev):
+        err = lib.pegasus_scan_table(args, descs)
     if err != 0:
         raise RuntimeError(f"scan_predicate launch failed: cuda error {err}")
-    LAUNCHES["static" if now is None else "now"] += 1
+    mode = "static" if now is None else "now"
+    LAUNCHES[mode] += 1
+    DEVICE_LAUNCHES[mode, dev.index] += 1
     if hash_keys:
         LAUNCHES["keyhash"] += 1
+        DEVICE_LAUNCHES["keyhash", dev.index] += 1
     return out
 
 
@@ -528,13 +536,17 @@ def _launch_table_multi(blocks: Sequence[RecordBlock], pidxs: Sequence,
         crc_tables(dev).data_ptr() if hash_keys else 0, row_bytes,
         partition_version & 0xFFFFFFFF, len(blocks), k, int(validate_hash),
         hft, hpitch, sft, spitch, n_flavors, n_short, need_hash, need_sort)
-    err = _library().pegasus_scan_table_multi(args, descs)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.pegasus_scan_table_multi(args, descs)
     if err != 0:
         raise RuntimeError(f"scan_predicate multi launch failed: cuda error "
                            f"{err}")
     LAUNCHES["multi"] += 1
+    DEVICE_LAUNCHES["multi", dev.index] += 1
     if hash_keys:
         LAUNCHES["keyhash"] += 1
+        DEVICE_LAUNCHES["keyhash", dev.index] += 1
     return out
 
 

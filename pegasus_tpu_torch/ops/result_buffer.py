@@ -3,10 +3,11 @@
 A resident round (parallel/mesh_resident.py) writes all of its results
 into one uint8 buffer on the device: the epilogue kernel's packed mask,
 counts and lane sums (ops/fused_mesh.py), or the compaction round's
-packed drop mask and rewritten TTLs (ops/compaction.mesh_compact_buffer).
-A layout names the parts in order, each starting 16-byte aligned;
-`views` cuts a torch or numpy buffer into them, and `home` brings a
-device buffer to the host in one copy.
+packed drop mask and rewritten TTLs (ops/compaction.mesh_compact_buffer)
+— one buffer a shard of the image. A layout names the parts in order,
+each starting 16-byte aligned; `views` cuts a torch or numpy buffer into
+them, and `home_all` brings a round's buffers to the host, one copy each
+into one page-locked buffer, and one wait a device.
 """
 
 from __future__ import annotations
@@ -68,14 +69,34 @@ def views(buf, parts: Tuple[Part, ...]) -> tuple:
 
 
 def home(buf: torch.Tensor) -> np.ndarray:
-    """`buf` as a numpy array on the host. From a card: one copy into
-    page-locked memory allocated for this call (cached views of an
-    earlier round's buffer keep their own), queued on the current
-    stream behind the round's kernels, then one wait on that stream."""
-    if buf.device.type == "cpu":
-        return buf.numpy()
-    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-    # queued on the current stream of buf's device
-    host.copy_(buf, non_blocking=True)
-    torch.cuda.current_stream(buf.device).synchronize()
-    return host.numpy()
+    """`buf` as a numpy array on the host (`home_all` of one buffer)."""
+    return home_all([buf])[0]
+
+
+def home_all(bufs) -> list:
+    """Each of `bufs` (uint8, one a shard of a round) as a numpy array on
+    the host. From cards: every buffer is copied into its own 16-byte
+    aligned region of one page-locked host buffer allocated for this
+    call (cached views of an earlier round's buffer keep their own),
+    each copy queued on the current stream of its buffer's device behind
+    that shard's kernels, then each of those streams waited on once.
+    Call it after the round's last launch: a copy queued before a later
+    shard's launch would hold that launch behind the wait."""
+    if all(b.device.type == "cpu" for b in bufs):
+        return [b.numpy() for b in bufs]
+    if any(b.device.type != "cuda" for b in bufs):
+        raise ValueError("a round's buffers lie on cards, or all on the "
+                         "CPU")
+    offs, end = [], 0
+    for b in bufs:
+        end = -(-end // ALIGN) * ALIGN
+        offs.append(end)
+        end += b.shape[0]
+    host = torch.empty(end, dtype=torch.uint8, pin_memory=True)
+    for b, off in zip(bufs, offs):
+        # queued on the current stream of b's device
+        host[off:off + b.shape[0]].copy_(b, non_blocking=True)
+    for dev in dict.fromkeys(b.device for b in bufs):
+        torch.cuda.current_stream(dev).synchronize()
+    arr = host.numpy()
+    return [arr[off:off + b.shape[0]] for b, off in zip(bufs, offs)]

@@ -1,24 +1,30 @@
-"""Partition-stacked predicate evaluation on the card.
+"""Partition-sharded predicate evaluation over a mesh of devices.
 
 The port's counterpart of pegasus_tpu/parallel/partition_mesh.py. The
 JAX package sharded a table's stacked [P, B, K] image over a 2D device
 mesh: partitions on the "dp" axis, the record batch on "sp", one jitted
-program per step with the global counts psum-reduced over the mesh. The
-port runs on one card, so a mesh here is the list of devices and its
-(dp, sp) shape: on one H100 dp = sp = 1, and multi-card sharding is not
-in scope (a mesh over several distinct devices raises at
-`sharded_scan_step`). `make_mesh` keeps the JAX rules: a single device
-degrades any requested dp to (1, 1) with a warning, and a device count
-that dp does not divide raises ValueError.
+program per step with the global counts psum-reduced over the mesh.
+Here a mesh is the row-major list of its dp * sp shards' devices and
+its (dp, sp) shape. A device may repeat: a repeated device holds
+several logical shards (the CPU tests shard over [cpu] * 8 as the JAX
+tests shard over eight forced host devices, and one card can hold
+several shards). `make_mesh` keeps the JAX rules: dp defaults to every
+device, a single device degrades any requested dp to (1, 1) with a
+warning, and a device count that dp does not divide raises ValueError.
 
-`sharded_scan_step` is the Pallas contract of the scan kernel with
-`now` (ops/fused_scan.scan_table's status bytes) over the stack
-flattened to one block of P * B rows with a per-row pidx column; the
-stack has no hash_lo, so a validating step hashes the keys (the scan
-kernel's key-hash instance on the card). The host-computed `allowed`
-gate (the reject-all ownership state per partition) and the three
-counts follow as torch ops: XLA computed them outside any Pallas kernel,
-and this function is off the serving path.
+`sharded_scan_step` cuts [P, B] into dp x sp tiles (P / dp partitions by
+B / sp records, each tile on its shard's device; like a NamedSharding,
+it needs dp to divide P and sp to divide B). On each tile it launches
+the Pallas contract of the scan kernel with `now`
+(ops/fused_scan.scan_table's status bytes) over the tile flattened to
+one block with a per-row pidx column; the stack has no hash_lo, so a
+validating step hashes the keys (the scan kernel's key-hash instance on
+the card). The host-computed `allowed` gate (the reject-all ownership
+state per partition) and the tile's counts follow as torch ops on the
+tile's device. Every tile is launched before any result is fetched;
+then each tile's mask and counts come home and the host adds the counts
+(the JAX program's psum, whose replicated outputs are then fetched).
+This function is off the serving path.
 """
 
 from __future__ import annotations
@@ -122,41 +128,72 @@ def partition_allowed(pidx: np.ndarray, validate_hash: bool,
     return np.ones(len(pidx), dtype=bool)
 
 
+def _tiles(n: int, parts: int, what: str) -> list:
+    """[(start, stop)] of `parts` equal tiles of n, as a NamedSharding
+    cuts an axis; raises where `parts` does not divide n."""
+    if n % parts:
+        raise ValueError(f"{what} of {n} not divisible by {parts} shards")
+    size = n // parts
+    return [(i * size, (i + 1) * size) for i in range(parts)]
+
+
 def sharded_scan_step(pmesh: PartitionMesh, stacked: StackedBlocks, now: int,
                       sort_filter: Optional[FilterSpec] = None,
                       partition_version: int = -1,
                       validate_hash: bool = False):
-    """One scan step over the stacked blocks on the mesh's device.
+    """One scan step over the stacked blocks, sharded over the mesh.
 
     Returns (keep bool[P, B], total kept, total expired, kept per
-    partition int64[P]), tensors on the mesh's device."""
+    partition int64[P]), tensors on the mesh's first device."""
     from pegasus_tpu_torch.ops.fused_scan import (
         STATUS_EXPIRED,
         STATUS_KEEP,
         scan_table,
     )
 
-    if len(set(pmesh.devices)) != 1:
-        raise NotImplementedError("sharding over several devices is not "
-                                  "ported: the mesh holds one device")
-    dev = pmesh.device
     p, b, k = stacked.keys.shape
-    flat = RecordBlock(
-        stacked.keys.reshape(p * b, k).to(dev).contiguous(),
-        stacked.key_len.reshape(p * b).to(dev).contiguous(),
-        stacked.hashkey_len.reshape(p * b).to(dev).contiguous(),
-        stacked.expire_ts.reshape(p * b).to(dev).contiguous(),
-        stacked.valid.reshape(p * b).to(dev).contiguous(),
-        None)
-    pidx = stacked.pidx.to(dev)
-    sort_filter = (FilterSpec.none(dev) if sort_filter is None
-                   else FilterSpec.make(sort_filter.filter_type,
-                                        sort_filter.raw, dev))
-    status = scan_table([flat], [pidx.repeat_interleave(b)],
-                        FilterSpec.none(dev), sort_filter, validate_hash,
-                        max(partition_version, 0) & _M32, now=now)
-    allowed = torch.from_numpy(partition_allowed(
-        stacked.pidx.cpu().numpy(), validate_hash, partition_version)).to(dev)
-    keep = (status == STATUS_KEEP).view(p, b) & allowed[:, None]
-    expired = (status == STATUS_EXPIRED).view(p, b)
-    return keep, keep.sum(), expired.sum(), keep.sum(dim=1)
+    allowed_np = partition_allowed(stacked.pidx.cpu().numpy(), validate_hash,
+                                   partition_version)
+    raw = b"" if sort_filter is None else sort_filter.raw
+    sort_type = 0 if sort_filter is None else sort_filter.filter_type
+    rows = _tiles(p, pmesh.dp, "partitions")
+    cols = _tiles(b, pmesh.sp, "records")
+    tiles = []  # (row tile, its sp tiles' on-device results)
+    for i, (p0, p1) in enumerate(rows):
+        parts = []
+        for j, (b0, b1) in enumerate(cols):
+            dev = pmesh.devices[i * pmesh.sp + j]
+            n, w = p1 - p0, b1 - b0
+
+            def tile(t: torch.Tensor) -> torch.Tensor:
+                return t[p0:p1, b0:b1].reshape(n * w, *t.shape[2:]).to(
+                    dev).contiguous()
+
+            flat = RecordBlock(tile(stacked.keys), tile(stacked.key_len),
+                               tile(stacked.hashkey_len),
+                               tile(stacked.expire_ts), tile(stacked.valid),
+                               None)
+            pidx = stacked.pidx[p0:p1].to(dev)
+            status = scan_table([flat], [pidx.repeat_interleave(w)],
+                                FilterSpec.none(dev),
+                                FilterSpec.make(sort_type, raw, dev),
+                                validate_hash,
+                                max(partition_version, 0) & _M32, now=now)
+            allowed = torch.from_numpy(allowed_np[p0:p1].copy()).to(dev)
+            keep = (status == STATUS_KEEP).view(n, w) & allowed[:, None]
+            expired = (status == STATUS_EXPIRED).view(n, w)
+            parts.append((keep, keep.sum(), expired.sum(), keep.sum(dim=1)))
+        tiles.append(parts)
+    out_dev = pmesh.device
+    if len(rows) * len(cols) == 1:
+        return tiles[0][0]
+    # every tile was launched; now each comes home and the host adds
+    home = [[tuple(t.cpu() for t in part) for part in parts]
+            for parts in tiles]
+    keep = torch.cat([torch.cat([part[0] for part in parts], dim=1)
+                      for parts in home])
+    total_kept = sum(part[1] for parts in home for part in parts)
+    total_expired = sum(part[2] for parts in home for part in parts)
+    per_kept = torch.cat([sum(part[3] for part in parts) for parts in home])
+    return (keep.to(out_dev), total_kept.to(out_dev),
+            total_expired.to(out_dev), per_kept.to(out_dev))

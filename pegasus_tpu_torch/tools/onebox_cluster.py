@@ -26,12 +26,16 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 from pegasus_tpu_torch.utils.errors import ErrorCode, PegasusError
 
 DEFAULT_DIR = "/tmp/pegasus_tpu_onebox"
+# the longest one wait of a wire client for its reply lasts: a wait ends
+# early when the reply lands
+WIRE_WAIT_S = 0.01
 _REPO_ROOT = os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__))))
 
@@ -266,6 +270,7 @@ class OneboxAdmin:
         self.name = name
         self._rids = itertools.count(1)
         self._replies: Dict[int, dict] = {}
+        self._landed = threading.Event()
         from pegasus_tpu_torch.utils.backoff import Backoff
 
         self._backoff = Backoff()
@@ -274,6 +279,14 @@ class OneboxAdmin:
     def _on_message(self, src: str, msg_type: str, payload) -> None:
         if msg_type in ("admin_reply", "remote_command_reply"):
             self._replies[payload["rid"]] = payload
+            self._landed.set()
+
+    def _wait(self, until: float) -> None:
+        """Block until a reply lands or WIRE_WAIT_S passes, never past
+        `until` (time.monotonic)."""
+        self._landed.wait(max(0.0, min(WIRE_WAIT_S,
+                                       until - time.monotonic())))
+        self._landed.clear()
 
     def remote_command(self, node: str, verb: str, args=None,
                        timeout: float = 10.0):
@@ -291,7 +304,7 @@ class OneboxAdmin:
                     raise PegasusError(ErrorCode.ERR_HANDLER_NOT_FOUND,
                                        str(reply["result"]))
                 return reply["result"]
-            time.sleep(0.01)
+            self._wait(deadline)
         raise PegasusError(ErrorCode.ERR_TIMEOUT,
                            f"remote_command {verb} to {node}")
 
@@ -321,7 +334,7 @@ class OneboxAdmin:
                         raise PegasusError(ErrorCode(reply["err"]),
                                            str(reply.get("result")))
                     return reply["result"]
-                time.sleep(0.01)
+                self._wait(slice_deadline)
             last = PegasusError(ErrorCode.ERR_TIMEOUT,
                                 f"admin {cmd} via {meta}")
         raise last or PegasusError(ErrorCode.ERR_TIMEOUT, f"admin {cmd}")
@@ -360,9 +373,12 @@ def connect(app_name: str, directory: str = DEFAULT_DIR,
         from pegasus_tpu_torch.security.auth import make_credentials
 
         auth = make_credentials(user, cfg["auth_secret"])
+    # the transport delivers on its own threads: a wait ends when the
+    # reply lands, and a reply that never comes still costs the retry
+    # window of 400 slices of 10 ms
     return ClusterClient(
         net, client_name or f"client-{os.getpid()}", metas, app_name,
-        pump=lambda: time.sleep(0.01), max_retries=8, pump_rounds=400,
+        pump=None, reply_wait_s=WIRE_WAIT_S, max_retries=8, pump_rounds=400,
         auth=auth, op_timeout_ms=op_timeout_ms, tenant=tenant)
 
 

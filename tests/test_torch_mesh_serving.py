@@ -104,14 +104,14 @@ REQS = (
 PKGS = ((jtypes, JPushdown), (ttypes, PushdownSpec))
 
 
-def build_pair(tmp_path, rows=240, compact_codec=None):
-    """The JAX and the port table with the same history: rows written
-    under three SST codecs plus empty-hashkey rows, flushed; compacted
-    under `compact_codec` when given."""
+def build_pair(tmp_path, rows=240, compact_codec=None, n_parts=N_PARTS):
+    """The JAX and the port table of `n_parts` partitions with the same
+    history: rows written under three SST codecs plus empty-hashkey
+    rows, flushed; compacted under `compact_codec` when given."""
     tables = (JTable(str(tmp_path / "j"), app_id=APP_ID,
-                     partition_count=N_PARTS),
+                     partition_count=n_parts),
               Table(str(tmp_path / "t"), app_id=APP_ID,
-                    partition_count=N_PARTS, device="cpu"))
+                    partition_count=n_parts, device="cpu"))
     clients = (JClient(tables[0]), PegasusClient(tables[1]))
     i = 0
     for codec in ("none", "dcz", "dcz2"):
