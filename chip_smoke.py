@@ -2251,6 +2251,7 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
     nothing. Returns the kernel launches of the traffic by mode."""
     import torch
 
+    from benchmark.core.probe import ExecWall
     from pegasus_tpu_torch.base.key_schema import (
         generate_key,
         key_hash_parts,
@@ -2260,7 +2261,7 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
         epoch_now,
         expire_ts_from_ttl,
     )
-    from pegasus_tpu_torch.ops import fused_scan
+    from pegasus_tpu_torch.ops import fused_scan, record_block
     from pegasus_tpu_torch.ops.predicates import FT_MATCH_POSTFIX
     from pegasus_tpu_torch.server import page
     from pegasus_tpu_torch.server.partition_server import PartitionServer
@@ -2348,7 +2349,6 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
         filtered = rng.random(n_ops) < 0.15
         patterns = rng.integers(0, len(POSTFIX_PATTERNS), n_ops)
 
-        timings: dict = {}
         pending: dict = {}
         flush_s, scan_s, flush_cpu = [], [], 0.0
         stats = {"scans": 0, "flushes": 0, "inserts": 0, "records": 0,
@@ -2376,7 +2376,7 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
             now = epoch_now()
             c, t = time.process_time(), time.perf_counter()
             out = scan_multi([(servers[p], [r for r, *_ in lst])
-                              for p, lst in items], now, timings=timings)
+                              for p, lst in items], now)
             seconds = time.perf_counter() - t
             nonlocal flush_cpu
             flush_cpu += time.process_time() - c
@@ -2401,6 +2401,7 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
 
         fused_scan.LAUNCHES.update(dict.fromkeys(fused_scan.LAUNCHES, 0))
         page.SERVE_STATS.update(dict.fromkeys(page.SERVE_STATS, 0))
+        record_block.H2D.update(dict.fromkeys(record_block.H2D, 0))
         # what exists now (the oracles' million keys above all) is never
         # garbage: out of the collector's sight, the pauses below are
         # the ones the serving's own allocations cause
@@ -2410,8 +2411,11 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
         # the device's busy time over the traffic, from a CUDA trace
         on_card = device.type == "cuda"
         trace = device_trace() if on_card else contextlib.nullcontext()
+        # the flushes' wall by stage of the task profiler, on over the
+        # traffic and summed as the stages are observed
+        stage_wall = ExecWall()
         t_traffic = time.perf_counter()
-        with trace as prof:
+        with trace as prof, stage_wall:
             for op in range(n_ops):
                 if inserts[op]:
                     flush_pending()  # writes serialize against pending scans
@@ -2440,6 +2444,7 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
         traffic_s = time.perf_counter() - t_traffic
         launches = dict(fused_scan.LAUNCHES)
         serve = dict(page.SERVE_STATS)
+        h2d = dict(record_block.H2D)
         server_s = sum(flush_s) + stats["insert_s"]
         log(f"batched on {card}: {stats['scans']} scans in "
             f"{stats['flushes']} flushes, {stats['inserts']} inserts, "
@@ -2451,7 +2456,7 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
             f"{gc_pauses.count} pauses, {gc_pauses.total_s} s, longest "
             f"{gc_pauses.longest_s} s, inside {len(gc_lat)} flushes taking "
             f"{sum(gc_lat)} s")
-        log(f"batched: flush time by phase (s): {timings}")
+        log(f"batched: flush time by stage (ms): {stage_wall.ms}")
         if on_card:
             busy_s, n_spans = device_busy_s(prof)
             if not n_spans:
@@ -2467,7 +2472,9 @@ def run_batched(device, n_records: int = BATCHED_RECORDS,
         log(f"batched: launches {launches}; native serve_batch calls "
             f"{serve['calls']}, requests served natively {serve['served']}, "
             f"arena overflows {serve['overflow']}, re-served by numpy "
-            f"{serve['numpy']}")
+            f"{serve['numpy']}, memtable rows merged into pages "
+            f"{serve['overlay_rows']}; host-to-device copies of record-block "
+            f"columns {h2d['copies']}, {h2d['bytes']} B")
         if on_card and (launches["static"] == 0 or launches["multi"] == 0):
             fail(f"the batched path must launch the static and the multi "
                  f"kernel: {launches}")

@@ -31,6 +31,11 @@ from pegasus_tpu_torch.base.crc import crc64_batch
 _MIN_WIDTH = 32
 _MAX_WIDTH = 1 << 16
 
+# host-to-device copies of record-block columns, always counted: the
+# merge path's candidate blocks (build_record_block) and the device
+# block cache's uploads of SST blocks (block_from_columns)
+H2D = {"copies": 0, "bytes": 0}
+
 
 class RecordBlock(NamedTuple):
     keys: torch.Tensor         # uint8[B, K]
@@ -93,9 +98,14 @@ def _to_block(keys: np.ndarray, key_len: np.ndarray,
               hashkey_len: np.ndarray, expire_ts: np.ndarray,
               valid: np.ndarray, hash_lo: np.ndarray,
               device) -> RecordBlock:
+    to_device = torch.device(device).type != "cpu"
+
     def t(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
-            device)
+        a = np.ascontiguousarray(a, dtype=dtype)
+        if to_device:
+            H2D["copies"] += 1
+            H2D["bytes"] += a.nbytes
+        return torch.from_numpy(a).to(device)
 
     return RecordBlock(t(keys, np.uint8), t(key_len, np.int32),
                        t(hashkey_len, np.int32),

@@ -2124,11 +2124,14 @@ class ReplicaStub:
         share ONE stacked device evaluation (scan_coordinator). Reply:
         {rid, err, result: [(pidx, [ScanResponse])]} aligned with the
         request's groups; per-partition gate failures surface as
-        error responses in that partition's slot."""
+        error responses in that partition's slot. The gates and the reply
+        are the task profiler's stages pegasus.stub.gate and
+        pegasus.stub.reply; scan_multi stages the rest."""
         from pegasus_tpu_torch.replica.replica import PartitionStatus
         from pegasus_tpu_torch.server.scan_coordinator import scan_multi
         from pegasus_tpu_torch.server.types import ScanResponse
         from pegasus_tpu_torch.utils.errors import ErrorCode
+        from pegasus_tpu_torch.utils.profiler import PROFILER
 
         rid = payload.get("rid")
         groups = payload.get("groups") or []
@@ -2138,61 +2141,62 @@ class ReplicaStub:
         ok_servers = []
         slots = []
         decrees = []  # (pidx, committed decree, served_by) per served slot
-        for gpid, reqs in groups:
-            gpid = tuple(gpid)
-            r = self.replicas.get(gpid)
-            if not self._client_allowed(r, payload, access="r", src=src):
-                # auth/ACL is PERMANENT — distinct from stale-primary so
-                # the client doesn't burn retries re-resolving
-                errs = []
-                for _req in reqs:
-                    resp = ScanResponse()
-                    resp.error = int(ErrorCode.ERR_ACL_DENY)
-                    errs.append(resp)
-                slots.append((gpid[1], errs))
-                continue
-            gerr = None
-            if (r is None or getattr(r, "restoring", False)
-                    or not r.ready_to_serve()):
-                gerr = int(ErrorCode.ERR_INVALID_STATE)
-            elif r.status == PartitionStatus.PRIMARY:
-                if not self.lease_valid():
+        with PROFILER.stage("pegasus.stub.gate"):
+            for gpid, reqs in groups:
+                gpid = tuple(gpid)
+                r = self.replicas.get(gpid)
+                if not self._client_allowed(r, payload, access="r", src=src):
+                    # auth/ACL is PERMANENT — distinct from stale-primary so
+                    # the client doesn't burn retries re-resolving
+                    errs = []
+                    for _req in reqs:
+                        resp = ScanResponse()
+                        resp.error = int(ErrorCode.ERR_ACL_DENY)
+                        errs.append(resp)
+                    slots.append((gpid[1], errs))
+                    continue
+                gerr = None
+                if (r is None or getattr(r, "restoring", False)
+                        or not r.ready_to_serve()):
                     gerr = int(ErrorCode.ERR_INVALID_STATE)
-            else:
-                # same consistency gate as the point paths: a SECONDARY
-                # serves the scan slot under its lease + watermark, or
-                # bounces it typed so the client re-flies JUST this slot
-                slot_cons = cons
-                if cons is not None:
-                    slot_cons = dict(cons, min_decree=max(
-                        int(cons.get("min_decree") or 0),
-                        int(min_decrees.get(gpid[1], 0))))
-                gerr = self._follower_gate(
-                    r, {"consistency": slot_cons})
-            if gerr is None:
-                # same tenant gates as the point-read path: brownout
-                # sheds only the flagged aggressor, the CU budget
-                # bounces over-budget scans typed-retryable
-                tn = payload.get("tenant")
-                if TENANTS.browned(tn):
-                    self._node_read_shed.increment()
-                    TENANTS.note_shed(tn)
-                    gerr = int(ErrorCode.ERR_BUSY)
+                elif r.status == PartitionStatus.PRIMARY:
+                    if not self.lease_valid():
+                        gerr = int(ErrorCode.ERR_INVALID_STATE)
                 else:
-                    gerr = TENANTS.admit(tn, kind="read") or None
-            if gerr is not None:
-                errs = []
-                for _req in reqs:
-                    resp = ScanResponse()
-                    resp.error = gerr
-                    errs.append(resp)
-                slots.append((gpid[1], errs))
-                continue
-            slots.append((gpid[1], None))
-            decrees.append((gpid[1], r.last_committed_decree,
-                            "primary" if r.status
-                            == PartitionStatus.PRIMARY else "secondary"))
-            ok_servers.append((len(slots) - 1, r.server, reqs))
+                    # same consistency gate as the point paths: a SECONDARY
+                    # serves the scan slot under its lease + watermark, or
+                    # bounces it typed so the client re-flies JUST this slot
+                    slot_cons = cons
+                    if cons is not None:
+                        slot_cons = dict(cons, min_decree=max(
+                            int(cons.get("min_decree") or 0),
+                            int(min_decrees.get(gpid[1], 0))))
+                    gerr = self._follower_gate(
+                        r, {"consistency": slot_cons})
+                if gerr is None:
+                    # same tenant gates as the point-read path: brownout
+                    # sheds only the flagged aggressor, the CU budget
+                    # bounces over-budget scans typed-retryable
+                    tn = payload.get("tenant")
+                    if TENANTS.browned(tn):
+                        self._node_read_shed.increment()
+                        TENANTS.note_shed(tn)
+                        gerr = int(ErrorCode.ERR_BUSY)
+                    else:
+                        gerr = TENANTS.admit(tn, kind="read") or None
+                if gerr is not None:
+                    errs = []
+                    for _req in reqs:
+                        resp = ScanResponse()
+                        resp.error = gerr
+                        errs.append(resp)
+                    slots.append((gpid[1], errs))
+                    continue
+                slots.append((gpid[1], None))
+                decrees.append((gpid[1], r.last_committed_decree,
+                                "primary" if r.status
+                                == PartitionStatus.PRIMARY else "secondary"))
+                ok_servers.append((len(slots) - 1, r.server, reqs))
         if ok_servers:
             from pegasus_tpu_torch.base.value_schema import epoch_now
 
@@ -2240,9 +2244,10 @@ class ReplicaStub:
                 for (slot_i, _srv, _reqs), resps in zip(ok_servers,
                                                         results):
                     slots[slot_i] = (slots[slot_i][0], resps)
-        self.net.send(self.name, src, "client_read_reply", {
-            "rid": rid, "err": int(ErrorCode.ERR_OK), "result": slots,
-            "decrees": decrees})
+        with PROFILER.stage("pegasus.stub.reply"):
+            self.net.send(self.name, src, "client_read_reply", {
+                "rid": rid, "err": int(ErrorCode.ERR_OK), "result": slots,
+                "decrees": decrees})
 
     def _peer_key(self, src: str):
         """Session-scoped peer key for negotiation state: (src,

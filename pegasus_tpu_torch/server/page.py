@@ -31,8 +31,11 @@ _scratch_tls = threading.local()
 
 # native serve_batch calls, the requests they served and those they
 # handed back (arena overflow); "numpy" counts the fast-path requests a
-# server then re-served with numpy (partition_server.finish_scan_batch)
-SERVE_STATS = {"calls": 0, "served": 0, "overflow": 0, "numpy": 0}
+# server then re-served with numpy, and "overlay_rows" the memtable and
+# L0 rows its overlay merge put into pages
+# (partition_server.finish_scan_batch)
+SERVE_STATS = {"calls": 0, "served": 0, "overflow": 0, "numpy": 0,
+               "overlay_rows": 0}
 
 
 def _scratch(name: str, size: int, dtype, alloc=np.empty):

@@ -167,6 +167,7 @@ from pegasus_tpu_torch.utils import perf_context as perf
 from pegasus_tpu_torch.utils.flags import FLAGS, define_flag
 from pegasus_tpu_torch.utils.latency_tracer import LatencyTracer, SlowQueryLog
 from pegasus_tpu_torch.utils.metrics import METRICS
+from pegasus_tpu_torch.utils.profiler import PROFILER
 from pegasus_tpu_torch.utils.token_bucket import parse_throttle_env
 from pegasus_tpu_torch.utils.tracing import current_span
 
@@ -1720,6 +1721,9 @@ class PartitionServer:
                                        max_bytes, with_values,
                                        value_filter, pd_stats)
 
+        # the merge path, a predicate batch at a time: the task
+        # profiler's stages pegasus.merge.read, .validate and .rows
+        stage = PROFILER.stage
         out: List[Tuple[bytes, bytes, int]] = []
         out_bytes = 0
         it = self.engine.iterate(start_key, stop_key, reverse)
@@ -1727,37 +1731,40 @@ class PartitionServer:
         resume_key: Optional[bytes] = None
         while True:
             batch: List[Tuple[bytes, bytes, int]] = []
-            for key, value, ets in it:
-                batch.append((key, value, ets))
-                limiter.add_count()
-                if len(batch) >= PREDICATE_BATCH or not limiter.valid():
-                    break
+            with stage("pegasus.merge.read"):
+                for key, value, ets in it:
+                    batch.append((key, value, ets))
+                    limiter.add_count()
+                    if len(batch) >= PREDICATE_BATCH or not limiter.valid():
+                        break
             if not batch:
                 break
-            keep = self._validate_batch(batch, now, hash_filter, sort_filter,
-                                        validate_hash)
+            with stage("pegasus.merge.validate"):
+                keep = self._validate_batch(batch, now, hash_filter,
+                                            sort_filter, validate_hash)
             stop_early = False
-            for i in np.flatnonzero(keep):
-                key, value, ets = batch[i]
-                if value_filter is not None:
-                    ud = extract_user_data(self.data_version, value)
-                    if not host_match_filter(ud, value_filter[0],
-                                             value_filter[1]):
-                        if pd_stats is not None:
-                            pd_stats["pruned"] = \
-                                pd_stats.get("pruned", 0) + 1
-                        continue
-                    data = ud if with_values else b""
-                else:
-                    data = (extract_user_data(self.data_version, value)
-                            if with_values else b"")
-                out.append((key, data, ets))
-                out_bytes += len(key) + len(data)
-                if ((max_records > 0 and len(out) >= max_records)
-                        or (max_bytes > 0 and out_bytes >= max_bytes)):
-                    resume_key = _after(key) if not reverse else key
-                    stop_early = True
-                    break
+            with stage("pegasus.merge.rows"):
+                for i in np.flatnonzero(keep):
+                    key, value, ets = batch[i]
+                    if value_filter is not None:
+                        ud = extract_user_data(self.data_version, value)
+                        if not host_match_filter(ud, value_filter[0],
+                                                 value_filter[1]):
+                            if pd_stats is not None:
+                                pd_stats["pruned"] = \
+                                    pd_stats.get("pruned", 0) + 1
+                            continue
+                        data = ud if with_values else b""
+                    else:
+                        data = (extract_user_data(self.data_version, value)
+                                if with_values else b"")
+                    out.append((key, data, ets))
+                    out_bytes += len(key) + len(data)
+                    if ((max_records > 0 and len(out) >= max_records)
+                            or (max_bytes > 0 and out_bytes >= max_bytes)):
+                        resume_key = _after(key) if not reverse else key
+                        stop_early = True
+                        break
             if stop_early:
                 exhausted = False
                 break
@@ -2035,12 +2042,13 @@ class PartitionServer:
             resp.kv_count = len(records)
         else:
             size = 0
-            for key, data, ets in records:
-                kv = KeyValue(key, data)
-                if req.return_expire_ts:
-                    kv.expire_ts_seconds = ets
-                resp.kvs.append(kv)
-                size += len(key) + len(data)
+            with PROFILER.stage("pegasus.merge.rows"):
+                for key, data, ets in records:
+                    kv = KeyValue(key, data)
+                    if req.return_expire_ts:
+                        kv.expire_ts_seconds = ets
+                    resp.kvs.append(kv)
+                    size += len(key) + len(data)
             self.cu.add_read(size)
         tracer.add_point("assemble")
         pruned = pd_stats.get("pruned", 0)
@@ -2668,17 +2676,45 @@ class PartitionServer:
         batch's single clock reading). `served`: this batch's slice of
         the coordinator's cross-partition native assembly, aligned with
         prepare_serve's fast list; None runs the native assembly here."""
+        stage = PROFILER.stage
+        req_plans = state["req_plans"]
+        with stage("pegasus.scan.prepare"):
+            fast = self.prepare_serve(state, keep_masks)
+        live_masks = state["live_masks"]
+        windows = state["windows"]
+        hdr = header_length(self.data_version)
+        if served is None and fast:
+            with stage("pegasus.scan.pack"):
+                served = page.serve_batch(fast, SCAN_BYTES_CAP, hdr)
+        # the windows an overlay row falls in, merged in key order first
+        merged = {}
+        if any(ov_lo < ov_hi for _c, _f, ov_lo, ov_hi in windows):
+            overlay_keys, overlay_map = state["overlay"]
+            overlay_rows = 0
+            with stage("pegasus.scan.overlay"):
+                for i, (req_plan, (_c, _f, ov_lo, ov_hi)) in enumerate(
+                        zip(req_plans, windows)):
+                    if ov_lo < ov_hi:
+                        merged[i] = self._merge_overlay_window(
+                            req_plan[0], req_plan[3], req_plan[4],
+                            live_masks, overlay_keys, overlay_map, ov_lo,
+                            ov_hi)
+                        overlay_rows += merged[i][4]
+            page.SERVE_STATS["overlay_rows"] += overlay_rows
+        with stage("pegasus.scan.assemble"):
+            return self._assemble_scan_batch(state, served, merged, hdr)
+
+    def _assemble_scan_batch(self, state, served, merged: dict,
+                             hdr: int) -> List[ScanResponse]:
+        """finish_scan_batch's pages: the native packer's, an arena
+        overflow's re-served with numpy, and the overlay windows' merged
+        ones, each with its resume point; then the batch's accounting."""
         req_plans = state["req_plans"]
         now = state["now"]
-        fast = self.prepare_serve(state, keep_masks)
         live_masks = state["live_masks"]
         alive_all = state["alive_all"]
         exp_full = state["exp_full"]
         windows = state["windows"]
-        overlay_keys, overlay_map = state["overlay"]
-        hdr = header_length(self.data_version)
-        if served is None and fast:
-            served = page.serve_batch(fast, SCAN_BYTES_CAP, hdr)
         served_iter = iter(served) if served is not None else None
 
         # per-(plan, second) expired counts: alive depends only on block
@@ -2696,9 +2732,9 @@ class PartitionServer:
         total_read_cu = 0
 
         out = []
-        for (req, start_key, stop_key, want, plan, _geom, _nat, _pf), \
-                (capped, frontier, ov_lo, ov_hi) in zip(req_plans,
-                                                        windows):
+        for i, ((req, start_key, stop_key, want, plan, _geom, _nat, _pf),
+                (capped, frontier, ov_lo, ov_hi)) in enumerate(
+                    zip(req_plans, windows)):
             kvs: list = []
             size = 0
             exhausted = True
@@ -2706,13 +2742,6 @@ class PartitionServer:
             stop_early = False
             want_ets = req.return_expire_ts
             no_value = req.no_value
-
-            def base_rows(plan=plan):
-                for ckey, blk, lo, hi in plan:
-                    keep = live_masks[ckey]
-                    for i in np.flatnonzero(keep[lo:hi]):
-                        idx = lo + int(i)
-                        yield blk.key_at(idx), blk, idx
 
             hit = pec.get(id(plan))
             if hit is not None:
@@ -2726,7 +2755,6 @@ class PartitionServer:
                         req_expired += int(np.count_nonzero(
                             ~alive_all[ckey][lo:hi]))
                 pec[id(plan)] = (plan, req_expired)
-            ov_i = ov_lo
             chunks = None
             if ov_lo >= ov_hi:
                 # no overlay row shadows this window: the kept base rows
@@ -2792,45 +2820,7 @@ class PartitionServer:
                     resume_key = _after(last_key)
                     stop_early = True
             elif ov_lo < ov_hi:
-                # merge: interleave overlay rows in key order (an overlay
-                # row shadows the base row of its key: newest wins,
-                # tombstones hide)
-                base = base_rows()
-                base_item = next(base, None)
-                while len(kvs) < want:
-                    ov_key = overlay_keys[ov_i] if ov_i < ov_hi else None
-                    if base_item is None and ov_key is None:
-                        break
-                    take_overlay = (ov_key is not None
-                                    and (base_item is None
-                                         or ov_key <= base_item[0]))
-                    if take_overlay:
-                        if base_item is not None and ov_key == base_item[0]:
-                            base_item = next(base, None)  # shadowed
-                        ov_i += 1
-                        entry = overlay_map[ov_key]
-                        if entry is None:
-                            continue  # tombstone / hidden overlay row
-                        data = b"" if no_value else entry[0]
-                        kv = KeyValue(ov_key, data)
-                        if want_ets:
-                            kv.expire_ts_seconds = entry[1]
-                        key = ov_key
-                    else:
-                        key, blk, idx = base_item
-                        base_item = next(base, None)
-                        data = (b"" if no_value
-                                else extract_user_data(self.data_version,
-                                                       blk.value_at(idx)))
-                        kv = KeyValue(key, data)
-                        if want_ets:
-                            kv.expire_ts_seconds = int(blk.expire_ts[idx])
-                    kvs.append(kv)
-                    size += len(key) + len(data)
-                    if len(kvs) >= want or size >= SCAN_BYTES_CAP:
-                        resume_key = _after(key)
-                        stop_early = True
-                        break
+                kvs, size, resume_key, stop_early, _n = merged[i]
             if stop_early:
                 exhausted = False
             elif capped:
@@ -2888,6 +2878,69 @@ class PartitionServer:
                 tracer, {"scans": len(req_plans),
                          "unique_blocks": len(unique)})
         return out
+
+    def _merge_overlay_window(self, req, want: int, plan, live_masks,
+                              overlay_keys, overlay_map, ov_lo: int,
+                              ov_hi: int):
+        """The page of a window that overlay rows [ov_lo, ov_hi) fall in:
+        overlay rows interleaved with the kept base rows in key order (an
+        overlay row shadows the base row of its key: newest wins,
+        tombstones hide). (kvs, size, resume_key, stop_early, overlay
+        rows in the page)."""
+        want_ets = req.return_expire_ts
+        no_value = req.no_value
+        kvs: list = []
+        size = 0
+        resume_key = None
+        stop_early = False
+        from_overlay = 0
+
+        def base_rows():
+            for ckey, blk, lo, hi in plan:
+                keep = live_masks[ckey]
+                for i in np.flatnonzero(keep[lo:hi]):
+                    idx = lo + int(i)
+                    yield blk.key_at(idx), blk, idx
+
+        base = base_rows()
+        base_item = next(base, None)
+        ov_i = ov_lo
+        while len(kvs) < want:
+            ov_key = overlay_keys[ov_i] if ov_i < ov_hi else None
+            if base_item is None and ov_key is None:
+                break
+            take_overlay = (ov_key is not None
+                            and (base_item is None
+                                 or ov_key <= base_item[0]))
+            if take_overlay:
+                if base_item is not None and ov_key == base_item[0]:
+                    base_item = next(base, None)  # shadowed
+                ov_i += 1
+                entry = overlay_map[ov_key]
+                if entry is None:
+                    continue  # tombstone / hidden overlay row
+                data = b"" if no_value else entry[0]
+                kv = KeyValue(ov_key, data)
+                if want_ets:
+                    kv.expire_ts_seconds = entry[1]
+                key = ov_key
+                from_overlay += 1
+            else:
+                key, blk, idx = base_item
+                base_item = next(base, None)
+                data = (b"" if no_value
+                        else extract_user_data(self.data_version,
+                                               blk.value_at(idx)))
+                kv = KeyValue(key, data)
+                if want_ets:
+                    kv.expire_ts_seconds = int(blk.expire_ts[idx])
+            kvs.append(kv)
+            size += len(key) + len(data)
+            if len(kvs) >= want or size >= SCAN_BYTES_CAP:
+                resume_key = _after(key)
+                stop_early = True
+                break
+        return kvs, size, resume_key, stop_early, from_overlay
 
     def _overlay_snapshot(self, now: int, validate: bool, filter_key,
                           value_filter=None):

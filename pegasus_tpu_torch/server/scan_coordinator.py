@@ -38,7 +38,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import OrderedDict
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -53,6 +53,7 @@ from pegasus_tpu_torch.ops.predicates import (
 from pegasus_tpu_torch.ops.record_block import next_bucket
 from pegasus_tpu_torch.server.workload import DRIFT
 from pegasus_tpu_torch.utils import perf_context as perf
+from pegasus_tpu_torch.utils.profiler import PROFILER
 
 STACK_CHUNK = MAX_TABLE_BLOCKS
 
@@ -61,17 +62,17 @@ STACK_CHUNK = MAX_TABLE_BLOCKS
 MULTI_FLAVOR_MAX = 64
 
 
-def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
-               timings: Optional[dict] = None) -> List[list]:
+def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int
+               ) -> List[list]:
     """[(PartitionServer, [GetScannerRequest])] -> [[ScanResponse]].
 
     Requests are grouped per (validate, filter) flavour, so a flush
     mixing filter patterns still takes the batched path (one plan per
     flavour, one multi-flavour evaluation); a group that cannot take it
     (a large overlay, count-only, a pushdown aggregate, an unknown
-    filter type) is served per request. `timings`, when given, accumulates the seconds
-    of each phase under "plan", "eval", "prepare", "native" and
-    "finish"."""
+    filter type) is served per request. With the task profiler on, each
+    phase is a stage of it: pegasus.scan.plan, .mask_eval, .prepare and
+    .pack here, .overlay and .assemble in finish_scan_batch."""
     from pegasus_tpu_torch.server import page
     from pegasus_tpu_torch.server.partition_server import (
         SCAN_BYTES_CAP,
@@ -79,59 +80,53 @@ def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
         header_length,
     )
 
-    clock = [time.perf_counter()]
-
-    def lap(name: str) -> None:
-        if timings is not None:
-            t = time.perf_counter()
-            timings[name] = timings.get(name, 0.0) + t - clock[0]
-            clock[0] = t
-
+    stage = PROFILER.stage
     states = []
-    for server, reqs in servers_and_reqs:
-        groups: "OrderedDict[tuple, list]" = OrderedDict()
-        for i, r in enumerate(reqs):
-            # the pushdown identity joins the group key (a request with
-            # another value filter or an aggregate must not knock its
-            # flavour off the batched path) but not the plan flavour:
-            # the device mask inputs are key-side only
-            fl = (bool(r.validate_partition_hash
-                       and server.validate_partition_hash),
-                  _normalize_filter_key(r),
-                  r.pushdown.key if r.pushdown is not None else None)
-            groups.setdefault(fl, []).append(i)
-        sub = []
-        for fl, idxs in groups.items():
-            state = server.plan_scan_batch([reqs[i] for i in idxs],
-                                           now=now, flavor=fl[:2])
-            sub.append((idxs, state))
-        states.append((server, reqs, sub))
-    lap("plan")
+    with stage("pegasus.scan.plan"):
+        for server, reqs in servers_and_reqs:
+            groups: "OrderedDict[tuple, list]" = OrderedDict()
+            for i, r in enumerate(reqs):
+                # the pushdown identity joins the group key (a request
+                # with another value filter or an aggregate must not
+                # knock its flavour off the batched path) but not the
+                # plan flavour: the device mask inputs are key-side only
+                fl = (bool(r.validate_partition_hash
+                           and server.validate_partition_hash),
+                      _normalize_filter_key(r),
+                      r.pushdown.key if r.pushdown is not None else None)
+                groups.setdefault(fl, []).append(i)
+            sub = []
+            for fl, idxs in groups.items():
+                state = server.plan_scan_batch([reqs[i] for i in idxs],
+                                               now=now, flavor=fl[:2])
+                sub.append((idxs, state))
+            states.append((server, reqs, sub))
 
     # misses across partitions and flavours; an evaluation group shares
     # (validate, partition_version, filter types, pattern pad widths)
-    eval_groups: Dict[tuple, dict] = {}
-    for server, _reqs, sub in states:
-        for _idxs, state in sub:
-            if state is None or "precomputed" in state:
-                continue
-            misses = server.planned_misses(state)
-            if not misses:
-                continue
-            hft, hfp, sft, sfp = state["filter_key"]
-            gkey = (state["validate"], server.partition_version,
-                    hft, sft, next_bucket(len(hfp)), next_bucket(len(sfp)))
-            flavor = eval_groups.setdefault(gkey, {}).setdefault(
-                state["filter_key"], [])
-            for ckey, dev in misses.items():
-                flavor.append((server, state, ckey, dev))
-    for (validate, pv, *_types), flavors in eval_groups.items():
-        if len(flavors) == 1:
-            (fkey, entries), = flavors.items()
-            _eval_cross_partition(entries, validate, pv, fkey)
-        else:
-            _eval_cross_partition_multi(flavors, validate, pv)
-    lap("eval")
+    with stage("pegasus.scan.mask_eval"):
+        eval_groups: Dict[tuple, dict] = {}
+        for server, _reqs, sub in states:
+            for _idxs, state in sub:
+                if state is None or "precomputed" in state:
+                    continue
+                misses = server.planned_misses(state)
+                if not misses:
+                    continue
+                hft, hfp, sft, sfp = state["filter_key"]
+                gkey = (state["validate"], server.partition_version,
+                        hft, sft, next_bucket(len(hfp)),
+                        next_bucket(len(sfp)))
+                flavor = eval_groups.setdefault(gkey, {}).setdefault(
+                    state["filter_key"], [])
+                for ckey, dev in misses.items():
+                    flavor.append((server, state, ckey, dev))
+        for (validate, pv, *_types), flavors in eval_groups.items():
+            if len(flavors) == 1:
+                (fkey, entries), = flavors.items()
+                _eval_cross_partition(entries, validate, pv, fkey)
+            else:
+                _eval_cross_partition_multi(flavors, validate, pv)
 
     # every partition's fast-path (overlay-free) requests are packed by
     # ONE native call per flush: a 32-scan flush spread over a node's
@@ -139,26 +134,26 @@ def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
     fast_all: list = []
     fast_refs: list = []
     hdr_set = set()
-    for server, _reqs, sub in states:
-        for _idxs, state in sub:
-            if state is None or "precomputed" in state:
-                continue
-            fast = server.prepare_serve(state, state["cached_keep"])
-            if not fast:
-                continue
-            hdr_set.add(header_length(server.data_version))
-            fast_refs.append((state, len(fast)))
-            fast_all.extend(fast)
-    lap("prepare")
+    with stage("pegasus.scan.prepare"):
+        for server, _reqs, sub in states:
+            for _idxs, state in sub:
+                if state is None or "precomputed" in state:
+                    continue
+                fast = server.prepare_serve(state, state["cached_keep"])
+                if not fast:
+                    continue
+                hdr_set.add(header_length(server.data_version))
+                fast_refs.append((state, len(fast)))
+                fast_all.extend(fast)
     if fast_all and len(hdr_set) == 1:
-        served_all = page.serve_batch(fast_all, SCAN_BYTES_CAP,
-                                      hdr_set.pop())
+        with stage("pegasus.scan.pack"):
+            served_all = page.serve_batch(fast_all, SCAN_BYTES_CAP,
+                                          hdr_set.pop())
         if served_all is not None:
             off = 0
             for state, n in fast_refs:
                 state["_served"] = served_all[off:off + n]
                 off += n
-    lap("native")
 
     out = []
     for server, reqs, sub in states:
@@ -175,7 +170,6 @@ def scan_multi(servers_and_reqs: List[Tuple[object, list]], now: int,
             for i, r in zip(idxs, rs):
                 resps[i] = r
         out.append(resps)
-    lap("finish")
     return out
 
 
@@ -443,7 +437,15 @@ class MaskPrefresher:
     def refresh_once(self) -> int:
         """One warm pass over hot blocks missing their static mask;
         returns the masks stored. Flavours sharing filter types and
-        pattern widths warm in one multi-flavour launch a table."""
+        pattern widths warm in one multi-flavour launch a table. The
+        pass is the task profiler's stage pegasus.prefresh.pass, apart
+        from the serving handlers' stages."""
+        with PROFILER.stage("pegasus.prefresh.pass"):
+            warmed = self._warm_pass()
+        self.refreshed += warmed
+        return warmed
+
+    def _warm_pass(self) -> int:
         wall = time.monotonic()
         warmed = 0
         groups: Dict[tuple, dict] = {}
@@ -473,7 +475,6 @@ class MaskPrefresher:
                             for srv, ckey, dev in entries]
                      for fkey, entries in flavors.items()}, validate, pv)
                 warmed += sum(len(e) for e in flavors.values())
-        self.refreshed += warmed
         return warmed
 
 

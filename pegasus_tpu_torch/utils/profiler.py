@@ -12,12 +12,26 @@ default (zero overhead beyond one branch per dispatch), switched on per
 node via the `task-profiler` remote command (shell: remote_command
 <node> task-profiler enable|disable|clear|dump).
 
+Stages split a handler's exec wall: `PROFILER.stage("pegasus.<layer>.
+<step>")` around a step of the scan path observes its wall under the
+stage's name as one more code (queue 0), so the dump rows and anything
+reading `observe` see the stages beside the message types. While a
+torch.profiler recording runs, a stage also opens a host range of the
+same name on the trace's timeline, beside the kernels and copies. The
+range has the scope of an operator, not of a user annotation: a user
+annotation (`record_function`) also leaves a device-side event spanning
+the work launched inside it, which a reader of device time would count
+as device work.
+
 The port's copy of the JAX package's utils/profiler.py, its imports rewritten to
-pegasus_tpu_torch (it imports nothing of that package).
+pegasus_tpu_torch (it imports nothing of that package); the stages are
+the port's own.
 """
 
 from __future__ import annotations
 
+import contextlib
+import sys
 import threading
 import time
 from typing import Dict, List
@@ -33,6 +47,51 @@ class _CodeStats:
         self.queue_ms = Percentile(window=1024)
         self.exec_ms = Percentile(window=1024)
         self.started = time.monotonic()
+
+
+# the stage of a disabled profiler, shared: it does nothing
+_NO_STAGE = contextlib.nullcontext()
+
+
+def _torch_profiling() -> bool:
+    """Whether a torch.profiler recording is running in this process
+    (none can be where torch was never imported)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
+
+
+class _Stage:
+    """One timed step: perf_counter around it, observed under its name
+    at exit; a host range of the trace while torch.profiler records.
+
+    The range and the check for a recording use private torch APIs,
+    `torch._C._profiler._RecordFunctionFast` and
+    `torch._C._autograd._profiler_enabled` (torch 2.x); both are reached
+    only while the profiler is on."""
+
+    __slots__ = ("profiler", "name", "t0", "rf")
+
+    def __init__(self, profiler: "TaskProfiler", name: str) -> None:
+        self.profiler = profiler
+        self.name = name
+
+    def __enter__(self):
+        self.rf = None
+        if _torch_profiling():
+            from torch._C._profiler import _RecordFunctionFast
+
+            self.rf = _RecordFunctionFast(self.name)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        exec_ms = (time.perf_counter() - self.t0) * 1000.0
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        # looked up on the instance: a wrapper installed there sees it
+        self.profiler.observe(self.name, 0.0, exec_ms)
+        return False
 
 
 class TaskProfiler:
@@ -62,6 +121,14 @@ class TaskProfiler:
             st.count += 1  # non-atomic RMW: many dispatchers, one lock
         st.queue_ms.set(queue_ms)
         st.exec_ms.set(exec_ms)
+
+    def stage(self, name: str):
+        """A context manager timing one step of a handler under `name`
+        (`pegasus.<layer>.<step>`). Disabled: one attribute check and a
+        shared no-op context, no clock read."""
+        if not self.enabled:
+            return _NO_STAGE
+        return _Stage(self, name)
 
     def dump(self) -> List[dict]:
         """Per-code profile rows, busiest first (the reference's

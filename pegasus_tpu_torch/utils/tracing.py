@@ -83,7 +83,6 @@ _rng = random.Random()
 _prefix = _rng.getrandbits(32)
 _trace_ids = itertools.count(1)
 _span_ids = itertools.count(1)
-_hard_off = False  # bench baseline switch: bypass even the flag read
 
 
 def seed(n: int) -> None:
@@ -96,13 +95,6 @@ def seed(n: int) -> None:
         _span_ids = itertools.count(1)
 
 
-def hard_disable(off: bool) -> None:
-    """Kill switch for the bench's no-tracing baseline: skips even the
-    sample_ratio flag read on the client hot path."""
-    global _hard_off
-    _hard_off = off
-
-
 def _new_trace_id() -> str:
     return f"{_prefix:08x}{next(_trace_ids):08x}"
 
@@ -113,8 +105,6 @@ def _new_span_id() -> int:
 
 def maybe_sample() -> bool:
     """One head-based sampling draw (client op mint)."""
-    if _hard_off:
-        return False
     ratio = FLAGS.get("pegasus.tracing", "sample_ratio")
     if ratio <= 0.0:
         return False
