@@ -114,6 +114,18 @@ def _to_block(keys: np.ndarray, key_len: np.ndarray,
                        else t(bits32(hash_lo), np.int32))
 
 
+def well_formed(keys: np.ndarray, key_len: np.ndarray) -> np.ndarray:
+    """bool[n]: rows of zero-padded keys uint8[n, W] whose 2-byte
+    hash-key-length header fits the body (a key of 2 bytes or more, and
+    a header no longer than the rest). A block built for a `now` launch
+    marks every other row invalid."""
+    key_len = np.asarray(key_len)
+    if keys.shape[1] < 2:
+        return np.zeros(keys.shape[0], dtype=bool)
+    hkl = (keys[:, 0].astype(np.int32) << 8) | keys[:, 1].astype(np.int32)
+    return (key_len >= 2) & (hkl <= key_len - 2)
+
+
 def build_record_block(keys: Sequence[bytes], expire_ts: Sequence[int],
                        capacity: int | None = None,
                        key_width: int | None = None,
@@ -144,7 +156,7 @@ def build_record_block(keys: Sequence[bytes], expire_ts: Sequence[int],
     key_len[:n] = lens
     hkl = (arr[:, 0].astype(np.int32) << 8) | arr[:, 1].astype(np.int32)
     valid = np.zeros(capacity, dtype=bool)
-    valid[:n] = (lens >= 2) & (hkl[:n] <= lens - 2)
+    valid[:n] = well_formed(arr[:n], lens)
     hashkey_len = np.where(valid, hkl, 0)
     ets = np.zeros(capacity, dtype=np.int64)
     ets[:n] = np.fromiter(expire_ts, dtype=np.int64, count=n)

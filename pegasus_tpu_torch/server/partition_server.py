@@ -33,9 +33,14 @@ kernel (ops/fused_scan.py) on the server's device:
   blocks through the cached static mask (filters + ownership, no `now`),
   evaluated once per block lifetime, one launch per window over the
   resident blocks (scan_coordinator.stacked_block_eval); TTL applies on
-  the host from the block's expire_ts column;
-- merge: with a memtable or L0 overlay, merged candidates are packed into
-  a block and validated with `now` (ops.fused_scan.scan_table).
+  the host from the block's expire_ts column; the same blocks serve a
+  store whose runs form one key-ordered chain under a memtable (the one
+  L0 table of a bulk load, or the L1 runs), the memtable's few rows
+  evaluated on the host and merged in key order, the page cut record by
+  record as the merge path cuts it;
+- merge: every other store shape (two or more L0 tables, L0 over L1)
+  and reverse reads: merged candidates are packed into a block and
+  validated with `now` (ops.fused_scan.scan_table).
 
 A block of a compressed run (`dcz`/`dcz2`) gets its first-touch static
 mask on the host, from the encoded form (ops.predicates
@@ -114,6 +119,7 @@ from pegasus_tpu_torch.ops.predicates import (
 from pegasus_tpu_torch.ops.record_block import (
     block_from_columns,
     build_record_block,
+    well_formed,
 )
 from pegasus_tpu_torch.server.capacity_units import (
     CapacityUnitCalculator,
@@ -160,7 +166,7 @@ from pegasus_tpu_torch.storage.phash import (
     PHashMultiProbe,
     phash_probe_enabled,
 )
-from pegasus_tpu_torch.storage.sstable import BLOCK_CAPACITY
+from pegasus_tpu_torch.storage.sstable import BLOCK_CAPACITY, FLAG_TOMBSTONE
 from pegasus_tpu_torch.utils.device import resolve_device
 from pegasus_tpu_torch.utils.errors import ErrorCode, StorageStatus
 from pegasus_tpu_torch.utils import perf_context as perf
@@ -219,6 +225,11 @@ _MASK_ROUTE_METRICS = {"encoded": "mask_route_encoded_count",
                        "device_raw": "mask_route_device_raw_count",
                        "device_malformed":
                            "mask_route_device_malformed_count"}
+# scan_paths key -> the partition metric it reads: the path each ranged
+# read (_batched_scan) took
+_SCAN_PATH_METRICS = {"columnar": "scan_path_columnar_count",
+                      "columnar_overlay": "scan_path_columnar_overlay_count",
+                      "merge": "scan_path_merge_count"}
 
 
 def _normalize_filter_key(r) -> tuple:
@@ -322,6 +333,11 @@ class PartitionServer:
         # of a raw run or an encoded block with malformed rows
         self._mask_routes = {k: self.metrics.counter(name)
                              for k, name in _MASK_ROUTE_METRICS.items()}
+        # ranged reads by the path they took: the columnar block scan of
+        # a pure-L1 store, the columnar scan of one key-ordered chain
+        # under the memtable, or the heap merge
+        self._scan_paths = {k: self.metrics.counter(name)
+                            for k, name in _SCAN_PATH_METRICS.items()}
         # resident index memory, bloom against phash bytes, refreshed
         # whenever the probe structures rebuild (the run set changed)
         self._index_bloom_bytes = self.metrics.gauge("index_bloom_bytes")
@@ -340,12 +356,13 @@ class PartitionServer:
         # scan selectivity, hot-hashkey share
         self.workload = WorkloadStats(app_id, pidx, self.hotkey_collectors)
         self.write_service.workload = self.workload
-        # point_stats, mask_routes and abnormal_read_count count from
-        # this server's start (the entity is shared by every server of
-        # this (app, pidx) in the process)
+        # point_stats, mask_routes, abnormal_read_count and scan_paths
+        # count from this server's start (the entity is shared by every
+        # server of this (app, pidx) in the process)
         self._stat_base = (self._counts(_POINT_STAT_METRICS),
                            self._counts(_MASK_ROUTE_METRICS),
-                           self._abnormal_reads.value())
+                           self._abnormal_reads.value(),
+                           self._counts(_SCAN_PATH_METRICS))
         # scan flavours (validate, filter_key) seen recently: after a
         # flush or compaction replaces the SSTs, the MaskPrefresher
         # evaluates the new blocks for these flavours in the background
@@ -415,6 +432,14 @@ class PartitionServer:
         base = self._stat_base[1]
         return {k: v - base[k]
                 for k, v in self._counts(_MASK_ROUTE_METRICS).items()}
+
+    @property
+    def scan_paths(self) -> dict:
+        """Ranged reads by the path they took, since this server
+        started."""
+        base = self._stat_base[3]
+        return {k: v - base[k]
+                for k, v in self._counts(_SCAN_PATH_METRICS).items()}
 
     def install_engine(self, engine: StorageEngine) -> None:
         """Wire a storage engine into this server: write service,
@@ -1712,14 +1737,26 @@ class PartitionServer:
         whether the range completed, and where a follow-up continues.
         `value_filter`: a pushdown value predicate (type, pattern) ANDed
         into the keep mask; `pd_stats["pruned"]` counts the rows it
-        rejected."""
-        sorted_runs = None if reverse else self.engine.lsm.sorted_runs()
-        if sorted_runs is not None:
-            return self._columnar_scan(sorted_runs, start_key, stop_key,
-                                       now, hash_filter, sort_filter,
-                                       validate_hash, limiter, max_records,
-                                       max_bytes, with_values,
-                                       value_filter, pd_stats)
+        rejected.
+
+        A forward read of a store whose runs form one key-ordered chain
+        (lsm.base_chain) streams its blocks through the cached static
+        masks: block by block on a pure-L1 store with an empty memtable,
+        record by record with the memtable merged in otherwise. Reverse
+        reads and every other store shape take the heap merge."""
+        lsm = self.engine.lsm
+        chain = None if reverse else lsm.base_chain()
+        if chain is not None:
+            args = (start_key, stop_key, now, hash_filter, sort_filter,
+                    validate_hash, limiter, max_records, max_bytes,
+                    with_values, value_filter, pd_stats)
+            if lsm.sorted_runs() is not None:
+                self._scan_paths["columnar"].increment()
+                return self._columnar_scan(chain, *args)
+            self._scan_paths["columnar_overlay"].increment()
+            return self._columnar_overlay_scan(
+                chain, lsm.memtable.iterate(start_key, stop_key), *args)
+        self._scan_paths["merge"].increment()
 
         # the merge path, a predicate batch at a time: the task
         # profiler's stages pegasus.merge.read, .validate and .rows
@@ -1777,6 +1814,41 @@ class PartitionServer:
                 break
         return out, exhausted, resume_key
 
+    @staticmethod
+    def _ranged_blocks(runs, start_key: bytes, stop_key: Optional[bytes]):
+        """(cache key, block, lo, hi) of every block of the key-ordered
+        `runs` that intersects [start_key, stop_key), rows [lo, hi) in
+        range (the boundary blocks bisected). A block's cache key is
+        (run path, block offset): immutable per file."""
+        for run in runs:
+            if stop_key is not None and (run.first_key or b"") >= stop_key:
+                continue
+            if start_key and (run.last_key or b"") < start_key:
+                continue
+            for bm, blk in run.iter_blocks(start_key, stop_key):
+                lo, hi = 0, blk.count
+                if start_key and bm.first_key < start_key:
+                    lo = blk.lower_bound(start_key)
+                if stop_key is not None and bm.last_key >= stop_key:
+                    hi = blk.lower_bound(stop_key)
+                yield (run.path, bm.offset), blk, lo, hi
+
+    def _block_windows(self, runs, start_key: bytes,
+                       stop_key: Optional[bytes], limiter):
+        """Windows of up to LOOKAHEAD ranged blocks of a pure-L1 store,
+        each block's in-range rows counted against `limiter` as it joins
+        its window: the block-granular budget of the columnar scan and
+        of the columnar aggregate fold."""
+        window = []
+        for item in self._ranged_blocks(runs, start_key, stop_key):
+            limiter.add_count(item[3] - item[2])
+            window.append(item)
+            if len(window) == LOOKAHEAD:
+                yield window
+                window = []
+        if window:
+            yield window
+
     def _columnar_scan(
         self,
         sorted_runs,
@@ -1796,83 +1868,350 @@ class PartitionServer:
         """Pure-L1 store: SST blocks stream through the cached static mask,
         combined with TTL on the host (one vectorized AND over expire_ts);
         only survivors materialize. Boundary blocks are trimmed to
-        [start_key, stop_key) by bisection."""
+        [start_key, stop_key) by bisection; a block's in-range rows count
+        against the budget whole, and a page the budget ends stops at the
+        end of its block."""
+        stage = PROFILER.stage
         out: List[Tuple[bytes, bytes, int]] = []
         out_bytes = 0
         exhausted = True
         resume_key: Optional[bytes] = None
         filter_key = hash_filter.key + sort_filter.key
-
-        def ranged_blocks():
-            for run in sorted_runs:
-                if stop_key is not None and (run.first_key or b"") >= stop_key:
-                    continue
-                if start_key and (run.last_key or b"") < start_key:
-                    continue
-                for bm_blk in run.iter_blocks(start_key, stop_key or None):
-                    yield run, bm_blk
-
-        blocks_iter = ranged_blocks()
-        done_iter = False
+        windows = self._block_windows(sorted_runs, start_key, stop_key,
+                                      limiter)
         stopped = False
         while not stopped:
-            window = []
-            while not done_iter and len(window) < LOOKAHEAD:
-                nxt = next(blocks_iter, None)
-                if nxt is None:
-                    done_iter = True
-                    break
-                run, (bm, blk) = nxt
-                lo, hi = 0, blk.count
-                if start_key and bm.first_key < start_key:
-                    lo = blk.lower_bound(start_key)
-                if stop_key is not None and bm.last_key >= stop_key:
-                    hi = blk.lower_bound(stop_key)
-                # only in-range rows count against the iteration budget
-                limiter.add_count(hi - lo)
-                window.append(((run.path, bm.offset), blk, lo, hi))
-            if not window:
+            with stage("pegasus.merge.read"):
+                window = next(windows, None)
+            if window is None:
                 break
-            keeps = self._static_keep_window(window, validate_hash,
-                                             filter_key)
+            with stage("pegasus.merge.validate"):
+                keeps = self._static_keep_window(window, validate_hash,
+                                                 filter_key)
             for (ckey, blk, lo, hi), static_keep in zip(window, keeps):
                 n = blk.count
                 ets = blk.expire_ts
-                alive = host_alive_mask(ets, now)
-                expired = int(np.count_nonzero(~alive[lo:hi]))
-                if expired:
-                    self._abnormal_reads.increment(expired)
-                keep = static_keep[:n] & alive
-                if value_filter is not None:
-                    # the pushdown value leg joins the mask algebra,
-                    # cached per (block, pattern) like the static keep
-                    vmask = self._value_mask(ckey, blk, value_filter)
-                    before = int(np.count_nonzero(keep[lo:hi]))
-                    keep = keep & vmask[:n]
-                    if pd_stats is not None:
-                        pd_stats["pruned"] = (
-                            pd_stats.get("pruned", 0) + before
-                            - int(np.count_nonzero(keep[lo:hi])))
+                with stage("pegasus.merge.validate"):
+                    alive = host_alive_mask(ets, now)
+                    expired = int(np.count_nonzero(~alive[lo:hi]))
+                    if expired:
+                        self._abnormal_reads.increment(expired)
+                    keep = static_keep[:n] & alive
+                    if value_filter is not None:
+                        # the pushdown value leg joins the mask algebra,
+                        # cached per (block, pattern) like the static keep
+                        vmask = self._value_mask(ckey, blk, value_filter)
+                        before = int(np.count_nonzero(keep[lo:hi]))
+                        keep = keep & vmask[:n]
+                        if pd_stats is not None:
+                            pd_stats["pruned"] = (
+                                pd_stats.get("pruned", 0) + before
+                                - int(np.count_nonzero(keep[lo:hi])))
                 stop_early = False
-                for i in np.flatnonzero(keep[lo:hi]):
-                    idx = lo + int(i)
-                    key = blk.key_at(idx)
-                    data = (extract_user_data(self.data_version,
-                                              blk.value_at(idx))
-                            if with_values else b"")
-                    out.append((key, data, int(ets[idx])))
-                    out_bytes += len(key) + len(data)
-                    if ((max_records > 0 and len(out) >= max_records)
-                            or (max_bytes > 0 and out_bytes >= max_bytes)):
-                        resume_key = _after(key)
-                        stop_early = True
-                        break
+                with stage("pegasus.merge.rows"):
+                    for i in np.flatnonzero(keep[lo:hi]):
+                        idx = lo + int(i)
+                        key = blk.key_at(idx)
+                        data = (extract_user_data(self.data_version,
+                                                  blk.value_at(idx))
+                                if with_values else b"")
+                        out.append((key, data, int(ets[idx])))
+                        out_bytes += len(key) + len(data)
+                        if ((max_records > 0 and len(out) >= max_records)
+                                or (max_bytes > 0
+                                    and out_bytes >= max_bytes)):
+                            resume_key = _after(key)
+                            stop_early = True
+                            break
                 if stop_early or not limiter.valid():
                     if not stop_early:
                         resume_key = _after(blk.key_at(n - 1))
                     exhausted = False
                     stopped = True
                     break
+        return out, exhausted, resume_key
+
+    def _host_reject(self, key: bytes, value: bytes, validate: bool,
+                     filter_key, value_filter) -> Optional[str]:
+        """Which scan predicate rejects one row the host evaluates (a
+        memtable or L0 overlay row, where a launch would cost more than
+        it filters): "key" (the key filter), "hash" (with `validate`, a
+        key of another partition), "value" (the pushdown value filter on
+        the row's user data), or None: every predicate keeps it."""
+        hft, hfp, sft, sfp = filter_key
+        if hft != FT_NO_FILTER or sft != FT_NO_FILTER:
+            hk, sk = restore_key(key)
+            if not (host_match_filter(hk, hft, hfp)
+                    and host_match_filter(sk, sft, sfp)):
+                return "key"
+        if validate and not check_key_hash(key, self.pidx,
+                                           self.partition_version):
+            return "hash"
+        if value_filter is not None and not host_match_filter(
+                extract_user_data(self.data_version, value),
+                value_filter[0], value_filter[1]):
+            return "value"
+        return None
+
+    def _overlay_rows(self, overlay, now: int, gate: bool, validate: bool,
+                      filter_key, value_filter) -> list:
+        """Memtable rows of a columnar overlay scan, evaluated on the host
+        as the merge path's `now` launch evaluates them: per row, None
+        for a tombstone (it hides the base row of its key and is no
+        record), else (key, value, expire_ts, expired, kept, kept and
+        passing the value filter). A malformed key (ops.record_block.
+        well_formed) is neither kept nor counted expired, save under the
+        split gate, which counts every expired record."""
+        if not overlay:
+            return []
+        head = np.frombuffer(b"".join(key[:2].ljust(2, b"\0")
+                                      for key, _v, _e in overlay),
+                             dtype=np.uint8).reshape(-1, 2)
+        formed = well_formed(head, np.array([len(key)
+                                             for key, _v, _e in overlay]))
+        rows = []
+        for (key, value, ets), ok in zip(overlay, formed.tolist()):
+            if value is TOMBSTONE:
+                rows.append(None)
+                continue
+            expired = check_if_ts_expired(now, ets) and (gate or ok)
+            kept = passes = False
+            if ok and not (gate or expired):
+                why = self._host_reject(key, value, validate, filter_key,
+                                        value_filter)
+                kept = why in (None, "value")
+                passes = why is None
+            rows.append((key, value, ets, expired, kept, passes))
+        return rows
+
+    # memtable rows a segment of the columnar overlay scan takes at most:
+    # a page pulls and evaluates the overlay rows it examines and at most
+    # this many more, however large the memtable
+    OVERLAY_CHUNK = 256
+
+    def _columnar_overlay_scan(
+        self,
+        runs,
+        overlay,
+        start_key: bytes,
+        stop_key: Optional[bytes],
+        now: int,
+        hash_filter: FilterSpec,
+        sort_filter: FilterSpec,
+        validate_hash: bool,
+        limiter: RangeReadLimiter,
+        max_records: int,
+        max_bytes: int,
+        with_values: bool,
+        value_filter=None,
+        pd_stats=None,
+    ) -> Tuple[List[Tuple[bytes, bytes, int]], bool, Optional[bytes]]:
+        """One key-ordered chain of runs (`runs`: the L1 runs, or the one
+        L0 table) under `overlay`, an iterator over the memtable's (key,
+        value|TOMBSTONE, expire_ts) rows in [start_key, stop_key), served
+        as the heap merge serves it, without its row-by-row merge. Base
+        blocks take the cached static masks and the host TTL mask; base
+        tombstones are no records. Overlay rows are pulled and evaluated
+        on the host only as far as the page reaches, OVERLAY_CHUNK at a
+        time, and merged into the block's rows in key order: newest wins,
+        and an overlay row (a tombstone too) hides the base row of its
+        key.
+
+        The page follows the merge path's rule record by record: every
+        merged record counts against the range-read budget, expired ones
+        too, and the page stops at the record that exhausts it. A page
+        that fills (`max_records` / `max_bytes`) still examines the rest
+        of the merge path's predicate batch (PREDICATE_BATCH records):
+        those count against the budget and their expired records are
+        counted, as the merge path's are."""
+        stage = PROFILER.stage
+        dv = self.data_version
+        filter_key = hash_filter.key + sort_filter.key
+        gate = split_gate(validate_hash, self.pidx, self.partition_version)
+        left = limiter.remaining()
+        # merged records the page examines (the merge path examines its
+        # first record before it checks the budget)
+        end = None if left is None else max(1, left)
+        out: List[Tuple[bytes, bytes, int]] = []
+        out_bytes = 0
+        pos = 0        # merged records examined
+        expired = 0
+        pruned = 0
+        full = False   # the page is full: the batch is counted out
+        exhausted = True
+        resume_key: Optional[bytes] = None
+        pending = []   # an overlay row pulled past its segment
+
+        def pull(last: Optional[bytes]):
+            """Up to OVERLAY_CHUNK next overlay rows with keys up to
+            `last` (None: any), and whether the chunk's size cut it."""
+            chunk = []
+            while len(chunk) < self.OVERLAY_CHUNK:
+                row = pending.pop() if pending else next(overlay, None)
+                if row is None:
+                    return chunk, False
+                if last is not None and row[0] > last:
+                    pending.append(row)
+                    return chunk, False
+                chunk.append(row)
+            return chunk, True
+
+        def segments():
+            """(ckey, block, lo, hi, static mask, overlay rows) of each
+            stretch of merged records: the ranged blocks, gathered in
+            windows of the blocks the budget still reaches, a block cut
+            after the last key of each full chunk of overlay rows inside
+            it; then the overlay rows past the last block (block None)."""
+            blocks = self._ranged_blocks(runs, start_key, stop_key)
+            while True:
+                with stage("pegasus.merge.read"):
+                    window = []
+                    rows = 0
+                    while len(window) < LOOKAHEAD and (
+                            end is None or rows < end - pos):
+                        item = next(blocks, None)
+                        if item is None:
+                            break
+                        window.append(item)
+                        rows += item[3] - item[2]
+                if not window:
+                    break
+                keeps = [None] * len(window)
+                if not (full or gate):
+                    with stage("pegasus.merge.validate"):
+                        keeps = self._static_keep_window(
+                            window, validate_hash, filter_key)
+                for (ckey, blk, lo, hi), static in zip(window, keeps):
+                    while lo < hi:
+                        with stage("pegasus.merge.read"):
+                            chunk, cut = pull(blk.key_at(hi - 1))
+                            sub = hi
+                            if cut:   # base rows up to the chunk's last key
+                                last = chunk[-1][0]
+                                sub = blk.lower_bound(last)
+                                if sub < hi and blk.key_at(sub) == last:
+                                    sub += 1
+                        yield ckey, blk, lo, sub, static, chunk
+                        lo = sub
+            while True:
+                with stage("pegasus.merge.read"):
+                    chunk, _cut = pull(None)
+                if not chunk:
+                    break
+                yield None, None, 0, 0, None, chunk
+
+        for ckey, blk, lo, hi, static, chunk in segments():
+            n = hi - lo
+            with stage("pegasus.merge.validate"):
+                ov_rows = self._overlay_rows(chunk, now, gate, validate_hash,
+                                             filter_key, value_filter)
+            with stage("pegasus.merge.read"):
+                if blk is None:
+                    vis = np.zeros(0, dtype=bool)
+                else:
+                    vis = (blk.flags[lo:hi] & FLAG_TOMBSTONE) == 0
+                seg = []   # (overlay record, base rows before it)
+                for (key, _v, _e), row in zip(chunk, ov_rows):
+                    at = 0
+                    if blk is not None:
+                        at = blk.lower_bound(key) - lo
+                        if at < n and blk.key_at(lo + at) == key:
+                            vis[at] = False   # shadowed by the overlay
+                    if row is not None:
+                        seg.append((row, at))
+                # the merged records in key order: base row lo + i as
+                # code i, the segment's overlay record j as code n + j
+                src = np.flatnonzero(vis)
+                if seg:
+                    src = np.insert(
+                        src, np.searchsorted(src, [at for _r, at in seg]),
+                        np.arange(n, n + len(seg)))
+                count = len(src)
+                take = count if end is None else min(count, end - pos)
+
+            def merged(base: np.ndarray, field: int) -> np.ndarray:
+                """A base row mask and the overlay records' `field`, in
+                merged order."""
+                return np.concatenate(
+                    [base, np.array([r[field] for r, _at in seg], bool)]
+                )[src]
+
+            with stage("pegasus.merge.validate"):
+                if blk is not None:
+                    alive = blk.alive_mask(now)[lo:hi]
+                    # the merge path's launch neither keeps a malformed
+                    # key nor counts it expired; its split gate counts
+                    # every expired record
+                    formed = well_formed(blk.keys[lo:hi],
+                                         blk.key_len[lo:hi])
+                else:
+                    alive = formed = vis
+                dead = merged(~alive if gate else ~alive & formed, 3)
+                if not full:
+                    keep = (np.zeros(n, dtype=bool) if static is None
+                            else static[lo:hi] & alive & formed)
+                    kept = merged(keep, 4)
+                    passes = kept
+                    if value_filter is not None:
+                        vmask = (self._value_mask(ckey, blk, value_filter)
+                                 [lo:hi] if blk is not None else vis)
+                        passes = merged(keep & vmask, 5)
+            if not full:
+                stop_at = None
+                with stage("pegasus.merge.rows"):
+                    for t in np.flatnonzero(passes[:take]):
+                        code = int(src[t])
+                        if code < n:
+                            idx = lo + code
+                            key = blk.key_at(idx)
+                            data = (extract_user_data(dv, blk.value_at(idx))
+                                    if with_values else b"")
+                            ets = int(blk.expire_ts[idx])
+                        else:
+                            key, value, ets = seg[code - n][0][:3]
+                            data = (extract_user_data(dv, value)
+                                    if with_values else b"")
+                        out.append((key, data, ets))
+                        out_bytes += len(key) + len(data)
+                        if ((max_records > 0 and len(out) >= max_records)
+                                or (max_bytes > 0
+                                    and out_bytes >= max_bytes)):
+                            stop_at = int(t)
+                            resume_key = _after(key)
+                            break
+            with stage("pegasus.merge.read"):
+                # the budget: records examined, expired ones counted
+                if not full:
+                    upto = take if stop_at is None else stop_at
+                    pruned += int(np.count_nonzero(kept[:upto]
+                                                   & ~passes[:upto]))
+                    if stop_at is not None:
+                        full = True
+                        exhausted = False
+                        # the merge path's batch of the last record served
+                        batch_end = ((pos + stop_at) // PREDICATE_BATCH
+                                     + 1) * PREDICATE_BATCH
+                        end = (batch_end if end is None
+                               else min(end, batch_end))
+                        take = min(count, end - pos)
+                expired += int(np.count_nonzero(dead[:take]))
+                limiter.add_count(take)
+                pos += take
+                cut_here = ((end is not None and pos >= end)
+                            or (not full and take
+                                and limiter.time_exceeded()))
+                if cut_here and not full:
+                    # the budget ends the page at this record
+                    code = int(src[take - 1])
+                    resume_key = _after(blk.key_at(lo + code) if code < n
+                                        else seg[code - n][0][0])
+                    exhausted = False
+            if cut_here:
+                break
+        if expired:
+            self._abnormal_reads.increment(expired)
+        if value_filter is not None and pd_stats is not None and pruned:
+            pd_stats["pruned"] = pd_stats.get("pruned", 0) + pruned
         return out, exhausted, resume_key
 
     def _validate_batch(self, batch: List[Tuple[bytes, bytes, int]],
@@ -2129,35 +2468,8 @@ class PartitionServer:
                 if mesh is not None:
                     return self._mesh_aggregate_page(resp, mesh, tracer)
 
-            def ranged_blocks():
-                for run in sorted_runs:
-                    if stop is not None and (run.first_key or b"") >= stop:
-                        continue
-                    if start_key and (run.last_key or b"") < start_key:
-                        continue
-                    for bm_blk in run.iter_blocks(start_key, stop):
-                        yield run, bm_blk
-
-            blocks_iter = ranged_blocks()
-            done_iter = False
-            stopped = False
-            while not stopped:
-                window = []
-                while not done_iter and len(window) < LOOKAHEAD:
-                    nxt = next(blocks_iter, None)
-                    if nxt is None:
-                        done_iter = True
-                        break
-                    run, (bm, blk) = nxt
-                    lo, hi = 0, blk.count
-                    if start_key and bm.first_key < start_key:
-                        lo = blk.lower_bound(start_key)
-                    if stop is not None and bm.last_key >= stop:
-                        hi = blk.lower_bound(stop)
-                    limiter.add_count(hi - lo)
-                    window.append(((run.path, bm.offset), blk, lo, hi))
-                if not window:
-                    break
+            for window in self._block_windows(sorted_runs, start_key,
+                                              stop, limiter):
                 keeps = self._static_keep_window(window, validate,
                                                  filter_key)
                 for (ckey, blk, lo, hi), static_keep in zip(window, keeps):
@@ -2186,11 +2498,12 @@ class PartitionServer:
                     if not limiter.valid():
                         resume_key = _after(blk.key_at(n - 1))
                         exhausted = False
-                        stopped = True
                         break
+                if not exhausted:
+                    break
         else:
-            # the iterator merge already applies newest-wins shadowing
-            # and tombstones, so row folds over its survivors are exact
+            # the ranged read already applies newest-wins shadowing and
+            # tombstones, so row folds over its survivors are exact
             records, exhausted, resume_key = self._batched_scan(
                 start_key, stop, now, hash_filter, sort_filter, validate,
                 limiter, max_records=-1, max_bytes=-1,
@@ -2954,7 +3267,6 @@ class PartitionServer:
         (None) that hides the base row of its key, and so does a row the
         pushdown value filter rejects (the base may hold an older value
         of the key that would pass)."""
-        hft, hfp, sft, sfp = filter_key
         lsm = self.engine.lsm
         merged: dict = {}
         for key, value, ets in lsm.memtable.items_sorted():
@@ -2965,30 +3277,20 @@ class PartitionServer:
                     merged[key] = None if value is None else (value, ets)
         out: dict = {}
         for key in sorted(merged):
-            if hft != FT_NO_FILTER or sft != FT_NO_FILTER:
-                hk, sk = restore_key(key)
-                if not (host_match_filter(hk, hft, hfp)
-                        and host_match_filter(sk, sft, sfp)):
-                    continue  # fails the batch filter everywhere
             entry = merged[key]
-            if entry is None:
-                out[key] = None  # tombstone: shadows the base
-                continue
-            value, ets = entry
-            if check_if_ts_expired(now, ets):
+            why = self._host_reject(key, entry and entry[0], validate,
+                                    filter_key,
+                                    value_filter if entry else None)
+            if why == "key":
+                continue  # fails the batch filter everywhere
+            if entry is not None and check_if_ts_expired(now, entry[1]):
                 self._abnormal_reads.increment()
-                out[key] = None  # expired: hidden, and shadows the base
-                continue
-            if validate and not check_key_hash(key, self.pidx,
-                                               self.partition_version):
-                out[key] = None
-                continue
-            data = extract_user_data(self.data_version, value)
-            if value_filter is not None and not host_match_filter(
-                    data, value_filter[0], value_filter[1]):
-                out[key] = None  # value-rejected: hidden, still shadows
-                continue
-            out[key] = (data, ets)
+                entry = None  # expired: hidden, and shadows the base
+            # a tombstone, and an expired, foreign or value-rejected row,
+            # stays as a hidden shadow (None) over the base row of its key
+            out[key] = (None if entry is None or why is not None
+                        else (extract_user_data(self.data_version, entry[0]),
+                              entry[1]))
         return list(out), out  # insertion order is already sorted
 
     # ---- static masks of SST blocks -----------------------------------
@@ -3025,11 +3327,13 @@ class PartitionServer:
                             keep, computed_pv=self.partition_version)
 
     def _effective_mask_cap(self) -> int:
-        """Mask-cache capacity scaled to the data: every current L1 block
-        times every warm flavour must fit, or the prefresher and the LRU
-        evict each other's still-wanted masks and 'each block evaluated
-        once' breaks on large partitions."""
-        n_blocks = sum(len(run.blocks) for run in self.engine.lsm.l1_runs)
+        """Mask-cache capacity scaled to the data: every current SST
+        block (the L1 runs', and the L0 tables' that the columnar overlay
+        scan caches) times every warm flavour must fit, or the prefresher
+        and the LRU evict each other's still-wanted masks and 'each block
+        evaluated once' breaks on large partitions."""
+        lsm = self.engine.lsm
+        n_blocks = sum(len(run.blocks) for run in (*lsm.l0, *lsm.l1_runs))
         flavors = max(1, len(self._warm_flavors))
         return max(self._mask_cache_cap, n_blocks * flavors + 256)
 

@@ -43,6 +43,13 @@ class RangeReadLimiter:
         """Records examined so far."""
         return self._count
 
+    def remaining(self):
+        """Records the count budget still allows (None: no count
+        budget)."""
+        if self._max_count <= 0:
+            return None
+        return max(0, self._max_count - self._count)
+
     def count_exceeded(self) -> bool:
         return self._max_count > 0 and self._count >= self._max_count
 

@@ -309,6 +309,18 @@ class LSMStore:
             return self.l1_runs
         return None
 
+    def base_chain(self) -> Optional[List[SSTable]]:
+        """The immutable, key-ordered, key-disjoint runs under the
+        memtable: the L1 runs when there is no L0 table, or the single L0
+        table when there is no L1 run, the memtable empty or not. None
+        for every other shape (two or more L0 tables, L0 over L1, no run
+        at all): those read through the heap merge."""
+        if not self.l0 and self.l1_runs:
+            return self.l1_runs
+        if len(self.l0) == 1 and not self.l1_runs:
+            return list(self.l0)
+        return None
+
     # ---- compaction ---------------------------------------------------
 
     def compact(self, record_filter=None, meta: Optional[dict] = None,

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 from pegasus_tpu.base.key_schema import generate_key, key_hash_parts
+from pegasus_tpu.base.value_schema import generate_value
+from pegasus_tpu.storage.sstable import SSTableWriter as JaxSSTableWriter
 from pegasus_tpu.server import types as jtypes
 from pegasus_tpu.server.partition_server import (
     PartitionServer as JaxPartitionServer,
@@ -24,6 +26,7 @@ from pegasus_tpu.utils.flags import FLAGS as JFLAGS
 from pegasus_tpu_torch.utils.flags import FLAGS as TFLAGS
 from pegasus_tpu_torch.server import types as ttypes
 from pegasus_tpu_torch.server.partition_server import PartitionServer
+from pegasus_tpu_torch.storage.sstable import SSTableWriter
 
 SLICE_FLAGS = (("pegasus.storage", "block_codec", "none"),
                ("pegasus.server", "bloom_bits_per_key", 0),
@@ -197,6 +200,77 @@ def test_responses_match_jax_through_flush_compaction_and_overlay(servers):
     for s in servers:
         s.manual_compact()
     _check_reads(servers, rng)
+
+
+def _ingest_l0(servers, tmp_path, rng):
+    """One bulk-loaded L0 run in both servers, written by each package's
+    SST writer from the same records: live rows with and without TTLs,
+    rows expired long ago, tombstones and records of other partitions."""
+    records = []
+    for hk in HASHKEYS:
+        for sk in SORTKEYS:
+            kind = rng.random()
+            if kind < 0.3:
+                continue
+            key = generate_key(hk, sk)
+            if kind < 0.36:
+                records.append((key, b"", 0, True))
+                continue
+            ets = 1 if kind < 0.45 else (FAR_TTL * 200 if kind < 0.6 else 0)
+            records.append((key, generate_value(1, b"bulk-%s" % key, ets),
+                            ets, False))
+    for srv, writer in zip(servers, (JaxSSTableWriter, SSTableWriter)):
+        path = str(tmp_path / f"bulk-{type(srv).__module__}.sst")
+        w = writer(path)
+        for key, value, ets, tomb in records:
+            w.add(key, value, ets, tombstone=tomb)
+        w.finish()
+        srv.engine.ingest_sst_file(path, decree=1)
+
+
+def _check_counts(servers):
+    jsrv, tsrv = servers
+    for hk in HASHKEYS[::2] + [b"nosuch"]:
+        assert tsrv.on_sortkey_count(hk) == jsrv.on_sortkey_count(hk)
+
+
+@pytest.mark.parametrize("budget", [1000, 13])
+@pytest.mark.parametrize("shape", ["ingested_l0", "compacted_one_record"])
+def test_one_run_under_a_memtable_matches_jax(servers, tmp_path, shape,
+                                              budget):
+    """The store shapes the columnar scan serves under a memtable: a
+    bulk-ingested L0 run with writes over it, and a compacted partition
+    with one record in its memtable. Scanner pages, ranged multi_gets
+    and sortkey_counts equal the JAX package's, under the default
+    range-read budget and a budget that cuts pages short."""
+    flag = ("pegasus.server", "rocksdb_max_iteration_count")
+    saved = [reg.get(*flag) for reg in (JFLAGS, TFLAGS)]
+    _set_flags([flag + (budget,)])
+    try:
+        rng = np.random.default_rng(47)
+        if shape == "ingested_l0":
+            _ingest_l0(servers, tmp_path, rng)
+            assert len(servers[1].engine.lsm.l0) == 1
+            _check_reads(servers, rng)            # the L0 run alone
+            _check_counts(servers)
+            _write_phase(servers, rng, HASHKEYS[::5], b"m")
+        else:
+            _write_phase(servers, rng, HASHKEYS, b"a")
+            for s in servers:
+                s.manual_compact()
+            hk = next(hk for hk in HASHKEYS if _owned(hk))
+            for s in servers:
+                assert s.on_put(generate_key(hk, SORTKEYS[3]), b"one") == 0
+            assert len(servers[1].engine.lsm.memtable) == 1
+        assert servers[1].engine.lsm.base_chain() is not None
+        paths = dict(servers[1].scan_paths)
+        _check_reads(servers, rng)
+        _check_counts(servers)
+        moved = {k: v - paths[k] for k, v in servers[1].scan_paths.items()}
+        assert moved["columnar_overlay"] > 0 and moved["columnar"] == 0
+    finally:
+        for reg, v in zip((JFLAGS, TFLAGS), saved):
+            reg.set(*flag, v, force=True)
 
 
 def test_routing_gate_matches_jax(servers):

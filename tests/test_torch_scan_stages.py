@@ -247,6 +247,37 @@ def test_the_handler_is_split_into_its_leaf_stages(profiler_state,
         system.close()
 
 
+def test_the_bulk_loaded_table_scans_through_the_columnar_overlay_path(
+        isolated, tmp_path):
+    """Each partition of the bulk-loaded table holds one L0 table: its
+    forward scans take the columnar scan under the memtable (counted by
+    the partition's `scan_path_*_count` metrics), never the heap merge; a
+    reverse ranged read takes the heap merge."""
+    system, data, client = served_table(tmp_path, "bulk_l0")
+
+    def paths() -> dict:
+        out: dict = {}
+        for srv in system.servers():
+            for k, v in srv.scan_paths.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    try:
+        groups = scan_groups(data, list(range(0, data.hashkeys, 7)), 40)
+        before = paths()
+        client.scan_multi(groups)
+        moved = {k: v - before[k] for k, v in paths().items()}
+        assert moved["columnar_overlay"] > 0
+        assert moved["merge"] == 0 and moved["columnar"] == 0
+        before = paths()
+        err, kvs = client.multi_get(hashkey(5), reverse=True)
+        assert err == 0 and len(kvs) > 0
+        moved = {k: v - before[k] for k, v in paths().items()}
+        assert moved == {"columnar": 0, "columnar_overlay": 0, "merge": 1}
+    finally:
+        system.close()
+
+
 def test_a_ranged_read_in_the_window_silences_the_stage_readers(
         profiler_state, isolated, tmp_path):
     """A ranged multi_get enters the merge path's stages from another
