@@ -88,6 +88,17 @@ def reader(name: str, bench_dir: str = BENCH_DIR):
     return mod.read
 
 
+def runner(name: str, bench_dir: str = BENCH_DIR):
+    """The module runners/<name>.py: a cell whose traffic file names a
+    runner is run by its `run_cell`."""
+    path = os.path.join(bench_dir, "runners", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_runner_{name.replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def forbidden_loaded() -> list:
     return sorted({name.split(".")[0] for name in list(sys.modules)}
                   & set(FORBIDDEN_MODULES))
@@ -185,9 +196,14 @@ def run_cell(args, t_start: float, device, overrides=None,
     replace configuration keys (the tests' small sizes); `plant(system,
     loop)` breaks the timed path before the window, and `make_system`
     puts another system in the program's place (core/faults.py); `repo`
-    is where BENCHMARK.json and the cell's files are."""
+    is where BENCHMARK.json and the cell's files are. A cell whose
+    traffic file names a `runner` is run by runners/<runner>.py."""
     parts = cell_parts(load_spec(os.path.join(repo, "BENCHMARK.json")),
                        args.workload, repo)
+    if "runner" in parts["traffic"]:
+        return runner(parts["traffic"]["runner"],
+                      os.path.join(repo, "benchmark")).run_cell(
+            args, t_start, device, parts, overrides, plant, repo)
     config = dict(parts["config"], **(overrides or {}))
     traffic = parts["traffic"]
     from benchmark.core import probe
